@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA GPU: build, check, run, time.
 
-Drives the port's main path, the fused HT lossless encode of BASELINE
-config 1 (512x512 8-bit gray, 5/3, 6 resolutions, 64x64 code-blocks, HT
-block coder, 64 frames in 32-frame chunks), through
-`grokimagecompression_tpu_torch.codestream.encoder.encode_batch`, and
-checks every CUDA kernel on that path against its plain PyTorch version.
+Drives the port's two paths at BASELINE config 1 (512x512 8-bit gray, 5/3,
+6 resolutions, 64x64 code-blocks, HT block coder, 64 frames in 32-frame
+chunks): the fused HT lossless encode through
+`grokimagecompression_tpu_torch.codestream.encoder.encode_batch`, and its
+decode mirror through `codestream.decoder.decode_batch`, and checks every
+CUDA kernel on those paths against its plain PyTorch version. It imports
+only the port, torch, numpy and the standard library.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the software versions;
-  2. building the CUDA kernels from csrc/ with nvcc, and the reference's
-     native host library (T1/T2) with make;
-  3. the kernels at the config-1 shapes: words, mask and state of each
-     kernel equal to its plain version's, and both timed with CUDA events;
-  4. the slice: 64 frames through encode_batch(device="cuda"), every
-     stream byte-identical to the host encoder's and decoding to the frame
-     exactly, every kernel launched by that run; then MP/s (best of 3),
-     the host encoder's MP/s, and the device time of one chunk by stage.
+  2. building the CUDA kernels from csrc/*.cu with nvcc (one process per
+     source, all started together) and the port's host library from
+     csrc/host/*.cpp with g++;
+  3. the kernels at the config-1 shapes, each equal to its plain version
+     on every lane and both timed with CUDA events: the three encode scans
+     on the three shape groups of one chunk, and the HT decoder on the
+     three lane groups of one chunk of the encoded streams;
+  4. the encode slice: the 64 frames and the 64 streams of
+     encode_batch(device="cuda") against the SHA-256 digests of
+     grokimagecompression_tpu_torch/data/config1_ht_lossless.json (the
+     frames, and the reference host encoder's streams), every scan kernel
+     launched by that run; MP/s (best of 3) and one chunk's time by stage;
+  5. the decode slice: the 64 streams through decode_batch(device="cuda"),
+     every frame equal to its source, the decode kernel launched by that
+     run; MP/s (best of 3) and one chunk's time by stage.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -26,6 +35,7 @@ exits non-zero without one).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import subprocess
@@ -35,24 +45,36 @@ import time
 FRAMES = 64
 CHUNK = 32
 SIZE = 512
-KERNELS = (
-    # (name, LAUNCHES key, plain-version name, TPU kernel it replaces)
-    ("mel_scan", "mel", "mel_scan_plain",
-     "grokimagecompression_tpu/ops/ht_scan_pallas.py:214"),
-    ("vlc_scan", "vlc", "vlc_scan_plain",
-     "grokimagecompression_tpu/ops/ht_scan_pallas.py:282"),
-    ("ms_scan", "ms", "ms_scan_plain",
-     "grokimagecompression_tpu/ops/ht_scan_pallas.py:308"),
-)
+DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                       "config1_ht_lossless.json")
+# (name, LAUNCHES key, plain-version name, TPU kernel it replaces, source)
+SCANS = tuple(
+    (f"{k}_scan", k, f"{k}_scan_plain",
+     f"grokimagecompression_tpu/ops/ht_scan_pallas.py:{line}",
+     "grokimagecompression_tpu_torch/csrc/ht_scan.cu")
+    for k, line in (("mel", 214), ("vlc", 282), ("ms", 308)))
+DEC = ("ht_dec_group", "dec", "decode_group_plain",
+       "grokimagecompression_tpu/ops/ht_dec_pallas.py:534",
+       "grokimagecompression_tpu_torch/csrc/ht_dec.cu")
 STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
            "ms": ("ms_vals", "ms_lens")}
+# Bounds. H100 SXM peak rates: 3.35 TB/s of device memory; integer
+# operations at 16.7 TOP/s (132 SMs x 64 INT32 lanes x 1.98 GHz: half the
+# FP32 lanes behind the card's 67 TFLOP/s FP32 peak, no FMA doubling).
+# The operation counts per lane are estimates read off the kernels'
+# sources, not instruction counts: a MEL event ~25, a VLC or MagSgn append
+# ~30 (an append's bytes pushed one by one), a decode step ~200 plus ~25
+# per significant sample.
+HBM_BYTES_S = 3.35e12
+INT_OPS_S = 132 * 64 * 1.98e9
+OPS = {"mel": 25, "vlc": 30, "ms": 30, "dec_step": 200, "dec_sample": 25}
 
 
 def config1_frames(n, seed=42, size=SIZE):
     """BASELINE config-1 frames: smooth gradient + noise, frame i shifted
     by i (mod 256), as the repository's bench generates them."""
     import numpy as np
-    from grokimagecompression_tpu.core.image import Component, Image
+    from grokimagecompression_tpu_torch.core.image import Component, Image
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:size, 0:size]
@@ -61,6 +83,16 @@ def config1_frames(n, seed=42, size=SIZE):
     return [Image(xsiz=size, ysiz=size, components=[Component(
         data=(base + i) % 256, prec=8, signed=False, dx=1, dy=1)])
         for i in range(n)]
+
+
+def frame_digest(img) -> str:
+    """SHA-256 of an image's samples, component by component, as
+    little-endian int32."""
+    import numpy as np
+    h = hashlib.sha256()
+    for c in img.components:
+        h.update(np.ascontiguousarray(c.data, dtype="<i4").tobytes())
+    return h.hexdigest()
 
 
 def cuda_ms(fn, iters):
@@ -76,25 +108,223 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes_moved: int, ops: float):
+    """(bound in ms, what sets it, "bytes a ms, operations b ms")."""
+    t_bytes = nbytes_moved / HBM_BYTES_S
+    t_ops = ops / INT_OPS_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations",
+            f"bytes {1e3 * t_bytes:.4f} ms, operations {1e3 * t_ops:.4f} ms")
+
+
+def time_kernel(kernel, plain, args):
+    """(kernel ms: mean of 20 launches after 3 warm-up launches, plain
+    ms: one run), both between CUDA events."""
+    for _ in range(3):
+        kernel(*args)
+    ms = cuda_ms(lambda: kernel(*args), 20)
+    return ms, cuda_ms(lambda: plain(*args), 1)
+
+
+def check_scans(enc, plan, chunk, results):
+    """Phase 3, encode side: the three scans on each shape group."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import ht_scan, ht_torch
+    for gi, (mag, neg, mbs, mbb) in enumerate(enc.group_inputs(chunk)):
+        ops = ht_torch.op_streams(mag, neg, mbs, enc.tables(), mbb)
+        qh, qw, _ = plan.groups[gi]
+        biggest = gi == len(plan.groups) - 1
+        for name, key, plain_name, _, _ in SCANS:
+            a, b = (ops[k] for k in STREAMS[key])
+            kernel = getattr(ht_scan, name)
+            plain = getattr(ht_scan, plain_name)
+            got = kernel(a, b)
+            want = plain(a, b)
+            torch.cuda.synchronize()
+            err = max(int((w.to(torch.int64) - g.to(torch.int64))
+                          .abs().max()) if w.numel() else 0
+                      for w, g in zip(want, got))
+            for part, w, g in zip(("words", "mask", "state"), want, got):
+                if not torch.equal(w, g):
+                    raise AssertionError(
+                        f"{name} {part} differs from the plain version "
+                        f"(group {qh}x{qw} quads, B={a.shape[1]})")
+            line = (f"kernel {name}: group {qh}x{qw} quads, ops "
+                    f"{tuple(a.shape)} -> words {tuple(got[0].shape)}: "
+                    f"bit-exact with plain")
+            if biggest:
+                ms, plain_ms = time_kernel(kernel, plain, (a, b))
+                events = int((a != 0).sum()) if key == "mel" \
+                    else int((b > 0).sum())
+                b_ms, b_by, b_terms = bound(nbytes(a, b, *got),
+                                            OPS[key] * events)
+                results[name] = dict(ms=ms, plain_ms=plain_ms,
+                                     max_abs_err=err, bound_ms=b_ms,
+                                     bound_by=b_by)
+                line += (f"; {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
+                         f"{b_ms:.4f} ms by {b_by}: {b_terms})")
+            print(line)
+
+
+def check_decoder(streams, dev, results):
+    """Phase 3, decode side: the HT decoder on the lane groups of one
+    chunk of streams."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.models import fused_decode
+    from grokimagecompression_tpu_torch.ops import ht_dec, ht_tables
+
+    hdr, trs, parsed = decoder.parse_batch(streams)
+    plan = fused_decode.build_plan(parsed[0][0][0][2], hdr.siz, hdr.cod,
+                                   trs[0])
+    tables = ht_tables.device_dec_tables(dev)
+    arrays = fused_decode.upload(fused_decode.prepare_chunk(
+        plan, [fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed]),
+        dev)
+    name, key, _, _, _ = DEC
+    for (w, h, lanes), (mel, vlc, ms, _) in zip(plan.groups, arrays):
+        args = (mel, vlc, ms, w, h, tables)
+        got = ht_dec.decode_group(*args)
+        want = ht_dec.decode_group_plain(mel, vlc, ms, w, h,
+                                         tables["dec0"], tables["dec1"])
+        torch.cuda.synchronize()
+        err = max(int((wv.to(torch.int64) - g.to(torch.int64)).abs().max())
+                  for wv, g in zip(want, got))
+        for part, wv, g in zip(("mags", "signs"), want, got):
+            if not torch.equal(wv, g):
+                raise AssertionError(
+                    f"{name} {part} differ from the plain version "
+                    f"({w}x{h} blocks, B={mel.shape[1]})")
+        line = (f"kernel {name}: {w}x{h} blocks, B={mel.shape[1]}, words "
+                f"{mel.shape[0]}/{vlc.shape[0]}/{ms.shape[0]} -> "
+                f"{tuple(got[0].shape)}: bit-exact with plain")
+        if (w, h) == (64, 64):
+            ms_k, plain_ms = time_kernel(
+                ht_dec.decode_group,
+                lambda *a: ht_dec.decode_group_plain(
+                    *a[:5], a[5]["dec0"], a[5]["dec1"]), args)
+            steps = ht_dec.grid_dims(w, h)[2] * mel.shape[1]
+            nsig = int((got[0] != 0).sum())
+            b_ms, b_by, b_terms = bound(
+                nbytes(mel, vlc, ms, tables["dec0"], tables["dec1"], *got),
+                OPS["dec_step"] * steps + OPS["dec_sample"] * nsig)
+            results[name] = dict(ms=ms_k, plain_ms=plain_ms,
+                                 max_abs_err=err, bound_ms=b_ms,
+                                 bound_by=b_by)
+            line += (f"; {ms_k:.3f} ms (plain {plain_ms:.1f} ms, bound "
+                     f"{b_ms:.4f} ms by {b_by}: {b_terms})")
+        print(line)
+
+
+def encode_stages(enc, chunk):
+    """Device time of one 32-frame encode chunk by stage (host clock,
+    synchronised)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import ht_scan, ht_torch
+    stages = {}
+    tt = time.perf_counter
+    torch.cuda.synchronize()
+    t = tt()
+    gin = list(enc.group_inputs(chunk))
+    torch.cuda.synchronize()
+    stages["transform+gather"] = tt() - t
+    t = tt()
+    ops = [ht_torch.op_streams(m, n, s, enc.tables(), mb)
+           for (m, n, s, mb) in gin]
+    torch.cuda.synchronize()
+    stages["op streams"] = tt() - t
+    t = tt()
+    groups = [(ht_scan.mel_scan(o["mel_valid"], o["mel_bit"]),
+               ht_scan.vlc_scan(o["vlc_vals"], o["vlc_lens"]),
+               ht_scan.ms_scan(o["ms_vals"], o["ms_lens"])) for o in ops]
+    torch.cuda.synchronize()
+    stages["scans"] = tt() - t
+    t = tt()
+    torch.cat([ht_torch.group_metrics(g[0][2].shape[1], *g)
+               for g in groups]).cpu()
+    ht_torch.place_words(groups).cpu()
+    torch.cuda.synchronize()
+    stages["metrics+placement+fetch"] = tt() - t
+    return stages
+
+
+def decode_stages(streams, dev):
+    """Time of one 32-frame decode chunk by stage (host clock,
+    synchronised)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.models import fused_decode, pipeline
+
+    stages = {}
+    tt = time.perf_counter
+    t = tt()
+    hdr, trs, parsed = decoder.parse_batch(streams)
+    stages["T2 (host)"] = tt() - t
+    dec = fused_decode.decoder_for(fused_decode.build_plan(
+        parsed[0][0][0][2], hdr.siz, hdr.cod, trs[0]), dev)
+    t = tt()
+    arrays = fused_decode.prepare_chunk(dec.plan, [
+        fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed])
+    stages["prepass (host)"] = tt() - t
+    torch.cuda.synchronize()
+    t = tt()
+    groups = fused_decode.upload(arrays, dev)
+    torch.cuda.synchronize()
+    stages["upload"] = tt() - t
+    t = tt()
+    grids = dec.decode(groups)
+    torch.cuda.synchronize()
+    stages["decode kernel"] = tt() - t
+    t = tt()
+    bands = dec.assemble(grids, [g[3] for g in groups], len(streams))
+    torch.cuda.synchronize()
+    stages["band assembly"] = tt() - t
+    t = tt()
+    comps = pipeline._inv_transform(dec.plan.cfg, bands)
+    torch.cuda.synchronize()
+    stages["inverse DWT + DC unshift"] = tt() - t
+    t = tt()
+    [c.cpu() for c in comps]
+    stages["fetch"] = tt() - t
+    return stages
+
+
+def best_of(n, fn):
+    import torch
+    best = float("inf")
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return best
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
               "a CUDA card", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
     import numpy as np
 
-    from grokimagecompression_tpu.codestream import decoder
-    from grokimagecompression_tpu.codestream import encoder as host_encoder
-    from grokimagecompression_tpu.codestream.tile import default_qcd
-    from grokimagecompression_tpu.core.geometry import tile_rect
-    from grokimagecompression_tpu.core.params import EncoderParams
-    from grokimagecompression_tpu.ops import ht_jax
-    from grokimagecompression_tpu_torch import convert
-    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.codestream.tile import default_qcd
+    from grokimagecompression_tpu_torch.core.geometry import tile_rect
+    from grokimagecompression_tpu_torch.core.params import EncoderParams
     from grokimagecompression_tpu_torch.models import fused_encode
-    from grokimagecompression_tpu_torch.ops import _build, ht_scan, ht_torch
+    from grokimagecompression_tpu_torch.ops import (_build, ht_dec, ht_scan,
+                                                    ht_tables)
 
     # 1. the card
     smi = subprocess.run(
@@ -105,160 +335,118 @@ def main() -> int:
     print(card)
     dev = torch.device("cuda", 0)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"python {sys.version.split()[0]}, "
+          f"python {sys.version.split()[0]}, numpy {np.__version__}, "
           f"device {torch.cuda.get_device_name(0)}")
 
     # 2. builds
     t0 = time.perf_counter()
     so, log = _build.build()
     _build.load()
-    print(f"built {os.path.relpath(so)} with nvcc "
-          f"{' '.join(_build.ARCH_FLAGS)} in {time.perf_counter() - t0:.1f} s")
+    print(f"built {os.path.relpath(so)} from {', '.join(_build.SOURCES)} "
+          f"with nvcc {' '.join(_build.ARCH_FLAGS)} in "
+          f"{time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line \
                 or "spill" in line:
             print("  ptxas:", line.strip())
     t0 = time.perf_counter()
+    host_so, _ = _build.build_host()
     _build.host_library()
-    print(f"native host library ready in {time.perf_counter() - t0:.1f} s")
+    print(f"built {os.path.relpath(host_so)} with g++ "
+          f"{' '.join(_build.HOST_FLAGS)} in {time.perf_counter() - t0:.1f} s")
 
     params = EncoderParams(numresolutions=6, cblk_style=0x40)
     imgs = config1_frames(FRAMES)
-    siz = host_encoder.build_siz(imgs[0], params)
-    cod = host_encoder.build_cod(imgs[0], params)
+    siz = encoder.build_siz(imgs[0], params)
+    cod = encoder.build_cod(imgs[0], params)
     qcd = default_qcd(siz, cod, 1, params.base_step)
     tr = tile_rect(0, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                    siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
     plan = fused_encode.build_plan(siz, cod, qcd, tr)
-    tables = convert.tables_from_reference(ht_jax._tables(), dev)
-    enc = fused_encode.FusedHTEncoder(plan, tables)
+    enc = fused_encode.FusedHTEncoder(plan, ht_tables.device_tables(dev))
     chunk = torch.from_numpy(np.stack(
         [im.components[0].data for im in imgs[:CHUNK]]).astype(np.uint8)
     ).to(dev)
 
-    # 3. kernels against their plain versions, at the chunk's shapes
+    # 3. kernels against their plain versions, at one chunk's shapes
     results = {}
-    for gi, (mag, neg, mbs, mbb) in enumerate(enc.group_inputs(chunk)):
-        ops = ht_torch.op_streams(mag, neg, mbs, enc.tables(), mbb)
-        qh, qw, _ = plan.groups[gi]
-        B = mag.shape[0]
-        biggest = gi == len(plan.groups) - 1
-        for name, key, plain_name, _ in KERNELS:
-            a, b = (ops[k] for k in STREAMS[key])
-            kernel = getattr(ht_scan, name)
-            plain = getattr(ht_scan, plain_name)
-            got = kernel(a, b)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = plain(a, b)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-            err = max(int((w.to(torch.int64) - g.to(torch.int64))
-                          .abs().max()) if w.numel() else 0
-                      for w, g in zip(want, got))
-            for part, w, g in zip(("words", "mask", "state"), want, got):
-                if not torch.equal(w, g):
-                    raise AssertionError(
-                        f"{name} {part} differs from the plain version "
-                        f"(group {qh}x{qw} quads, B={B})")
-            line = (f"kernel {name}: group {qh}x{qw} quads, ops "
-                    f"{tuple(a.shape)} -> words {tuple(got[0].shape)}: "
-                    f"bit-exact with plain")
-            if biggest:
-                for _ in range(3):
-                    kernel(a, b)
-                ms = cuda_ms(lambda: kernel(a, b), 20)
-                plain_ms = cuda_ms(lambda: plain(a, b), 1)
-                results[name] = dict(ms=ms, plain_ms=plain_ms,
-                                     max_abs_err=err, shape=tuple(a.shape))
-                line += f"; {ms:.3f} ms (plain {plain_ms:.1f} ms)"
-            else:
-                line += f" (plain {plain_s * 1e3:.1f} ms host clock)"
-            print(line)
+    check_scans(enc, plan, chunk, results)
+    first = encoder.encode_batch(imgs[:CHUNK], params, device="cuda",
+                                 chunk=CHUNK)
+    check_decoder(first, dev, results)
 
-    # 4. the slice, through the user entry point
-    t0 = time.perf_counter()
-    host = [host_encoder.encode(im, params, device=False) for im in imgs]
-    host_s = time.perf_counter() - t0
+    # 4. the encode slice, through the user entry point
+    with open(os.path.join(root, DIGESTS)) as f:
+        digests = json.load(f)
+    got = [frame_digest(im) for im in imgs]
+    if got != digests["frames"]:
+        bad = [i for i, (g, w) in enumerate(zip(got, digests["frames"]))
+               if g != w]
+        raise AssertionError(f"config-1 frames {bad[:8]} differ from the "
+                             f"digest file: numpy makes other frames here")
     mpix = FRAMES * SIZE * SIZE / 1e6
+    launches = {}
     for k in ht_scan.LAUNCHES:
         ht_scan.LAUNCHES[k] = 0
     out = encoder.encode_batch(imgs, params, device="cuda", chunk=CHUNK)
     torch.cuda.synchronize()
-    launches = dict(ht_scan.LAUNCHES)
-    print(f"slice launches: {launches}")
-    for name, key, _, _ in KERNELS:
+    launches.update(ht_scan.LAUNCHES)
+    print(f"encode slice launches: {dict(ht_scan.LAUNCHES)}")
+    for name, key, _, _, _ in SCANS:
         if launches[key] < 1:
             raise AssertionError(f"{name} was not launched by the slice")
     if len(out) != FRAMES:
         raise AssertionError(f"{len(out)} streams for {FRAMES} frames")
-    for i, (cs, ref) in enumerate(zip(out, host)):
-        if cs != ref:
+    for i, cs in enumerate(out):
+        if hashlib.sha256(cs).hexdigest() != digests["streams"][i]:
             raise AssertionError(f"frame {i}: stream differs from the host "
-                                 f"encoder's ({len(cs)} vs {len(ref)} B)")
-        dec = decoder.decode(cs, device=False)
-        if not np.array_equal(dec.components[0].data,
-                              imgs[i].components[0].data):
-            raise AssertionError(f"frame {i}: decode is not lossless")
-    nbytes = sum(len(cs) for cs in out)
-    print(f"slice: {FRAMES} frames byte-identical to the host encoder and "
-          f"lossless on decode ({nbytes} B, "
-          f"{8 * nbytes / (mpix * 1e6):.3f} bpp)")
-    best = float("inf")
-    for _ in range(3):
-        t0 = time.perf_counter()
-        encoder.encode_batch(imgs, params, device="cuda", chunk=CHUNK)
-        torch.cuda.synchronize()
-        best = min(best, time.perf_counter() - t0)
-    print(f"slice encode_batch: {mpix / best:.2f} MP/s (best of 3, "
+                                 f"encoder's ({len(cs)} B)")
+    nb = sum(len(cs) for cs in out)
+    print(f"encode slice: {FRAMES} streams match the host encoder's "
+          f"digests ({nb} B, {8 * nb / (mpix * 1e6):.3f} bpp)")
+    best = best_of(3, lambda: encoder.encode_batch(
+        imgs, params, device="cuda", chunk=CHUNK))
+    print(f"encode_batch: {mpix / best:.2f} MP/s (best of 3, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
-    print(f"host encoder (encode(device=False), one frame at a time): "
-          f"{mpix / host_s:.2f} MP/s ({host_s:.3f} s) on the same machine")
-
-    # device time of one 32-frame chunk by stage
-    stages = {}
-
-    def staged():
-        groups = []
-        tt = time.perf_counter
-        torch.cuda.synchronize()
-        t = tt()
-        gin = list(enc.group_inputs(chunk))
-        torch.cuda.synchronize()
-        stages["transform+gather"] = tt() - t
-        t = tt()
-        ops = [ht_torch.op_streams(m, n, s, enc.tables(), mb)
-               for (m, n, s, mb) in gin]
-        torch.cuda.synchronize()
-        stages["op streams"] = tt() - t
-        t = tt()
-        for o in ops:
-            groups.append((ht_scan.mel_scan(o["mel_valid"], o["mel_bit"]),
-                           ht_scan.vlc_scan(o["vlc_vals"], o["vlc_lens"]),
-                           ht_scan.ms_scan(o["ms_vals"], o["ms_lens"])))
-        torch.cuda.synchronize()
-        stages["scans"] = tt() - t
-        t = tt()
-        torch.cat([ht_torch.group_metrics(g[0][2].shape[1], *g)
-                   for g in groups]).cpu()
-        ht_torch.place_words(groups).cpu()
-        torch.cuda.synchronize()
-        stages["metrics+placement+fetch"] = tt() - t
-
-    staged()
-    staged()
+    encode_stages(enc, chunk)
+    stages = encode_stages(enc, chunk)
     fwd_ms = cuda_ms(lambda: enc(chunk), 3)
-    print(f"one {CHUNK}-frame chunk, FusedHTEncoder.forward: {fwd_ms:.1f} ms; "
-          "by stage (host clock, synchronised): "
+    print(f"one {CHUNK}-frame encode chunk, FusedHTEncoder.forward: "
+          f"{fwd_ms:.1f} ms; by stage (host clock, synchronised): "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+
+    # 5. the decode slice, through the user entry point
+    ht_dec.LAUNCHES["dec"] = 0
+    dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches["dec"] = ht_dec.LAUNCHES["dec"]
+    print(f"decode slice launches: {dict(ht_dec.LAUNCHES)}")
+    if launches["dec"] < 1:
+        raise AssertionError("ht_dec_group was not launched by the slice")
+    if len(dec) != FRAMES:
+        raise AssertionError(f"{len(dec)} images for {FRAMES} streams")
+    for i, (d, im) in enumerate(zip(dec, imgs)):
+        if not np.array_equal(d.components[0].data, im.components[0].data):
+            raise AssertionError(f"frame {i}: decode is not lossless")
+    print(f"decode slice: {FRAMES} frames decode to their sources exactly")
+    best = best_of(3, lambda: decoder.decode_batch(out, device="cuda",
+                                                   chunk=CHUNK))
+    print(f"decode_batch: {mpix / best:.2f} MP/s (best of 3, "
+          f"{best:.3f} s for {FRAMES} frames) on {card}")
+    decode_stages(out[:CHUNK], dev)
+    stages = decode_stages(out[:CHUNK], dev)
+    print(f"one {CHUNK}-frame decode chunk by stage (host clock, "
+          "synchronised): "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
 
     print(json.dumps({"kernels": [
-        dict(name=name, route="cuda",
-             source="grokimagecompression_tpu_torch/csrc/ht_scan.cu",
-             replaces=replaces, launches=launches[key],
+        dict(name=name, route="cuda", source=source, replaces=replaces,
+             launches=launches[key],
              max_abs_err=results[name]["max_abs_err"],
-             ms=results[name]["ms"], plain_ms=results[name]["plain_ms"])
-        for name, key, _, replaces in KERNELS]}))
+             ms=results[name]["ms"], plain_ms=results[name]["plain_ms"],
+             bound_ms=results[name]["bound_ms"],
+             bound_by=results[name]["bound_by"], library_ms=None)
+        for name, key, _, replaces, source in SCANS + (DEC,)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,12 +2,17 @@
 
 A port of `grokimagecompression_tpu`'s device layer (JAX/Pallas on a TPU)
 to PyTorch, with the Pallas kernels rewritten as hand-written CUDA for
-Hopper (`csrc/`). The host layers (codestream, T2, markers, native coders,
-image I/O) are imported from `grokimagecompression_tpu` and not copied;
-this package never imports JAX.
+Hopper (`csrc/*.cu`). The port stands alone: it never imports JAX nor
+the reference package, and owns copies of the host layers its slices run,
+under the reference's names (`core/`, `codestream/` markers, header walk,
+packet iterator, tag trees, bit I/O, tile plans and T2, `ops/ht_tables`),
+with the native T2 and HT decode prepass built from `csrc/host/*.cpp`.
 
-The slice ported so far is the fused HT lossless encode
-(`codestream.encoder.encode_batch`): DC shift -> MCT -> 5/3 DWT ->
-code-block gather -> HT op streams -> the MEL/VLC/MagSgn stream-scan
-kernels -> exact word placement, then host segment assembly and T2.
+Slices ported so far, HT lossless (5/3), BASELINE config 1 and alike:
+- encode, `codestream.encoder.encode_batch`: DC shift -> MCT -> 5/3 DWT ->
+  code-block gather -> HT op streams -> the MEL/VLC/MagSgn stream-scan
+  kernels -> exact word placement, then host segment assembly and T2;
+- decode, `codestream.decoder.decode_batch`: host T2 and stream prepass
+  -> the HT group-decoder kernel -> band assembly -> inverse DWT, MCT and
+  DC shift.
 """

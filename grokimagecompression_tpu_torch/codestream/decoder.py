@@ -1,0 +1,420 @@
+"""Batch decode entry point on a torch device.
+
+Port of `grokimagecompression_tpu/codestream/decoder.py` for the HT
+lossless slice. The main-header and tile-part walk (`CodestreamHeader`,
+`TilePart`, `_validate_siz`, `read_header`, `iter_tile_parts`) is copied
+from the reference; `decode_batch` is the port of the reference's fused
+`decode_batch`: host T2 through the port's native T2, then the fused
+device decode of `models/fused_decode.py`.
+
+Requests outside the slice raise NotImplementedError instead of falling
+back to a host decode.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import dataclasses
+import os
+import struct
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from ..core.geometry import ceil_div, tile_grid_size, tile_rect
+from ..core.image import Component, Image
+from ..core.params import DecoderParams, QuantStyle, Transform
+from ..models import fused_decode
+from ..utils.device import DeviceLike, resolve_device
+from . import markers
+from .markers import CodInfo, QcdInfo, SizInfo
+from .tile import decode_tile
+
+
+@dataclasses.dataclass
+class CodestreamHeader:
+    siz: SizInfo
+    cod: CodInfo
+    qcd: QcdInfo
+    comments: List[str]
+    main_header_end: int  # offset of first SOT
+    cod_comp: Optional[List[Optional[CodInfo]]] = None  # COC overrides
+    qcd_comp: Optional[List[Optional[QcdInfo]]] = None  # QCC overrides
+    pocs: Optional[list] = None                          # POC entries
+    tlm: Optional[list] = None                           # (tile, length)
+    roishifts: Optional[List[int]] = None                # RGN per comp
+    custom_mct: Optional[tuple] = None                   # (matrix, offsets)
+    ppm_sections: Optional[list] = None                  # packed hdrs/tile-part
+
+
+@dataclasses.dataclass
+class TilePart:
+    tile_index: int
+    body: bytes
+    # Tile-part header overrides (COD/COC/QCD/QCC/POC between SOT and SOD);
+    # COC/QCC kept as raw payloads, parsed once ncomps is known.
+    cod: Optional[CodInfo] = None
+    coc_raw: List[bytes] = dataclasses.field(default_factory=list)
+    qcd: Optional[QcdInfo] = None
+    qcc_raw: List[bytes] = dataclasses.field(default_factory=list)
+    poc_raw: Optional[bytes] = None
+    ppt_raw: List[bytes] = dataclasses.field(default_factory=list)
+    plt_lengths: List[int] = dataclasses.field(default_factory=list)
+    # True when the walk skipped this tile-part's header/body (tile not
+    # in the caller's `want` set): only tile_index is valid.
+    skipped: bool = False
+
+
+def _validate_siz(siz: SizInfo) -> None:
+    """SIZ sanity limits (reference: j2k_read_siz:3361 validation;
+    max-tile guard j2k.cpp:2072). Rejecting here keeps corrupt headers
+    from driving huge/negative tile grids or absurd allocations."""
+    if not (0 <= siz.xosiz < siz.xsiz and 0 <= siz.yosiz < siz.ysiz):
+        raise ValueError("SIZ: invalid image area")
+    if siz.xtsiz <= 0 or siz.ytsiz <= 0:
+        raise ValueError("SIZ: invalid tile size")
+    if not (0 <= siz.xtosiz <= siz.xosiz and 0 <= siz.ytosiz <= siz.yosiz):
+        raise ValueError("SIZ: tile origin must not exceed image origin")
+    if siz.xtosiz + siz.xtsiz <= siz.xosiz or \
+            siz.ytosiz + siz.ytsiz <= siz.yosiz:
+        raise ValueError("SIZ: first tile does not cover the image origin")
+    ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                              siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    if ntx <= 0 or nty <= 0 or ntx * nty > 65535:
+        raise ValueError(f"SIZ: invalid tile grid {ntx}x{nty}")
+    if not siz.comps or len(siz.comps) > 16384:
+        raise ValueError("SIZ: invalid component count")
+    for c in siz.comps:
+        if not (1 <= c.prec <= 38):
+            raise ValueError(f"SIZ: invalid precision {c.prec}")
+        if not (1 <= c.dx <= 255 and 1 <= c.dy <= 255):
+            raise ValueError("SIZ: invalid subsampling")
+
+
+def read_header(data: bytes) -> CodestreamHeader:
+    if struct.unpack(">H", data[0:2])[0] != markers.SOC:
+        raise ValueError("not a J2K codestream (missing SOC)")
+    pos = 2
+    siz = cod = qcd = None
+    comments: List[str] = []
+    coc_raw = []
+    qcc_raw = []
+    rgn_raw = []
+    mct_raw = []
+    ppm_raw = []
+    pocs = None
+    tlm = None
+    while pos + 4 <= len(data):
+        marker = struct.unpack(">H", data[pos:pos + 2])[0]
+        if marker == markers.SOT:
+            break
+        length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        payload = data[pos + 4:pos + 2 + length]
+        if marker == markers.SIZ:
+            siz = markers.parse_siz(payload)
+        elif marker == markers.COD:
+            cod = markers.parse_cod(payload)
+        elif marker == markers.COC:
+            coc_raw.append(payload)
+        elif marker == markers.QCD:
+            qcd = markers.parse_qcd(payload)
+        elif marker == markers.QCC:
+            qcc_raw.append(payload)
+        elif marker == markers.POC:
+            pocs = payload  # parsed below once ncomps is known
+        elif marker == markers.TLM:
+            tlm = markers.parse_tlm(payload)
+        elif marker == markers.RGN:
+            rgn_raw.append(payload)
+        elif marker == markers.MCT:
+            mct_raw.append(payload)
+        elif marker == markers.PPM:
+            ppm_raw.append((payload[0], payload[1:]))
+        elif marker == markers.COM:
+            if len(payload) >= 2:
+                comments.append(payload[2:].decode("latin-1", "replace"))
+        # PLM/PPM/CRG/CAP: skipped by length.
+        pos += 2 + length
+    if siz is None or cod is None or qcd is None:
+        raise ValueError("incomplete main header (need SIZ, COD, QCD)")
+    _validate_siz(siz)
+    ncomps = len(siz.comps)
+    cod_comp = None
+    if coc_raw:
+        cod_comp = [None] * ncomps
+        for payload in coc_raw:
+            compno, cc = markers.parse_coc(payload, ncomps, cod)
+            cod_comp[compno] = cc
+    qcd_comp = None
+    if qcc_raw:
+        qcd_comp = [None] * ncomps
+        for payload in qcc_raw:
+            compno, qq = markers.parse_qcc(payload, ncomps)
+            qcd_comp[compno] = qq
+    poc_entries = markers.parse_poc(pocs, ncomps) if pocs else None
+    roishifts = None
+    if rgn_raw:
+        roishifts = [0] * ncomps
+        for payload in rgn_raw:
+            compno, srgn, shift = markers.parse_rgn(payload, ncomps)
+            if srgn == 0:
+                roishifts[compno] = shift
+    ppm_sections = None
+    if ppm_raw:
+        ppm_sections = markers.split_ppm_sections(markers.merge_ppx(ppm_raw))
+    custom_mct = None
+    if mct_raw:
+        matrix = offsets = None
+        n = ncomps
+        for payload in mct_raw:
+            idx, at, et, data = markers.parse_mct_record(payload)
+            if at == markers.MCT_ARRAY_DECORRELATION and data.size == n * n:
+                matrix = data.reshape(n, n)
+            elif at == markers.MCT_ARRAY_OFFSET and data.size == n:
+                offsets = data
+        if matrix is not None:
+            if offsets is None:
+                offsets = np.zeros(n, dtype=np.float32)
+            custom_mct = (matrix, offsets)
+    return CodestreamHeader(siz=siz, cod=cod, qcd=qcd, comments=comments,
+                            main_header_end=pos, cod_comp=cod_comp,
+                            qcd_comp=qcd_comp, pocs=poc_entries, tlm=tlm,
+                            roishifts=roishifts, custom_mct=custom_mct,
+                            ppm_sections=ppm_sections)
+
+
+def iter_tile_parts(data: bytes, start: int, want=None):
+    """Yield TilePart records by walking SOT/Psot; tolerates truncation.
+
+    `want(tile_index) -> bool` (optional) marks which tiles the caller
+    will decode: other tiles' parts are yielded as lightweight
+    `skipped` records — no header walk, no body slice — so a windowed
+    or single-tile decode of a large tiled stream never copies the
+    bytes it does not need (the reference's TLM/seek analog)."""
+    pos = start
+    while pos + 4 <= len(data):
+        marker = struct.unpack(">H", data[pos:pos + 2])[0]
+        if marker == markers.EOC:
+            return
+        if marker != markers.SOT:
+            # Resync: skip marker segment if it has a length.
+            if pos + 4 <= len(data):
+                length = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+                pos += 2 + length
+                continue
+            return
+        sot = markers.parse_sot(data[pos + 4:pos + 12])
+        psot = sot.psot if sot.psot else len(data) - pos
+        tp_end = min(pos + psot, len(data))
+        if want is not None and not want(sot.tile_index):
+            yield TilePart(tile_index=sot.tile_index, body=b"",
+                           skipped=True)
+            pos = pos + psot if sot.psot else tp_end
+            continue
+        # Walk markers inside the tile-part header until SOD, collecting
+        # per-tile parameter overrides.
+        hp = pos + 12
+        tp = TilePart(tile_index=sot.tile_index, body=b"")
+        while hp + 2 <= tp_end:
+            m = struct.unpack(">H", data[hp:hp + 2])[0]
+            if m == markers.SOD:
+                hp += 2
+                break
+            ln = struct.unpack(">H", data[hp + 2:hp + 4])[0]
+            payload = data[hp + 4:hp + 2 + ln]
+            if m == markers.COD:
+                tp.cod = markers.parse_cod(payload)
+            elif m == markers.QCD:
+                tp.qcd = markers.parse_qcd(payload)
+            elif m == markers.COC:
+                tp.coc_raw.append(payload)
+            elif m == markers.QCC:
+                tp.qcc_raw.append(payload)
+            elif m == markers.POC:
+                tp.poc_raw = payload
+            elif m == markers.PPT:
+                tp.ppt_raw.append(payload)
+            elif m == markers.PLT:
+                _, lens, _ = markers.parse_plt(payload)
+                tp.plt_lengths.extend(lens)
+            hp += 2 + ln
+        tp.body = data[hp:tp_end]
+        yield tp
+        pos = pos + psot if sot.psot else tp_end
+
+
+def _out_of_slice(hdrs: List[CodestreamHeader],
+                  params: DecoderParams) -> Optional[str]:
+    """Why a batch of parsed headers is outside the ported slice, or
+    None."""
+    if params.window is not None or params.reduce or params.layers \
+            or params.tile_index is not None:
+        return "a window, reduce, layer limit or single-tile decode"
+    h0 = hdrs[0]
+    if any((h.siz, h.cod, h.qcd) != (h0.siz, h0.cod, h0.qcd)
+           for h in hdrs[1:]):
+        return "streams of different coding parameters"
+    siz, cod, qcd = h0.siz, h0.cod, h0.qcd
+    if not cod.cblk_style & 0x40:
+        return "the MQ block coder"
+    if cod.transform != Transform.DWT_53 or qcd.style != QuantStyle.NONE:
+        return "the irreversible (9/7) transform"
+    if cod.mct not in (0, 1) or any(h.custom_mct is not None for h in hdrs):
+        return "a custom MCT"
+    if any(h.cod_comp or h.qcd_comp for h in hdrs):
+        return "COC / QCC overrides"
+    if any(h.pocs for h in hdrs):
+        return "progression order changes (POC)"
+    if any(h.ppm_sections is not None for h in hdrs):
+        return "packed packet headers (PPM)"
+    if any(h.roishifts and any(h.roishifts) for h in hdrs):
+        return "ROI shifts"
+    if cod.mct and len(siz.comps) >= 3 and any(
+            (c.dx, c.dy) != (siz.comps[0].dx, siz.comps[0].dy)
+            for c in siz.comps[:3]):
+        return "an MCT over differently sampled components"
+    return None
+
+
+def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List):
+    """T2 of every tile of one stream: (per tile (t1_jobs, t1_job_slots,
+    plans, cods), set of tiles that have a tile-part)."""
+    tile_bodies: Dict[int, List[bytes]] = {}
+    for tp in iter_tile_parts(data, hdr.main_header_end):
+        if tp.cod or tp.qcd or tp.coc_raw or tp.qcc_raw or tp.poc_raw:
+            raise NotImplementedError(
+                "decode_batch on a torch device does not cover tile-part "
+                "header overrides yet")
+        if tp.ppt_raw:
+            raise NotImplementedError(
+                "decode_batch on a torch device does not cover packed "
+                "packet headers (PPT) yet")
+        tile_bodies.setdefault(tp.tile_index, []).append(tp.body)
+    out = []
+    for t, tr in enumerate(trs):
+        r = decode_tile(b"".join(tile_bodies.get(t, [])), hdr.siz, hdr.cod,
+                        hdr.qcd, tr)
+        if any(job[6] > 1 for job in r[0]):
+            raise NotImplementedError(
+                "decode_batch on a torch device does not cover HT "
+                "refinement passes yet")
+        out.append(r)
+    # tiles with NO tile-parts at all stay zero in the canvas, like the
+    # single-stream decode (a truncated stream can lose whole tiles; an
+    # empty-BODY tile-part still decodes to DC midline)
+    return out, frozenset(tile_bodies)
+
+
+def parse_batch(datas: List[bytes], params: Optional[DecoderParams] = None):
+    """Headers and T2 of a batch of streams, on a thread pool. Returns
+    (header of stream 0, tile rects, per stream the `_parse_frame`
+    result). Raises NotImplementedError outside the slice."""
+    params = params or DecoderParams()
+    hdrs = [read_header(d) for d in datas]
+    why = _out_of_slice(hdrs, params)
+    if why is not None:
+        raise NotImplementedError(
+            f"decode_batch on a torch device does not cover {why} yet")
+    siz = hdrs[0].siz
+    ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                              siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    trs = [tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                     siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+           for t in range(ntx * nty)]
+    nw = max(1, min(len(datas), 2 * (os.cpu_count() or 1)))
+    with concurrent.futures.ThreadPoolExecutor(max_workers=nw) as ex:
+        parsed = list(ex.map(lambda i: _parse_frame(datas[i], hdrs[i], trs),
+                             range(len(datas))))
+    return hdrs[0], trs, parsed
+
+
+def tile_groups(hdr: CodestreamHeader, trs, parsed
+                ) -> Dict[fused_decode.FusedDecPlan, List[int]]:
+    """Group the tiles that share one decode plan: {plan: [tile, ...]},
+    over the tiles that some stream has a tile-part for.
+
+    A plan (`fused_decode.build_plan`) is the tile's geometry: its
+    transform config (`pipeline.config_for_tile`, which carries each
+    level's origin parity), band shapes and code-block placement. Two
+    tiles with equal band shapes but opposite origin parity invert
+    differently and so get two plans. The streams share one header, so
+    any stream's component plans of a tile stand for all of them."""
+    groups: Dict[fused_decode.FusedDecPlan, List[int]] = {}
+    for t, tr in enumerate(trs):
+        if not any(t in tiles for _, tiles in parsed):
+            continue
+        plan = fused_decode.build_plan(parsed[0][0][t][2], hdr.siz,
+                                       hdr.cod, tr)
+        groups.setdefault(plan, []).append(t)
+    return groups
+
+
+def decode_batch(datas: List[bytes],
+                 params: Optional[DecoderParams] = None,
+                 device: DeviceLike = "cuda",
+                 chunk: int = 32) -> List[Image]:
+    """Decode many same-geometry HT lossless codestreams (a serving
+    batch).
+
+    T2 of every stream runs on a host thread pool; then the tiles of one
+    decode plan are decoded `chunk` at a time, each chunk one host
+    prepass, one upload and one fused device decode
+    (`models/fused_decode.py`). Every chunk is submitted before any is
+    collected. Frames may include different code-blocks of a tile: each
+    job goes to its code-block's lane. Decode mirror of
+    `encoder.encode_batch`."""
+    dev = resolve_device(device)
+    if not datas:
+        return []
+    hdr, trs, parsed = parse_batch(datas, params)
+    siz = hdr.siz
+
+    submits = []  # (handle, [(frame, tile), ...])
+    for plan, tlist in tile_groups(hdr, trs, parsed).items():
+        decoder = fused_decode.decoder_for(plan, dev)
+        instances = [(f, t) for t in tlist for f in range(len(datas))
+                     if t in parsed[f][1]]
+        for k in range(0, len(instances), max(1, chunk)):
+            part = instances[k:k + max(1, chunk)]
+            submits.append((fused_decode.decode_tiles_submit(decoder, [
+                fused_decode.jobs_by_block(*parsed[f][0][t][:3])
+                for (f, t) in part]), part))
+
+    # canvas planes per frame
+    ax0, ay0 = siz.xosiz, siz.yosiz
+    comps_out = [
+        [np.zeros((ceil_div(siz.ysiz, cs.dy) - ceil_div(ay0, cs.dy),
+                   ceil_div(siz.xsiz, cs.dx) - ceil_div(ax0, cs.dx)),
+                  np.int32) for cs in siz.comps]
+        for _ in datas]
+    for handle, part in submits:
+        outs = fused_decode.decode_tiles_collect(handle)
+        for (f, t), comps in zip(part, outs):
+            for c, arr in enumerate(comps):
+                cs = siz.comps[c]
+                tc = parsed[f][0][t][2][c].layout.tc_rect
+                ox = ceil_div(ax0, cs.dx)
+                oy = ceil_div(ay0, cs.dy)
+                dst = comps_out[f][c]
+                ty0, tx0 = tc.y0, tc.x0
+                y_lo = max(0, oy - ty0)
+                x_lo = max(0, ox - tx0)
+                y_hi = min(arr.shape[0], oy + dst.shape[0] - ty0)
+                x_hi = min(arr.shape[1], ox + dst.shape[1] - tx0)
+                if y_hi <= y_lo or x_hi <= x_lo:
+                    continue
+                dst[ty0 + y_lo - oy:ty0 + y_hi - oy,
+                    tx0 + x_lo - ox:tx0 + x_hi - ox] = \
+                    arr[y_lo:y_hi, x_lo:x_hi]
+
+    out: List[Image] = []
+    for f in range(len(datas)):
+        comp_objs = [
+            Component(data=comps_out[f][c], dx=siz.comps[c].dx,
+                      dy=siz.comps[c].dy, prec=siz.comps[c].prec,
+                      signed=siz.comps[c].signed)
+            for c in range(len(siz.comps))
+        ]
+        out.append(Image(components=comp_objs, x0=ax0, y0=ay0,
+                         xsiz=siz.xsiz, ysiz=siz.ysiz))
+    return out

@@ -1,11 +1,11 @@
 """Batch encode entry point on a torch device.
 
-Port of `grokimagecompression_tpu/codestream/encoder.py:encode_batch` for
-the fused HT lossless slice. A thin wrapper: the codestream parameters,
-tile extraction and the host T2 / marker writing all come from the
-reference (`build_siz`, `build_cod`, `default_qcd`, `extract_tile_comps`,
-`encode(..., device=False, _t1_segments_by_tile=...)`); only the block
-coding runs here, on the device, through `models/fused_encode.py`.
+Port of `grokimagecompression_tpu/codestream/encoder.py` for the fused
+HT lossless slice. The block coding runs on the device through
+`models/fused_encode.py`; the codestream parameters (`build_siz`,
+`build_cod`), tile extraction and the main-header and tile-part writing
+of the reference's host `encode` are copied here, fed the device's
+segments, and packetize through the port's native T2.
 
 Requests outside the slice raise NotImplementedError instead of falling
 back to the host.
@@ -16,22 +16,215 @@ from __future__ import annotations
 import concurrent.futures
 import dataclasses
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
-from grokimagecompression_tpu.codestream.encoder import (
-    build_cod, build_siz, encode, extract_tile_comps)
-from grokimagecompression_tpu.codestream.tile import default_qcd
-from grokimagecompression_tpu.core.geometry import tile_grid_size, tile_rect
-from grokimagecompression_tpu.core.image import Image
-from grokimagecompression_tpu.core.params import EncoderParams, Transform
-from grokimagecompression_tpu.ops import ht_jax
-
-from .. import convert
+from ..core.geometry import ceil_div, tile_grid_size, tile_rect
+from ..core.image import Image
+from ..core.params import MCT, EncoderParams, Transform
 from ..models import fused_encode
-from ..ops import _build
+from ..ops import _build, ht_tables
 from ..utils.device import DeviceLike, resolve_device
+from . import markers
+from .markers import CodInfo, ComponentSiz, SizInfo, SotInfo
+from .tile import default_qcd, encode_tile
+
+
+def build_siz(image: Image, params: EncoderParams) -> SizInfo:
+    # Default tile: one tile covering the whole image area from the tile
+    # origin (Table A-10 requires XTOsiz + XTsiz > XOsiz; sizing from the
+    # image offset would leave phantom tiles before the image origin).
+    xt, yt = params.tile_size if params.tile_size else (
+        image.xsiz - params.tile_offset[0],
+        image.ysiz - params.tile_offset[1],
+    )
+    comps = [
+        ComponentSiz(prec=c.prec, signed=c.signed, dx=c.dx, dy=c.dy)
+        for c in image.components
+    ]
+    return SizInfo(
+        xsiz=image.xsiz, ysiz=image.ysiz,
+        xosiz=params.image_offset[0], yosiz=params.image_offset[1],
+        xtsiz=xt, ytsiz=yt,
+        xtosiz=params.tile_offset[0], ytosiz=params.tile_offset[1],
+        comps=comps,
+    )
+
+
+def build_cod(image: Image, params: EncoderParams) -> CodInfo:
+    """COD of the slice (no custom MCT: `encode_batch` rejects it)."""
+    mct = params.mct
+    if mct is None:
+        same = (
+            image.numcomps >= 3
+            and all(image.components[i].dx == image.components[0].dx
+                    and image.components[i].dy == image.components[0].dy
+                    for i in range(3))
+        )
+        mct = MCT.RCT_OR_ICT if same else MCT.NONE
+    precincts = None
+    if params.precincts is not None:
+        precincts = params.precinct_exps_for(params.numresolutions)
+    return CodInfo(
+        progression=params.progression,
+        numlayers=params.numlayers,
+        mct=int(mct),
+        numresolutions=params.numresolutions,
+        cblk_w_exp=params.cblk_w_exp,
+        cblk_h_exp=params.cblk_h_exp,
+        cblk_style=params.cblk_style,
+        transform=params.transform,
+        precincts=precincts,
+        sop=params.sop_markers,
+        eph=params.eph_markers,
+    )
+
+
+def extract_tile_comps(image: Image, siz: SizInfo, t: int) -> List[np.ndarray]:
+    """Slice per-component tile data out of the full image planes."""
+    tr = tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                   siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    out = []
+    for comp in image.components:
+        tcx0 = ceil_div(tr.x0, comp.dx)
+        tcy0 = ceil_div(tr.y0, comp.dy)
+        tcx1 = ceil_div(tr.x1, comp.dx)
+        tcy1 = ceil_div(tr.y1, comp.dy)
+        ox = ceil_div(image.x0, comp.dx)
+        oy = ceil_div(image.y0, comp.dy)
+        out.append(np.ascontiguousarray(
+            comp.data[tcy0 - oy:tcy1 - oy, tcx0 - ox:tcx1 - ox]))
+    return out
+
+
+def _cod_comp(siz: SizInfo, cod: CodInfo, params: EncoderParams):
+    """Per-component COD overrides (COC markers), or None."""
+    if not params.comp_cblk_exps:
+        return None
+    cod_comp = [None] * len(siz.comps)
+    for compno, (we, he) in params.comp_cblk_exps.items():
+        cod_comp[compno] = dataclasses.replace(
+            cod, cblk_w_exp=we, cblk_h_exp=he)
+    return cod_comp
+
+
+def encode(image: Image, params: EncoderParams,
+           t1_segments_by_tile: Dict[int, List[bytes]]) -> bytes:
+    """Write the codestream of one image whose HT cleanup segments were
+    coded on the device: `t1_segments_by_tile[t]` in t1-desc order.
+
+    The reference's host `encode(..., device=False,
+    _t1_segments_by_tile=...)` for HT lossless streams: main header
+    (SIZ with the Part-15 flag, CAP, COD, COC, QCD, POC, COM, PPM, TLM),
+    then each tile's T2 as one tile-part, or split at progression
+    changes (`tp_flag`), with PPT/PLT where asked. Tiles are coded one
+    after another: `encode_batch` runs frames on a thread pool."""
+    # Layer count follows the rate/quality vectors when they are longer
+    _nl = max(params.numlayers, len(params.rates),
+              len(params.quality_psnr))
+    if _nl != params.numlayers:
+        params = dataclasses.replace(params, numlayers=_nl)
+    siz = build_siz(image, params)
+    cod = build_cod(image, params)
+    # HT (Part 15): JPH rsiz flag, single guard bit, CAP marker after SIZ.
+    qcd = default_qcd(siz, cod, 1, params.base_step)
+    siz = dataclasses.replace(siz, rsiz=siz.rsiz | markers.JPH_RSIZ_FLAG)
+    cod_comp = _cod_comp(siz, cod, params)
+
+    out = bytearray()
+    out += markers.write_soc()
+    out += markers.write_siz(siz)
+    max_mb = max(e + qcd.num_guard_bits - 1 for e in qcd.exponents)
+    out += markers.write_cap(True, max_mb)
+    out += markers.write_cod(cod)
+    if cod_comp:
+        for compno, cc in enumerate(cod_comp):
+            if cc is not None:
+                out += markers.write_coc(compno, cc, len(siz.comps))
+    out += markers.write_qcd(qcd)
+    if params.pocs:
+        out += markers.write_poc(params.pocs, len(siz.comps))
+    if params.comment:
+        out += markers.write_com(params.comment)
+
+    ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                              siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    tile_parts = bytearray()
+    tp_lengths = []
+    ppm_sections: list = []
+    numtiles = ntx * nty
+    split = params.ppt_markers or params.ppm_markers
+
+    results = []
+    for t in range(numtiles):
+        tr = tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                       siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+        results.append(encode_tile(
+            t1_segments_by_tile[t], siz, cod, qcd, tr, cod_comp=cod_comp,
+            pocs=params.pocs or None, split_headers=split,
+            want_packet_lengths=params.plt_markers
+            or params.tp_flag is not None))
+
+    axis_idx = {"L": 0, "R": 1, "C": 2}
+    for t in range(numtiles):
+        res = results[t]
+        if params.tp_flag is not None:
+            # Tile-part generation (reference tp_on/tp_flag): split the
+            # packet sequence at changes of the chosen progression
+            # coordinate; each run becomes its own SOT..SOD tile-part.
+            if params.ppt_markers or params.ppm_markers:
+                raise ValueError("tp_flag cannot combine with packed "
+                                 "packet headers")
+            ai = axis_idx[params.tp_flag.upper()]
+            runs = []  # (start_byte, end_byte)
+            pos = 0
+            cur = None
+            start = 0
+            for pid, ln in zip(res.packet_ids, res.packet_lengths):
+                v = pid[ai]
+                if cur is None:
+                    cur = v
+                elif v != cur:
+                    runs.append((start, pos))
+                    start = pos
+                    cur = v
+                pos += ln
+            runs.append((start, pos))
+            tnsot = len(runs)
+            for k, (b0, b1) in enumerate(runs):
+                frag = res.body[b0:b1]
+                tp_hdr = b""
+                if params.plt_markers and k == 0:
+                    tp_hdr += markers.write_plt(res.packet_lengths)
+                psot = 12 + len(tp_hdr) + 2 + len(frag)
+                tile_parts += markers.write_sot(SotInfo(
+                    tile_index=t, psot=psot, tpsot=k, tnsot=tnsot))
+                tile_parts += tp_hdr
+                tile_parts += markers.write_sod()
+                tile_parts += frag
+                tp_lengths.append((t, psot))
+            continue
+        tp_hdr = b""
+        if params.ppt_markers:
+            tp_hdr += markers.write_ppt(res.packet_headers or b"")
+        elif params.ppm_markers:
+            ppm_sections.append(res.packet_headers or b"")
+        if params.plt_markers and res.packet_lengths is not None:
+            tp_hdr += markers.write_plt(res.packet_lengths)
+        psot = 12 + len(tp_hdr) + 2 + len(res.body)
+        tile_parts += markers.write_sot(SotInfo(tile_index=t, psot=psot))
+        tile_parts += tp_hdr
+        tile_parts += markers.write_sod()
+        tile_parts += res.body
+        tp_lengths.append((t, psot))
+    if params.ppm_markers:
+        out += markers.write_ppm(ppm_sections)
+    if params.tlm_markers:
+        out += markers.write_tlm(tp_lengths)
+    out += tile_parts
+    out += markers.write_eoc()
+    return bytes(out)
 
 
 def _geom(img: Image):
@@ -84,17 +277,12 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
     siz = build_siz(images[0], p)
     cod = build_cod(images[0], p)
     qcd = default_qcd(siz, cod, 1, p.base_step)
-    cod_comp = None
-    if p.comp_cblk_exps:
-        cod_comp = [None] * len(siz.comps)
-        for compno, (we, he) in p.comp_cblk_exps.items():
-            cod_comp[compno] = dataclasses.replace(
-                cod, cblk_w_exp=we, cblk_h_exp=he)
+    cod_comp = _cod_comp(siz, cod, p)
     ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                               siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
     numtiles = ntx * nty
 
-    tables = convert.tables_from_reference(ht_jax._tables(), dev)
+    tables = ht_tables.device_tables(dev)
     encoders = {}        # plan -> FusedHTEncoder (interior tiles share one)
     tile_enc = []
     for t in range(numtiles):
@@ -127,8 +315,7 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
             for f in range(lo, hi):
                 by_tile = {t: segs[t][f - lo] for t in range(numtiles)}
                 futures.append((f, t2_pool.submit(
-                    encode, images[f], params, device=False,
-                    _t1_segments_by_tile=by_tile)))
+                    encode, images[f], params, by_tile)))
         for f, fut in futures:
             results[f] = fut.result()
     return results  # type: ignore[return-value]

@@ -1,0 +1,371 @@
+"""Per-tile plans, tile T2 encode and tile packet parse, owned by the port.
+
+A copy of the parts of `grokimagecompression_tpu/codestream/tile.py`
+that the port's slices run: the static tile-component plan
+(`BandPlan`, `TileCompPlan`, `build_comp_plan`, `default_qcd`), T2 of a
+tile whose code-block segments were coded on the device (the
+`t1_segments` branch of `encode_tile`), and the packet parse of
+`decode_tile` up to its `_return_jobs` return. Packets go through the
+native T2 (`native/t2_native.py`); the Python packet coder runs only
+where the reference runs it too (packed headers, packet lengths).
+
+Not copied: the host transforms and T1, rate allocation, windowed and
+reduced decode, ROI shifts, and the quantized (9/7) band plans, which
+raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import struct
+from typing import Dict, List, Optional, Tuple
+
+from ..core.geometry import (
+    Rect,
+    TileComponentLayout,
+    band_gain,
+    build_tile_component_layout,
+    component_rect,
+)
+from ..core.params import QuantStyle, Transform
+from ..native import t2_native
+from .markers import CodInfo, QcdInfo, SizInfo
+from .packetiter import CompIterInfo, packet_order, packet_order_poc
+from .t2 import CblkDec, CblkEnc, PassInfo, PrecDec, PrecEnc, encode_packet
+
+
+@dataclasses.dataclass
+class BandPlan:
+    r: int
+    orient: int
+    rect: Rect
+    gain: int
+    expn: int
+    mant: int
+    stepsize: float
+    kmax: int  # M_b: maximum coded bit-planes
+
+
+@dataclasses.dataclass
+class TileCompPlan:
+    layout: TileComponentLayout
+    bands: Dict[Tuple[int, int], BandPlan]
+    prec: int
+    signed: bool
+
+
+def _band_index(r: int, orient: int) -> int:
+    """Index of band in QCD ordering: LL, then (HL, LH, HH) per resolution."""
+    if r == 0:
+        return 0
+    return 3 * (r - 1) + orient
+
+
+def build_comp_plan(siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
+                    tile: Rect, compno: int) -> TileCompPlan:
+    """Band plans of one tile-component (reversible, unquantized bands)."""
+    if qcd.style != QuantStyle.NONE:
+        raise NotImplementedError(
+            "scalar-quantized bands (the 9/7 path) are not ported")
+    comp = siz.comps[compno]
+    tc = component_rect(tile, comp.dx, comp.dy)
+    precincts = tuple(cod.precincts) if cod.precincts else None
+    layout = build_tile_component_layout(
+        tc, cod.numresolutions, cod.cblk_w_exp, cod.cblk_h_exp,
+        precincts)
+    reversible = cod.transform == Transform.DWT_53
+    bands: Dict[Tuple[int, int], BandPlan] = {}
+    for res in layout.resolutions:
+        for band in res.bands:
+            r, orient = res.r, band.orient
+            gain = band_gain(orient) if reversible else 0
+            expn = qcd.exponents[_band_index(r, orient)]
+            kmax = qcd.num_guard_bits + expn - 1
+            bands[(r, orient)] = BandPlan(
+                r=r, orient=orient, rect=band.rect, gain=gain,
+                expn=expn, mant=0, stepsize=1.0, kmax=kmax)
+    return TileCompPlan(layout=layout, bands=bands, prec=comp.prec,
+                        signed=comp.signed)
+
+
+def default_qcd(siz: SizInfo, cod: CodInfo, num_guard_bits: int = 2,
+                base_step: float = 0.0) -> QcdInfo:
+    """Encoder-side QCD derivation (all components share one QCD here)."""
+    if cod.transform != Transform.DWT_53:
+        raise NotImplementedError(
+            "the irreversible (9/7) quantizer is not ported")
+    prec = siz.comps[0].prec
+    nl = cod.numresolutions - 1
+    nbands = 1 + 3 * nl
+    exponents = []
+    for bi in range(nbands):
+        orient = 0 if bi == 0 else (bi - 1) % 3 + 1
+        exponents.append(prec + band_gain(orient))
+    return QcdInfo(style=QuantStyle.NONE, num_guard_bits=num_guard_bits,
+                   exponents=tuple(exponents))
+
+
+def _comps_iter(siz: SizInfo, cods, plans) -> List[CompIterInfo]:
+    return [
+        CompIterInfo(
+            numresolutions=cods[c].numresolutions,
+            dx=siz.comps[c].dx,
+            dy=siz.comps[c].dy,
+            tc_rect=plans[c].layout.tc_rect,
+            prec_info=[(res.ppx, res.ppy, res.num_precincts_w,
+                        res.num_precincts_h)
+                       for res in plans[c].layout.resolutions],
+        )
+        for c in range(len(plans))
+    ]
+
+
+# --------------------------------------------------------------------------
+# Encode
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class TileEncResult:
+    body: bytes
+    num_packets: int
+    packet_headers: Optional[bytes] = None   # packed headers (PPM/PPT mode)
+    packet_lengths: Optional[List[int]] = None  # per-packet byte counts
+    packet_ids: Optional[List[Tuple[int, int, int, int]]] = None  # (l,r,c,p)
+
+
+def encode_tile(
+    t1_segments: List[bytes],
+    siz: SizInfo,
+    cod: CodInfo,
+    qcd: QcdInfo,
+    tile: Rect,
+    cod_comp: Optional[List[CodInfo]] = None,
+    pocs=None,
+    split_headers: bool = False,
+    want_packet_lengths: bool = False,
+) -> TileEncResult:
+    """Encode one tile to its packet body bytes from its HT cleanup
+    segments, `t1_segments`, in t1-desc order (comp -> resolution ->
+    band -> precinct -> code-block; models/fused_encode.py codes them on
+    the device). Every pass goes into layer 0.
+
+    `split_headers=True` routes packet headers to a separate packed
+    stream (for PPM/PPT signalling); the body then carries only SOP
+    markers and packet payloads.
+    """
+    ncomps = len(siz.comps)
+    cods = [cod_comp[c] if cod_comp and cod_comp[c] else cod
+            for c in range(ncomps)]
+    plans = [build_comp_plan(siz, cods[c], qcd, tile, c)
+             for c in range(ncomps)]
+
+    t1_slots = []           # (comp, (r, orient), precinct_idx, cb, bp)
+    for c in range(ncomps):
+        plan = plans[c]
+        for res in plan.layout.resolutions:
+            for band in res.bands:
+                bp = plan.bands[(res.r, band.orient)]
+                for pi, prc in enumerate(band.precincts):
+                    for cb in prc.cblks:
+                        t1_slots.append((c, (res.r, band.orient), pi, cb, bp))
+    # HT segments coded on the device: one cleanup pass each
+    t1_results = [(d, 1, 1, [PassInfo(rate=len(d), distortion=0.0,
+                                      terminated=True)])
+                  for d in t1_segments]
+
+    all_cblks: List[CblkEnc] = []
+    prec_enc: List[Dict[Tuple[int, int], List[PrecEnc]]] = [
+        {} for _ in range(ncomps)]
+    slot_cblks: Dict[Tuple[int, Tuple[int, int], int], List[CblkEnc]] = {}
+    for (c, key, pi, cb, bp), (dat, numbps, npasses, passes) in zip(
+            t1_slots, t1_results):
+        if numbps > bp.kmax:
+            raise ValueError(
+                f"code-block numbps {numbps} exceeds Kmax "
+                f"{bp.kmax}; increase guard bits")
+        ce = CblkEnc(geom=cb, data=dat, numbps=numbps,
+                     imsb=bp.kmax - numbps if numbps else bp.kmax,
+                     numpasses=npasses, passes=passes)
+        slot_cblks.setdefault((c, key, pi), []).append(ce)
+        all_cblks.append(ce)
+    for c in range(ncomps):
+        plan = plans[c]
+        for res in plan.layout.resolutions:
+            for band in res.bands:
+                key = (res.r, band.orient)
+                plist: List[PrecEnc] = []
+                for pi, prc in enumerate(band.precincts):
+                    cbs = slot_cblks.get((c, key, pi), [])
+                    plist.append(PrecEnc(geom=prc, cblks=cbs))
+                prec_enc[c].setdefault(key, []).extend(plist)
+
+    comps_iter = _comps_iter(siz, cods, plans)
+    numlayers = cod.numlayers
+
+    def _packet_iter():
+        if pocs:
+            return packet_order_poc(pocs, numlayers, comps_iter, tile)
+        return packet_order(cod.progression, numlayers, comps_iter, tile)
+
+    def _reset_t2_state():
+        for per_res in prec_enc:
+            for plist in per_res.values():
+                for pe in plist:
+                    for cb in pe.cblks:
+                        cb.included = False
+                        cb.lblock = 3
+                        cb.passes_used = 0
+                    pe.init_trees()
+
+    def _emit(max_layer: int, collect: bytearray) -> Tuple[int, int]:
+        """Emit packets for layers 0..max_layer; returns (bytes, packets).
+        ONE native call encodes every precinct group; Python assembles
+        the per-layer fragments in progression order."""
+        nbytes = 0
+        npk = 0
+        order = list(_packet_iter())
+        groups = []
+        seen = set()
+        for (l, r, c, p) in order:
+            key = (r, c, p)
+            if key in seen:
+                continue
+            seen.add(key)
+            orients = (0,) if r == 0 else (1, 2, 3)
+            precs = [prec_enc[c][(r, o)][p] for o in orients
+                     if (r, o) in prec_enc[c]]
+            groups.append((key, c, precs))
+        tenc = t2_native.TileEnc(groups, numlayers, cod.cblk_style, cod.eph)
+        frags = tenc.encode_all(max_layer)
+        for (l, r, c, p) in order:
+            if l > max_layer:
+                continue
+            pkt = frags[(r, c, p)][l]
+            if cod.sop:
+                pkt = struct.pack(">HHH", 0xFF91, 4,
+                                  npk & 0xFFFF) + bytes(pkt)
+            nbytes += len(pkt)
+            collect += pkt
+            npk += 1
+        return nbytes, npk
+
+    for cb in all_cblks:
+        cb.layer_npasses = [cb.numpasses] + [0] * (numlayers - 1)
+
+    # Final packet emission in progression order.
+    if split_headers:
+        _reset_t2_state()
+        hdrs = bytearray()
+        body = bytearray()
+        npackets = 0
+        for (l, r, c, p) in _packet_iter():
+            orients = (0,) if r == 0 else (1, 2, 3)
+            precs = [prec_enc[c][(r, o)][p] for o in orients
+                     if (r, o) in prec_enc[c]]
+            h, b = encode_packet(l, precs, cod.cblk_style, sop=cod.sop,
+                                 eph=cod.eph, packet_index=npackets,
+                                 split=True)
+            hdrs += h
+            body += b
+            npackets += 1
+        return TileEncResult(body=bytes(body), num_packets=npackets,
+                             packet_headers=bytes(hdrs))
+    body = bytearray()
+    plens: Optional[List[int]] = [] if want_packet_lengths else None
+    pids: Optional[List[Tuple[int, int, int, int]]] = None
+    if plens is not None:
+        _reset_t2_state()
+        pids = []
+        npackets = 0
+        for (l, r, c, p) in _packet_iter():
+            orients = (0,) if r == 0 else (1, 2, 3)
+            precs = [prec_enc[c][(r, o)][p] for o in orients
+                     if (r, o) in prec_enc[c]]
+            pkt = encode_packet(l, precs, cod.cblk_style, sop=cod.sop,
+                                eph=cod.eph, packet_index=npackets)
+            plens.append(len(pkt))
+            pids.append((l, r, c, p))
+            body += pkt
+            npackets += 1
+    else:
+        _, npackets = _emit(numlayers - 1, body)
+    return TileEncResult(body=bytes(body), num_packets=npackets,
+                         packet_lengths=plens, packet_ids=pids)
+
+
+# --------------------------------------------------------------------------
+# Decode
+# --------------------------------------------------------------------------
+
+def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
+                tile: Rect):
+    """Parse one tile's packet body into its entropy-decode jobs: the
+    reference's `decode_tile(..., _return_jobs=True)`, through the
+    native T2 only, for streams without packed headers, COC/QCC, POC,
+    ROI or a layer limit.
+
+    Returns (t1_jobs, t1_job_slots, plans, cods): per included
+    code-block a job (data, seg_lengths, w, h, orient, numbps,
+    numpasses, kmax) and its slot (comp, (r, orient), CblkDec)."""
+    ncomps = len(siz.comps)
+    cods = [cod] * ncomps
+    plans = [build_comp_plan(siz, cod, qcd, tile, c) for c in range(ncomps)]
+
+    # Build decode structures.
+    prec_dec: List[Dict[Tuple[int, int], List[PrecDec]]] = []
+    cblk_index: List[Dict[Tuple[int, int], List[CblkDec]]] = []
+    for c in range(ncomps):
+        plan = plans[c]
+        per_res: Dict[Tuple[int, int], List[PrecDec]] = {}
+        cb_per_band: Dict[Tuple[int, int], List[CblkDec]] = {}
+        for res in plan.layout.resolutions:
+            for band in res.bands:
+                plist = []
+                cbl = []
+                for prc in band.precincts:
+                    cbs = [CblkDec(geom=cb) for cb in prc.cblks]
+                    plist.append(PrecDec(geom=prc, cblks=cbs))
+                    cbl.extend(cbs)
+                per_res[(res.r, band.orient)] = plist
+                cb_per_band[(res.r, band.orient)] = cbl
+        prec_dec.append(per_res)
+        cblk_index.append(cb_per_band)
+
+    pkt_list = list(packet_order(cod.progression, cod.numlayers,
+                                 _comps_iter(siz, cods, plans), tile))
+    groups = []
+    group_idx: Dict[Tuple[int, int, int], int] = {}
+    packets = []
+    for (l, r, c, p) in pkt_list:
+        key = (r, c, p)
+        if key not in group_idx:
+            group_idx[key] = len(groups)
+            orients = (0,) if r == 0 else (1, 2, 3)
+            groups.append([
+                (prec_dec[c][(r, o)][p],
+                 plans[c].bands[(r, o)].kmax,
+                 cods[c].cblk_style)
+                for o in orients if (r, o) in prec_dec[c]
+            ])
+        packets.append((group_idx[key], l))
+    rc = t2_native.decode_tile_packets(body, packets, groups, None, None,
+                                       cod.sop, cod.eph)
+    if rc is None:
+        raise ValueError("the native T2 parser rejected the tile's packets")
+
+    t1_jobs = []
+    t1_job_slots = []
+    for c in range(ncomps):
+        plan = plans[c]
+        for res in plan.layout.resolutions:
+            for band in res.bands:
+                for cb in cblk_index[c][(res.r, band.orient)]:
+                    if cb.numpasses == 0:
+                        continue
+                    data, seg_lengths = cb.data_and_seg_lengths()
+                    bp_d = plan.bands[(res.r, band.orient)]
+                    t1_jobs.append((data, seg_lengths, cb.geom.rect.w,
+                                    cb.geom.rect.h, band.orient, cb.numbps,
+                                    cb.numpasses, bp_d.kmax))
+                    t1_job_slots.append((c, (res.r, band.orient), cb))
+    return t1_jobs, t1_job_slots, plans, cods

@@ -5,7 +5,7 @@ For a batch of same-geometry frames it runs DC shift -> MCT -> 5/3 DWT ->
 code-block gather -> HT op streams -> the MEL / VLC / MagSgn scans ->
 exact word placement on the device, and returns the per-block metrics
 and the packed words; the host splices the final segment bytes
-(`ht_jax.assemble_segments_host`) and runs T2.
+(`ht_tables.assemble_segments_host`) and runs T2.
 
 Block order in the metrics rows and the packed words: group-major, then
 frame-major within a group, then block order within the (group, frame),
@@ -26,10 +26,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from grokimagecompression_tpu.core.geometry import Rect
-from grokimagecompression_tpu.ops import ht_jax
-
-from ..ops import ht_torch
+from ..codestream.tile import build_comp_plan
+from ..core.geometry import Rect
+from ..core.params import Transform
+from ..ops import ht_tables, ht_torch
 from . import pipeline
 
 
@@ -43,7 +43,6 @@ class BlockSpec:
     h: int
     w: int
     kmax: int                   # band M_b (guard bits + expn - 1)
-    step: float = 1.0           # band stepsize (irreversible quant)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,25 +58,22 @@ class FusedPlan:
 
 def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None,
                qcd_comp=None) -> Optional[FusedPlan]:
-    """The HT plan for one tile, or None when out of scope (mixed
-    per-component transforms, an MCT other than none/RCT/ICT).
+    """The reversible HT plan for one tile, or None when out of scope
+    (the 9/7 transform on any component, an MCT other than
+    none/RCT).
 
     The block order (comp -> resolution -> band -> precinct -> cblk)
     matches codestream/tile.py's t1 desc construction, so collected
     segments slot into T2 positionally."""
-    from grokimagecompression_tpu.codestream.tile import build_comp_plan
-    from grokimagecompression_tpu.core.params import Transform
-
     ncomps = len(siz.comps)
     cods = [cod_comp[c] if cod_comp and cod_comp[c] else cod
             for c in range(ncomps)]
     qcds = [qcd_comp[c] if qcd_comp and qcd_comp[c] else qcd
             for c in range(ncomps)]
-    if any(cc.transform != cods[0].transform for cc in cods):
+    if any(cc.transform != Transform.DWT_53 for cc in cods):
         return None
     if cod.mct not in (0, 1):
         return None
-    reversible = cods[0].transform == Transform.DWT_53
     groups: Dict[Tuple[int, int], List[Tuple[int, BlockSpec]]] = {}
     gi = 0
     for c in range(ncomps):
@@ -91,9 +87,7 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None,
                             comp=c, key=(res.r, band.orient),
                             y0=cb.rect.y0 - band.rect.y0,
                             x0=cb.rect.x0 - band.rect.x0,
-                            h=cb.rect.h, w=cb.rect.w, kmax=bp.kmax,
-                            step=1.0 if reversible
-                            else float(bp.stepsize))
+                            h=cb.rect.h, w=cb.rect.w, kmax=bp.kmax)
                         gk = ((spec.h + 1) // 2, (spec.w + 1) // 2)
                         groups.setdefault(gk, []).append((gi, spec))
                         gi += 1
@@ -108,16 +102,13 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None,
 
 class FusedHTEncoder(nn.Module):
     """The fused HT encode for one plan. Buffers: the tables of
-    `convert.tables_from_reference`. `forward(*frames)` takes one integer
+    `ht_tables.device_tables`. `forward(*frames)` takes one integer
     (N, h_c, w_c) tensor per component, on the module's device, and
     returns (metrics (B_total, 16) int32, packed words (W,) int32) with
     B_total = N * plan.nblocks."""
 
     def __init__(self, plan: FusedPlan, tables: Dict[str, torch.Tensor]):
         super().__init__()
-        if not plan.cfg.reversible:
-            raise NotImplementedError(
-                "the irreversible (9/7) fused encode is not ported")
         self.plan = plan
         self._table_keys = tuple(tables)
         for k, v in tables.items():
@@ -196,7 +187,7 @@ def encode_tile_collect(handle) -> List[List[bytes]]:
 def assemble_collected_ht(plan: FusedPlan, nframes: int, metrics_np,
                           words_np) -> List[List[bytes]]:
     """Host splice of a fetched HT result into per-frame segment lists."""
-    segs = ht_jax.assemble_segments_host(words_np, metrics_np)
+    segs = ht_tables.assemble_segments_host(words_np, metrics_np)
     res = [[b""] * plan.nblocks for _ in range(nframes)]
     pos = 0
     for gidx, (_, _, blocks) in enumerate(plan.groups):

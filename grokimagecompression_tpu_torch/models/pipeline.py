@@ -14,9 +14,8 @@ from typing import Dict, List, Tuple
 
 import torch
 
-from grokimagecompression_tpu.core.geometry import Rect, component_rect
-from grokimagecompression_tpu.core.params import Transform
-
+from ..core.geometry import Rect, component_rect
+from ..core.params import Transform
 from ..ops import dwt_torch, mct_torch
 
 BandKey = Tuple[int, int]

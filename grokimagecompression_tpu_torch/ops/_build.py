@@ -1,12 +1,20 @@
-"""Build and load the port's CUDA kernels (nvcc -> shared library -> ctypes).
+"""Build and load the port's native code: CUDA kernels and host library.
 
-The kernels live in `grokimagecompression_tpu_torch/csrc/` and are
-compiled on first use into `build/torch_kernels/` at the repository root
-(listed in .gitignore) with a plain C interface, then bound with ctypes:
-pointers and the stream are `c_void_p`, ints are `c_int`, and every entry
-point returns `cudaGetLastError()` after its launch. Nothing is compiled
-or loaded at import time: the CPU tests import every module on machines
-with no CUDA toolkit.
+The CUDA kernels live in `grokimagecompression_tpu_torch/csrc/*.cu` and
+are compiled on first use with nvcc into `build/torch_kernels/` at the
+repository root (listed in .gitignore) with a plain C interface, then
+bound with ctypes: pointers and the stream are `c_void_p`, ints are
+`c_int`, and every entry point returns `cudaGetLastError()` after its
+launch.
+
+The host library (`csrc/host/*.cpp`: native T2 and the HT decode
+prepass, copies of the reference's native sources) is compiled on first
+use with g++ into `build/torch_host/`; it is single-threaded.
+
+Both builds write to a private file and rename it into place, so
+concurrent processes never load a half-written library; a failed build
+raises. Nothing is compiled or loaded at import time: the CPU tests
+import every module on machines with no CUDA toolkit.
 """
 
 from __future__ import annotations
@@ -24,8 +32,13 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-SOURCES = ("ht_scan.cu",)
-LIBRARY = os.path.join(BUILD_DIR, "libht_scan.so")
+SOURCES = ("ht_scan.cu", "ht_dec.cu")
+LIBRARY = os.path.join(BUILD_DIR, "libgrok_kernels.so")
+
+HOST_CSRC = os.path.join(CSRC, "host")
+HOST_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_host")
+HOST_LIBRARY = os.path.join(HOST_BUILD_DIR, "libgrok_host.so")
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
 
 
 def _nvcc() -> str:
@@ -40,46 +53,97 @@ def _nvcc() -> str:
                        "/usr/local/cuda/bin): cannot build the CUDA kernels")
 
 
-def build() -> Tuple[str, str]:
-    """Compile the kernel library if missing or older than its sources.
-    Returns (path to the .so, compiler output; empty when up to date)."""
-    srcs = [os.path.join(CSRC, s) for s in SOURCES]
-    out = LIBRARY
+def _compile(out: str, deps, compile_cmd) -> str:
+    """Run `compile_cmd(tmp)` into a private file next to `out` and
+    rename it into place, unless `out` is newer than every path in
+    `deps`. Returns the compiler's output (empty when up to date)."""
     if os.path.exists(out) and all(
-            os.path.getmtime(out) >= os.path.getmtime(s) for s in srcs):
-        return out, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    # compile to a private file and rename, so concurrent builds never
-    # load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.path.getmtime(out) >= os.path.getmtime(d) for d in deps):
+        return ""
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
     os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, *srcs]
+    cmd = compile_cmd(tmp)
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+        raise RuntimeError(f"{cmd[0]} failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+    return proc.stdout + proc.stderr
+
+
+def build() -> Tuple[str, str]:
+    """Compile the kernel library if missing or older than its sources:
+    one nvcc per source, all started together, then one link. Returns
+    (path to the .so, compiler output; empty when up to date)."""
+    srcs = [os.path.join(CSRC, s) for s in SOURCES]
+    if os.path.exists(LIBRARY) and all(
+            os.path.getmtime(LIBRARY) >= os.path.getmtime(s) for s in srcs):
+        return LIBRARY, ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for s in srcs:
+        fd, obj = tempfile.mkstemp(suffix=".o", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+               "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, s]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    try:
+        for cmd, proc in procs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        log.append(_compile(LIBRARY, (), lambda tmp: [
+            nvcc, *ARCH_FLAGS, "-shared", "-o", tmp, *objs]))
+    finally:
+        for o in objs:
+            os.unlink(o)
+    return LIBRARY, "".join(log)
+
+
+def build_host() -> Tuple[str, str]:
+    """Compile the host library from `csrc/host/*.cpp` with g++ if
+    missing or older than its sources. Returns (path, compiler output)."""
+    srcs = sorted(os.path.join(HOST_CSRC, f) for f in os.listdir(HOST_CSRC)
+                  if f.endswith(".cpp"))
+    deps = [os.path.join(HOST_CSRC, f) for f in os.listdir(HOST_CSRC)]
+    log = _compile(HOST_LIBRARY, deps, lambda tmp: [
+        "g++", *HOST_FLAGS, "-o", tmp, *srcs])
+    return HOST_LIBRARY, log
 
 
 @functools.lru_cache(maxsize=None)
-def host_library():
-    """Build (if needed) and import the reference's native host library
-    (T1/T2 coders, `grokimagecompression_tpu/native`), which the port's
-    host stages call. Its Makefile defaults to g++ but takes $CXX from the
-    environment; the library needs OpenMP, and $CXX can name a compiler
-    installed without it, so the build pins the Makefile's own default."""
-    native = os.path.join(os.path.dirname(_PKG), "grokimagecompression_tpu",
-                          "native")
-    proc = subprocess.run(["make", "-s", "CXX=g++"], cwd=native,
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building the native host library failed "
-                           f"({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-    from grokimagecompression_tpu.native import t1_native
-    return t1_native
+def host_library() -> ctypes.CDLL:
+    """Build (if needed) and load the host library, with every entry
+    point's argtypes/restype declared."""
+    path, _ = build_host()
+    lib = ctypes.CDLL(path)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # (ngroups, numlayers, max_layer, eph, g_nbands, grid, ncblks, meta,
+    #  layer_np, rates, term, pass_stride, data, out, group_off,
+    #  frag_off)
+    lib.grok_t2_encode_tile.restype = I
+    lib.grok_t2_encode_tile.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I,
+                                        P, P, P, P]
+    # (body, body_len, npackets, pkt_group, pkt_layer, ngroups, gband_off,
+    #  grid, ncblks, kmax, style, meta, sop, eph, out_meta, seg_out,
+    #  seg_cap)
+    lib.grok_t2_decode_tile.restype = L
+    lib.grok_t2_decode_tile.argtypes = [P, L, I, P, P, I, P, P, P, P, P, P,
+                                        I, I, P, P, L]
+    # (data, offs, lcups, scups, B, wm_mel, wm_vlc, wm_ms, out_mel,
+    #  out_vlc, out_ms)
+    lib.grok_ht_dec_prepass.restype = I
+    lib.grok_ht_dec_prepass.argtypes = [P, P, P, P, I, I, I, I, P, P, P]
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,4 +158,9 @@ def load() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    # (mel, vlc, ms, wm_mel, wm_vlc, wm_ms, lanes, w, h, dec0, dec1,
+    #  mags, signs, stream)
+    lib.ht_dec_group.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
+        + [ctypes.c_void_p] * 5
+    lib.ht_dec_group.restype = ctypes.c_int
     return lib

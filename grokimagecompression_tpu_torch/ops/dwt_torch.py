@@ -20,7 +20,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from grokimagecompression_tpu.core.geometry import Rect, resolution_rect
+from ..core.geometry import Rect, resolution_rect
 
 # CDF 9/7 lifting constants, rounded to float32 as in the reference; a
 # Python float scalar enters a float32 torch op as that float32 value

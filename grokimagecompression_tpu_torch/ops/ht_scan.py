@@ -27,9 +27,8 @@ from typing import Tuple
 
 import torch
 
-from grokimagecompression_tpu.ops.ht_jax import MEL_EXP
-
 from . import _build
+from .ht_tables import MEL_EXP
 
 LAUNCHES = {"mel": 0, "vlc": 0, "ms": 0}
 

@@ -31,9 +31,6 @@ from . import ht_scan
 
 M32 = 0xFFFFFFFF
 
-# popcount of a 4-bit value (the "popcount4" table of `tables`)
-POPCOUNT4 = (0, 1, 1, 2, 1, 2, 2, 3, 1, 2, 2, 3, 2, 3, 3, 4)
-
 
 def bit_length(x: torch.Tensor) -> torch.Tensor:
     """Exact bit length of non-negative int64 values below 2^32

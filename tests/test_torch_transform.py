@@ -170,5 +170,7 @@ def test_fwd_transform_matches_reference_pipeline(transform):
 
 
 def dataclasses_fields(cfg):
-    return (cfg.tc_rects, cfg.precs, cfg.signeds, cfg.numresolutions,
-            cfg.reversible, cfg.mct)
+    # the port's Rect is its own type: compare the coordinates
+    return (tuple((r.x0, r.y0, r.x1, r.y1) for r in cfg.tc_rects),
+            cfg.precs, cfg.signeds, cfg.numresolutions, cfg.reversible,
+            cfg.mct)
