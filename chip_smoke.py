@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA GPU: build, check, run, time.
 
-Drives the port's two paths at BASELINE config 1 (512x512 8-bit gray, 5/3,
-6 resolutions, 64x64 code-blocks, HT block coder, 64 frames in 32-frame
-chunks): the fused HT lossless encode through
-`grokimagecompression_tpu_torch.codestream.encoder.encode_batch`, and its
-decode mirror through `codestream.decoder.decode_batch`, and checks every
-CUDA kernel on those paths against its plain PyTorch version. It imports
-only the port, torch, numpy and the standard library.
+Drives the port's three paths at BASELINE config 1 (512x512 8-bit gray,
+5/3, 6 resolutions, 64x64 code-blocks, 64 frames in 32-frame chunks): the
+fused HT lossless encode through
+`grokimagecompression_tpu_torch.codestream.encoder.encode_batch`, its
+decode mirror through `codestream.decoder.decode_batch`, and the Part-1
+MQ lossless encode (default code-block style 0) through `encode_batch`;
+and checks every CUDA kernel on those paths against its plain PyTorch
+version. It imports only the port, torch, numpy and the standard library.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the software versions;
@@ -16,8 +17,11 @@ Phases, each fatal on failure:
      csrc/host/*.cpp with g++;
   3. the kernels at the config-1 shapes, each equal to its plain version
      on every lane and both timed with CUDA events: the three encode scans
-     on the three shape groups of one chunk, and the HT decoder on the
-     three lane groups of one chunk of the encoded streams;
+     on the three shape groups of one chunk, the HT decoder on the three
+     lane groups of one chunk of the encoded streams, and the MQ coder on
+     the slot streams of the three MQ shape groups of one chunk (the plain
+     version steps over each lane's coding slots only: the others leave
+     its coder as it is);
   4. the encode slice: the 64 frames and the 64 streams of
      encode_batch(device="cuda") against the SHA-256 digests of
      grokimagecompression_tpu_torch/data/config1_ht_lossless.json (the
@@ -25,7 +29,12 @@ Phases, each fatal on failure:
      launched by that run; MP/s (best of 3) and one chunk's time by stage;
   5. the decode slice: the 64 streams through decode_batch(device="cuda"),
      every frame equal to its source, the decode kernel launched by that
-     run; MP/s (best of 3) and one chunk's time by stage.
+     run; MP/s (best of 3) and one chunk's time by stage;
+  6. the MQ encode slice: the 64 frames through encode_batch(device=
+     "cuda") with cblk_style 0, every stream against
+     grokimagecompression_tpu_torch/data/config1_mq_lossless.json (the
+     reference host encoder's), the MQ kernel launched by that run; MP/s
+     (best of 3) and one chunk's time by stage.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -47,6 +56,8 @@ CHUNK = 32
 SIZE = 512
 DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                        "config1_ht_lossless.json")
+MQ_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                          "config1_mq_lossless.json")
 # (name, LAUNCHES key, plain-version name, TPU kernel it replaces, source)
 SCANS = tuple(
     (f"{k}_scan", k, f"{k}_scan_plain",
@@ -56,6 +67,9 @@ SCANS = tuple(
 DEC = ("ht_dec_group", "dec", "decode_group_plain",
        "grokimagecompression_tpu/ops/ht_dec_pallas.py:534",
        "grokimagecompression_tpu_torch/csrc/ht_dec.cu")
+MQ = ("mq_scan", "mq", "mq_scan_plain",
+      "grokimagecompression_tpu/ops/mq_scan_pallas.py:61",
+      "grokimagecompression_tpu_torch/csrc/mq_scan.cu")
 STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
            "ms": ("ms_vals", "ms_lens")}
 # Bounds. H100 SXM peak rates: 3.35 TB/s of device memory; integer
@@ -64,10 +78,19 @@ STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
 # The operation counts per lane are estimates read off the kernels'
 # sources, not instruction counts: a MEL event ~25, a VLC or MagSgn append
 # ~30 (an append's bytes pushed one by one), a decode step ~200 plus ~25
-# per significant sample.
+# per significant sample. The MQ coder is charged what the encode
+# procedure (Annex C.2) needs at least, on this run's data: 10 per coded
+# decision, the cost of its shortest path (MPS, no renormalisation: take
+# d and cx from the slot, load the context, take its MPS, load Qe, A -=
+# Qe, compare d with the MPS, test bit 15 of A, C += Qe), and 10 per byte
+# written (shift C by CT, test the delayed byte for 0xFF and C for a
+# carry, store, take the next delayed byte, mask C, set CT). Reading the
+# slots, emitting or not, is in the byte term; a renormalisation is
+# charged only through its byte-outs.
 HBM_BYTES_S = 3.35e12
 INT_OPS_S = 132 * 64 * 1.98e9
-OPS = {"mel": 25, "vlc": 30, "ms": 30, "dec_step": 200, "dec_sample": 25}
+OPS = {"mel": 25, "vlc": 30, "ms": 30, "dec_step": 200, "dec_sample": 25,
+       "mq_decision": 10, "mq_byte": 10}
 
 
 def config1_frames(n, seed=42, size=SIZE):
@@ -297,6 +320,93 @@ def decode_stages(streams, dev):
     return stages
 
 
+def check_mq_scan(mq_enc, chunk, results):
+    """Phase 3, MQ: the MQ coder on the slot streams of each shape group
+    of one chunk, every lane against the plain version."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+    name = MQ[0]
+    for mag, neg, orient in mq_enc.group_inputs(chunk):
+        _, slots = mq_enc.group_slots(mag, neg, orient)
+        T, B = slots.shape
+        h, w = mag.shape[1:]
+        got = mq_scan.mq_scan(slots)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mq_torch.mq_scan_plain(slots)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        for part, wv, g in zip(("segments", "lengths", "state"), want, got):
+            if not torch.equal(wv, g):
+                raise AssertionError(
+                    f"{name} {part} differ from the plain version "
+                    f"({h}x{w} blocks, T={T}, B={B})")
+        err = max(int((wv.to(torch.int64) - g.to(torch.int64)).abs().max())
+                  if wv.numel() else 0 for wv, g in zip(want, got))
+        emits = int((slots & 1).sum())
+        line = (f"kernel {name}: {h}x{w} blocks, slots ({T}, {B}), "
+                f"{emits} coding ({100 * emits / (T * B):.1f} %) -> "
+                f"{got[0].numel()} segment bytes: bit-exact with plain "
+                f"(plain {plain_ms:.1f} ms)")
+        if (h, w) == (64, 64):
+            off, total = mq_scan.segment_offsets(slots)
+            for _ in range(3):
+                mq_scan.scan_into(slots, off, total)
+            ms = cuda_ms(lambda: mq_scan.scan_into(slots, off, total), 20)
+            b_ms, b_by, b_terms = bound(
+                nbytes(slots, *got),
+                OPS["mq_decision"] * emits + OPS["mq_byte"] * got[0].numel())
+            results[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                 bound_ms=b_ms, bound_by=b_by)
+            line += (f"; kernel {ms:.3f} ms (bound {b_ms:.4f} ms by {b_by}: "
+                     f"{b_terms})")
+        print(line)
+
+
+def mq_encode_stages(mq_enc, chunk, imgs, params):
+    """Time of one 32-frame MQ encode chunk by stage (host clock,
+    synchronised); the host T2 runs on encode_batch's 4-thread pool."""
+    import concurrent.futures
+
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.ops import mq_scan
+    stages = {}
+    tt = time.perf_counter
+    torch.cuda.synchronize()
+    t = tt()
+    gin = list(mq_enc.group_inputs(chunk))
+    torch.cuda.synchronize()
+    stages["transform+gather"] = tt() - t
+    t = tt()
+    slots = [mq_enc.group_slots(*g) for g in gin]
+    torch.cuda.synchronize()
+    stages["slot build"] = tt() - t
+    t = tt()
+    scans = [mq_scan.mq_scan(s) for _, s in slots]
+    torch.cuda.synchronize()
+    stages["scan"] = tt() - t
+    t = tt()
+    outs = [torch.cat([n for n, _ in slots]).cpu().numpy()] + [
+        torch.cat([sc[k] for sc in scans]).cpu().numpy() for k in (1, 0)]
+    segs = fused_encode.assemble_collected_mq(mq_enc.plan, chunk.shape[0],
+                                              *outs)
+    stages["placement+fetch"] = tt() - t
+    t = tt()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+        list(pool.map(lambda f: encoder.encode(imgs[f], params,
+                                               {0: segs[f]}),
+                      range(chunk.shape[0])))
+    stages["host T2"] = tt() - t
+    return stages
+
+
 def best_of(n, fn):
     import torch
     best = float("inf")
@@ -324,7 +434,7 @@ def main() -> int:
     from grokimagecompression_tpu_torch.core.params import EncoderParams
     from grokimagecompression_tpu_torch.models import fused_encode
     from grokimagecompression_tpu_torch.ops import (_build, ht_dec, ht_scan,
-                                                    ht_tables)
+                                                    ht_tables, mq_scan)
 
     # 1. the card
     smi = subprocess.run(
@@ -367,6 +477,12 @@ def main() -> int:
     chunk = torch.from_numpy(np.stack(
         [im.components[0].data for im in imgs[:CHUNK]]).astype(np.uint8)
     ).to(dev)
+    mq_params = EncoderParams(numresolutions=6, cblk_style=0)
+    mq_cod = encoder.build_cod(imgs[0], mq_params)
+    mq_qcd = default_qcd(siz, mq_cod, mq_params.num_guard_bits,
+                         mq_params.base_step)
+    mq_enc = fused_encode.FusedMQEncoder(
+        fused_encode.build_plan(siz, mq_cod, mq_qcd, tr, coder="mq"), dev)
 
     # 3. kernels against their plain versions, at one chunk's shapes
     results = {}
@@ -374,6 +490,7 @@ def main() -> int:
     first = encoder.encode_batch(imgs[:CHUNK], params, device="cuda",
                                  chunk=CHUNK)
     check_decoder(first, dev, results)
+    check_mq_scan(mq_enc, chunk, results)
 
     # 4. the encode slice, through the user entry point
     with open(os.path.join(root, DIGESTS)) as f:
@@ -439,6 +556,37 @@ def main() -> int:
           "synchronised): "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
 
+    # 6. the MQ encode slice, through the user entry point
+    with open(os.path.join(root, MQ_DIGESTS)) as f:
+        mq_digests = json.load(f)
+    if mq_digests["frames"] != digests["frames"]:
+        raise AssertionError("the two digest files hold other frames")
+    mq_scan.LAUNCHES["mq"] = 0
+    out = encoder.encode_batch(imgs, mq_params, device="cuda", chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches["mq"] = mq_scan.LAUNCHES["mq"]
+    print(f"MQ encode slice launches: {dict(mq_scan.LAUNCHES)}")
+    if launches["mq"] < 1:
+        raise AssertionError("mq_scan was not launched by the MQ slice")
+    if len(out) != FRAMES:
+        raise AssertionError(f"{len(out)} MQ streams for {FRAMES} frames")
+    for i, cs in enumerate(out):
+        if hashlib.sha256(cs).hexdigest() != mq_digests["streams"][i]:
+            raise AssertionError(f"frame {i}: MQ stream differs from the "
+                                 f"host encoder's ({len(cs)} B)")
+    nb = sum(len(cs) for cs in out)
+    print(f"MQ encode slice: {FRAMES} streams match the host encoder's "
+          f"digests ({nb} B, {8 * nb / (mpix * 1e6):.3f} bpp)")
+    best = best_of(3, lambda: encoder.encode_batch(
+        imgs, mq_params, device="cuda", chunk=CHUNK))
+    print(f"encode_batch (MQ): {mpix / best:.2f} MP/s (best of 3, "
+          f"{best:.3f} s for {FRAMES} frames) on {card}")
+    mq_encode_stages(mq_enc, chunk, imgs, mq_params)
+    stages = mq_encode_stages(mq_enc, chunk, imgs, mq_params)
+    print(f"one {CHUNK}-frame MQ encode chunk by stage (host clock, "
+          "synchronised): "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[key],
@@ -446,7 +594,7 @@ def main() -> int:
              ms=results[name]["ms"], plain_ms=results[name]["plain_ms"],
              bound_ms=results[name]["bound_ms"],
              bound_by=results[name]["bound_by"], library_ms=None)
-        for name, key, _, replaces, source in SCANS + (DEC,)]}))
+        for name, key, _, replaces, source in SCANS + (DEC, MQ)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Batch encode entry point on a torch device.
 
 Port of `grokimagecompression_tpu/codestream/encoder.py` for the fused
-HT lossless slice. The block coding runs on the device through
+lossless slices: the HT block coder, and the Part-1 MQ coder with the
+default code-block style. The block coding runs on the device through
 `models/fused_encode.py`; the codestream parameters (`build_siz`,
 `build_cod`), tile extraction and the main-header and tile-part writing
 of the reference's host `encode` are copied here, fed the device's
@@ -109,15 +110,22 @@ def _cod_comp(siz: SizInfo, cod: CodInfo, params: EncoderParams):
     return cod_comp
 
 
+def _guard_bits(params: EncoderParams) -> int:
+    """HT (Part 15) streams use one guard bit, as the reference
+    (j2k.cpp:1834); Part-1 streams the parameter's."""
+    return 1 if params.cblk_style & 0x40 else params.num_guard_bits
+
+
 def encode(image: Image, params: EncoderParams,
-           t1_segments_by_tile: Dict[int, List[bytes]]) -> bytes:
-    """Write the codestream of one image whose HT cleanup segments were
-    coded on the device: `t1_segments_by_tile[t]` in t1-desc order.
+           t1_segments_by_tile: Dict[int, List]) -> bytes:
+    """Write the codestream of one image whose code-block segments were
+    coded on the device: `t1_segments_by_tile[t]` in t1-desc order (HT
+    segment bytes, or MQ (data, numbps, numpasses) tuples).
 
     The reference's host `encode(..., device=False,
-    _t1_segments_by_tile=...)` for HT lossless streams: main header
-    (SIZ with the Part-15 flag, CAP, COD, COC, QCD, POC, COM, PPM, TLM),
-    then each tile's T2 as one tile-part, or split at progression
+    _t1_segments_by_tile=...)` for lossless streams: main header (SIZ,
+    with the Part-15 flag and a CAP for HT, COD, COC, QCD, POC, COM, PPM,
+    TLM), then each tile's T2 as one tile-part, or split at progression
     changes (`tp_flag`), with PPT/PLT where asked. Tiles are coded one
     after another: `encode_batch` runs frames on a thread pool."""
     # Layer count follows the rate/quality vectors when they are longer
@@ -125,18 +133,21 @@ def encode(image: Image, params: EncoderParams,
               len(params.quality_psnr))
     if _nl != params.numlayers:
         params = dataclasses.replace(params, numlayers=_nl)
+    is_ht = bool(params.cblk_style & 0x40)
     siz = build_siz(image, params)
     cod = build_cod(image, params)
-    # HT (Part 15): JPH rsiz flag, single guard bit, CAP marker after SIZ.
-    qcd = default_qcd(siz, cod, 1, params.base_step)
-    siz = dataclasses.replace(siz, rsiz=siz.rsiz | markers.JPH_RSIZ_FLAG)
+    qcd = default_qcd(siz, cod, _guard_bits(params), params.base_step)
+    if is_ht:
+        # HT (Part 15): JPH rsiz flag, CAP marker after SIZ
+        siz = dataclasses.replace(siz, rsiz=siz.rsiz | markers.JPH_RSIZ_FLAG)
     cod_comp = _cod_comp(siz, cod, params)
 
     out = bytearray()
     out += markers.write_soc()
     out += markers.write_siz(siz)
-    max_mb = max(e + qcd.num_guard_bits - 1 for e in qcd.exponents)
-    out += markers.write_cap(True, max_mb)
+    if is_ht:
+        max_mb = max(e + qcd.num_guard_bits - 1 for e in qcd.exponents)
+        out += markers.write_cap(True, max_mb)
     out += markers.write_cod(cod)
     if cod_comp:
         for compno, cc in enumerate(cod_comp):
@@ -233,9 +244,10 @@ def _geom(img: Image):
 
 
 def _out_of_slice(images: List[Image], params: EncoderParams) -> Optional[str]:
-    """Why a request is outside the ported slice, or None."""
-    if not params.cblk_style & 0x40:
-        return "the MQ block coder"
+    """Why a request is outside the ported slices, or None."""
+    if params.cblk_style and not params.cblk_style & 0x40:
+        return (f"the MQ code-block style {params.cblk_style:#x} (only "
+                f"the default style 0 is ported)")
     if params.ht_refinement:
         return "HT refinement passes"
     if params.transform != Transform.DWT_53:
@@ -254,7 +266,8 @@ def _out_of_slice(images: List[Image], params: EncoderParams) -> Optional[str]:
 
 def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
                  device: DeviceLike = "cuda", chunk: int = 32) -> List[bytes]:
-    """Encode same-geometry frames with the HT block coder, lossless 5/3.
+    """Encode same-geometry frames losslessly (5/3) with the HT block
+    coder (`cblk_style` 0x40) or the Part-1 MQ coder (`cblk_style` 0).
 
     Frames are coded `chunk` at a time: each chunk is one upload and one
     fused device encode per tile, and the host T2 of a chunk runs on a
@@ -276,24 +289,28 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
         params, numlayers=nl)
     siz = build_siz(images[0], p)
     cod = build_cod(images[0], p)
-    qcd = default_qcd(siz, cod, 1, p.base_step)
+    qcd = default_qcd(siz, cod, _guard_bits(p), p.base_step)
     cod_comp = _cod_comp(siz, cod, p)
     ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                               siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
     numtiles = ntx * nty
 
-    tables = ht_tables.device_tables(dev)
-    encoders = {}        # plan -> FusedHTEncoder (interior tiles share one)
+    coder = "ht" if p.cblk_style & 0x40 else "mq"
+    encoders = {}        # plan -> encoder (interior tiles share one)
     tile_enc = []
     for t in range(numtiles):
         tr = tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                        siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
-        plan = fused_encode.build_plan(siz, cod, qcd, tr, cod_comp=cod_comp)
+        plan = fused_encode.build_plan(siz, cod, qcd, tr, cod_comp=cod_comp,
+                                       coder=coder)
         if plan is None:
             raise NotImplementedError(
-                f"tile {t} is outside the fused HT plan's scope")
+                f"tile {t} is outside the fused plan's scope")
         if plan not in encoders:
-            encoders[plan] = fused_encode.FusedHTEncoder(plan, tables)
+            encoders[plan] = (
+                fused_encode.FusedHTEncoder(plan,
+                                            ht_tables.device_tables(dev))
+                if coder == "ht" else fused_encode.FusedMQEncoder(plan, dev))
         tile_enc.append(encoders[plan])
 
     n = len(images)

@@ -4,7 +4,7 @@ A copy of the parts of `grokimagecompression_tpu/codestream/tile.py`
 that the port's slices run: the static tile-component plan
 (`BandPlan`, `TileCompPlan`, `build_comp_plan`, `default_qcd`), T2 of a
 tile whose code-block segments were coded on the device (the
-`t1_segments` branch of `encode_tile`), and the packet parse of
+`t1_segments` branch of `encode_tile`, HT or MQ), and the packet parse of
 `decode_tile` up to its `_return_jobs` return. Packets go through the
 native T2 (`native/t2_native.py`); the Python packet coder runs only
 where the reference runs it too (packed headers, packet lengths).
@@ -134,7 +134,7 @@ class TileEncResult:
 
 
 def encode_tile(
-    t1_segments: List[bytes],
+    t1_segments: List,
     siz: SizInfo,
     cod: CodInfo,
     qcd: QcdInfo,
@@ -144,10 +144,12 @@ def encode_tile(
     split_headers: bool = False,
     want_packet_lengths: bool = False,
 ) -> TileEncResult:
-    """Encode one tile to its packet body bytes from its HT cleanup
-    segments, `t1_segments`, in t1-desc order (comp -> resolution ->
-    band -> precinct -> code-block; models/fused_encode.py codes them on
-    the device). Every pass goes into layer 0.
+    """Encode one tile to its packet body bytes from its code-block
+    segments coded on the device (models/fused_encode.py), `t1_segments`,
+    in t1-desc order (comp -> resolution -> band -> precinct ->
+    code-block): HT cleanup segments as bytes, or MQ segments as
+    (data, numbps, numpasses) tuples, one codeword segment terminated at
+    its last pass. Every pass goes into layer 0.
 
     `split_headers=True` routes packet headers to a separate packed
     stream (for PPM/PPT signalling); the body then carries only SOP
@@ -168,10 +170,18 @@ def encode_tile(
                 for pi, prc in enumerate(band.precincts):
                     for cb in prc.cblks:
                         t1_slots.append((c, (res.r, band.orient), pi, cb, bp))
-    # HT segments coded on the device: one cleanup pass each
-    t1_results = [(d, 1, 1, [PassInfo(rate=len(d), distortion=0.0,
-                                      terminated=True)])
-                  for d in t1_segments]
+    t1_results = []
+    for d in t1_segments:
+        if isinstance(d, tuple):
+            data, nb, npas = d
+            t1_results.append(
+                (data, nb, npas,
+                 [PassInfo(rate=len(data), distortion=0.0,
+                           terminated=k == npas - 1) for k in range(npas)]))
+        else:
+            # HT: one cleanup pass
+            t1_results.append((d, 1, 1, [PassInfo(
+                rate=len(d), distortion=0.0, terminated=True)]))
 
     all_cblks: List[CblkEnc] = []
     prec_enc: List[Dict[Tuple[int, int], List[PrecEnc]]] = [

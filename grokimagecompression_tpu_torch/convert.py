@@ -57,22 +57,23 @@ def _cfg_from_reference(c) -> pipeline.TileTransformConfig:
 
 
 def plan_from_reference(ref_plan) -> FusedPlan:
-    """A reference `models.fused_encode.FusedPlan` (HT coder) -> the port's
-    `FusedPlan`."""
-    if ref_plan.coder != "ht" or ref_plan.want_rd \
+    """A reference `models.fused_encode.FusedPlan` (HT, or MQ without R-D
+    tables) -> the port's `FusedPlan`."""
+    if ref_plan.coder not in ("ht", "mq") or ref_plan.want_rd \
             or not ref_plan.cfg.reversible:
         raise NotImplementedError(
-            f"only reversible HT plans are ported (got coder="
+            f"only reversible plans without R-D tables are ported (got coder="
             f"{ref_plan.coder!r}, want_rd={ref_plan.want_rd}, reversible="
             f"{ref_plan.cfg.reversible})")
     groups = tuple(
-        (qh, qw, tuple(BlockSpec(comp=b.comp, key=tuple(b.key), y0=b.y0,
+        (gh, gw, tuple(BlockSpec(comp=b.comp, key=tuple(b.key), y0=b.y0,
                                  x0=b.x0, h=b.h, w=b.w, kmax=b.kmax)
                        for b in blocks))
-        for (qh, qw, blocks) in ref_plan.groups)
+        for (gh, gw, blocks) in ref_plan.groups)
     return FusedPlan(cfg=_cfg_from_reference(ref_plan.cfg), groups=groups,
                      nblocks=ref_plan.nblocks,
-                     order=tuple(tuple(o) for o in ref_plan.order))
+                     order=tuple(tuple(o) for o in ref_plan.order),
+                     coder=ref_plan.coder)
 
 
 def dec_plan_from_reference(ref_plan) -> fused_decode.FusedDecPlan:

@@ -1,20 +1,27 @@
-"""Fused HT tile encode on the device: frames in, packed stream words out.
+"""Fused tile encode on the device: frames in, code-block segments out.
 
-Port of the HT half of `grokimagecompression_tpu/models/fused_encode.py`.
-For a batch of same-geometry frames it runs DC shift -> MCT -> 5/3 DWT ->
-code-block gather -> HT op streams -> the MEL / VLC / MagSgn scans ->
-exact word placement on the device, and returns the per-block metrics
-and the packed words; the host splices the final segment bytes
-(`ht_tables.assemble_segments_host`) and runs T2.
+Port of `grokimagecompression_tpu/models/fused_encode.py`, reversible
+(5/3) and lossless, for both block coders. For a batch of same-geometry
+frames it runs DC shift -> MCT -> 5/3 DWT -> code-block gather on the
+device, then
+- HT (`FusedHTEncoder`): HT op streams -> the MEL / VLC / MagSgn scans
+  -> exact word placement; the host splices the final segment bytes
+  (`ht_tables.assemble_segments_host`);
+- MQ (`FusedMQEncoder`, Part-1 default code-block style): bit-plane
+  count per block -> slot stream (`ops/mq_torch.build_slot_stream`) ->
+  the MQ coder with its flush (`ops/mq_scan.mq_scan`), which returns the
+  finished segments packed lane after lane.
+The host then runs T2 on the segments.
 
-Block order in the metrics rows and the packed words: group-major, then
-frame-major within a group, then block order within the (group, frame),
-as in the reference; `FusedPlan.order` maps it back to the t1-desc order
-of `codestream/tile.py`.
+Block order in the outputs: group-major, then frame-major within a
+group, then block order within the (group, frame), as in the reference;
+`FusedPlan.order` maps it back to the t1-desc order of
+`codestream/tile.py`.
 
-Not ported (yet): the MQ coder half, the irreversible (9/7) fused path,
-and the reference's word-compaction caps / size-hinted fetch, which the
-exact placement makes unnecessary.
+Not ported: the irreversible (9/7) fused path, the MQ coder's R-D tables
+(`want_rd`, for rate control), and the reference's word-compaction caps,
+overflow flags, host re-encode and size-hinted fetch, which the exact
+placement makes unnecessary.
 """
 
 from __future__ import annotations
@@ -29,7 +36,7 @@ from torch import nn
 from ..codestream.tile import build_comp_plan
 from ..core.geometry import Rect
 from ..core.params import Transform
-from ..ops import ht_tables, ht_torch
+from ..ops import ht_tables, ht_torch, mq_scan, mq_torch
 from . import pipeline
 
 
@@ -47,24 +54,28 @@ class BlockSpec:
 
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-    """Static per-tile-geometry HT encode plan."""
+    """Static per-tile-geometry encode plan."""
     cfg: pipeline.TileTransformConfig
-    # (qh, qw, blocks) per shape group, qh/qw in quads
+    # (gh, gw, blocks) per shape group: quads for HT, samples for MQ
     groups: Tuple[Tuple[int, int, Tuple[BlockSpec, ...]], ...]
     nblocks: int
     # order[g][j] = global t1-desc index of group g's j-th block
     order: Tuple[Tuple[int, ...], ...]
+    coder: str = "ht"           # "ht" or "mq"
 
 
-def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None,
-               qcd_comp=None) -> Optional[FusedPlan]:
-    """The reversible HT plan for one tile, or None when out of scope
-    (the 9/7 transform on any component, an MCT other than
-    none/RCT).
+def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
+               coder: str = "ht") -> Optional[FusedPlan]:
+    """The reversible plan for one tile and block coder ("ht" or "mq"),
+    or None when out of scope (the 9/7 transform on any component, an
+    MCT other than none/RCT).
 
     The block order (comp -> resolution -> band -> precinct -> cblk)
     matches codestream/tile.py's t1 desc construction, so collected
-    segments slot into T2 positionally."""
+    segments slot into T2 positionally. HT groups blocks by their shape
+    in quads, MQ by their shape in samples, with each MQ group's blocks
+    in descending Kmax order as in the reference (stable; `order`
+    carries the mapping)."""
     ncomps = len(siz.comps)
     cods = [cod_comp[c] if cod_comp and cod_comp[c] else cod
             for c in range(ncomps)]
@@ -88,16 +99,21 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None,
                             y0=cb.rect.y0 - band.rect.y0,
                             x0=cb.rect.x0 - band.rect.x0,
                             h=cb.rect.h, w=cb.rect.w, kmax=bp.kmax)
-                        gk = ((spec.h + 1) // 2, (spec.w + 1) // 2)
+                        gk = (((spec.h + 1) // 2, (spec.w + 1) // 2)
+                              if coder == "ht" else (spec.h, spec.w))
                         groups.setdefault(gk, []).append((gi, spec))
                         gi += 1
     keys = sorted(groups)
+    if coder == "mq":
+        groups = {k: sorted(v, key=lambda e: -e[1].kmax)
+                  for k, v in groups.items()}
     return FusedPlan(
         cfg=pipeline.config_for_tile(siz, cod, tile),
-        groups=tuple((qh, qw, tuple(s for (_, s) in groups[(qh, qw)]))
-                     for (qh, qw) in keys),
+        groups=tuple((gh, gw, tuple(s for (_, s) in groups[(gh, gw)]))
+                     for (gh, gw) in keys),
         nblocks=gi,
-        order=tuple(tuple(i for (i, _) in groups[k]) for k in keys))
+        order=tuple(tuple(i for (i, _) in groups[k]) for k in keys),
+        coder=coder)
 
 
 class FusedHTEncoder(nn.Module):
@@ -115,6 +131,10 @@ class FusedHTEncoder(nn.Module):
             self.register_buffer(k, v)
         self._kmaxs = [np.asarray([b.kmax for b in blocks], np.int64)
                        for (_, _, blocks) in plan.groups]
+
+    @property
+    def device(self) -> torch.device:
+        return self.enc0.device
 
     def tables(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in self._table_keys}
@@ -150,6 +170,54 @@ class FusedHTEncoder(nn.Module):
         return torch.cat(metrics), ht_torch.place_words(streams)
 
 
+class FusedMQEncoder(nn.Module):
+    """The fused MQ encode (Part-1 default code-block style) for one
+    plan. `forward(*frames)` takes one integer (N, h_c, w_c) tensor per
+    component, on `device`, and returns (nbps (B_total,) int32, lens
+    (B_total,) int32, data (sum(lens),) uint8): each block's magnitude
+    bit-planes and its codeword segment, packed block after block, with
+    B_total = N * plan.nblocks. A block with nbps = 0 codes no passes;
+    its bytes in `data` are an empty coder's flush and are not used."""
+
+    def __init__(self, plan: FusedPlan, device: torch.device):
+        super().__init__()
+        self.plan = plan
+        self.device = torch.device(device)
+        self._orients = [torch.tensor([b.key[1] for b in blocks],
+                                      dtype=torch.int64, device=self.device)
+                         for (_, _, blocks) in plan.groups]
+
+    def group_inputs(self, *frames):
+        """Yield (mag, neg, orient) per shape group: the gathered
+        (N * nb, h, w) code-blocks of the frames, frame-major, and their
+        band orientations."""
+        nframes = frames[0].shape[0]
+        bands_list = pipeline._fwd_transform(self.plan.cfg, frames)
+        for (h, w, blocks), orients in zip(self.plan.groups, self._orients):
+            v = torch.stack([bands_list[b.comp][b.key][..., b.y0:b.y0 + h,
+                                                       b.x0:b.x0 + w]
+                             for b in blocks], dim=1).reshape(-1, h, w)
+            yield v.abs(), v < 0, orients.repeat(nframes)
+
+    @staticmethod
+    def group_slots(mag, neg, orient):
+        """(nbps, slot stream) of one group: the stream holds the
+        group's largest nbps planes (the planes above it code nothing)."""
+        nbps = mq_torch.bit_planes(mag)
+        return nbps, mq_torch.build_slot_stream(mag, neg, orient, nbps,
+                                                int(nbps.max()))
+
+    def forward(self, *frames):
+        nbps_l, lens_l, data_l = [], [], []
+        for mag, neg, orient in self.group_inputs(*frames):
+            nbps, slots = self.group_slots(mag, neg, orient)
+            data, lens, _ = mq_scan.mq_scan(slots)
+            nbps_l.append(nbps)
+            lens_l.append(lens)
+            data_l.append(data)
+        return torch.cat(nbps_l), torch.cat(lens_l), torch.cat(data_l)
+
+
 def _upload_dtype(prec: int, signed: bool) -> torch.dtype:
     """Narrowest torch dtype holding the component's samples (8-bit
     content uploads 4x fewer bytes than int32)."""
@@ -160,11 +228,12 @@ def _upload_dtype(prec: int, signed: bool) -> torch.dtype:
     return torch.int32
 
 
-def encode_tile_submit(comps_data: List[np.ndarray], encoder: FusedHTEncoder):
+def encode_tile_submit(comps_data: List[np.ndarray], encoder):
     """Upload one tile's components for a batch of frames (each (N, h, w)
-    or (h, w)) and run the fused encode. Returns a handle for
-    encode_tile_collect; the outputs stay on the device until then."""
-    dev = encoder.enc0.device
+    or (h, w)) and run the fused encode (a `FusedHTEncoder` or
+    `FusedMQEncoder`). Returns a handle for encode_tile_collect; the
+    outputs stay on the device until then."""
+    dev = encoder.device
     cfg = encoder.plan.cfg
     args = []
     for c, a in enumerate(comps_data):
@@ -172,16 +241,18 @@ def encode_tile_submit(comps_data: List[np.ndarray], encoder: FusedHTEncoder):
         dt = _upload_dtype(cfg.precs[c], cfg.signeds[c])
         args.append(torch.from_numpy(np.ascontiguousarray(a)).to(dt)
                     .to(dev, non_blocking=True))
-    metrics, words = encoder(*args)
-    return encoder.plan, args[0].shape[0], metrics, words
+    return encoder.plan, args[0].shape[0], encoder(*args)
 
 
-def encode_tile_collect(handle) -> List[List[bytes]]:
+def encode_tile_collect(handle) -> List[List]:
     """Copy a submitted result to the host; returns per-frame segment
-    lists in t1-desc order (frames x nblocks)."""
-    plan, nframes, metrics, words = handle
-    return assemble_collected_ht(plan, nframes, metrics.cpu().numpy(),
-                                 words.cpu().numpy())
+    lists in t1-desc order (frames x nblocks): HT segment bytes, or MQ
+    (data, numbps, numpasses) tuples."""
+    plan, nframes, outs = handle
+    outs = [t.cpu().numpy() for t in outs]
+    if plan.coder == "mq":
+        return assemble_collected_mq(plan, nframes, *outs)
+    return assemble_collected_ht(plan, nframes, *outs)
 
 
 def assemble_collected_ht(plan: FusedPlan, nframes: int, metrics_np,
@@ -195,4 +266,24 @@ def assemble_collected_ht(plan: FusedPlan, nframes: int, metrics_np,
             for j in range(len(blocks)):
                 res[f][plan.order[gidx][j]] = segs[pos]
                 pos += 1
+    return res
+
+
+def assemble_collected_mq(plan: FusedPlan, nframes: int, nbps_np, lens_np,
+                          data_np) -> List[List[Tuple[bytes, int, int]]]:
+    """Per-frame (data, numbps, numpasses) lists from a fetched MQ result;
+    a block with numbps bit-planes codes 3 * numbps - 2 passes."""
+    ends = np.cumsum(lens_np, dtype=np.int64)
+    buf = data_np.tobytes()
+    res = [[None] * plan.nblocks for _ in range(nframes)]
+    lane = 0
+    for gidx, (_, _, blocks) in enumerate(plan.groups):
+        for f in range(nframes):
+            for j in range(len(blocks)):
+                nb = int(nbps_np[lane])
+                data = buf[ends[lane] - lens_np[lane]:ends[lane]] \
+                    if nb else b""
+                res[f][plan.order[gidx][j]] = (data, nb,
+                                               3 * nb - 2 if nb else 0)
+                lane += 1
     return res

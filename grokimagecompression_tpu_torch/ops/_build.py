@@ -32,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-SOURCES = ("ht_scan.cu", "ht_dec.cu")
+SOURCES = ("ht_scan.cu", "ht_dec.cu", "mq_scan.cu")
 LIBRARY = os.path.join(BUILD_DIR, "libgrok_kernels.so")
 
 HOST_CSRC = os.path.join(CSRC, "host")
@@ -163,4 +163,8 @@ def load() -> ctypes.CDLL:
     lib.ht_dec_group.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p] * 5
     lib.ht_dec_group.restype = ctypes.c_int
+    # (slots, T, lanes, seg_off, out, lens, state, stream)
+    lib.mq_scan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
+        + [ctypes.c_void_p] * 5
+    lib.mq_scan.restype = ctypes.c_int
     return lib

@@ -5,12 +5,13 @@ markers, header walk, tile plans and T2, the native T2 and HT prepass in
 `csrc/host/`). On the streams of the encode cases, its `read_header`,
 tile packet parse (jobs and slots), `build_comp_plan` and `default_qcd`
 must equal the reference's; its native T2 must agree with its Python
-T2; and the config-1 digest file that `chip_smoke.py` checks the card's
-streams against must equal digests made afresh with the reference host
-encoder.
+T2; the config-1 digest files that `chip_smoke.py` checks the card's
+streams against (HT and MQ) must equal digests made afresh with the
+reference host encoder; and the port's MQ tables must equal the
+reference's.
 
 Run `PYTHONPATH=. python tests/test_torch_host_copies.py` from the
-repository root to rewrite the digest file.
+repository root to rewrite the digest files.
 """
 
 import dataclasses
@@ -28,6 +29,8 @@ from grokimagecompression_tpu.codestream import tile as ref_tile
 from grokimagecompression_tpu.core.geometry import tile_grid_size as ref_grid
 from grokimagecompression_tpu.core.geometry import tile_rect as ref_rect
 from grokimagecompression_tpu.core.params import EncoderParams
+from grokimagecompression_tpu.ops import mq_jax
+from grokimagecompression_tpu.t1 import mq as ref_mq
 from grokimagecompression_tpu_torch import convert
 from grokimagecompression_tpu_torch.codestream import decoder, encoder, tile
 from grokimagecompression_tpu_torch.codestream.t2 import decode_packet
@@ -35,13 +38,15 @@ from grokimagecompression_tpu_torch.core.geometry import tile_rect
 from grokimagecompression_tpu_torch.codestream.packetiter import (
     CompIterInfo, packet_order)
 from grokimagecompression_tpu_torch.codestream.t2 import PrecDec, CblkDec
+from grokimagecompression_tpu_torch.ops import mq_tables
 
 from conftest import natural_image
 
 HT = 0x40
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DIGESTS = os.path.join(REPO, "grokimagecompression_tpu_torch", "data",
-                       "config1_ht_lossless.json")
+DATA = os.path.join(REPO, "grokimagecompression_tpu_torch", "data")
+DIGESTS = os.path.join(DATA, "config1_ht_lossless.json")
+MQ_DIGESTS = os.path.join(DATA, "config1_mq_lossless.json")
 
 CASES = [
     ("gray", [natural_image(64, 64, seed=0)],
@@ -177,15 +182,16 @@ def test_native_t2_parse_equals_python_t2(name, imgs, params):
     assert [(j[0], j[5], j[6]) for j in jobs] == want
 
 
-def config1_digests():
+def config1_digests(cblk_style=HT):
     """SHA-256 of the 64 config-1 frames (`chip_smoke.frame_digest`) and
-    of the reference host encoder's streams of them."""
+    of the reference host encoder's streams of them, with the HT block
+    coder (0x40) or the MQ coder (0)."""
     sys.path.insert(0, REPO)
     import chip_smoke
 
     from grokimagecompression_tpu.core.image import Component, Image
     imgs = chip_smoke.config1_frames(chip_smoke.FRAMES)
-    params = EncoderParams(numresolutions=6, cblk_style=HT)
+    params = EncoderParams(numresolutions=6, cblk_style=cblk_style)
     streams = [ref_encoder.encode(Image(
         xsiz=im.xsiz, ysiz=im.ysiz, components=[Component(
             data=c.data, prec=c.prec, signed=c.signed, dx=c.dx, dy=c.dy)
@@ -194,8 +200,9 @@ def config1_digests():
     return {
         "what": "BASELINE config 1: chip_smoke.config1_frames(64) and the "
                 "streams of grokimagecompression_tpu encoder.encode("
-                "EncoderParams(numresolutions=6, cblk_style=0x40), "
-                "device=False); tests/test_torch_host_copies.py writes it",
+                f"EncoderParams(numresolutions=6, cblk_style={cblk_style:#x}"
+                "), device=False); tests/test_torch_host_copies.py writes "
+                "it",
         "frames": [chip_smoke.frame_digest(im) for im in imgs],
         "streams": [hashlib.sha256(cs).hexdigest() for cs in streams],
     }
@@ -204,6 +211,26 @@ def config1_digests():
 def test_config1_digest_file_is_current():
     with open(DIGESTS) as f:
         assert json.load(f) == config1_digests()
+
+
+def test_config1_mq_digest_file_is_current():
+    with open(MQ_DIGESTS) as f:
+        assert json.load(f) == config1_digests(0)
+
+
+def test_mq_tables_equal_reference():
+    assert mq_tables.MQ_TABLE == ref_mq.MQ_TABLE
+    assert mq_tables.NUM_CTXS == ref_mq.NUM_CTXS == mq_jax.NUM_CTXS
+    for name in ("CTX_ZC", "CTX_SC", "CTX_MAG", "CTX_RL", "CTX_UNI"):
+        assert getattr(mq_tables, name) == getattr(ref_mq, name), name
+    for name in ("_TBL_PACKED", "_CTX_INIT", "NCTX_WORDS",
+                 "_CTX_INIT_PACKED"):
+        assert getattr(mq_tables, name) == getattr(mq_jax, name), name
+    # the port's state is the reference's without the word accumulator
+    # (wacc, wcnt: entries 4 and 5)
+    assert mq_tables.NSTATE == mq_jax.NSTATE - 2
+    assert mq_tables.STATE_INIT == (mq_jax.STATE_INIT[:4]
+                                    + mq_jax.STATE_INIT[6:])
 
 
 def test_port_frames_digest_like_reference_frames():
@@ -217,6 +244,7 @@ def test_port_frames_digest_like_reference_frames():
 
 
 if __name__ == "__main__":
-    with open(DIGESTS, "w") as f:
-        json.dump(config1_digests(), f, indent=1)
-        f.write("\n")
+    for path, style in ((DIGESTS, HT), (MQ_DIGESTS, 0)):
+        with open(path, "w") as f:
+            json.dump(config1_digests(style), f, indent=1)
+            f.write("\n")

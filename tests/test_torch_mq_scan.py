@@ -1,0 +1,72 @@
+"""The MQ scan of the torch port: wrapper checks here, the kernel on the card.
+
+`ops/mq_scan.mq_scan` runs `csrc/mq_scan.cu` for CUDA tensors and the
+plain version `ops/mq_torch.mq_scan_plain` for CPU tensors. The `gpu`
+case holds the kernel against the plain version on the card, on random
+slot streams with one all-passthrough lane: every lane's segment bytes,
+lengths and end-of-scan state must be equal. The plain version itself is
+held to the reference in `tests/test_torch_mq_encode.py`.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+from grokimagecompression_tpu_torch.ops.mq_tables import NSTATE, NUM_CTXS
+
+
+def _random_slots(rng, T, B):
+    """Slot bytes emit | d << 1 | cx << 2 with per-lane emit densities
+    from sparse to dense, skewed decisions (long MPS runs and LPS bursts,
+    so carries and 0xFF stuffing occur), and lane 1 all passthrough
+    (emit = 0 with d and cx bits set)."""
+    emit = rng.random((T, B)) < rng.choice([0.02, 0.1, 0.5, 1.0], (1, B))
+    d = rng.random((T, B)) < rng.choice([0.05, 0.5, 0.95], (1, B))
+    cx = rng.integers(0, NUM_CTXS, (T, B))
+    emit[:, 1] = False
+    slots = emit.astype(np.int64) | (d.astype(np.int64) << 1) | (cx << 2)
+    return torch.from_numpy(slots.astype(np.int8))
+
+
+def test_wrapper_validates_inputs():
+    z = torch.zeros((8, 3), dtype=torch.int8)
+    with pytest.raises(TypeError):
+        mq_scan.mq_scan(z.to(torch.int32))
+    with pytest.raises(ValueError):
+        mq_scan.mq_scan(z[0])
+    with pytest.raises(ValueError):
+        mq_scan.mq_scan(z.T)
+
+
+def test_plain_scan_counts_no_launch_and_keeps_the_contract():
+    before = dict(mq_scan.LAUNCHES)
+    slots = _random_slots(np.random.default_rng(3), 300, 5)
+    data, lens, state = mq_scan.mq_scan(slots)
+    assert mq_scan.LAUNCHES == before
+    assert data.dtype == torch.uint8 and data.shape == (int(lens.sum()),)
+    assert lens.dtype == torch.int32 and lens.shape == (5,)
+    assert state.dtype == torch.int32 and state.shape == (NSTATE, 5)
+    # the passthrough lane ends in the initial state and flushes to the
+    # segment of an empty coder
+    init = mq_torch.init_state(1, "cpu")
+    want = torch.cat([torch.stack(init[:4]),
+                      mq_torch.pack_contexts(init[4])])[:, 0]
+    assert torch.equal(state[:, 1], want.to(torch.int32))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(7)
+    for T, B in ((2048, 2017), (1000, 33)):
+        slots = _random_slots(rng, T, B).to(dev)
+        before = mq_scan.LAUNCHES["mq"]
+        got = mq_scan.mq_scan(slots)
+        torch.cuda.synchronize()
+        assert mq_scan.LAUNCHES["mq"] == before + 1
+        want = mq_torch.mq_scan_plain(slots)
+        for name, w, g in zip(("data", "lens", "state"), want, got):
+            assert torch.equal(w, g), f"T={T} B={B}: {name}"

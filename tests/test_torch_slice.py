@@ -134,7 +134,12 @@ def test_plan_from_reference_equals_build_plan(size, ncomp, numres,
 
 def test_out_of_slice_raises():
     imgs = _frames(2, 16, 16)
-    for params in (EncoderParams(cblk_style=0),
+    # MQ: only the default code-block style 0 is ported
+    mq_styles = (0x01, 0x02, 0x04, 0x08, 0x10, 0x20)   # LAZY .. SEGSYM
+    for params in tuple(EncoderParams(cblk_style=s) for s in mq_styles) + (
+                   EncoderParams(cblk_style=0, transform=Transform.DWT_97),
+                   EncoderParams(cblk_style=0, rates=(20.0,)),
+                   EncoderParams(cblk_style=0, roi_comp=0, roi_shift=3),
                    EncoderParams(cblk_style=HT, transform=Transform.DWT_97),
                    EncoderParams(cblk_style=HT, rates=(20.0,)),
                    EncoderParams(cblk_style=HT, ht_refinement=True)):
@@ -157,12 +162,16 @@ def test_cuda_request_without_cuda_raises():
 
 def test_port_runs_without_jax():
     """Encode and decode round trip with both JAX and the reference
-    package blocked; the stream equals the reference host encoder's,
-    made in this process from the same frame."""
+    package blocked, and an MQ encode; each stream equals the reference
+    host encoder's, made in this process from the same frame. The MQ
+    modules are imported there too."""
     rng = np.random.default_rng(5)
     data = rng.integers(0, 256, (64, 64)).astype(np.int32)
     params = EncoderParams(numresolutions=3, cblk_style=HT)
     want = ref_encoder.encode(convert_image(data), params, device=False)
+    mq_params = EncoderParams(numresolutions=2, cblk_style=0)
+    want_mq = ref_encoder.encode(convert_image(data[:8, :12]), mq_params,
+                                 device=False)
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -171,6 +180,8 @@ def test_port_runs_without_jax():
         from grokimagecompression_tpu_torch.codestream import decoder, encoder
         from grokimagecompression_tpu_torch.core.image import Component, Image
         from grokimagecompression_tpu_torch.core.params import EncoderParams
+        from grokimagecompression_tpu_torch.ops import (mq_scan, mq_tables,
+                                                        mq_torch)
         data = np.random.default_rng(5).integers(0, 256, (64, 64)).astype(
             np.int32)
         img = Image(xsiz=64, ysiz=64, components=[Component(
@@ -180,6 +191,12 @@ def test_port_runs_without_jax():
         assert cs.hex() == "{want.hex()}"
         (out,) = decoder.decode_batch([cs], device="cpu")
         assert np.array_equal(out.components[0].data, data)
+        small = Image(xsiz=12, ysiz=8, components=[Component(
+            data=data[:8, :12], prec=8, signed=False, dx=1, dy=1)])
+        (cs,) = encoder.encode_batch(
+            [small], EncoderParams(numresolutions=2, cblk_style=0),
+            device="cpu")
+        assert cs.hex() == "{want_mq.hex()}"
         assert not any(m.split(".")[0] in ("jax", "grokimagecompression_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")
