@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA GPU: build, check, run, time.
 
-Drives the port's three paths at BASELINE config 1 (512x512 8-bit gray,
+Drives the port's four paths at BASELINE config 1 (512x512 8-bit gray,
 5/3, 6 resolutions, 64x64 code-blocks, 64 frames in 32-frame chunks): the
 fused HT lossless encode through
 `grokimagecompression_tpu_torch.codestream.encoder.encode_batch`, its
-decode mirror through `codestream.decoder.decode_batch`, and the Part-1
-MQ lossless encode (default code-block style 0) through `encode_batch`;
-and checks every CUDA kernel on those paths against its plain PyTorch
-version. It imports only the port, torch, numpy and the standard library.
+decode mirror through `codestream.decoder.decode_batch`, the Part-1 MQ
+lossless encode (default code-block style 0) through `encode_batch`, and
+its decode mirror through `decode_batch`; and checks every CUDA kernel on
+those paths against its plain PyTorch version. It imports only the port,
+torch, numpy and the standard library.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the software versions;
@@ -18,10 +19,14 @@ Phases, each fatal on failure:
   3. the kernels at the config-1 shapes, each equal to its plain version
      on every lane and both timed with CUDA events: the three encode scans
      on the three shape groups of one chunk, the HT decoder on the three
-     lane groups of one chunk of the encoded streams, and the MQ coder on
+     lane groups of one chunk of the encoded streams, the MQ coder on
      the slot streams of the three MQ shape groups of one chunk (the plain
      version steps over each lane's coding slots only: the others leave
-     its coder as it is);
+     its coder as it is), and the MQ decoder on the three lane groups of
+     one chunk of MQ streams (16x16 and 32x32 at full depth; 64x64 at full
+     depth when the plain version's time, estimated from the 32x32 group,
+     is at most 90 s, else every lane cut to its first 3 passes for the
+     comparison; the kernel is timed at full depth);
   4. the encode slice: the 64 frames and the 64 streams of
      encode_batch(device="cuda") against the SHA-256 digests of
      grokimagecompression_tpu_torch/data/config1_ht_lossless.json (the
@@ -34,7 +39,11 @@ Phases, each fatal on failure:
      "cuda") with cblk_style 0, every stream against
      grokimagecompression_tpu_torch/data/config1_mq_lossless.json (the
      reference host encoder's), the MQ kernel launched by that run; MP/s
-     (best of 3) and one chunk's time by stage.
+     (best of 3) and one chunk's time by stage;
+  7. the MQ decode slice: the 64 MQ streams of phase 6 through
+     decode_batch(device="cuda"), every frame equal to its source, the MQ
+     decoder launched by that run; MP/s (best of 3) and one chunk's time
+     by stage.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -70,6 +79,12 @@ DEC = ("ht_dec_group", "dec", "decode_group_plain",
 MQ = ("mq_scan", "mq", "mq_scan_plain",
       "grokimagecompression_tpu/ops/mq_scan_pallas.py:61",
       "grokimagecompression_tpu_torch/csrc/mq_scan.cu")
+MQ_DEC = ("mq_dec_group", "mq_dec", "decode_group_plain",
+          "grokimagecompression_tpu/ops/mq_dec_pallas.py:594",
+          "grokimagecompression_tpu_torch/csrc/mq_dec.cu")
+# the plain MQ decoder's longest run allowed at full depth on the 64x64
+# group (seconds, estimated from the 32x32 group's run)
+PLAIN_MQ_DEC_S = 90
 STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
            "ms": ("ms_vals", "ms_lens")}
 # Bounds. H100 SXM peak rates: 3.35 TB/s of device memory; integer
@@ -86,11 +101,15 @@ STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
 # written (shift C by CT, test the delayed byte for 0xFF and C for a
 # carry, store, take the next delayed byte, mask C, set CT). Reading the
 # slots, emitting or not, is in the byte term; a renormalisation is
-# charged only through its byte-outs.
+# charged only through its byte-outs. The MQ decoder (an estimate, on
+# this run's data): 10 per decoded decision (C.3.2's shortest path), 10
+# per byte taken in (BYTEIN), and 2 per sample visit per pass (the
+# membership test).
 HBM_BYTES_S = 3.35e12
 INT_OPS_S = 132 * 64 * 1.98e9
 OPS = {"mel": 25, "vlc": 30, "ms": 30, "dec_step": 200, "dec_sample": 25,
-       "mq_decision": 10, "mq_byte": 10}
+       "mq_decision": 10, "mq_byte": 10, "mqd_decision": 10, "mqd_byte": 10,
+       "mqd_visit": 2}
 
 
 def config1_frames(n, seed=42, size=SIZE):
@@ -278,9 +297,10 @@ def encode_stages(enc, chunk):
     return stages
 
 
-def decode_stages(streams, dev):
+def decode_stages(streams, dev, host_stage):
     """Time of one 32-frame decode chunk by stage (host clock,
-    synchronised)."""
+    synchronised); `host_stage` names the host work between T2 and the
+    upload (the HT prepass, the MQ lane packing)."""
     import torch
 
     from grokimagecompression_tpu_torch.codestream import decoder
@@ -291,12 +311,12 @@ def decode_stages(streams, dev):
     t = tt()
     hdr, trs, parsed = decoder.parse_batch(streams)
     stages["T2 (host)"] = tt() - t
-    dec = fused_decode.decoder_for(fused_decode.build_plan(
-        parsed[0][0][0][2], hdr.siz, hdr.cod, trs[0]), dev)
+    (plan,) = decoder.tile_groups(hdr, trs, parsed)
+    dec = fused_decode.decoder_for(plan, dev)
     t = tt()
     arrays = fused_decode.prepare_chunk(dec.plan, [
         fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed])
-    stages["prepass (host)"] = tt() - t
+    stages[host_stage] = tt() - t
     torch.cuda.synchronize()
     t = tt()
     groups = fused_decode.upload(arrays, dev)
@@ -307,7 +327,7 @@ def decode_stages(streams, dev):
     torch.cuda.synchronize()
     stages["decode kernel"] = tt() - t
     t = tt()
-    bands = dec.assemble(grids, [g[3] for g in groups], len(streams))
+    bands = dec.assemble(grids, [g[-1] for g in groups], len(streams))
     torch.cuda.synchronize()
     stages["band assembly"] = tt() - t
     t = tt()
@@ -364,6 +384,84 @@ def check_mq_scan(mq_enc, chunk, results):
                                  bound_ms=b_ms, bound_by=b_by)
             line += (f"; kernel {ms:.3f} ms (bound {b_ms:.4f} ms by {b_by}: "
                      f"{b_terms})")
+        print(line)
+
+
+def check_mq_decoder(streams, dev, results):
+    """Phase 3, MQ decode: the MQ decoder on the lane groups of one chunk
+    of MQ streams, every lane against the plain version."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.models import fused_decode
+    from grokimagecompression_tpu_torch.ops import mq_dec, mq_dec_torch
+
+    hdr, trs, parsed = decoder.parse_batch(streams)
+    (plan,) = decoder.tile_groups(hdr, trs, parsed)
+    arrays = fused_decode.upload(fused_decode.prepare_chunk(
+        plan, [fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed]),
+        dev)
+    name = MQ_DEC[0]
+    rate = None   # plain seconds per sample-pass, from the 32x32 group
+    for (w, h, _), group in zip(plan.groups, arrays):
+        data, off, nbps, npas_full, ori = group[:5]
+        npas = npas_full
+        B = nbps.shape[0]
+        work = w * h * int(npas.max())
+        note = ""
+        if (w, h) == (64, 64):
+            est = rate * work
+            if est > PLAIN_MQ_DEC_S:
+                npas = torch.clamp(npas, max=3)
+                note = (f"; every lane cut to its first 3 passes for the "
+                        f"comparison (the plain version at full depth: "
+                        f"~{est:.0f} s, estimated from the 32x32 group)")
+            else:
+                note = (f"; full depth (the plain version: ~{est:.0f} s, "
+                        f"estimated from the 32x32 group)")
+        args = (data, off, nbps, npas, ori, w, h)
+        got = mq_dec.decode_group(*args, with_stats=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mq_dec_torch.decode_group_plain(*args, with_stats=True)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        if (w, h) == (32, 32):
+            rate = plain_ms / 1e3 / work
+        for part, wv, g in zip(("samples", "statistics"), want, got):
+            if not torch.equal(wv, g):
+                raise AssertionError(
+                    f"{name} {part} differ from the plain version "
+                    f"({w}x{h} blocks, B={B})")
+        err = max(int((wv.to(torch.int64) - g.to(torch.int64)).abs().max())
+                  for wv, g in zip(want, got))
+        line = (f"kernel {name}: {w}x{h} blocks, B={B}, {data.numel()} "
+                f"segment bytes, up to {int(npas.max())} passes -> "
+                f"{tuple(got[0].shape)}: bit-exact with plain on every "
+                f"lane (plain {plain_ms:.1f} ms){note}")
+        if (w, h) == (64, 64):
+            full = (data, off, nbps, npas_full, ori, w, h)
+            for _ in range(3):
+                mq_dec.decode_group(*full)
+            ms = cuda_ms(lambda: mq_dec.decode_group(*full), 20)
+            packed, stats = mq_dec.decode_group(*full, with_stats=True)
+            nb = nbps.to(torch.int64)
+            visits = w * h * int(torch.minimum(
+                npas_full.to(torch.int64), (3 * nb - 2).clamp(min=0)).sum())
+            ndec, nbyte = (int(v) for v in stats.to(torch.int64).sum(1))
+            b_ms, b_by, b_terms = bound(
+                nbytes(data, off, nbps, npas_full, ori, packed, stats),
+                OPS["mqd_decision"] * ndec + OPS["mqd_byte"] * nbyte
+                + OPS["mqd_visit"] * visits)
+            results[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                 bound_ms=b_ms, bound_by=b_by)
+            line += (f"; kernel {ms:.3f} ms at full depth: {ndec} "
+                     f"decisions, {nbyte} BYTEINs, {visits} sample visits "
+                     f"(bound {b_ms:.4f} ms by {b_by}: {b_terms}; the "
+                     f"operation term an estimate)")
         print(line)
 
 
@@ -434,7 +532,8 @@ def main() -> int:
     from grokimagecompression_tpu_torch.core.params import EncoderParams
     from grokimagecompression_tpu_torch.models import fused_encode
     from grokimagecompression_tpu_torch.ops import (_build, ht_dec, ht_scan,
-                                                    ht_tables, mq_scan)
+                                                    ht_tables, mq_dec,
+                                                    mq_scan)
 
     # 1. the card
     smi = subprocess.run(
@@ -491,6 +590,9 @@ def main() -> int:
                                  chunk=CHUNK)
     check_decoder(first, dev, results)
     check_mq_scan(mq_enc, chunk, results)
+    check_mq_decoder(encoder.encode_batch(imgs[:CHUNK], mq_params,
+                                          device="cuda", chunk=CHUNK),
+                     dev, results)
 
     # 4. the encode slice, through the user entry point
     with open(os.path.join(root, DIGESTS)) as f:
@@ -550,8 +652,8 @@ def main() -> int:
                                                    chunk=CHUNK))
     print(f"decode_batch: {mpix / best:.2f} MP/s (best of 3, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
-    decode_stages(out[:CHUNK], dev)
-    stages = decode_stages(out[:CHUNK], dev)
+    decode_stages(out[:CHUNK], dev, "prepass (host)")
+    stages = decode_stages(out[:CHUNK], dev, "prepass (host)")
     print(f"one {CHUNK}-frame decode chunk by stage (host clock, "
           "synchronised): "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
@@ -587,6 +689,30 @@ def main() -> int:
           "synchronised): "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
 
+    # 7. the MQ decode slice, through the user entry point
+    mq_dec.LAUNCHES["mq_dec"] = 0
+    dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
+    torch.cuda.synchronize()
+    launches["mq_dec"] = mq_dec.LAUNCHES["mq_dec"]
+    print(f"MQ decode slice launches: {dict(mq_dec.LAUNCHES)}")
+    if launches["mq_dec"] < 1:
+        raise AssertionError("mq_dec_group was not launched by the slice")
+    if len(dec) != FRAMES:
+        raise AssertionError(f"{len(dec)} images for {FRAMES} MQ streams")
+    for i, (d, im) in enumerate(zip(dec, imgs)):
+        if not np.array_equal(d.components[0].data, im.components[0].data):
+            raise AssertionError(f"frame {i}: MQ decode is not lossless")
+    print(f"MQ decode slice: {FRAMES} frames decode to their sources exactly")
+    best = best_of(3, lambda: decoder.decode_batch(out, device="cuda",
+                                                   chunk=CHUNK))
+    print(f"decode_batch (MQ): {mpix / best:.2f} MP/s (best of 3, "
+          f"{best:.3f} s for {FRAMES} frames) on {card}")
+    decode_stages(out[:CHUNK], dev, "lane packing (host)")
+    stages = decode_stages(out[:CHUNK], dev, "lane packing (host)")
+    print(f"one {CHUNK}-frame MQ decode chunk by stage (host clock, "
+          "synchronised): "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[key],
@@ -594,7 +720,8 @@ def main() -> int:
              ms=results[name]["ms"], plain_ms=results[name]["plain_ms"],
              bound_ms=results[name]["bound_ms"],
              bound_by=results[name]["bound_by"], library_ms=None)
-        for name, key, _, replaces, source in SCANS + (DEC, MQ)]}))
+        for name, key, _, replaces, source in SCANS + (DEC, MQ,
+                                                       MQ_DEC)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """Batch decode entry point on a torch device.
 
-Port of `grokimagecompression_tpu/codestream/decoder.py` for the HT
-lossless slice. The main-header and tile-part walk (`CodestreamHeader`,
-`TilePart`, `_validate_siz`, `read_header`, `iter_tile_parts`) is copied
-from the reference; `decode_batch` is the port of the reference's fused
+Port of `grokimagecompression_tpu/codestream/decoder.py` for the
+lossless slices (HT, and Part-1 MQ in the default code-block style). The
+main-header and tile-part walk (`CodestreamHeader`, `TilePart`,
+`_validate_siz`, `read_header`, `iter_tile_parts`) is copied from the
+reference; `decode_batch` is the port of the reference's fused
 `decode_batch`: host T2 through the port's native T2, then the fused
 device decode of `models/fused_decode.py`.
 
@@ -255,8 +256,9 @@ def _out_of_slice(hdrs: List[CodestreamHeader],
            for h in hdrs[1:]):
         return "streams of different coding parameters"
     siz, cod, qcd = h0.siz, h0.cod, h0.qcd
-    if not cod.cblk_style & 0x40:
-        return "the MQ block coder"
+    if not cod.cblk_style & 0x40 and cod.cblk_style != 0:
+        return ("an MQ code-block style other than the default (bypass, "
+                "RESET, TERMALL, VSC, PTERM or SEGMARK)")
     if cod.transform != Transform.DWT_53 or qcd.style != QuantStyle.NONE:
         return "the irreversible (9/7) transform"
     if cod.mct not in (0, 1) or any(h.custom_mct is not None for h in hdrs):
@@ -294,7 +296,7 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List):
     for t, tr in enumerate(trs):
         r = decode_tile(b"".join(tile_bodies.get(t, [])), hdr.siz, hdr.cod,
                         hdr.qcd, tr)
-        if any(job[6] > 1 for job in r[0]):
+        if hdr.cod.cblk_style & 0x40 and any(job[6] > 1 for job in r[0]):
             raise NotImplementedError(
                 "decode_batch on a torch device does not cover HT "
                 "refinement passes yet")
@@ -339,12 +341,13 @@ def tile_groups(hdr: CodestreamHeader, trs, parsed
     tiles with equal band shapes but opposite origin parity invert
     differently and so get two plans. The streams share one header, so
     any stream's component plans of a tile stand for all of them."""
+    coder = "ht" if hdr.cod.cblk_style & 0x40 else "mq"
     groups: Dict[fused_decode.FusedDecPlan, List[int]] = {}
     for t, tr in enumerate(trs):
         if not any(t in tiles for _, tiles in parsed):
             continue
         plan = fused_decode.build_plan(parsed[0][0][t][2], hdr.siz,
-                                       hdr.cod, tr)
+                                       hdr.cod, tr, coder=coder)
         groups.setdefault(plan, []).append(t)
     return groups
 
@@ -353,15 +356,16 @@ def decode_batch(datas: List[bytes],
                  params: Optional[DecoderParams] = None,
                  device: DeviceLike = "cuda",
                  chunk: int = 32) -> List[Image]:
-    """Decode many same-geometry HT lossless codestreams (a serving
-    batch).
+    """Decode many same-geometry lossless codestreams (a serving batch),
+    coded with the HT block coder or the Part-1 MQ coder in the default
+    code-block style.
 
     T2 of every stream runs on a host thread pool; then the tiles of one
-    decode plan are decoded `chunk` at a time, each chunk one host
-    prepass, one upload and one fused device decode
-    (`models/fused_decode.py`). Every chunk is submitted before any is
-    collected. Frames may include different code-blocks of a tile: each
-    job goes to its code-block's lane. Decode mirror of
+    decode plan are decoded `chunk` at a time, each chunk one host pass
+    (the HT prepass or the MQ lane packing), one upload and one fused
+    device decode (`models/fused_decode.py`). Every chunk is submitted
+    before any is collected. Frames may include different code-blocks of
+    a tile: each job goes to its code-block's lane. Decode mirror of
     `encoder.encode_batch`."""
     dev = resolve_device(device)
     if not datas:

@@ -1,31 +1,40 @@
-"""Fused HT tile decode on the device: stream words in, samples out.
+"""Fused tile decode on the device: entropy-coded blocks in, samples out.
 
-Port of the HT half of `grokimagecompression_tpu/models/fused_decode.py`
+Port of `grokimagecompression_tpu/models/fused_decode.py`
 (`decode_tiles_device_submit` / `_collect` and the program of
-`_jitted_fused_dec_batch`). After the host has parsed the packets (T2)
-and unstuffed each block's cleanup segment into dense stream words
-(`native/ht_prepass.py`), one `FusedHTDecoder` per tile geometry runs,
-for a chunk of same-geometry tiles: the CUDA group decoder
-(`ops/ht_dec.py`) per block shape -> per-lane validity mask -> band-plane
-assembly -> inverse DWT, inverse MCT and DC unshift
+`_jitted_fused_dec_batch`), for both block coders. After the host has
+parsed the packets (T2), one fused decoder per tile geometry runs, for a
+chunk of same-geometry tiles, the group decoder of each block shape, then
+band-plane assembly and the inverse DWT, inverse MCT and DC unshift
 (`pipeline._inv_transform`). Only the sample planes come back.
+
+- HT (`FusedHTDecoder`): the host unstuffs each block's cleanup segment
+  into dense stream words (`native/ht_prepass.py`); the CUDA HT decoder
+  (`ops/ht_dec.py`) decodes them; a per-lane validity mask zeroes blocks
+  that a frame leaves out or whose segment is structurally invalid (they
+  decode a dummy two-byte segment).
+- MQ (`FusedMQDecoder`, Part-1, default code-block style): the host packs
+  each block's raw codeword segment (`ops/mq_dec.pack_lanes`); the CUDA MQ
+  decoder (`ops/mq_dec.py`) decodes them; a block that a frame leaves out
+  gets an idle lane (no pass) and stays zero. Nonzero magnitudes take a
+  per-lane reversible mid-point addend at the block's lowest decoded
+  plane (`_lane_halves`), so truncated blocks reconstruct like the host
+  decoder.
 
 The plan gives every code-block of the tile's geometry a lane, whether a
 frame includes it or not, and each frame's jobs go to their lanes by
 code-block position. Lanes are frame-major: frame f's blocks of a group
-sit at lanes f*B .. f*B+B-1. A block that the frame does not include, or
-whose segment is structurally invalid, decodes a dummy two-byte segment
-in its lane and is masked to zero (`valid`), so one plan serves any
-content.
+sit at lanes f*B .. f*B+B-1, so one plan serves any content.
 
 Band assembly is one `index_copy_` per shape group into a flat per-frame
 buffer holding every band of every component, with plan-static
 indices, in place of the reference's chain of per-block
 `dynamic_update_slice` calls.
 
-Scope: the HT cleanup pass, reversible 5/3; the CUDA decoder needs every
-band's Mb + 3 <= 32 (`ht_dec_pallas.supports`). Not ported: the MQ
-groups, 9/7 dequantization and the single-tile `decode_tile_device`.
+Scope: reversible 5/3. The HT decoder needs every band's Mb + 3 <= 32
+(`ht_dec_pallas.supports`); the MQ decoder keeps the sign in bit 31, so
+Mb <= 30, and one codeword segment per block. Not ported: 9/7
+dequantization and the single-tile `decode_tile_device`.
 """
 
 from __future__ import annotations
@@ -41,7 +50,8 @@ from torch import nn
 from ..core.geometry import Rect
 from ..core.params import Transform
 from ..native import ht_prepass
-from ..ops import ht_dec, ht_tables
+from ..ops import ht_dec, ht_tables, mq_dec
+from ..ops.quant import trunc_plane
 from . import pipeline
 
 DUMMY_SEGMENT = b"\x00\x00"
@@ -65,27 +75,36 @@ class DecBlock:
 
 @dataclasses.dataclass(frozen=True)
 class FusedDecPlan:
-    """Static per-tile-geometry HT decode plan (hashable)."""
+    """Static per-tile-geometry decode plan (hashable)."""
     cfg: pipeline.TileTransformConfig
     # (w, h, lanes) per shape group, sorted by (w, h)
     groups: Tuple[Tuple[int, int, Tuple[DecBlock, ...]], ...]
     band_shapes: Tuple[Tuple[int, int, int, int, int], ...]  # (c, r, o, h, w)
+    coder: str = "ht"           # the block coder: "ht" or "mq"
 
 
-def build_plan(plans, siz, cod, tile: Rect) -> FusedDecPlan:
+def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
+               ) -> FusedDecPlan:
     """The decode plan of one tile from its components' plans
-    (`codestream/tile.build_comp_plan`): a lane for every code-block of
-    the geometry, grouped by block (w, h), in the order of the tile's
-    code-blocks within each group. Raises NotImplementedError for the
-    9/7 transform and when a band's Mb + 3 exceeds 32 bits."""
+    (`codestream/tile.build_comp_plan`) for the block coder `coder`
+    ("ht" or "mq"): a lane for every code-block of the geometry, grouped
+    by block (w, h), in the order of the tile's code-blocks within each
+    group. Raises NotImplementedError for the 9/7 transform and when a
+    band's Mb exceeds the decoder's word: Mb + 3 > 32 for HT, Mb > 30 for
+    MQ (the sign rides in bit 31)."""
+    if coder not in ("ht", "mq"):
+        raise ValueError(f"unknown block coder {coder!r}")
     if cod.transform != Transform.DWT_53:
         raise NotImplementedError(
             "the irreversible (9/7) fused decode is not ported")
     cfg = pipeline.config_for_tile(siz, cod, tile)
     kmax = max(p.bands[k].kmax for p in plans for k in p.bands)
-    if kmax + 3 > 32:
+    if coder == "ht" and kmax + 3 > 32:
         raise NotImplementedError(
             f"band Mb {kmax}: the HT decoder needs Mb + 3 <= 32")
+    if coder == "mq" and kmax > mq_dec.MAX_PLANES:
+        raise NotImplementedError(
+            f"band Mb {kmax}: the MQ decoder needs Mb <= {mq_dec.MAX_PLANES}")
     keys = pipeline._band_keys(cfg.numresolutions)
     band_shapes = []
     for c, p in enumerate(plans):
@@ -108,7 +127,7 @@ def build_plan(plans, siz, cod, tile: Rect) -> FusedDecPlan:
         cfg=cfg,
         groups=tuple((w, h, tuple(groups[(w, h)]))
                      for (w, h) in sorted(groups)),
-        band_shapes=tuple(band_shapes))
+        band_shapes=tuple(band_shapes), coder=coder)
 
 
 def jobs_by_block(t1_jobs, t1_job_slots, plans) -> Dict[tuple, tuple]:
@@ -126,32 +145,70 @@ def _scup(seg: bytes) -> int:
     return (seg[-1] << 4) + (seg[-2] & 0xF)
 
 
+def _prepare_ht_group(jobs):
+    """(mel, vlc, ms, valid) of an HT lane group: (W, F*B) int32 stream
+    words and (F*B,) int32 validity."""
+    segs: List[bytes] = []
+    valid = np.zeros(len(jobs), np.int32)
+    for j, job in enumerate(jobs):
+        data = b"" if job is None else bytes(job[0])
+        ok = len(data) >= 2 and 2 <= _scup(data) <= len(data)
+        segs.append(data if ok else DUMMY_SEGMENT)
+        valid[j] = ok
+    lcups = [len(s) for s in segs]
+    scups = [_scup(s) if v else 2 for s, v in zip(segs, valid)]
+    mel, vlc, ms = ht_prepass.prepass_group(segs, lcups, scups)
+    return mel.view(np.int32), vlc.view(np.int32), ms.view(np.int32), valid
+
+
+def _lane_halves(nbps, npas) -> np.ndarray:
+    """Per-lane reversible mid-point addends: half of the block's lowest
+    decoded plane (`quant.trunc_plane`), 0 for a fully decoded block."""
+    pms = [trunc_plane(nb, n) for nb, n in zip(nbps, npas)]
+    return np.asarray([(1 << (pm - 1)) if pm > 0 else 0 for pm in pms],
+                      np.int32)
+
+
+def _prepare_mq_group(jobs):
+    """(data, off, nbps, npas, ori, halves) of an MQ lane group: the
+    `mq_dec.pack_lanes` arrays and the (F*B,) int32 mid-point addends. A
+    block with no job or no pass gets an idle lane. Raises
+    NotImplementedError for a block of several codeword segments."""
+    segs: List[bytes] = []
+    ori, nbps, npas = [], [], []
+    for job in jobs:
+        if job is not None and job[1] is not None and len(job[1]) > 1:
+            raise NotImplementedError(
+                "decode_batch on a torch device does not cover MQ blocks of "
+                "several codeword segments yet")
+        live = job is not None and job[5] > 0 and job[6] > 0
+        segs.append(bytes(job[0]) if live else b"")
+        ori.append(job[4] if live else 0)
+        nbps.append(job[5] if live else 0)
+        npas.append(job[6] if live else 0)
+    return mq_dec.pack_lanes(segs, ori, nbps, npas) + (
+        _lane_halves(nbps, npas),)
+
+
 def prepare_chunk(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
-    """Host prepass of a chunk: `frames` holds each frame's jobs for the
-    plan's tile, as `jobs_by_block` keys them. Returns per group (mel,
-    vlc, ms, valid) numpy arrays: (W, F*B) int32 stream words and (F*B,)
-    int32 validity. Raises ValueError when a frame has a job for a
+    """Host side of a chunk: `frames` holds each frame's jobs for the
+    plan's tile, as `jobs_by_block` keys them. Returns per group the
+    numpy arrays of `_prepare_ht_group` or `_prepare_mq_group`, lanes
+    frame-major. Raises ValueError when a frame has a job for a
     code-block that the plan does not hold."""
+    prepare = _prepare_mq_group if plan.coder == "mq" else _prepare_ht_group
     placed = [0] * len(frames)
     out = []
     for (_, _, lanes) in plan.groups:
-        segs: List[bytes] = []
-        valid = np.zeros(len(frames) * len(lanes), np.int32)
-        for f, jobs in enumerate(frames):
-            for j, blk in enumerate(lanes):
-                job = jobs.get(blk.slot)
-                data = b"" if job is None else bytes(job[0])
+        jobs = []
+        for f, frame in enumerate(frames):
+            for blk in lanes:
+                job = frame.get(blk.slot)
                 placed[f] += job is not None
-                ok = len(data) >= 2 and 2 <= _scup(data) <= len(data)
-                segs.append(data if ok else DUMMY_SEGMENT)
-                valid[f * len(lanes) + j] = ok
-        lcups = [len(s) for s in segs]
-        scups = [_scup(s) if v else 2 for s, v in zip(segs, valid)]
-        mel, vlc, ms = ht_prepass.prepass_group(segs, lcups, scups)
-        out.append((mel.view(np.int32), vlc.view(np.int32),
-                    ms.view(np.int32), valid))
-    for f, jobs in enumerate(frames):
-        if placed[f] != len(jobs):
+                jobs.append(job)
+        out.append(prepare(jobs))
+    for f, frame in enumerate(frames):
+        if placed[f] != len(frame):
             raise ValueError(f"frame {f} of the chunk has code-blocks "
                              f"outside the tile's decode plan")
     return out
@@ -163,19 +220,20 @@ def upload(arrays, device: torch.device):
                   for a in group) for group in arrays]
 
 
-class FusedHTDecoder(nn.Module):
-    """The fused HT decode for one plan. Buffers: the decode LUTs
-    (`ht_tables.device_dec_tables`) and the plan's static band
-    assembly indices. `forward(nframes, *groups)` takes per shape group
-    the (mel, vlc, ms, valid) tensors of `upload` for F = nframes frames
-    and returns one (F, h_c, w_c) int32 sample tensor per component."""
+class _FusedDecoder(nn.Module):
+    """What the two fused decoders share: the plan's static band
+    assembly indices (buffers) and the forward pass. A subclass gives
+    `decode(groups)`, per shape group the group decoder's output, and
+    `assemble(decoded, lasts, nframes)`, which turns them into signed
+    coefficients and calls `_scatter`; `lasts` holds the last array of
+    each group (validity for HT, mid-point addends for MQ)."""
 
-    def __init__(self, plan: FusedDecPlan, tables: Dict[str, torch.Tensor]):
+    def __init__(self, plan: FusedDecPlan, device: torch.device, grid):
+        """`grid(w, h)` is the (rows, columns) of one lane's coefficient
+        grid as `assemble` hands it to `_scatter`."""
         super().__init__()
         self.plan = plan
-        dev = tables["dec0"].device
-        self.register_buffer("dec0", tables["dec0"])
-        self.register_buffer("dec1", tables["dec1"])
+        self.device = device
         self._bands = {}    # (c, key) -> (offset, h, w) in the flat buffer
         off = 0
         for (c, r, o, bh, bw) in plan.band_shapes:
@@ -183,17 +241,54 @@ class FusedHTDecoder(nn.Module):
             off += bh * bw
         self._total = off
         for gi, (w, h, lanes) in enumerate(plan.groups):
-            nx, ny, _ = ht_dec.grid_dims(w, h)
+            gh, gw = grid(w, h)
             yy, xx = np.mgrid[0:h, 0:w]
             src, dst = [], []
             for li, b in enumerate(lanes):
                 boff, _, bw = self._bands[(b.comp, b.key)]
-                src.append(li * (2 * ny) * (4 * nx) + yy * (4 * nx) + xx)
+                src.append(li * gh * gw + yy * gw + xx)
                 dst.append(boff + (b.y0 + yy) * bw + b.x0 + xx)
             self.register_buffer(f"src{gi}", torch.as_tensor(
-                np.concatenate([s.ravel() for s in src]), device=dev))
+                np.concatenate([s.ravel() for s in src]), device=device))
             self.register_buffer(f"dst{gi}", torch.as_tensor(
-                np.concatenate([d.ravel() for d in dst]), device=dev))
+                np.concatenate([d.ravel() for d in dst]), device=device))
+
+    def _scatter(self, coeffs, nframes: int
+                 ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
+        """Per group (F*B, rows, columns) int32 coefficients scattered
+        into the band planes: one {(r, orient): (F, bh, bw)} dict per
+        component."""
+        flat = torch.zeros((nframes, self._total), dtype=torch.int32,
+                           device=self.device)
+        for gi, coeff in enumerate(coeffs):
+            vals = coeff.reshape(nframes, -1).index_select(
+                1, getattr(self, f"src{gi}"))
+            flat.index_copy_(1, getattr(self, f"dst{gi}"), vals)
+        ncomps = len(self.plan.cfg.tc_rects)
+        out: List[Dict[Tuple[int, int], torch.Tensor]] = [
+            {} for _ in range(ncomps)]
+        for (c, key), (off, bh, bw) in self._bands.items():
+            out[c][key] = flat[:, off:off + bh * bw].reshape(nframes, bh, bw)
+        return out
+
+    def forward(self, nframes: int, *groups) -> Tuple[torch.Tensor, ...]:
+        """Per shape group the tensors of `upload` for F = nframes frames
+        -> one (F, h_c, w_c) int32 sample tensor per component."""
+        decoded = self.decode(groups)
+        bands = self.assemble(decoded, [g[-1] for g in groups], nframes)
+        return pipeline._inv_transform(self.plan.cfg, bands)
+
+
+class FusedHTDecoder(_FusedDecoder):
+    """The fused HT decode for one plan. Buffers: the decode LUTs
+    (`ht_tables.device_dec_tables`) and the band assembly indices. A
+    group's tensors are (mel, vlc, ms, valid)."""
+
+    def __init__(self, plan: FusedDecPlan, tables: Dict[str, torch.Tensor]):
+        super().__init__(plan, tables["dec0"].device, lambda w, h: (
+            2 * ht_dec.grid_dims(w, h)[1], 4 * ht_dec.grid_dims(w, h)[0]))
+        self.register_buffer("dec0", tables["dec0"])
+        self.register_buffer("dec1", tables["dec1"])
 
     def tables(self) -> Dict[str, torch.Tensor]:
         return {"dec0": self.dec0, "dec1": self.dec1}
@@ -209,41 +304,55 @@ class FusedHTDecoder(nn.Module):
                  ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
         """Signed, validity-masked coefficients scattered into the band
         planes: one {(r, orient): (F, bh, bw)} dict per component."""
-        flat = torch.zeros((nframes, self._total), dtype=torch.int32,
-                           device=self.dec0.device)
-        for gi, ((mags, signs), valid) in enumerate(zip(grids, valids)):
-            coeff = torch.where(signs != 0, -mags, mags) \
-                * valid[:, None, None]
-            vals = coeff.reshape(nframes, -1).index_select(
-                1, getattr(self, f"src{gi}"))
-            flat.index_copy_(1, getattr(self, f"dst{gi}"), vals)
-        ncomps = len(self.plan.cfg.tc_rects)
-        out: List[Dict[Tuple[int, int], torch.Tensor]] = [
-            {} for _ in range(ncomps)]
-        for (c, key), (off, bh, bw) in self._bands.items():
-            out[c][key] = flat[:, off:off + bh * bw].reshape(nframes, bh, bw)
-        return out
+        return self._scatter(
+            [torch.where(signs != 0, -mags, mags) * valid[:, None, None]
+             for (mags, signs), valid in zip(grids, valids)], nframes)
 
-    def forward(self, nframes: int, *groups) -> Tuple[torch.Tensor, ...]:
-        grids = self.decode(groups)
-        bands = self.assemble(grids, [g[3] for g in groups], nframes)
-        return pipeline._inv_transform(self.plan.cfg, bands)
+
+class FusedMQDecoder(_FusedDecoder):
+    """The fused Part-1 MQ decode for one plan. A group's tensors are
+    (data, off, nbps, npas, ori, halves): the `mq_dec.pack_lanes` arrays
+    and the per-lane mid-point addends."""
+
+    def __init__(self, plan: FusedDecPlan, device: torch.device):
+        super().__init__(plan, device, lambda w, h: (h, w))
+
+    def decode(self, groups):
+        """The MQ decoder per shape group: [(h*w, F*B) int32 samples,
+        sign << 31 | magnitude]."""
+        return [mq_dec.decode_group(*g[:5], w, h)
+                for (w, h, _), g in zip(self.plan.groups, groups)]
+
+    def assemble(self, packed, halves, nframes: int
+                 ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
+        """Signed coefficients, nonzero magnitudes plus their lane's
+        mid-point addend, scattered into the band planes."""
+        coeffs = []
+        for (w, h, _), p, half in zip(self.plan.groups, packed, halves):
+            mag = p & 0x7FFFFFFF
+            mag = torch.where(mag != 0, mag + half, mag)
+            coeffs.append(torch.where(p < 0, -mag, mag).T.reshape(-1, h, w))
+        return self._scatter(coeffs, nframes)
 
 
 @functools.lru_cache(maxsize=64)
-def decoder_for(plan: FusedDecPlan, device: torch.device) -> FusedHTDecoder:
-    """The `FusedHTDecoder` of a plan on a device, built once and kept
-    for later batches of the same geometry."""
+def decoder_for(plan: FusedDecPlan, device: torch.device) -> _FusedDecoder:
+    """The fused decoder of a plan (`FusedHTDecoder` or `FusedMQDecoder`,
+    by its coder) on a device, built once and kept for later batches of
+    the same geometry."""
+    if plan.coder == "mq":
+        return FusedMQDecoder(plan, device)
     return FusedHTDecoder(plan, ht_tables.device_dec_tables(device))
 
 
-def decode_tiles_submit(decoder: FusedHTDecoder,
+def decode_tiles_submit(decoder: _FusedDecoder,
                         frames: Sequence[Dict[tuple, tuple]]):
-    """Prepass, upload and decode a chunk of same-geometry tiles (each
-    frame's jobs, as `jobs_by_block` keys them). Returns a handle for
-    `decode_tiles_collect`; the samples stay on the device until then."""
+    """Host side, upload and decode of a chunk of same-geometry tiles
+    (each frame's jobs, as `jobs_by_block` keys them). Returns a handle
+    for `decode_tiles_collect`; the samples stay on the device until
+    then."""
     arrays = prepare_chunk(decoder.plan, frames)
-    return decoder(len(frames), *upload(arrays, decoder.dec0.device))
+    return decoder(len(frames), *upload(arrays, decoder.device))
 
 
 def decode_tiles_collect(handle) -> List[List[np.ndarray]]:

@@ -32,7 +32,8 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-SOURCES = ("ht_scan.cu", "ht_dec.cu", "mq_scan.cu")
+SOURCES = ("ht_scan.cu", "ht_dec.cu", "mq_scan.cu", "mq_dec.cu")
+HEADERS = ("mq_tables.cuh",)
 LIBRARY = os.path.join(BUILD_DIR, "libgrok_kernels.so")
 
 HOST_CSRC = os.path.join(CSRC, "host")
@@ -79,7 +80,8 @@ def build() -> Tuple[str, str]:
     (path to the .so, compiler output; empty when up to date)."""
     srcs = [os.path.join(CSRC, s) for s in SOURCES]
     if os.path.exists(LIBRARY) and all(
-            os.path.getmtime(LIBRARY) >= os.path.getmtime(s) for s in srcs):
+            os.path.getmtime(LIBRARY) >= os.path.getmtime(s)
+            for s in srcs + [os.path.join(CSRC, f) for f in HEADERS]):
         return LIBRARY, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
@@ -167,4 +169,8 @@ def load() -> ctypes.CDLL:
     lib.mq_scan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
         + [ctypes.c_void_p] * 5
     lib.mq_scan.restype = ctypes.c_int
+    # (data, off, nbps, npas, ori, B, w, h, out, stats, stream)
+    lib.mq_dec_group.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 3
+    lib.mq_dec_group.restype = ctypes.c_int
     return lib

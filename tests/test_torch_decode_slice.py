@@ -195,7 +195,7 @@ def test_equals_reference_fused_decode_batch():
 
 def test_out_of_slice_raises():
     img = _frames(1, 24, 24)
-    for params in (EncoderParams(cblk_style=0),
+    for params in (EncoderParams(cblk_style=0x01),   # MQ with bypass
                    EncoderParams(cblk_style=HT, transform=Transform.DWT_97),
                    EncoderParams(cblk_style=HT, ht_refinement=True),
                    EncoderParams(cblk_style=HT, ppt_markers=True),

@@ -7,8 +7,8 @@ tile packet parse (jobs and slots), `build_comp_plan` and `default_qcd`
 must equal the reference's; its native T2 must agree with its Python
 T2; the config-1 digest files that `chip_smoke.py` checks the card's
 streams against (HT and MQ) must equal digests made afresh with the
-reference host encoder; and the port's MQ tables must equal the
-reference's.
+reference host encoder; and the port's MQ tables and `trunc_plane` must
+equal the reference's.
 
 Run `PYTHONPATH=. python tests/test_torch_host_copies.py` from the
 repository root to rewrite the digest files.
@@ -231,6 +231,15 @@ def test_mq_tables_equal_reference():
     assert mq_tables.NSTATE == mq_jax.NSTATE - 2
     assert mq_tables.STATE_INIT == (mq_jax.STATE_INIT[:4]
                                     + mq_jax.STATE_INIT[6:])
+
+
+def test_trunc_plane_equals_reference():
+    from grokimagecompression_tpu.ops import quant as ref_quant
+    from grokimagecompression_tpu_torch.ops import quant
+    for nb in range(-1, 18):
+        for npas in range(-1, 3 * max(nb, 1) + 2):
+            assert quant.trunc_plane(nb, npas) == \
+                ref_quant.trunc_plane(nb, npas), (nb, npas)
 
 
 def test_port_frames_digest_like_reference_frames():

@@ -161,10 +161,10 @@ def test_cuda_request_without_cuda_raises():
 
 
 def test_port_runs_without_jax():
-    """Encode and decode round trip with both JAX and the reference
-    package blocked, and an MQ encode; each stream equals the reference
-    host encoder's, made in this process from the same frame. The MQ
-    modules are imported there too."""
+    """Encode and decode round trips with both JAX and the reference
+    package blocked, with the HT and the MQ coder; each stream equals the
+    reference host encoder's, made in this process from the same frame.
+    The MQ modules are imported there too."""
     rng = np.random.default_rng(5)
     data = rng.integers(0, 256, (64, 64)).astype(np.int32)
     params = EncoderParams(numresolutions=3, cblk_style=HT)
@@ -180,8 +180,8 @@ def test_port_runs_without_jax():
         from grokimagecompression_tpu_torch.codestream import decoder, encoder
         from grokimagecompression_tpu_torch.core.image import Component, Image
         from grokimagecompression_tpu_torch.core.params import EncoderParams
-        from grokimagecompression_tpu_torch.ops import (mq_scan, mq_tables,
-                                                        mq_torch)
+        from grokimagecompression_tpu_torch.ops import (
+            mq_dec, mq_dec_torch, mq_scan, mq_tables, mq_torch, quant)
         data = np.random.default_rng(5).integers(0, 256, (64, 64)).astype(
             np.int32)
         img = Image(xsiz=64, ysiz=64, components=[Component(
@@ -197,6 +197,8 @@ def test_port_runs_without_jax():
             [small], EncoderParams(numresolutions=2, cblk_style=0),
             device="cpu")
         assert cs.hex() == "{want_mq.hex()}"
+        (out,) = decoder.decode_batch([cs], device="cpu")
+        assert np.array_equal(out.components[0].data, data[:8, :12])
         assert not any(m.split(".")[0] in ("jax", "grokimagecompression_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")
