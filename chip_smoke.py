@@ -1,49 +1,63 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA GPU: build, check, run, time.
 
-Drives the port's four paths at BASELINE config 1 (512x512 8-bit gray,
-5/3, 6 resolutions, 64x64 code-blocks, 64 frames in 32-frame chunks): the
+Drives the port's five paths: at BASELINE config 1 (512x512 8-bit gray,
+5/3, 6 resolutions, 64x64 code-blocks, 64 frames in 32-frame chunks) the
 fused HT lossless encode through
 `grokimagecompression_tpu_torch.codestream.encoder.encode_batch`, its
 decode mirror through `codestream.decoder.decode_batch`, the Part-1 MQ
 lossless encode (default code-block style 0) through `encode_batch`, and
-its decode mirror through `decode_batch`; and checks every CUDA kernel on
-those paths against its plain PyTorch version. It imports only the port,
-torch, numpy and the standard library.
+its decode mirror through `decode_batch`; and at BASELINE config 2
+(2048x2048 8-bit RGB, ICT + 9/7, 6 resolutions, three quality layers at
+compression ratios 24, 48 and 96, PCRD rate control; 4 frames in 2-frame
+chunks) the rate-controlled MQ encode through `encode_batch`. It checks
+every CUDA kernel on those paths against its plain PyTorch version, and
+imports only the port, torch, numpy and the standard library.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the software versions;
   2. building the CUDA kernels from csrc/*.cu with nvcc (one process per
      source, all started together) and the port's host library from
      csrc/host/*.cpp with g++;
-  3. the kernels at the config-1 shapes, each equal to its plain version
-     on every lane and both timed with CUDA events: the three encode scans
-     on the three shape groups of one chunk, the HT decoder on the three
-     lane groups of one chunk of the encoded streams, the MQ coder on
-     the slot streams of the three MQ shape groups of one chunk (the plain
-     version steps over each lane's coding slots only: the others leave
-     its coder as it is), and the MQ decoder on the three lane groups of
+  3. the kernels at the main paths' shapes, each equal to its plain
+     version on every lane and both timed with CUDA events: the three
+     encode scans on the three shape groups of one chunk, the HT decoder on
+     the three lane groups of one chunk of the encoded streams, the MQ coder
+     on the slot streams of the three MQ shape groups of one chunk (the
+     plain version steps over each lane's coding slots only: the others
+     leave its coder as it is), the MQ decoder on the three lane groups of
      one chunk of MQ streams (16x16 and 32x32 at full depth; 64x64 at full
      depth when the plain version's time, estimated from the 32x32 group,
      is at most 90 s, else every lane cut to its first 3 passes for the
-     comparison; the kernel is timed at full depth);
+     comparison; the kernel is timed at full depth), the DWT forward and
+     inverse, 5/3 and 9/7, at the config-1 chunk shape, the config-2 frame
+     shape, an odd-origin rect and a rect with single-sample levels, and
+     the MQ coder's pass-end byte-outs on 64 lanes of the config-2 group
+     (cut to the planes whose coding the plain version does in ~30 s);
   4. the encode slice: the 64 frames and the 64 streams of
      encode_batch(device="cuda") against the SHA-256 digests of
      grokimagecompression_tpu_torch/data/config1_ht_lossless.json (the
      frames, and the reference host encoder's streams), every scan kernel
-     launched by that run; MP/s (best of 3) and one chunk's time by stage;
+     and the DWT launched by that run; MP/s (best of 3) and one chunk's
+     time by stage;
   5. the decode slice: the 64 streams through decode_batch(device="cuda"),
-     every frame equal to its source, the decode kernel launched by that
-     run; MP/s (best of 3) and one chunk's time by stage;
+     every frame equal to its source, the decode kernel and the DWT
+     launched by that run; MP/s (best of 3) and one chunk's time by stage;
   6. the MQ encode slice: the 64 frames through encode_batch(device=
      "cuda") with cblk_style 0, every stream against
      grokimagecompression_tpu_torch/data/config1_mq_lossless.json (the
-     reference host encoder's), the MQ kernel launched by that run; MP/s
-     (best of 3) and one chunk's time by stage;
+     reference host encoder's), the MQ kernel and the DWT launched by that
+     run; MP/s (best of 3) and one chunk's time by stage;
   7. the MQ decode slice: the 64 MQ streams of phase 6 through
      decode_batch(device="cuda"), every frame equal to its source, the MQ
-     decoder launched by that run; MP/s (best of 3) and one chunk's time
-     by stage.
+     decoder and the DWT launched by that run; MP/s (best of 3) and one
+     chunk's time by stage;
+  8. the config-2 encode slice: the 4 frames through encode_batch(device=
+     "cuda", chunk=2), every stream against
+     grokimagecompression_tpu_torch/data/config2_pcrd_97.json (the
+     reference host encoder's, run with its numpy DWT), the DWT and the MQ
+     kernel launched by that run; each layer's bytes, MP/s (best of 3) and
+     one chunk's time by stage.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -82,6 +96,19 @@ MQ = ("mq_scan", "mq", "mq_scan_plain",
 MQ_DEC = ("mq_dec_group", "mq_dec", "decode_group_plain",
           "grokimagecompression_tpu/ops/mq_dec_pallas.py:594",
           "grokimagecompression_tpu_torch/csrc/mq_dec.cu")
+DWT = ("dwt", "dwt", "dwt_torch",
+       "grokimagecompression_tpu/ops/dwt_pallas.py:254",
+       "grokimagecompression_tpu_torch/csrc/dwt.cu")
+# BASELINE config 2: 2048x2048 8-bit RGB, ICT + 9/7, three layers at
+# compression ratios 24 / 48 / 96 (the reference's bench_chip_pcrd2k)
+C2_FRAMES = 4
+C2_CHUNK = 2
+C2_SIZE = 2048
+C2_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                          "config2_pcrd_97.json")
+# the plain MQ coder's decisions allowed in the config-2 byte-out check
+# (~1.5 ms a decision on the card)
+PLAIN_MQ_DECISIONS = 20000
 # the plain MQ decoder's longest run allowed at full depth on the 64x64
 # group (seconds, estimated from the 32x32 group's run)
 PLAIN_MQ_DEC_S = 90
@@ -105,8 +132,15 @@ STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
 # this run's data): 10 per decoded decision (C.3.2's shortest path), 10
 # per byte taken in (BYTEIN), and 2 per sample visit per pass (the
 # membership test).
+# The DWT (on this run's shapes): 9/7 a lifting step is an add, a multiply
+# and an add on half of a line's samples, four steps and a scaling multiply
+# a pass: 7 float32 operations a sample and pass, two passes a level; 5/3
+# predict (add, shift, subtract) and update (two adds, shift, add) on
+# halves: 3.5 integer operations a sample and pass. Float32 at the card's
+# 67 TFLOP/s (its published non-tensor peak).
 HBM_BYTES_S = 3.35e12
 INT_OPS_S = 132 * 64 * 1.98e9
+F32_OPS_S = 67e12
 OPS = {"mel": 25, "vlc": 30, "ms": 30, "dec_step": 200, "dec_sample": 25,
        "mq_decision": 10, "mq_byte": 10, "mqd_decision": 10, "mqd_byte": 10,
        "mqd_visit": 2}
@@ -125,6 +159,33 @@ def config1_frames(n, seed=42, size=SIZE):
     return [Image(xsiz=size, ysiz=size, components=[Component(
         data=(base + i) % 256, prec=8, signed=False, dx=1, dy=1)])
         for i in range(n)]
+
+
+def config2_frames(n, size=C2_SIZE):
+    """BASELINE config-2 frames as the repository's bench makes them
+    (`bench_chip_pcrd2k`): per component c a smooth wave 128 + 60
+    sin(y / 37 + shift) cos(x / (29 + c)) plus uniform texture in [0, 24),
+    frames shift = 0, 1, ... drawn from one generator seeded 3. The wave is
+    evaluated on broadcast row and column vectors: the same float64
+    operations on each sample as the bench's full coordinate grids."""
+    import numpy as np
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+
+    rng = np.random.default_rng(3)
+    y = np.arange(size)[:, None]
+    x = np.arange(size)[None, :]
+    frames = []
+    for shift in range(n):
+        comps = []
+        for c in range(3):
+            base = (128 + 60 * np.sin(y / 37.0 + shift)
+                    * np.cos(x / (29.0 + c))).astype(np.int32)
+            tex = rng.integers(0, 24, (size, size))
+            comps.append(Component(
+                data=np.clip(base + tex, 0, 255).astype(np.int32), prec=8,
+                signed=False, dx=1, dy=1))
+        frames.append(Image(xsiz=size, ysiz=size, components=comps))
+    return frames
 
 
 def frame_digest(img) -> str:
@@ -154,10 +215,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(nbytes_moved: int, ops: float):
-    """(bound in ms, what sets it, "bytes a ms, operations b ms")."""
+def bound(nbytes_moved: int, ops: float, ops_s: float = INT_OPS_S):
+    """(bound in ms, what sets it, "bytes a ms, operations b ms"), the
+    operations at `ops_s` a second."""
     t_bytes = nbytes_moved / HBM_BYTES_S
-    t_ops = ops / INT_OPS_S
+    t_ops = ops / ops_s
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations",
             f"bytes {1e3 * t_bytes:.4f} ms, operations {1e3 * t_ops:.4f} ms")
@@ -465,6 +527,188 @@ def check_mq_decoder(streams, dev, results):
         print(line)
 
 
+def dwt_work(shape, rect, nres, reversible):
+    """(bytes a transform moves at least: its input read and its output
+    written once; its operations: per level region sample two passes of
+    7 float32 (9/7) or 3.5 integer (5/3) operations)."""
+    import math
+
+    from grokimagecompression_tpu_torch.core.geometry import resolution_rect
+    n = math.prod(shape[:-2])
+    area = sum(resolution_rect(rect, nres, nres - 1 - lev).h
+               * resolution_rect(rect, nres, nres - 1 - lev).w
+               for lev in range(nres - 1))
+    return 2 * 4 * math.prod(shape), n * area * 2 * (3.5 if reversible
+                                                      else 7)
+
+
+def check_dwt(dev, results):
+    """Phase 3, DWT: forward and inverse, 5/3 and 9/7, at the config-1
+    chunk, the config-2 frame, an odd-origin rect and a rect with
+    single-sample levels, each bit-exact with the plain version; the two
+    main shapes timed."""
+    import torch
+
+    from grokimagecompression_tpu_torch.core.geometry import Rect
+    from grokimagecompression_tpu_torch.ops import dwt, dwt_torch
+    cases = (("config-1 chunk", (CHUNK, SIZE, SIZE), Rect(0, 0, SIZE, SIZE),
+              6, True),
+             ("config-2 frame", (3, C2_SIZE, C2_SIZE),
+              Rect(0, 0, C2_SIZE, C2_SIZE), 6, False),
+             ("odd origin", (2, 67, 93), Rect(1, 3, 94, 70), 4, None),
+             ("single-sample levels", (2, 17, 1), Rect(5, 2, 6, 19), 3,
+              None))
+    gen = torch.Generator().manual_seed(0)
+    for label, shape, rect, nres, timed in cases:
+        for rev in (True, False):
+            x = torch.randint(-128, 128, shape, generator=gen,
+                              dtype=torch.int32)
+            if not rev:
+                x = x + torch.rand(shape, generator=gen)
+            x = x.to(dev)
+            got = dwt.fwd_dwt_2d(x, rect, nres, rev)
+            want = dwt_torch.fwd_dwt_2d(x, rect, nres, rev)
+            back = dwt.inv_dwt_2d(got, rect, nres, rev)
+            back_want = dwt_torch.inv_dwt_2d(want, rect, nres, rev)
+            torch.cuda.synchronize()
+            err = 0.0
+            for k in want:
+                if not torch.equal(got[k], want[k]):
+                    raise AssertionError(f"dwt forward band {k} differs from "
+                                         f"the plain version ({label}, "
+                                         f"{'5/3' if rev else '9/7'})")
+            if not torch.equal(back, back_want):
+                raise AssertionError(f"dwt inverse differs from the plain "
+                                     f"version ({label}, "
+                                     f"{'5/3' if rev else '9/7'})")
+            line = (f"kernel dwt: {label} {tuple(shape)} at "
+                    f"({rect.x0}, {rect.y0}), {nres} resolutions, "
+                    f"{'5/3 int32' if rev else '9/7 float32'}: forward and "
+                    f"inverse bit-exact with plain")
+            if timed is rev:
+                nb, ops = dwt_work(shape, rect, nres, rev)
+                b_ms, b_by, b_terms = bound(nb, ops,
+                                            INT_OPS_S if rev else F32_OPS_S)
+                for name, kern, plain, arg in (
+                        ("forward", dwt.fwd_dwt_2d, dwt_torch.fwd_dwt_2d, x),
+                        ("inverse", dwt.inv_dwt_2d, dwt_torch.inv_dwt_2d,
+                         got)):
+                    ms, plain_ms = time_kernel(
+                        lambda a, k=kern: k(a, rect, nres, rev),
+                        lambda a, p=plain: p(a, rect, nres, rev), (arg,))
+                    line += (f"; {name} {ms:.3f} ms (plain {plain_ms:.1f} "
+                             f"ms, bound {b_ms:.4f} ms by {b_by}: "
+                             f"{b_terms})")
+                    if label == "config-2 frame" and name == "forward":
+                        results["dwt"] = dict(ms=ms, plain_ms=plain_ms,
+                                              max_abs_err=err, bound_ms=b_ms,
+                                              bound_by=b_by)
+            print(line)
+
+
+def check_mq_cumbo(enc, chunk):
+    """Phase 3, MQ byte-outs: the MQ coder's pass-end byte-outs, with its
+    segments, lengths and state, on 64 lanes spread over the config-2
+    group of one frame, against the plain version; cut to the leading
+    planes in which no lane codes more than PLAIN_MQ_DECISIONS
+    decisions."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+    ((mag, neg, orient),) = list(enc.group_inputs(*chunk))
+    _, slots, _ = enc.group_slots(mag, neg, orient)
+    h, w = mag.shape[1:]
+    spans = mq_torch.pass_spans_padded(h, w)
+    tp = sum(spans)
+    npl = slots.shape[0] // tp
+    lanes = torch.linspace(0, slots.shape[1] - 1, 64,
+                           device=slots.device).round().long()
+    sub = slots[:, lanes]
+    coded = (sub.view(npl, tp, 64) & 1).sum(dim=1).cumsum(0).amax(dim=1)
+    keep = max(1, int((coded <= PLAIN_MQ_DECISIONS).sum()))
+    sub = sub[:keep * tp].contiguous()
+    got = mq_scan.mq_scan(sub, spans)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = mq_torch.mq_scan_plain(sub, spans)
+    stop.record()
+    torch.cuda.synchronize()
+    for part, wv, g in zip(("segments", "lengths", "state", "byte-outs"),
+                           want, got):
+        if not torch.equal(wv, g):
+            raise AssertionError(f"mq_scan {part} differ from the plain "
+                                 f"version (config-2 lanes, {keep} planes)")
+    print(f"kernel mq_scan with pass-end byte-outs: config-2 group "
+          f"{h}x{w}, 64 of {slots.shape[1]} lanes, {keep} of {npl} planes "
+          f"(T={sub.shape[0]}), {int(coded[keep - 1])} decisions in the "
+          f"deepest lane -> cumbo {tuple(got[3].shape)}: bit-exact with "
+          f"plain (plain {start.elapsed_time(stop):.1f} ms)")
+
+
+def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
+    """Time of one config-2 chunk by stage (host clock, synchronised; the
+    host stages serial, one frame after another) and each frame's bytes
+    by layer."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import pcrd, tile
+    from grokimagecompression_tpu_torch.models import fused_encode, pipeline
+    from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+    stages = {}
+    tt = time.perf_counter
+    torch.cuda.synchronize()
+    t = tt()
+    pipeline._fwd_transform(enc.plan.cfg, chunk)
+    torch.cuda.synchronize()
+    stages["transform (DWT kernel)"] = tt() - t
+    t = tt()
+    gin = list(enc.group_inputs(*chunk))
+    torch.cuda.synchronize()
+    stages["quantize + gather"] = tt() - t - stages["transform (DWT kernel)"]
+    t = tt()
+    built = [enc.group_slots(*g) for g in gin]
+    torch.cuda.synchronize()
+    stages["slot build + distortions"] = tt() - t
+    t = tt()
+    scans = [mq_scan.mq_scan(slots, mq_torch.pass_spans_padded(h, w))
+             for (h, w, _), (_, slots, _) in zip(enc.plan.groups, built)]
+    torch.cuda.synchronize()
+    stages["mq_scan"] = tt() - t
+    t = tt()
+    outs = [torch.cat([b[0] for b in built]), torch.cat([s[1] for s in scans]),
+            torch.cat([s[0] for s in scans])]
+    for sc, b in zip(scans, built):
+        outs += [sc[3], b[2].reshape(-1, sc[3].shape[1])]
+    outs = [o.cpu().numpy() for o in outs]
+    stages["fetch"] = tt() - t
+    t = tt()
+    segs = fused_encode.assemble_collected_mq(enc.plan, chunk[0].shape[0],
+                                              *outs)
+    stages["R-D tables (host)"] = tt() - t
+    pcrd_s = [0.0]
+    layers = []
+
+    def timed(alloc):
+        def run(ctx):
+            t0 = tt()
+            alloc(ctx)
+            pcrd_s[0] += tt() - t0
+            cum = [ctx.simulate_upto(l) for l in range(ctx.numlayers)]
+            layers.append([b - a for a, b in zip([0] + cum, cum)])
+        return run
+
+    t = tt()
+    for f in range(chunk[0].shape[0]):
+        tile.encode_tile(segs[f], siz, cod, qcd, tr,
+                         layer_alloc=timed(pcrd.make_layer_alloc(imgs[f],
+                                                                 params)))
+    stages["host PCRD"] = pcrd_s[0]
+    stages["host T2"] = tt() - t - pcrd_s[0]
+    return stages, layers
+
+
 def mq_encode_stages(mq_enc, chunk, imgs, params):
     """Time of one 32-frame MQ encode chunk by stage (host clock,
     synchronised); the host T2 runs on encode_batch's 4-thread pool."""
@@ -529,11 +773,12 @@ def main() -> int:
     from grokimagecompression_tpu_torch.codestream import decoder, encoder
     from grokimagecompression_tpu_torch.codestream.tile import default_qcd
     from grokimagecompression_tpu_torch.core.geometry import tile_rect
-    from grokimagecompression_tpu_torch.core.params import EncoderParams
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
     from grokimagecompression_tpu_torch.models import fused_encode
-    from grokimagecompression_tpu_torch.ops import (_build, ht_dec, ht_scan,
-                                                    ht_tables, mq_dec,
-                                                    mq_scan)
+    from grokimagecompression_tpu_torch.ops import (_build, dwt, ht_dec,
+                                                    ht_scan, ht_tables,
+                                                    mq_dec, mq_scan)
 
     # 1. the card
     smi = subprocess.run(
@@ -582,6 +827,23 @@ def main() -> int:
                          mq_params.base_step)
     mq_enc = fused_encode.FusedMQEncoder(
         fused_encode.build_plan(siz, mq_cod, mq_qcd, tr, coder="mq"), dev)
+    c2_params = EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                              numlayers=3, rates=(24.0, 48.0, 96.0))
+    c2_imgs = config2_frames(C2_FRAMES)
+    c2_siz = encoder.build_siz(c2_imgs[0], c2_params)
+    c2_cod = encoder.build_cod(c2_imgs[0], c2_params)
+    c2_qcd = default_qcd(c2_siz, c2_cod, c2_params.num_guard_bits,
+                         c2_params.base_step)
+    c2_tr = tile_rect(0, c2_siz.xsiz, c2_siz.ysiz, c2_siz.xosiz,
+                      c2_siz.yosiz, c2_siz.xtsiz, c2_siz.ytsiz,
+                      c2_siz.xtosiz, c2_siz.ytosiz)
+    c2_enc = fused_encode.FusedMQEncoder(fused_encode.build_plan(
+        c2_siz, c2_cod, c2_qcd, c2_tr, coder="mq", want_rd=True), dev)
+
+    def c2_chunk(lo, hi):
+        return [torch.from_numpy(np.stack(
+            [im.components[c].data for im in c2_imgs[lo:hi]]).astype(
+                np.uint8)).to(dev) for c in range(3)]
 
     # 3. kernels against their plain versions, at one chunk's shapes
     results = {}
@@ -593,6 +855,9 @@ def main() -> int:
     check_mq_decoder(encoder.encode_batch(imgs[:CHUNK], mq_params,
                                           device="cuda", chunk=CHUNK),
                      dev, results)
+    check_dwt(dev, results)
+    check_mq_cumbo(c2_enc, c2_chunk(0, 1))
+    torch.cuda.empty_cache()
 
     # 4. the encode slice, through the user entry point
     with open(os.path.join(root, DIGESTS)) as f:
@@ -607,13 +872,17 @@ def main() -> int:
     launches = {}
     for k in ht_scan.LAUNCHES:
         ht_scan.LAUNCHES[k] = 0
+    dwt.LAUNCHES["dwt"] = 0
     out = encoder.encode_batch(imgs, params, device="cuda", chunk=CHUNK)
     torch.cuda.synchronize()
     launches.update(ht_scan.LAUNCHES)
-    print(f"encode slice launches: {dict(ht_scan.LAUNCHES)}")
+    print(f"encode slice launches: {dict(ht_scan.LAUNCHES)}, "
+          f"{dict(dwt.LAUNCHES)}")
     for name, key, _, _, _ in SCANS:
         if launches[key] < 1:
             raise AssertionError(f"{name} was not launched by the slice")
+    if dwt.LAUNCHES["dwt"] < 1:
+        raise AssertionError("the DWT kernel was not launched by the slice")
     if len(out) != FRAMES:
         raise AssertionError(f"{len(out)} streams for {FRAMES} frames")
     for i, cs in enumerate(out):
@@ -636,12 +905,17 @@ def main() -> int:
 
     # 5. the decode slice, through the user entry point
     ht_dec.LAUNCHES["dec"] = 0
+    dwt.LAUNCHES["dwt"] = 0
     dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
     torch.cuda.synchronize()
     launches["dec"] = ht_dec.LAUNCHES["dec"]
-    print(f"decode slice launches: {dict(ht_dec.LAUNCHES)}")
+    print(f"decode slice launches: {dict(ht_dec.LAUNCHES)}, "
+          f"{dict(dwt.LAUNCHES)}")
     if launches["dec"] < 1:
         raise AssertionError("ht_dec_group was not launched by the slice")
+    if dwt.LAUNCHES["dwt"] < 1:
+        raise AssertionError("the DWT kernel was not launched by the "
+                             "decode slice")
     if len(dec) != FRAMES:
         raise AssertionError(f"{len(dec)} images for {FRAMES} streams")
     for i, (d, im) in enumerate(zip(dec, imgs)):
@@ -664,12 +938,17 @@ def main() -> int:
     if mq_digests["frames"] != digests["frames"]:
         raise AssertionError("the two digest files hold other frames")
     mq_scan.LAUNCHES["mq"] = 0
+    dwt.LAUNCHES["dwt"] = 0
     out = encoder.encode_batch(imgs, mq_params, device="cuda", chunk=CHUNK)
     torch.cuda.synchronize()
     launches["mq"] = mq_scan.LAUNCHES["mq"]
-    print(f"MQ encode slice launches: {dict(mq_scan.LAUNCHES)}")
+    print(f"MQ encode slice launches: {dict(mq_scan.LAUNCHES)}, "
+          f"{dict(dwt.LAUNCHES)}")
     if launches["mq"] < 1:
         raise AssertionError("mq_scan was not launched by the MQ slice")
+    if dwt.LAUNCHES["dwt"] < 1:
+        raise AssertionError("the DWT kernel was not launched by the MQ "
+                             "slice")
     if len(out) != FRAMES:
         raise AssertionError(f"{len(out)} MQ streams for {FRAMES} frames")
     for i, cs in enumerate(out):
@@ -691,12 +970,17 @@ def main() -> int:
 
     # 7. the MQ decode slice, through the user entry point
     mq_dec.LAUNCHES["mq_dec"] = 0
+    dwt.LAUNCHES["dwt"] = 0
     dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
     torch.cuda.synchronize()
     launches["mq_dec"] = mq_dec.LAUNCHES["mq_dec"]
-    print(f"MQ decode slice launches: {dict(mq_dec.LAUNCHES)}")
+    print(f"MQ decode slice launches: {dict(mq_dec.LAUNCHES)}, "
+          f"{dict(dwt.LAUNCHES)}")
     if launches["mq_dec"] < 1:
         raise AssertionError("mq_dec_group was not launched by the slice")
+    if dwt.LAUNCHES["dwt"] < 1:
+        raise AssertionError("the DWT kernel was not launched by the MQ "
+                             "decode slice")
     if len(dec) != FRAMES:
         raise AssertionError(f"{len(dec)} images for {FRAMES} MQ streams")
     for i, (d, im) in enumerate(zip(dec, imgs)):
@@ -713,6 +997,51 @@ def main() -> int:
           "synchronised): "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
 
+    # 8. the config-2 rate-controlled encode, through the user entry point
+    with open(os.path.join(root, C2_DIGESTS)) as f:
+        c2_digests = json.load(f)
+    got = [frame_digest(im) for im in c2_imgs]
+    if got != c2_digests["frames"]:
+        bad = [i for i, (g, w) in enumerate(zip(got, c2_digests["frames"]))
+               if g != w]
+        raise AssertionError(f"config-2 frames {bad} differ from the digest "
+                             f"file: numpy makes other frames here")
+    c2_mpix = C2_FRAMES * C2_SIZE * C2_SIZE / 1e6
+    dwt.LAUNCHES["dwt"] = 0
+    mq_scan.LAUNCHES["mq"] = 0
+    out = encoder.encode_batch(c2_imgs, c2_params, device="cuda",
+                               chunk=C2_CHUNK)
+    torch.cuda.synchronize()
+    launches["dwt"] = dwt.LAUNCHES["dwt"]
+    print(f"config-2 encode slice launches: {dict(dwt.LAUNCHES)}, "
+          f"{dict(mq_scan.LAUNCHES)}")
+    if launches["dwt"] < 1 or mq_scan.LAUNCHES["mq"] < 1:
+        raise AssertionError("the DWT or the MQ kernel was not launched by "
+                             "the config-2 slice")
+    if len(out) != C2_FRAMES:
+        raise AssertionError(f"{len(out)} streams for {C2_FRAMES} frames")
+    for i, cs in enumerate(out):
+        if hashlib.sha256(cs).hexdigest() != c2_digests["streams"][i]:
+            raise AssertionError(f"config-2 frame {i}: stream differs from "
+                                 f"the host encoder's ({len(cs)} B)")
+    print(f"config-2 encode slice: {C2_FRAMES} streams match the host "
+          f"encoder's digests ({[len(cs) for cs in out]} B)")
+    best = best_of(3, lambda: encoder.encode_batch(
+        c2_imgs, c2_params, device="cuda", chunk=C2_CHUNK))
+    print(f"encode_batch (config 2): {c2_mpix / best:.2f} MP/s (best of 3, "
+          f"{best:.3f} s for {C2_FRAMES} frames) on {card}")
+    chunk2 = c2_chunk(0, C2_CHUNK)
+    c2_encode_stages(c2_enc, chunk2, c2_imgs, c2_params, c2_siz, c2_cod,
+                     c2_qcd, c2_tr)
+    stages, layers = c2_encode_stages(c2_enc, chunk2, c2_imgs, c2_params,
+                                      c2_siz, c2_cod, c2_qcd, c2_tr)
+    print(f"config-2 bytes by layer (ratios {c2_params.rates}; packets "
+          f"only): " + "; ".join(f"frame {f}: {b}"
+                                 for f, b in enumerate(layers)))
+    print(f"one {C2_CHUNK}-frame config-2 encode chunk by stage (host "
+          "clock, synchronised): "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=launches[key],
@@ -720,8 +1049,8 @@ def main() -> int:
              ms=results[name]["ms"], plain_ms=results[name]["plain_ms"],
              bound_ms=results[name]["bound_ms"],
              bound_by=results[name]["bound_by"], library_ms=None)
-        for name, key, _, replaces, source in SCANS + (DEC, MQ,
-                                                       MQ_DEC)]}))
+        for name, key, _, replaces, source in SCANS + (DEC, MQ, MQ_DEC,
+                                                       DWT)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

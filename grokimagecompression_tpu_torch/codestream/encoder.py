@@ -1,12 +1,16 @@
 """Batch encode entry point on a torch device.
 
 Port of `grokimagecompression_tpu/codestream/encoder.py` for the fused
-lossless slices: the HT block coder, and the Part-1 MQ coder with the
-default code-block style. The block coding runs on the device through
-`models/fused_encode.py`; the codestream parameters (`build_siz`,
-`build_cod`), tile extraction and the main-header and tile-part writing
+slices: the HT block coder on 5/3 (lossless), and the Part-1 MQ coder
+with the default code-block style on 5/3 or 9/7, with or without byte or
+PSNR targets (`rates`, `quality_psnr`: PCRD rate control over quality
+layers). The block
+coding runs on the device through `models/fused_encode.py`; the
+codestream parameters (`build_siz`, `build_cod`), tile extraction, the
+rate allocator's construction and the main-header and tile-part writing
 of the reference's host `encode` are copied here, fed the device's
-segments, and packetize through the port's native T2.
+segments (with their R-D pass tables under rate control), and
+packetize through the port's native T2.
 
 Requests outside the slice raise NotImplementedError instead of falling
 back to the host.
@@ -29,6 +33,7 @@ from ..ops import _build, ht_tables
 from ..utils.device import DeviceLike, resolve_device
 from . import markers
 from .markers import CodInfo, ComponentSiz, SizInfo, SotInfo
+from .pcrd import make_layer_alloc
 from .tile import default_qcd, encode_tile
 
 
@@ -116,18 +121,26 @@ def _guard_bits(params: EncoderParams) -> int:
     return 1 if params.cblk_style & 0x40 else params.num_guard_bits
 
 
+def _needs_rc(params: EncoderParams) -> bool:
+    return bool(params.rates and any(r > 0 for r in params.rates)) \
+        or bool(params.quality_psnr)
+
+
 def encode(image: Image, params: EncoderParams,
            t1_segments_by_tile: Dict[int, List]) -> bytes:
     """Write the codestream of one image whose code-block segments were
     coded on the device: `t1_segments_by_tile[t]` in t1-desc order (HT
-    segment bytes, or MQ (data, numbps, numpasses) tuples).
+    segment bytes, MQ (data, numbps, numpasses) tuples, or under rate
+    control MQ (data, numbps, numpasses, passes) tuples).
 
     The reference's host `encode(..., device=False,
-    _t1_segments_by_tile=...)` for lossless streams: main header (SIZ,
-    with the Part-15 flag and a CAP for HT, COD, COC, QCD, POC, COM, PPM,
-    TLM), then each tile's T2 as one tile-part, or split at progression
-    changes (`tp_flag`), with PPT/PLT where asked. Tiles are coded one
-    after another: `encode_batch` runs frames on a thread pool."""
+    _t1_segments_by_tile=...)`: main header (SIZ, with the Part-15 flag
+    and a CAP for HT, COD, COC, QCD, POC, COM, PPM, TLM), the per-tile
+    PCRD allocator when the parameters set byte or PSNR targets
+    (`pcrd.make_layer_alloc`), then each tile's T2 as one tile-part, or
+    split at progression changes (`tp_flag`), with PPT/PLT where asked.
+    Tiles are coded one after another: `encode_batch` runs frames on a
+    thread pool."""
     # Layer count follows the rate/quality vectors when they are longer
     _nl = max(params.numlayers, len(params.rates),
               len(params.quality_psnr))
@@ -166,13 +179,16 @@ def encode(image: Image, params: EncoderParams,
     ppm_sections: list = []
     numtiles = ntx * nty
     split = params.ppt_markers or params.ppm_markers
+    layer_alloc = make_layer_alloc(image, params) if _needs_rc(params) \
+        else None
 
     results = []
     for t in range(numtiles):
         tr = tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                        siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
         results.append(encode_tile(
-            t1_segments_by_tile[t], siz, cod, qcd, tr, cod_comp=cod_comp,
+            t1_segments_by_tile[t], siz, cod, qcd, tr,
+            layer_alloc=layer_alloc, cod_comp=cod_comp,
             pocs=params.pocs or None, split_headers=split,
             want_packet_lengths=params.plt_markers
             or params.tp_flag is not None))
@@ -245,20 +261,22 @@ def _geom(img: Image):
 
 def _out_of_slice(images: List[Image], params: EncoderParams) -> Optional[str]:
     """Why a request is outside the ported slices, or None."""
-    if params.cblk_style and not params.cblk_style & 0x40:
+    is_ht = bool(params.cblk_style & 0x40)
+    if params.cblk_style and not is_ht:
         return (f"the MQ code-block style {params.cblk_style:#x} (only "
                 f"the default style 0 is ported)")
     if params.ht_refinement:
         return "HT refinement passes"
-    if params.transform != Transform.DWT_53:
-        return "the irreversible (9/7) transform"
+    if is_ht and params.transform != Transform.DWT_53:
+        return "the HT block coder on the irreversible (9/7) transform"
     if params.custom_mct is not None:
         return "a custom MCT"
     if params.roi_comp is not None and params.roi_shift > 0:
         return "ROI upshift"
-    if (params.rates and any(r > 0 for r in params.rates)) \
-            or params.quality_psnr:
-        return "rate / quality targets"
+    if is_ht and _needs_rc(params):
+        return "rate / quality targets with the HT block coder"
+    if _needs_rc(params) and params.rate_alloc != "tile":
+        return f"the {params.rate_alloc!r} rate allocation"
     if any(_geom(im) != _geom(images[0]) for im in images):
         return "frames of different geometry"
     return None
@@ -266,13 +284,16 @@ def _out_of_slice(images: List[Image], params: EncoderParams) -> Optional[str]:
 
 def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
                  device: DeviceLike = "cuda", chunk: int = 32) -> List[bytes]:
-    """Encode same-geometry frames losslessly (5/3) with the HT block
-    coder (`cblk_style` 0x40) or the Part-1 MQ coder (`cblk_style` 0).
+    """Encode same-geometry frames with the HT block coder (`cblk_style`
+    0x40; 5/3, lossless) or the Part-1 MQ coder (`cblk_style` 0; 5/3 or
+    9/7, one layer or quality layers at the byte targets `rates` or the
+    PSNR targets `quality_psnr`).
 
     Frames are coded `chunk` at a time: each chunk is one upload and one
-    fused device encode per tile, and the host T2 of a chunk runs on a
-    thread pool while the device codes the next. The streams are
-    byte-identical to the reference host encoder's."""
+    fused device encode per tile, and the host T2 (with the rate
+    allocation) of a chunk runs on a thread pool while the device codes
+    the next. The streams are byte-identical to the reference host
+    encoder's."""
     dev = resolve_device(device)
     params = params or EncoderParams()
     if not images:
@@ -302,7 +323,7 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
         tr = tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                        siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
         plan = fused_encode.build_plan(siz, cod, qcd, tr, cod_comp=cod_comp,
-                                       coder=coder)
+                                       coder=coder, want_rd=_needs_rc(p))
         if plan is None:
             raise NotImplementedError(
                 f"tile {t} is outside the fused plan's scope")

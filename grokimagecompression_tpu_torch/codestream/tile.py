@@ -2,16 +2,18 @@
 
 A copy of the parts of `grokimagecompression_tpu/codestream/tile.py`
 that the port's slices run: the static tile-component plan
-(`BandPlan`, `TileCompPlan`, `build_comp_plan`, `default_qcd`), T2 of a
-tile whose code-block segments were coded on the device (the
-`t1_segments` branch of `encode_tile`, HT or MQ), and the packet parse of
+(`BandPlan`, `TileCompPlan`, `build_comp_plan`, `default_qcd`, both
+transforms), T2 of a tile whose code-block segments were coded on the
+device (the `t1_segments` branch of `encode_tile`, HT or MQ, with the
+PCRD distortion weighting and the `layer_alloc` rate control for MQ
+segments that carry their pass tables), and the packet parse of
 `decode_tile` up to its `_return_jobs` return. Packets go through the
-native T2 (`native/t2_native.py`); the Python packet coder runs only
-where the reference runs it too (packed headers, packet lengths).
+native T2 (`native/t2_native.py`): the tile encoder, and the tile
+simulator of the rate control; the Python packet coder runs only where
+the reference runs it too (packed headers, packet lengths).
 
-Not copied: the host transforms and T1, rate allocation, windowed and
-reduced decode, ROI shifts, and the quantized (9/7) band plans, which
-raise NotImplementedError.
+Not copied: the host transforms and T1, windowed and reduced decode and
+ROI shifts.
 """
 
 from __future__ import annotations
@@ -25,12 +27,15 @@ from ..core.geometry import (
     TileComponentLayout,
     band_gain,
     build_tile_component_layout,
+    ceil_div,
     component_rect,
 )
 from ..core.params import QuantStyle, Transform
 from ..native import t2_native
+from ..ops import quant
 from .markers import CodInfo, QcdInfo, SizInfo
 from .packetiter import CompIterInfo, packet_order, packet_order_poc
+from .pcrd import RateControlCtx
 from .t2 import CblkDec, CblkEnc, PassInfo, PrecDec, PrecEnc, encode_packet
 
 
@@ -63,10 +68,8 @@ def _band_index(r: int, orient: int) -> int:
 
 def build_comp_plan(siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
                     tile: Rect, compno: int) -> TileCompPlan:
-    """Band plans of one tile-component (reversible, unquantized bands)."""
-    if qcd.style != QuantStyle.NONE:
-        raise NotImplementedError(
-            "scalar-quantized bands (the 9/7 path) are not ported")
+    """Band plans of one tile-component: exponents (reversible) or
+    stepsizes (scalar quantized) and the bands' Kmax."""
     comp = siz.comps[compno]
     tc = component_rect(tile, comp.dx, comp.dy)
     precincts = tuple(cod.precincts) if cod.precincts else None
@@ -74,16 +77,30 @@ def build_comp_plan(siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
         tc, cod.numresolutions, cod.cblk_w_exp, cod.cblk_h_exp,
         precincts)
     reversible = cod.transform == Transform.DWT_53
+    nl = cod.numresolutions - 1
     bands: Dict[Tuple[int, int], BandPlan] = {}
     for res in layout.resolutions:
         for band in res.bands:
             r, orient = res.r, band.orient
             gain = band_gain(orient) if reversible else 0
-            expn = qcd.exponents[_band_index(r, orient)]
+            bi = _band_index(r, orient)
+            if qcd.style == QuantStyle.NONE:
+                expn = qcd.exponents[bi]
+                mant = 0
+                stepsize = 1.0
+            elif qcd.style == QuantStyle.SCALAR_EXPOUNDED:
+                expn, mant = qcd.steps[bi]
+                stepsize = quant.decode_stepsize(expn, mant, comp.prec + gain)
+            else:  # SCALAR_DERIVED
+                e0, m0 = qcd.steps[0]
+                nb = nl if r == 0 else nl - r + 1
+                expn = e0 - nl + nb
+                mant = m0
+                stepsize = quant.decode_stepsize(expn, mant, comp.prec + gain)
             kmax = qcd.num_guard_bits + expn - 1
             bands[(r, orient)] = BandPlan(
                 r=r, orient=orient, rect=band.rect, gain=gain,
-                expn=expn, mant=0, stepsize=1.0, kmax=kmax)
+                expn=expn, mant=mant, stepsize=stepsize, kmax=kmax)
     return TileCompPlan(layout=layout, bands=bands, prec=comp.prec,
                         signed=comp.signed)
 
@@ -91,18 +108,28 @@ def build_comp_plan(siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
 def default_qcd(siz: SizInfo, cod: CodInfo, num_guard_bits: int = 2,
                 base_step: float = 0.0) -> QcdInfo:
     """Encoder-side QCD derivation (all components share one QCD here)."""
-    if cod.transform != Transform.DWT_53:
-        raise NotImplementedError(
-            "the irreversible (9/7) quantizer is not ported")
     prec = siz.comps[0].prec
     nl = cod.numresolutions - 1
+    reversible = cod.transform == Transform.DWT_53
     nbands = 1 + 3 * nl
-    exponents = []
+    if reversible:
+        exponents = []
+        for bi in range(nbands):
+            orient = 0 if bi == 0 else (bi - 1) % 3 + 1
+            exponents.append(prec + band_gain(orient))
+        return QcdInfo(style=QuantStyle.NONE, num_guard_bits=num_guard_bits,
+                       exponents=tuple(exponents))
+    steps = []
     for bi in range(nbands):
+        r = 0 if bi == 0 else (bi - 1) // 3 + 1
         orient = 0 if bi == 0 else (bi - 1) % 3 + 1
-        exponents.append(prec + band_gain(orient))
-    return QcdInfo(style=QuantStyle.NONE, num_guard_bits=num_guard_bits,
-                   exponents=tuple(exponents))
+        level = nl - r
+        step = quant.default_irrev_stepsize(orient, level)
+        if base_step > 0.0:
+            step *= base_step
+        steps.append(quant.encode_stepsize(step, prec))
+    return QcdInfo(style=QuantStyle.SCALAR_EXPOUNDED,
+                   num_guard_bits=num_guard_bits, steps=tuple(steps))
 
 
 def _comps_iter(siz: SizInfo, cods, plans) -> List[CompIterInfo]:
@@ -139,6 +166,7 @@ def encode_tile(
     cod: CodInfo,
     qcd: QcdInfo,
     tile: Rect,
+    layer_alloc=None,
     cod_comp: Optional[List[CodInfo]] = None,
     pocs=None,
     split_headers: bool = False,
@@ -149,7 +177,12 @@ def encode_tile(
     in t1-desc order (comp -> resolution -> band -> precinct ->
     code-block): HT cleanup segments as bytes, or MQ segments as
     (data, numbps, numpasses) tuples, one codeword segment terminated at
-    its last pass. Every pass goes into layer 0.
+    its last pass, or (data, numbps, numpasses, passes) with the block's
+    per-pass R-D table (`PassInfo` list) for rate control.
+
+    `layer_alloc(ctx: pcrd.RateControlCtx) -> None` assigns
+    `layer_npasses` on each CblkEnc (e.g. pcrd.PCRDAllocator); without
+    it every pass goes into layer 0.
 
     `split_headers=True` routes packet headers to a separate packed
     stream (for PPM/PPT signalling); the body then carries only SOP
@@ -160,6 +193,7 @@ def encode_tile(
             for c in range(ncomps)]
     plans = [build_comp_plan(siz, cods[c], qcd, tile, c)
              for c in range(ncomps)]
+    reversible = cod.transform == Transform.DWT_53
 
     t1_slots = []           # (comp, (r, orient), precinct_idx, cb, bp)
     for c in range(ncomps):
@@ -172,7 +206,9 @@ def encode_tile(
                         t1_slots.append((c, (res.r, band.orient), pi, cb, bp))
     t1_results = []
     for d in t1_segments:
-        if isinstance(d, tuple):
+        if isinstance(d, tuple) and len(d) == 4:
+            t1_results.append(d)
+        elif isinstance(d, tuple):
             data, nb, npas = d
             t1_results.append(
                 (data, nb, npas,
@@ -187,12 +223,29 @@ def encode_tile(
     prec_enc: List[Dict[Tuple[int, int], List[PrecEnc]]] = [
         {} for _ in range(ncomps)]
     slot_cblks: Dict[Tuple[int, Tuple[int, int], int], List[CblkEnc]] = {}
+    mct_norms = None
+    if cod.mct and ncomps >= 3:
+        mct_norms = (quant.MCT_NORMS_REV if reversible
+                     else quant.MCT_NORMS_IRREV)
     for (c, key, pi, cb, bp), (dat, numbps, npasses, passes) in zip(
             t1_slots, t1_results):
         if numbps > bp.kmax:
             raise ValueError(
                 f"code-block numbps {numbps} exceeds Kmax "
                 f"{bp.kmax}; increase guard bits")
+        # PCRD distortion weighting: band synthesis norm x stepsize x MCT
+        # norm, squared (reference: Tier1.cpp encodeCodeblocks stepsize/
+        # band weighting + mct.cpp:67 norms).
+        r, orient = key
+        nl = cods[c].numresolutions - 1
+        level = nl - r if r > 0 else nl
+        wgt = quant.band_norm(orient, level, reversible) * bp.stepsize
+        if mct_norms is not None and c < 3:
+            wgt *= mct_norms[c]
+        wgt *= wgt
+        if wgt != 1.0:
+            for p in passes:
+                p.distortion *= wgt
         ce = CblkEnc(geom=cb, data=dat, numbps=numbps,
                      imsb=bp.kmax - numbps if numbps else bp.kmax,
                      numpasses=npasses, passes=passes)
@@ -227,16 +280,12 @@ def encode_tile(
                         cb.passes_used = 0
                     pe.init_trees()
 
-    def _emit(max_layer: int, collect: bytearray) -> Tuple[int, int]:
-        """Emit packets for layers 0..max_layer; returns (bytes, packets).
-        ONE native call encodes every precinct group; Python assembles
-        the per-layer fragments in progression order."""
-        nbytes = 0
-        npk = 0
-        order = list(_packet_iter())
+    def _groups():
+        """(key, comp, band-precincts) of every precinct group, in the
+        order of their first packets."""
         groups = []
         seen = set()
-        for (l, r, c, p) in order:
+        for (l, r, c, p) in _packet_iter():
             key = (r, c, p)
             if key in seen:
                 continue
@@ -245,9 +294,18 @@ def encode_tile(
             precs = [prec_enc[c][(r, o)][p] for o in orients
                      if (r, o) in prec_enc[c]]
             groups.append((key, c, precs))
-        tenc = t2_native.TileEnc(groups, numlayers, cod.cblk_style, cod.eph)
+        return groups
+
+    def _emit(max_layer: int, collect: bytearray) -> Tuple[int, int]:
+        """Emit packets for layers 0..max_layer; returns (bytes, packets).
+        ONE native call encodes every precinct group; Python assembles
+        the per-layer fragments in progression order."""
+        nbytes = 0
+        npk = 0
+        tenc = t2_native.TileEnc(_groups(), numlayers, cod.cblk_style,
+                                 cod.eph)
         frags = tenc.encode_all(max_layer)
-        for (l, r, c, p) in order:
+        for (l, r, c, p) in _packet_iter():
             if l > max_layer:
                 continue
             pkt = frags[(r, c, p)][l]
@@ -259,8 +317,37 @@ def encode_tile(
             npk += 1
         return nbytes, npk
 
-    for cb in all_cblks:
-        cb.layer_npasses = [cb.numpasses] + [0] * (numlayers - 1)
+    # Layer allocation (PCRD when a rate/quality allocator is given).
+    if layer_alloc is None:
+        for cb in all_cblks:
+            cb.layer_npasses = [cb.numpasses] + [0] * (numlayers - 1)
+    else:
+        tile_samples = sum(p.layout.tc_rect.w * p.layout.tc_rect.h
+                           for p in plans)
+        img_samples = sum(ceil_div(siz.xsiz - siz.xosiz, c.dx)
+                          * ceil_div(siz.ysiz - siz.yosiz, c.dy)
+                          for c in siz.comps)
+        tile_sim = t2_native.TileSim(_groups(), numlayers, cod.eph)
+
+        def _simulate(max_layer: int) -> int:
+            """Total bytes of layers 0..max_layer (PCRD dry run): one
+            native call over every precinct group."""
+            total, _per_group = tile_sim.simulate(max_layer)
+            if cod.sop:
+                total += 6 * sum(1 for (l, *_rest) in _packet_iter()
+                                 if l <= max_layer)
+            return total
+
+        ctx = RateControlCtx(
+            cblks=all_cblks,
+            numlayers=numlayers,
+            tile_samples=tile_samples,
+            image_samples=img_samples,
+            max_prec=max(c.prec for c in siz.comps),
+            simulate_upto=_simulate,
+            write_layer=tile_sim.write_rows,
+        )
+        layer_alloc(ctx)
 
     # Final packet emission in progression order.
     if split_headers:

@@ -57,23 +57,24 @@ def _cfg_from_reference(c) -> pipeline.TileTransformConfig:
 
 
 def plan_from_reference(ref_plan) -> FusedPlan:
-    """A reference `models.fused_encode.FusedPlan` (HT, or MQ without R-D
-    tables) -> the port's `FusedPlan`."""
-    if ref_plan.coder not in ("ht", "mq") or ref_plan.want_rd \
-            or not ref_plan.cfg.reversible:
+    """A reference `models.fused_encode.FusedPlan` (HT on 5/3, or MQ on
+    5/3 or 9/7, with or without R-D tables) -> the port's `FusedPlan`,
+    band steps and `want_rd` included."""
+    if ref_plan.coder not in ("ht", "mq") or (
+            ref_plan.coder == "ht" and not ref_plan.cfg.reversible):
         raise NotImplementedError(
-            f"only reversible plans without R-D tables are ported (got coder="
-            f"{ref_plan.coder!r}, want_rd={ref_plan.want_rd}, reversible="
-            f"{ref_plan.cfg.reversible})")
+            f"only HT on 5/3 and MQ plans are ported (got coder="
+            f"{ref_plan.coder!r}, reversible={ref_plan.cfg.reversible})")
     groups = tuple(
         (gh, gw, tuple(BlockSpec(comp=b.comp, key=tuple(b.key), y0=b.y0,
-                                 x0=b.x0, h=b.h, w=b.w, kmax=b.kmax)
+                                 x0=b.x0, h=b.h, w=b.w, kmax=b.kmax,
+                                 step=b.step)
                        for b in blocks))
         for (gh, gw, blocks) in ref_plan.groups)
     return FusedPlan(cfg=_cfg_from_reference(ref_plan.cfg), groups=groups,
                      nblocks=ref_plan.nblocks,
                      order=tuple(tuple(o) for o in ref_plan.order),
-                     coder=ref_plan.coder)
+                     coder=ref_plan.coder, want_rd=ref_plan.want_rd)
 
 
 def dec_plan_from_reference(ref_plan) -> fused_decode.FusedDecPlan:
@@ -106,8 +107,9 @@ def image_from_reference(img) -> Image:
 
 
 def params_from_reference(params) -> EncoderParams:
-    """A reference `EncoderParams` -> the port's (the enum fields become
-    the port's enums of the same values)."""
+    """A reference `EncoderParams` -> the port's, every field carried over
+    (`rates`, `numlayers` and the other rate-control fields included; the
+    enum fields become the port's enums of the same values)."""
     fields = {f.name: getattr(params, f.name)
               for f in dataclasses.fields(EncoderParams)}
     fields["transform"] = Transform(fields["transform"])

@@ -1,10 +1,12 @@
 // Native Tier-2 packet encoder and parser of the port's host library.
 // A copy of grokimagecompression_tpu/native/src/t2.cpp: the whole-tile
-// encoder (grok_t2_encode_tile) and the whole-tile packet parser
-// (grok_t2_decode_tile). The rate-control entry points are not copied.
-// Built with g++ (ops/_build.host_library). The tile encoder is serial:
-// one loop over the groups, without the original's OpenMP thread-count
-// argument.
+// encoder (grok_t2_encode_tile), the whole-tile packet simulator of the
+// rate control (grok_t2_simulate_tile) and the whole-tile packet parser
+// (grok_t2_decode_tile). The native convex hull (grok_rc_hulls) is not
+// copied: the port's pcrd.py runs the Python hull it is the copy of.
+// Built with g++ (ops/_build.host_library). The tile encoder and the
+// simulator are serial: one loop over the groups, without the original's
+// OpenMP parallel loop and thread-count argument.
 //
 // The encoder emits all layers' packets for each precinct group (the 1
 // or 3 band-precincts a packet covers).
@@ -175,14 +177,15 @@ struct CblkState {
 
 }  // namespace
 
-// Encode all layers of one precinct group. Returns total bytes for
-// layers 0..max_layer, or -1.
+// Encode all layers of one precinct group (shared by the real encoder
+// and the tile-wide simulator; simulate=true skips body byte copies and
+// only counts). Returns total bytes for layers 0..max_layer, or -1.
 static int64_t encode_group(
     int numlayers, int max_layer, int eph, int nbands, const int32_t* grid,
     const int32_t* ncblks, const int64_t* cblk_meta,
     const int32_t* layer_npasses, const int32_t* pass_rates,
     const uint8_t* pass_term, int pass_stride, const uint8_t* data_flat,
-    uint8_t* out, int64_t out_cap, int64_t* layer_off) {
+    uint8_t* out, int64_t out_cap, int64_t* layer_off, bool simulate) {
   std::vector<TagTree> incl, imsbt;
   std::vector<std::vector<CblkState>> bands(nbands);
   int ci = 0;
@@ -222,6 +225,7 @@ static int64_t encode_group(
     for (int b = 0; b < nbands; b++)
       for (auto& cb : bands[b])
         if (cb.layer_np[layer] > 0) nonempty = true;
+    int64_t body_bytes = 0;
     std::vector<uint8_t> body;
     if (!nonempty) {
       bw.write_bit(0);
@@ -281,10 +285,13 @@ static int64_t encode_group(
                           cb.lblock + floorlog2(segs_np[s2]));
           int nbytes = 0;
           for (int s2 = 0; s2 < nsegs; s2++) nbytes += segs_nb[s2];
-          int start =
-              cb.passes_used > 0 ? cb.rates[cb.passes_used - 1] : 0;
-          const uint8_t* src = data_flat + cb.data_off + start;
-          body.insert(body.end(), src, src + nbytes);
+          if (!simulate) {
+            int start =
+                cb.passes_used > 0 ? cb.rates[cb.passes_used - 1] : 0;
+            const uint8_t* src = data_flat + cb.data_off + start;
+            body.insert(body.end(), src, src + nbytes);
+          }
+          body_bytes += nbytes;
           cb.passes_used += n;
         }
       }
@@ -293,17 +300,49 @@ static int64_t encode_group(
         frag.push_back(0xFF);
         frag.push_back(0x92);
       }
-      frag.insert(frag.end(), body.begin(), body.end());
+      if (!simulate) frag.insert(frag.end(), body.begin(), body.end());
     }
-    if (total + (int64_t)frag.size() > out_cap) return -1;
-    std::memcpy(out + total, frag.data(), frag.size());
-    total += (int64_t)frag.size();
+    int64_t flen = (int64_t)frag.size() + (simulate ? body_bytes : 0);
+    if (!simulate) {
+      if (total + (int64_t)frag.size() > out_cap) return -1;
+      std::memcpy(out + total, frag.data(), frag.size());
+    }
+    total += flen;
   }
   if (layer_off) layer_off[max_layer + 1] = total;
   return total;
 }
 
 extern "C" {
+
+// Simulate the whole tile's packet emission: every precinct group's
+// layers 0..max_layer are header-encoded (no body copies) in one native
+// call; out_bytes[g] receives each group's byte total. All group data is
+// concatenated: g_nbands gives each group's band count; grids/ncblks/
+// cblk arrays follow in group order (PCRD bisection calls this once per
+// iteration instead of once per group — the reference's
+// encode_packets_simulate analog, T2.cpp:131).
+int grok_t2_simulate_tile(
+    int ngroups, int numlayers, int max_layer, int eph,
+    const int32_t* g_nbands, const int32_t* grid, const int32_t* ncblks,
+    const int64_t* cblk_meta, const int32_t* layer_npasses,
+    const int32_t* pass_rates, const uint8_t* pass_term, int pass_stride,
+    int64_t* out_bytes) {
+  int band_off = 0, cblk_off = 0;
+  for (int g = 0; g < ngroups; g++) {
+    int nb = g_nbands[g];
+    out_bytes[g] = encode_group(
+        numlayers, max_layer, eph, nb, grid + (size_t)band_off * 2,
+        ncblks + band_off, cblk_meta + (size_t)cblk_off * 5,
+        layer_npasses + (size_t)cblk_off * numlayers,
+        pass_rates + (size_t)cblk_off * pass_stride,
+        pass_term + (size_t)cblk_off * pass_stride, pass_stride, nullptr,
+        nullptr, 0, nullptr, true);
+    for (int b = 0; b < nb; b++) cblk_off += ncblks[band_off + b];
+    band_off += nb;
+  }
+  return 0;
+}
 
 // Whole-tile packet emission: every group encoded in one call, each
 // into its own slot of `out` (slot prefix offsets in
@@ -337,7 +376,8 @@ int grok_t2_encode_tile(
         layer_npasses + (size_t)co * numlayers,
         pass_rates + (size_t)co * pass_stride,
         pass_term + (size_t)co * pass_stride, pass_stride, data_flat,
-        out + group_off[g], cap, frag_off + (size_t)g * (numlayers + 1));
+        out + group_off[g], cap, frag_off + (size_t)g * (numlayers + 1),
+        false);
     if (n < 0 || n > cap) err = true;
   }
   return err ? -1 : 0;

@@ -12,6 +12,12 @@
 // with the trailing 0xFF dropped), written at the lane's own offset in
 // one byte buffer, its length, and the coder state at the end of the
 // scan (A, C, CT, the delayed byte, the five packed context words).
+// Optionally (rate control, the reference's want_rd tables) also the
+// byte-out count at the end of every coding pass: the length the host
+// coder's buffer has reached there, the n bytes written plus the byte
+// still held in the delay register. The passes of a plane are the stream
+// sections (sa, sb, sc) of ops/mq_torch.pass_spans_padded, each a
+// multiple of 256 slots, so every pass end falls on a 16-slot load group.
 //
 // What bounds it: one lane is one code-block whose coder walks its slots
 // one dependent step after another, so the kernel is bound by the latency
@@ -136,7 +142,8 @@ __device__ __forceinline__ void encode(Coder& k, uint32_t slot,
 __global__ void __launch_bounds__(kThreads)
 mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
                const int64_t* __restrict__ seg_off, uint8_t* __restrict__ out,
-               int32_t* __restrict__ lens, int32_t* __restrict__ state) {
+               int32_t* __restrict__ lens, int32_t* __restrict__ state,
+               int32_t* __restrict__ cumbo, int sa, int sb, int tp) {
   __shared__ uint32_t tbl[kStates];
   __shared__ uint8_t ctx[kCtxRows][kThreads];
   const int tid = threadIdx.x;
@@ -150,6 +157,8 @@ mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
   Coder k{0x8000u, 0u, 12, -1, out + seg_off[b], 0};
   const size_t sB = static_cast<size_t>(B);
   const uint8_t* col = slots + b;
+  // pass ends of plane q: q tp + sa, q tp + sa + sb, (q + 1) tp
+  int row = 0, end = cumbo ? sa : -1;
   int t = 0;
   for (; t + kAhead <= T; t += kAhead) {
     uint8_t ahead[kAhead];
@@ -158,6 +167,12 @@ mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
 #pragma unroll
     for (int j = 0; j < kAhead; ++j)
       if (ahead[j] & 1) encode(k, ahead[j], ctx, tid, tbl);
+    if (t + kAhead == end) {
+      cumbo[row * sB + b] = k.n + (k.last >= 0);
+      ++row;
+      const int q = row / 3, phase = row % 3;
+      end = q * tp + (phase == 0 ? sa : phase == 1 ? sa + sb : tp);
+    }
   }
   for (; t < T; ++t) {
     const uint8_t s = col[t * sB];
@@ -194,14 +209,18 @@ extern "C" {
 
 // slots: (T, B) int8; seg_off: (B,) int64 byte offsets of the lanes'
 // segments in `out`, each region at least 15 E / 7 + 3 bytes; lens: (B,)
-// int32; state: (9, B) int32.
+// int32; state: (9, B) int32; cumbo: null, or (3 T / tp, B) int32 for the
+// byte-outs at the pass ends of planes of tp = sa + sb + sc slots (T a
+// multiple of tp; sa, sb, tp multiples of 16).
 int mq_scan(const void* slots, int T, int B, const void* seg_off, void* out,
-            void* lens, void* state, void* stream) {
+            void* lens, void* state, void* cumbo, int sa, int sb, int tp,
+            void* stream) {
   mq_scan_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(slots), T, B,
       static_cast<const int64_t*>(seg_off), static_cast<uint8_t*>(out),
-      static_cast<int32_t*>(lens), static_cast<int32_t*>(state));
+      static_cast<int32_t*>(lens), static_cast<int32_t*>(state),
+      static_cast<int32_t*>(cumbo), sa, sb, tp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,27 +1,30 @@
 """Fused tile encode on the device: frames in, code-block segments out.
 
-Port of `grokimagecompression_tpu/models/fused_encode.py`, reversible
-(5/3) and lossless, for both block coders. For a batch of same-geometry
-frames it runs DC shift -> MCT -> 5/3 DWT -> code-block gather on the
-device, then
-- HT (`FusedHTEncoder`): HT op streams -> the MEL / VLC / MagSgn scans
-  -> exact word placement; the host splices the final segment bytes
-  (`ht_tables.assemble_segments_host`);
-- MQ (`FusedMQEncoder`, Part-1 default code-block style): bit-plane
-  count per block -> slot stream (`ops/mq_torch.build_slot_stream`) ->
-  the MQ coder with its flush (`ops/mq_scan.mq_scan`), which returns the
-  finished segments packed lane after lane.
-The host then runs T2 on the segments.
+Port of `grokimagecompression_tpu/models/fused_encode.py`. For a batch
+of same-geometry frames it runs DC shift -> MCT -> DWT (`ops/dwt.py`)
+-> code-block gather on the device, then
+- HT (`FusedHTEncoder`, reversible 5/3): HT op streams -> the MEL / VLC
+  / MagSgn scans -> exact word placement; the host splices the final
+  segment bytes (`ht_tables.assemble_segments_host`);
+- MQ (`FusedMQEncoder`, Part-1 default code-block style, 5/3 or 9/7):
+  the 9/7 bands' deadzone quantization in float64 (the host encoder's
+  rule, so the streams are the host's byte for byte) -> bit-plane count
+  per block -> slot stream (`ops/mq_torch.build_slot_stream`) -> the MQ
+  coder with its flush (`ops/mq_scan.mq_scan`), which returns the
+  finished segments packed lane after lane. With `want_rd` (rate
+  control) the slot build also sums each pass's distortion decrease and
+  the coder records its byte-outs at every pass end, from which the host
+  builds each block's R-D pass table (`assemble_collected_mq`).
+The host then runs T2 (and the rate allocation) on the segments.
 
 Block order in the outputs: group-major, then frame-major within a
 group, then block order within the (group, frame), as in the reference;
 `FusedPlan.order` maps it back to the t1-desc order of
 `codestream/tile.py`.
 
-Not ported: the irreversible (9/7) fused path, the MQ coder's R-D tables
-(`want_rd`, for rate control), and the reference's word-compaction caps,
-overflow flags, host re-encode and size-hinted fetch, which the exact
-placement makes unnecessary.
+Not ported: the HT coder on 9/7 bands, and the reference's
+word-compaction caps, overflow flags, host re-encode and size-hinted
+fetch, which the exact placement makes unnecessary.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from torch import nn
 from ..codestream.tile import build_comp_plan
 from ..core.geometry import Rect
 from ..core.params import Transform
-from ..ops import ht_tables, ht_torch, mq_scan, mq_torch
+from ..ops import ht_tables, ht_torch, mq_scan, mq_torch, quant
 from . import pipeline
 
 
@@ -50,6 +53,7 @@ class BlockSpec:
     h: int
     w: int
     kmax: int                   # band M_b (guard bits + expn - 1)
+    step: float = 1.0           # band stepsize (irreversible quant)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,13 +66,17 @@ class FusedPlan:
     # order[g][j] = global t1-desc index of group g's j-th block
     order: Tuple[Tuple[int, ...], ...]
     coder: str = "ht"           # "ht" or "mq"
+    # emit per-pass R-D tables from the MQ encode (PCRD callers)
+    want_rd: bool = False
 
 
 def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
-               coder: str = "ht") -> Optional[FusedPlan]:
-    """The reversible plan for one tile and block coder ("ht" or "mq"),
-    or None when out of scope (the 9/7 transform on any component, an
-    MCT other than none/RCT).
+               coder: str = "ht", want_rd: bool = False
+               ) -> Optional[FusedPlan]:
+    """The plan for one tile and block coder ("ht" or "mq"), or None
+    when out of scope (components with different transforms, an MCT
+    other than none/RCT/ICT, the HT coder on 9/7 bands). `want_rd` (MQ
+    only) makes the encode also return per-pass R-D tables for PCRD.
 
     The block order (comp -> resolution -> band -> precinct -> cblk)
     matches codestream/tile.py's t1 desc construction, so collected
@@ -81,9 +89,10 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
             for c in range(ncomps)]
     qcds = [qcd_comp[c] if qcd_comp and qcd_comp[c] else qcd
             for c in range(ncomps)]
-    if any(cc.transform != Transform.DWT_53 for cc in cods):
+    if any(cc.transform != cods[0].transform for cc in cods):
         return None
-    if cod.mct not in (0, 1):
+    reversible = cods[0].transform == Transform.DWT_53
+    if cod.mct not in (0, 1) or (coder == "ht" and not reversible):
         return None
     groups: Dict[Tuple[int, int], List[Tuple[int, BlockSpec]]] = {}
     gi = 0
@@ -98,7 +107,8 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
                             comp=c, key=(res.r, band.orient),
                             y0=cb.rect.y0 - band.rect.y0,
                             x0=cb.rect.x0 - band.rect.x0,
-                            h=cb.rect.h, w=cb.rect.w, kmax=bp.kmax)
+                            h=cb.rect.h, w=cb.rect.w, kmax=bp.kmax,
+                            step=1.0 if reversible else float(bp.stepsize))
                         gk = (((spec.h + 1) // 2, (spec.w + 1) // 2)
                               if coder == "ht" else (spec.h, spec.w))
                         groups.setdefault(gk, []).append((gi, spec))
@@ -113,7 +123,7 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
                      for (gh, gw) in keys),
         nblocks=gi,
         order=tuple(tuple(i for (i, _) in groups[k]) for k in keys),
-        coder=coder)
+        coder=coder, want_rd=bool(want_rd and coder == "mq"))
 
 
 class FusedHTEncoder(nn.Module):
@@ -177,7 +187,10 @@ class FusedMQEncoder(nn.Module):
     (B_total,) int32, data (sum(lens),) uint8): each block's magnitude
     bit-planes and its codeword segment, packed block after block, with
     B_total = N * plan.nblocks. A block with nbps = 0 codes no passes;
-    its bytes in `data` are an empty coder's flush and are not used."""
+    its bytes in `data` are an empty coder's flush and are not used.
+    With `plan.want_rd` it also returns, per shape group, the (3 * npl,
+    B) int32 pass-end byte-outs and the (3 * npl, B) float64 pass
+    distortions (4^-plane scaled), npl the group's largest nbps."""
 
     def __init__(self, plan: FusedPlan, device: torch.device):
         super().__init__()
@@ -186,36 +199,54 @@ class FusedMQEncoder(nn.Module):
         self._orients = [torch.tensor([b.key[1] for b in blocks],
                                       dtype=torch.int64, device=self.device)
                          for (_, _, blocks) in plan.groups]
+        self._steps = [torch.tensor([b.step for b in blocks],
+                                    dtype=torch.float64,
+                                    device=self.device).view(-1, 1, 1)
+                       for (_, _, blocks) in plan.groups]
 
     def group_inputs(self, *frames):
         """Yield (mag, neg, orient) per shape group: the gathered
-        (N * nb, h, w) code-blocks of the frames, frame-major, and their
-        band orientations."""
+        (N * nb, h, w) code-blocks of the frames, frame-major (9/7 bands
+        quantized), and their band orientations."""
         nframes = frames[0].shape[0]
         bands_list = pipeline._fwd_transform(self.plan.cfg, frames)
-        for (h, w, blocks), orients in zip(self.plan.groups, self._orients):
+        for (h, w, blocks), orients, steps in zip(
+                self.plan.groups, self._orients, self._steps):
             v = torch.stack([bands_list[b.comp][b.key][..., b.y0:b.y0 + h,
                                                        b.x0:b.x0 + w]
-                             for b in blocks], dim=1).reshape(-1, h, w)
-            yield v.abs(), v < 0, orients.repeat(nframes)
+                             for b in blocks], dim=1)
+            if self.plan.cfg.reversible:
+                mag = v.abs()
+            else:
+                mag = quant.deadzone(v, steps)
+            yield (mag.reshape(-1, h, w), (v < 0).reshape(-1, h, w),
+                   orients.repeat(nframes))
 
-    @staticmethod
-    def group_slots(mag, neg, orient):
-        """(nbps, slot stream) of one group: the stream holds the
-        group's largest nbps planes (the planes above it code nothing)."""
+    def group_slots(self, mag, neg, orient):
+        """(nbps, slot stream) of one group, and with `plan.want_rd` its
+        (npl, 3, B) pass distortions: the stream holds the group's
+        largest nbps planes (the planes above it code nothing)."""
         nbps = mq_torch.bit_planes(mag)
-        return nbps, mq_torch.build_slot_stream(mag, neg, orient, nbps,
-                                                int(nbps.max()))
+        out = mq_torch.build_slot_stream(mag, neg, orient, nbps,
+                                         int(nbps.max()), self.plan.want_rd)
+        return (nbps, *out) if self.plan.want_rd else (nbps, out)
 
     def forward(self, *frames):
-        nbps_l, lens_l, data_l = [], [], []
-        for mag, neg, orient in self.group_inputs(*frames):
-            nbps, slots = self.group_slots(mag, neg, orient)
-            data, lens, _ = mq_scan.mq_scan(slots)
+        nbps_l, lens_l, data_l, rd = [], [], [], []
+        for (h, w, _), gin in zip(self.plan.groups,
+                                  self.group_inputs(*frames)):
+            nbps, slots, *dists = self.group_slots(*gin)
+            if self.plan.want_rd:
+                data, lens, _, cumbo = mq_scan.mq_scan(
+                    slots, mq_torch.pass_spans_padded(h, w))
+                rd += [cumbo, dists[0].reshape(-1, cumbo.shape[1])]
+            else:
+                data, lens, _ = mq_scan.mq_scan(slots)
             nbps_l.append(nbps)
             lens_l.append(lens)
             data_l.append(data)
-        return torch.cat(nbps_l), torch.cat(lens_l), torch.cat(data_l)
+        return (torch.cat(nbps_l), torch.cat(lens_l), torch.cat(data_l),
+                *rd)
 
 
 def _upload_dtype(prec: int, signed: bool) -> torch.dtype:
@@ -270,20 +301,38 @@ def assemble_collected_ht(plan: FusedPlan, nframes: int, metrics_np,
 
 
 def assemble_collected_mq(plan: FusedPlan, nframes: int, nbps_np, lens_np,
-                          data_np) -> List[List[Tuple[bytes, int, int]]]:
-    """Per-frame (data, numbps, numpasses) lists from a fetched MQ result;
-    a block with numbps bit-planes codes 3 * numbps - 2 passes."""
+                          data_np, *rd) -> List[List[Tuple]]:
+    """Per-frame (data, numbps, numpasses) lists from a fetched MQ result
+    (a block with numbps bit-planes codes 3 * numbps - 2 passes), or with
+    `plan.want_rd` (data, numbps, numpasses, passes) lists whose
+    `passes` are the blocks' R-D pass tables, built from each group's
+    fetched byte-outs and distortions `rd` (`mq_torch.batch_pass_tables`,
+    as the reference's `assemble_collected_mq`)."""
     ends = np.cumsum(lens_np, dtype=np.int64)
     buf = data_np.tobytes()
     res = [[None] * plan.nblocks for _ in range(nframes)]
     lane = 0
     for gidx, (_, _, blocks) in enumerate(plan.groups):
+        B = nframes * len(blocks)
+        npl = 0
+        if plan.want_rd:
+            cumbo, dists = rd[2 * gidx], rd[2 * gidx + 1]
+            npl = cumbo.shape[0] // 3       # 0: every block of it is zero
+        if npl:
+            rates_t, dcum_t = mq_torch.batch_pass_tables(
+                lens_np[lane:lane + B].astype(np.int64),
+                nbps_np[lane:lane + B], npl, cumbo, dists)
         for f in range(nframes):
             for j in range(len(blocks)):
                 nb = int(nbps_np[lane])
                 data = buf[ends[lane] - lens_np[lane]:ends[lane]] \
                     if nb else b""
-                res[f][plan.order[gidx][j]] = (data, nb,
-                                               3 * nb - 2 if nb else 0)
+                entry = (data, nb, 3 * nb - 2 if nb else 0)
+                if plan.want_rd:
+                    k = f * len(blocks) + j
+                    entry += (mq_torch.passes_from_tables(
+                        nb, npl, rates_t[:, k], dcum_t[:, k])
+                        if nb else [],)
+                res[f][plan.order[gidx][j]] = entry
                 lane += 1
     return res

@@ -2,9 +2,9 @@
 
 Port of `grokimagecompression_tpu/models/pipeline.py`. The reference jits
 this per tile geometry; here it runs eagerly on whatever device the
-component tensors live on, batched over leading frame axes. The Pallas
-DWT route of the reference (`GROK_TPU_PALLAS=1`) is not ported yet: the
-DWT is torch ops (`ops/dwt_torch.py`).
+component tensors live on, batched over leading frame axes. The DWT is
+`ops/dwt.py`: the CUDA kernel for CUDA tensors (the reference's Pallas
+DWT route, `GROK_TPU_PALLAS=1`), `dwt_torch` for CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 from ..core.geometry import Rect, component_rect
 from ..core.params import Transform
-from ..ops import dwt_torch, mct_torch
+from ..ops import dwt, mct_torch
 
 BandKey = Tuple[int, int]
 
@@ -47,8 +47,8 @@ def _fwd_transform(cfg: TileTransformConfig, comps) -> List[Dict[BandKey, torch.
                                                  shifted[2])
     if not cfg.reversible:
         shifted = [a.to(torch.float32) for a in shifted]
-    return [dwt_torch.fwd_dwt_2d(shifted[c], cfg.tc_rects[c],
-                                 cfg.numresolutions, cfg.reversible)
+    return [dwt.fwd_dwt_2d(shifted[c], cfg.tc_rects[c], cfg.numresolutions,
+                           cfg.reversible)
             for c in range(ncomps)]
 
 
@@ -56,8 +56,8 @@ def _inv_transform(cfg: TileTransformConfig, bands_list) -> Tuple[torch.Tensor, 
     """Inverse of _fwd_transform: list of band dicts -> tuple of comps."""
     ncomps = len(bands_list)
     comps = [
-        dwt_torch.inv_dwt_2d(bands_list[c], cfg.tc_rects[c],
-                             cfg.numresolutions, cfg.reversible)
+        dwt.inv_dwt_2d(bands_list[c], cfg.tc_rects[c], cfg.numresolutions,
+                       cfg.reversible)
         for c in range(ncomps)
     ]
     if cfg.mct and ncomps >= 3:

@@ -1,12 +1,13 @@
 """ctypes binding for the host library's Tier-2 coder (csrc/host/t2.cpp).
 
-A copy of `grokimagecompression_tpu/native/t2_native.py` for the two
+A copy of `grokimagecompression_tpu/native/t2_native.py` for the three
 entry points the port runs: `TileEnc` (every precinct group of a tile
 encoded in one native call; Python assembles the fragments in
 progression order and prepends SOP markers, which carry the global
-packet index) and `decode_tile_packets` (a tile's whole packet sequence
-parsed in one native call). The library is built on first use
-(`ops/_build.host_library`).
+packet index), `TileSim` (the byte count of a tile's packets for the
+rate control's search, one native call each) and `decode_tile_packets`
+(a tile's whole packet sequence parsed in one native call). The library
+is built on first use (`ops/_build.host_library`).
 """
 
 from __future__ import annotations
@@ -186,3 +187,75 @@ class TileEnc:
             frags[key] = [mv[base + int(row[l]):base + int(row[l + 1])]
                           for l in range(max_layer + 1)]
         return frags
+
+
+class TileSim:
+    """Whole-tile packet simulation state for PCRD: all precinct groups
+    marshaled once; the allocator writes each layer's pass counts with
+    write_rows, and each simulate() is a single native call. (The
+    reference's copy also re-reads the counts from the CblkEnc objects
+    when nothing wrote them; the port's only caller always writes.)"""
+
+    def __init__(self, groups, numlayers: int, eph: bool):
+        """groups: list of (key, comp, [PrecEnc...]) in a fixed order."""
+        self.numlayers = numlayers
+        self.eph = eph
+        self.comps = [g[1] for g in groups]
+        self.ngroups = len(groups)
+        g_nbands = []
+        grid = []
+        ncblks = []
+        cblks = []
+        for (_, _, precs) in groups:
+            g_nbands.append(len(precs))
+            for pr in precs:
+                grid.append(max(1, pr.geom.cblk_grid_w))
+                grid.append(max(1, pr.geom.cblk_grid_h))
+                ncblks.append(len(pr.cblks))
+                cblks.extend(pr.cblks)
+        self.order = cblks
+        n = len(cblks)
+        pass_stride = max([cb.numpasses for cb in cblks] + [1])
+        self.g_nbands = np.asarray(g_nbands, np.int32)
+        self.grid = np.asarray(grid, np.int32)
+        self.ncblks = np.asarray(ncblks, np.int32)
+        meta = np.zeros(max(1, n * 5), dtype=np.int64)
+        rates = np.zeros(max(1, n * pass_stride), dtype=np.int32)
+        term = np.zeros(max(1, n * pass_stride), dtype=np.uint8)
+        for i, cb in enumerate(cblks):
+            meta[i * 5] = cb.geom.cx
+            meta[i * 5 + 1] = cb.geom.cy
+            meta[i * 5 + 2] = cb.imsb
+            meta[i * 5 + 3] = cb.numpasses
+            for j, pss in enumerate(cb.passes):
+                rates[i * pass_stride + j] = pss.rate
+                term[i * pass_stride + j] = 1 if pss.terminated else 0
+        self.meta = meta
+        self.rates = rates
+        self.term = term
+        self.pass_stride = pass_stride
+        self.layer_np = np.zeros((max(1, n), numlayers), dtype=np.int32)
+        self.out_bytes = np.zeros(max(1, self.ngroups), dtype=np.int64)
+        self._row_of = None
+
+    def write_rows(self, layer: int, values, cblks) -> None:
+        """Scatter one layer's pass counts for `cblks` into layer_np."""
+        if self._row_of is None:
+            self._row_of = {id(cb): i for i, cb in enumerate(self.order)}
+        rows = np.fromiter((self._row_of[id(cb)] for cb in cblks),
+                           np.int64, len(cblks))
+        self.layer_np[rows, layer] = values
+
+    def simulate(self, max_layer: int):
+        """Returns (total_bytes, per_group int64 array) for layers
+        0..max_layer of the pass counts written so far."""
+        rc = _build.host_library().grok_t2_simulate_tile(
+            self.ngroups, self.numlayers, max_layer,
+            1 if self.eph else 0, self.g_nbands.ctypes.data,
+            self.grid.ctypes.data, self.ncblks.ctypes.data,
+            self.meta.ctypes.data, self.layer_np.ctypes.data,
+            self.rates.ctypes.data, self.term.ctypes.data,
+            self.pass_stride, self.out_bytes.ctypes.data)
+        if rc != 0:
+            raise RuntimeError("native tile simulate failed")
+        return int(self.out_bytes[:self.ngroups].sum()), self.out_bytes

@@ -32,8 +32,11 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-SOURCES = ("ht_scan.cu", "ht_dec.cu", "mq_scan.cu", "mq_dec.cu")
+SOURCES = ("ht_scan.cu", "ht_dec.cu", "mq_scan.cu", "mq_dec.cu", "dwt.cu")
 HEADERS = ("mq_tables.cuh",)
+# flags of single sources: the DWT's float32 lifting must not be
+# contracted into FMAs (bit-exactness with dwt_np)
+SOURCE_FLAGS = {"dwt.cu": ("--fmad=false",)}
 LIBRARY = os.path.join(BUILD_DIR, "libgrok_kernels.so")
 
 HOST_CSRC = os.path.join(CSRC, "host")
@@ -89,7 +92,8 @@ def build() -> Tuple[str, str]:
     for s in srcs:
         fd, obj = tempfile.mkstemp(suffix=".o", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler",
+        cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3",
+               *SOURCE_FLAGS.get(os.path.basename(s), ()), "-Xcompiler",
                "-fPIC", "-Xptxas", "-v", "-c", "-o", obj, s]
         objs.append(obj)
         procs.append((cmd, subprocess.Popen(
@@ -135,6 +139,11 @@ def host_library() -> ctypes.CDLL:
     lib.grok_t2_encode_tile.restype = I
     lib.grok_t2_encode_tile.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I,
                                         P, P, P, P]
+    # (ngroups, numlayers, max_layer, eph, g_nbands, grid, ncblks, meta,
+    #  layer_np, rates, term, pass_stride, out_bytes)
+    lib.grok_t2_simulate_tile.restype = I
+    lib.grok_t2_simulate_tile.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I,
+                                          P]
     # (body, body_len, npackets, pkt_group, pkt_layer, ngroups, gband_off,
     #  grid, ncblks, kmax, style, meta, sop, eph, out_meta, seg_out,
     #  seg_cap)
@@ -165,12 +174,25 @@ def load() -> ctypes.CDLL:
     lib.ht_dec_group.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p] * 5
     lib.ht_dec_group.restype = ctypes.c_int
-    # (slots, T, lanes, seg_off, out, lens, state, stream)
+    # (slots, T, lanes, seg_off, out, lens, state, cumbo, sa, sb, tp,
+    #  stream)
     lib.mq_scan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
-        + [ctypes.c_void_p] * 5
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.mq_scan.restype = ctypes.c_int
     # (data, off, nbps, npas, ori, B, w, h, out, stats, stream)
     lib.mq_dec_group.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p] * 3
     lib.mq_dec_group.restype = ctypes.c_int
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # (in, in_bs, in_rs, out, N, h, w, parity, rev, k, stream)
+    lib.dwt_fwd_v.argtypes = [P, L, L, P, I, I, I, I, I, P, P]
+    # (buf, scratch, rows, w, parity, rev, k, stream)
+    lib.dwt_fwd_h.argtypes = [P, P, I, I, I, I, P, P]
+    # (ll, bs, rs, hl, bs, rs, lh, bs, rs, hh, bs, rs, out, scratch, N,
+    #  h_lo, h_hi, w_lo, w_hi, parity, rev, k, stream)
+    lib.dwt_inv_h.argtypes = [P, L, L] * 4 + [P, P] + [I] * 7 + [P, P]
+    # (buf, out, N, h, h_lo, w, parity, rev, k, stream)
+    lib.dwt_inv_v.argtypes = [P, P] + [I] * 6 + [P, P]
+    for fn in (lib.dwt_fwd_v, lib.dwt_fwd_h, lib.dwt_inv_h, lib.dwt_inv_v):
+        fn.restype = ctypes.c_int
     return lib

@@ -3,9 +3,9 @@
 Port of `grokimagecompression_tpu/ops/mct_jax.py`. Elementwise work that
 the reference leaves to XLA fusion; here it is plain torch arithmetic on
 tensors of any shape (leading batch axes allowed). RCT and the DC shift
-are integer and exact; ICT runs in float32 with the reference's
-coefficients rounded to float32 first, so each product is the same
-float32 operation as in the reference.
+are integer and exact; the forward ICT reproduces the host encoder's
+float32 rounding (`ict_fwd`), the inverse runs in float32 with the
+reference's coefficients rounded to float32 first.
 """
 
 from __future__ import annotations
@@ -34,14 +34,27 @@ def rct_inv(y, u, v):
     return r, g, b
 
 
+# ICT rows, float32, as the reference host encoder's `mct_np._ICT_FWD`
+_ICT_FWD = ((0.299, 0.587, 0.114),
+            (-0.16875, -0.331260, 0.5),
+            (0.5, -0.41869, -0.08131))
+
+
 def ict_fwd(r, g, b):
-    r, g, b = (a.to(torch.float32) for a in (r, g, b))
-    y = _f32(0.299) * r + _f32(0.587) * g + _f32(0.114) * b
-    cb = (_f32(-0.16875) * r + _f32(-0.331260) * g
-          + _f32(0.5) * b)
-    cr = (_f32(0.5) * r + _f32(-0.41869) * g
-          + _f32(-0.08131) * b)
-    return y, cb, cr
+    """RGB -> YCbCr in float32 as the host encoder computes it: its matrix
+    product (`mct_np.ict_fwd`, BLAS sgemm) rounds the first product and
+    then fuses each further multiply-add, y = fma(c2, b, fma(c1, g,
+    c0 * r)). Each fused step runs exactly in float64 (a float32
+    coefficient times an integer sample, plus a float32, needs fewer than
+    53 bits) and is rounded to float32 once."""
+    planes = [a.to(torch.float64) for a in (r, g, b)]
+    out = []
+    for row in _ICT_FWD:
+        acc = (_f32(row[0]) * planes[0]).to(torch.float32)
+        for c, x in zip(row[1:], planes[1:]):
+            acc = (_f32(c) * x + acc.to(torch.float64)).to(torch.float32)
+        out.append(acc)
+    return tuple(out)
 
 
 def ict_inv(y, cb, cr):

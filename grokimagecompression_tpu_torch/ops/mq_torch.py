@@ -14,18 +14,26 @@ pre-pass state). So:
    decision position, in exact scan order: `emit | d << 1 | cx << 2`.
    Positions that code nothing are `emit = 0` slots, which leave the
    coder untouched. The one loop is the significance-propagation
-   membership fixpoint (`_spp_members`).
+   membership fixpoint (`_spp_members`). For rate control
+   (`want_dist`) it also sums each pass's distortion decrease per lane.
 2. The MQ coder walks each lane's slots. `ops/mq_scan.py` runs it as a
    CUDA kernel for CUDA tensors; `mq_scan_plain` here is its plain
-   version: `mq_step` over the lanes' emitting slots, then `flush_tail`.
+   version: `mq_step` over the lanes' emitting slots, then `flush_tail`;
+   for rate control it also records the byte-outs at every pass end.
+3. `batch_pass_tables` and `passes_from_tables` turn those byte-outs and
+   distortions into the host coder's per-pass R-D tables (numpy, on the
+   host), as `mq_jax` does.
 
 Layouts: blocks are (B, h, w) here (the reference's analysis runs on
 (hp, w, B) for the TPU's lanes); the slot stream is (T, B) int8 with the
 lanes last, as in the reference.
 
 Left out, because they exist for the TPU only: the word accumulator and
-the word compaction of the scan, the per-256-step byteout sums and the
-distortion tables (`want_rd`, rate control), the host splice.
+the word compaction of the scan, the per-256-step byteout sums (the
+scan records the pass-end counts they are summed into), the host splice.
+The distortions are float64 sums here (float32 on the TPU): the host
+coder's per-sample terms are multiples of 1/4, so float64 sums of them
+are exact in any order and equal the host's.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from ..codestream.t2 import PassInfo
 from .mq_tables import (CTX_MAG, CTX_RL, CTX_SC, CTX_UNI, CTX_ZC,
                         NCTX_WORDS, NUM_CTXS, STATE_INIT, _CTX_INIT,
                         _TBL_PACKED)
@@ -45,9 +54,6 @@ OFFS = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1), (1, -1), (1, 0),
 _H = (OFFS.index((0, -1)), OFFS.index((0, 1)))
 _V = (OFFS.index((-1, 0)), OFFS.index((1, 0)))
 _D = tuple(OFFS.index(o) for o in ((-1, -1), (-1, 1), (1, -1), (1, 1)))
-
-ScanOut = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
-
 
 # ---------------------------------------------------------------------------
 # Context rules as lookup tables
@@ -266,9 +272,30 @@ def _pack_slot(emit, d, cx) -> torch.Tensor:
     return emit.to(torch.int32) | (d.to(torch.int32) << 1) | (cx << 2)
 
 
-def _plane_slots(mag, neg, negsh, orient, nbps, plane: int, geo, luts):
+def _plane_dists(mag, plane: int, sig_spp, ref_mrp, sig_cln):
+    """(3, B) float64 distortion decreases of one plane's SPP, MRP and CLN
+    passes, scaled by 4^-plane: for a sample becoming significant,
+    sig_dist / 4^p = 3 v / 2^p - 2.25; for a refined one, ref_dist / 4^p =
+    (r / 2^p - 1)^2 - (s / 2^p - 0.5)^2 with r = v mod 2^(p+1), s = v mod
+    2^p (the host coder's terms, `t1.cpp` sig_dist / ref_dist, and the
+    reference's `mq_jax._plane_slots`). Every term is exact in float64,
+    and so is every sum of them."""
+    inv = 2.0 ** -plane
+    sig = 3.0 * (mag.to(torch.float64) * inv) - 2.25
+    r = (mag & ((2 << plane) - 1)).to(torch.float64) * inv - 1.0
+    sv = (mag & ((1 << plane) - 1)).to(torch.float64) * inv - 0.5
+    ref = r * r - sv * sv
+    zero = torch.zeros((), dtype=torch.float64, device=mag.device)
+    return torch.stack([torch.where(m, t, zero).sum(dim=(1, 2))
+                        for m, t in ((sig_spp, sig), (ref_mrp, ref),
+                                     (sig_cln, sig))])
+
+
+def _plane_slots(mag, neg, negsh, orient, nbps, plane: int, geo, luts,
+                 want_dist: bool = False):
     """All slot bytes of one plane in exact scan order: (B, T_plane)
-    int32 with T_plane = slots_per_plane(h, w).
+    int32 with T_plane = slots_per_plane(h, w); with `want_dist` also the
+    plane's (3, B) pass distortions (`_plane_dists`).
 
     mag (B, hp, w) int32; neg (B, hp, w) int32 0/1; negsh the sign planes
     shifted to the four h/v neighbours; orient, nbps (B, 1, 1) int64."""
@@ -345,12 +372,15 @@ def _plane_slots(mag, neg, negsh, orient, nbps, plane: int, geo, luts):
     for part, span in zip((spp, mrp, cln), pass_spans_padded(hp, w)):
         out[:, pos:pos + part.shape[1]] = part
         pos += span
-    return out
+    if not want_dist:
+        return out
+    return out, _plane_dists(mag, plane, member & bit_b, mrp_member,
+                             (normal & bit_b) | is_r)
 
 
 def build_slot_stream(mag: torch.Tensor, neg: torch.Tensor,
                       orient: torch.Tensor, nbps: torch.Tensor,
-                      nplanes: int) -> torch.Tensor:
+                      nplanes: int, want_dist: bool = False):
     """The slot stream of a batch of same-shape code-blocks over
     `nplanes` planes, MSB plane first.
 
@@ -358,7 +388,10 @@ def build_slot_stream(mag: torch.Tensor, neg: torch.Tensor,
     (nonzero = negative); orient: (B,) band orientation 0..3; nbps: (B,)
     each block's magnitude bit-planes (0 for an all-zero block). Returns
     (nplanes * slots_per_plane(h, w), B) int8. Planes at or above the
-    batch's largest nbps are all zero slots, as in the reference."""
+    batch's largest nbps are all zero slots, as in the reference. With
+    `want_dist` it returns (slots, dists): dists (nplanes, 3, B) float64,
+    each (plane, pass)'s distortion decrease scaled by 4^-plane, planes
+    MSB first (`mq_jax.build_slot_stream(want_dist=True)`)."""
     B, h, w = mag.shape
     dev = mag.device
     geo = _geometry_on(h, w, dev)
@@ -366,9 +399,10 @@ def build_slot_stream(mag: torch.Tensor, neg: torch.Tensor,
     hp = geo["hp"]
     tp = slots_per_plane(h, w)
     out = torch.zeros((nplanes * tp, B), dtype=torch.int8, device=dev)
+    dists = torch.zeros((nplanes, 3, B), dtype=torch.float64, device=dev)
     maxnb = int(nbps.max()) if B else 0
     if maxnb == 0:
-        return out
+        return (out, dists) if want_dist else out
     mag = _pad_rows(mag.to(torch.int32), hp)
     neg = _pad_rows(neg != 0, hp)
     negsh = {k: _shift(neg, *OFFS[k]) for k in _H + _V}
@@ -379,9 +413,12 @@ def build_slot_stream(mag: torch.Tensor, neg: torch.Tensor,
         plane = nplanes - 1 - q
         if plane >= maxnb:
             continue
-        s = _plane_slots(mag, neg, negsh, orient, nbps, plane, geo, luts)
+        s = _plane_slots(mag, neg, negsh, orient, nbps, plane, geo, luts,
+                         want_dist)
+        if want_dist:
+            s, dists[q] = s
         out[q * tp:(q + 1) * tp] = s.T.to(torch.int8)
-    return out
+    return (out, dists) if want_dist else out
 
 
 def _pad_rows(a: torch.Tensor, hp: int) -> torch.Tensor:
@@ -459,20 +496,21 @@ def mq_step(state, slot, tbl):
     # the renormalising path, so its bit length is frexp's exponent
     n = torch.where(wb, 16 - torch.frexp(a2.to(torch.float64))[1], 0)
     a3 = torch.where(wb, (a2 << n) & 0xFFFF, a2)
-    # at most 15 shifts, CT >= 7 after a byte-out: <= 3 byte-outs
+    # at most 15 shifts, CT >= 7 after a byte-out: <= 3 byte-outs; once a
+    # round has no byte-out in any lane, every shift is done
     cc, cct, clast, nrem = c2, ct, last, n
-    outs, valids = [], []
-    for _ in range(3):
+    outs = torch.zeros((3,) + c.shape, dtype=c.dtype, device=c.device)
+    valids = torch.zeros((3,) + c.shape, dtype=torch.bool, device=c.device)
+    for k in range(3):
         s = torch.minimum(nrem, cct)
         cc = cc << s
         cct = cct - s
         nrem = nrem - s
-        cc, cct, clast, byte, valid = _byteout(cc, cct, clast,
-                                               wb & (cct == 0))
-        outs.append(byte)
-        valids.append(valid)
-    return ((a3, cc, cct, clast, ctx), torch.stack(outs),
-            torch.stack(valids))
+        bo = wb & (cct == 0)
+        if not bool(bo.any()):
+            break
+        cc, cct, clast, outs[k], valids[k] = _byteout(cc, cct, clast, bo)
+    return (a3, cc, cct, clast, ctx), outs, valids
 
 
 def flush_tail(a, c, ct, last):
@@ -529,13 +567,24 @@ def emitting_slots(slots: torch.Tensor) -> torch.Tensor:
     return dense
 
 
-def mq_scan_plain(slots: torch.Tensor) -> ScanOut:
+def pass_ends(T: int, spans) -> List[int]:
+    """Slot positions where the passes of a stream of T slots end: plane
+    q's SPP, MRP and CLN sections of `spans` = (sa, sb, sc) end at
+    q tp + sa, q tp + sa + sb and (q + 1) tp."""
+    sa, sb, sc = spans
+    tp = sa + sb + sc
+    return [q * tp + e for q in range(T // tp) for e in (sa, sa + sb, tp)]
+
+
+def mq_scan_plain(slots: torch.Tensor, spans=None):
     """The MQ coder over a (T, B) int8 slot stream, lane by lane: returns
     (data uint8 (N,), lens int32 (B,), state int32 (NSTATE, B)). `data`
     holds each lane's complete segment (the bytes of the scan, then the
     FLUSH tail), lane after lane; `lens` their lengths; `state` the
     coder state at the end of the scan, before the flush (A, C, CT, the
-    delayed byte, the packed contexts)."""
+    delayed byte, the packed contexts). With `spans` (see `pass_ends`)
+    also cumbo (3 T / tp, B) int32: each lane's byte-outs at every pass
+    end, the bytes written plus the one held in the delay register."""
     dev = slots.device
     B = slots.shape[1]
     dense = emitting_slots(slots)
@@ -544,12 +593,69 @@ def mq_scan_plain(slots: torch.Tensor) -> ScanOut:
     E = dense.shape[0]
     out = torch.zeros((E + 1, 3, B), dtype=torch.uint8, device=dev)
     valid = torch.zeros((E + 1, 3, B), dtype=torch.bool, device=dev)
+    # byte-outs after each coding step; a lane's pass end at slot e is
+    # after its step (emitting slots before e) - 1
+    nbo = torch.zeros((E + 1, B), dtype=torch.int64, device=dev)
+    written = torch.zeros(B, dtype=torch.int64, device=dev)
     for t in range(E):
         state, out[t], valid[t] = mq_step(state, dense[t], tbl)
+        written += valid[t].sum(dim=0)
+        nbo[t + 1] = written + (state[3] >= 0)
     a, c, ct, last, ctx = state
     out[E], valid[E] = flush_tail(a, c, ct, last)
     out = out.view(-1, B).T
     valid = valid.view(-1, B).T
     st = torch.cat([torch.stack([a, c, ct, last]), pack_contexts(ctx)])
-    return (out[valid], valid.sum(dim=1).to(torch.int32),
-            st.to(torch.int32))
+    res = (out[valid], valid.sum(dim=1).to(torch.int32), st.to(torch.int32))
+    if spans is None:
+        return res
+    ends = torch.tensor(pass_ends(slots.shape[0], spans), dtype=torch.int64,
+                        device=dev)
+    coded = torch.cumsum((slots & 1).to(torch.int64), dim=0)[ends - 1]
+    return res + (nbo.gather(0, coded).to(torch.int32),)
+
+
+# ---------------------------------------------------------------------------
+# R-D pass tables (host, numpy)
+# ---------------------------------------------------------------------------
+
+
+def batch_pass_tables(totals: np.ndarray, nbs: np.ndarray, npl: int,
+                      cumbo: np.ndarray, dists: np.ndarray):
+    """Vectorized PCRD pass tables for a lane batch (a copy of
+    `mq_jax.batch_pass_tables`).
+
+    totals (B,) segment byte lengths; nbs (B,) per-lane bitplane
+    counts; cumbo/dists (3*npl, B) device cumulative byteouts /
+    4^-plane-scaled distortion sums (rows: plane npl-1..0 x SPP, MRP,
+    CLN). Returns (rates (3*npl, B) int64, dist_cum (3*npl, B)
+    float64). Rates follow t1_np.encode_cblk exactly: non-terminated
+    rate = bytes_so_far + 5 clamped monotone into [prev, total]; the
+    final (terminated) pass is the exact segment length. A pure-numpy
+    reformulation of the per-lane loop: the forward/backward clamp
+    passes are running min/max scans along the pass axis."""
+    nrows = 3 * npl
+    planes = npl - 1 - (np.arange(nrows) // 3)
+    dist_cum = np.cumsum(dists * np.power(4.0, planes)[:, None], axis=0)
+    rates = np.minimum(cumbo.astype(np.int64) + 5, totals[None, :])
+    rates[-1] = totals
+    # backward min scan then forward max scan (the two clamp loops)
+    rates = np.minimum.accumulate(rates[::-1], axis=0)[::-1]
+    rates = np.maximum.accumulate(rates, axis=0)
+    return rates, dist_cum
+
+
+def passes_from_tables(nb: int, npl: int, rates: np.ndarray,
+                       dcum: np.ndarray) -> List[PassInfo]:
+    """PassInfo list for one lane from its batch_pass_tables columns (a
+    copy of `mq_jax._passes_from_tables`). A lane with nb < npl
+    bitplanes starts at the CLN of plane nb-1 (row 3*(npl-nb)+2); rows
+    before it carry no distortion (its planes above nb are masked out),
+    so the cumulative rows are aligned."""
+    if nb <= 0:
+        return []
+    j0 = 3 * (npl - nb) + 2
+    last = 3 * npl - 1
+    return [PassInfo(rate=int(rates[j]), distortion=float(dcum[j]),
+                     terminated=j == last)
+            for j in range(j0, 3 * npl)]

@@ -5,10 +5,11 @@ markers, header walk, tile plans and T2, the native T2 and HT prepass in
 `csrc/host/`). On the streams of the encode cases, its `read_header`,
 tile packet parse (jobs and slots), `build_comp_plan` and `default_qcd`
 must equal the reference's; its native T2 must agree with its Python
-T2; the config-1 digest files that `chip_smoke.py` checks the card's
-streams against (HT and MQ) must equal digests made afresh with the
-reference host encoder; and the port's MQ tables and `trunc_plane` must
-equal the reference's.
+T2; the digest files that `chip_smoke.py` checks the card's streams
+against (config 1 HT and MQ, config 2 rate-controlled 9/7) must equal
+digests made afresh with the reference host encoder; and the port's MQ
+tables, quantization helpers, irreversible plans and QCDs, PCRD hull and
+allocator, T2 tile simulator and `PassInfo` must equal the reference's.
 
 Run `PYTHONPATH=. python tests/test_torch_host_copies.py` from the
 repository root to rewrite the digest files.
@@ -47,6 +48,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "grokimagecompression_tpu_torch", "data")
 DIGESTS = os.path.join(DATA, "config1_ht_lossless.json")
 MQ_DIGESTS = os.path.join(DATA, "config1_mq_lossless.json")
+C2_DIGESTS = os.path.join(DATA, "config2_pcrd_97.json")
 
 CASES = [
     ("gray", [natural_image(64, 64, seed=0)],
@@ -252,8 +254,234 @@ def test_port_frames_digest_like_reference_frames():
         data.astype("<i4").tobytes()).hexdigest()
 
 
+def config2_digests():
+    """SHA-256 of the 4 config-2 frames (`chip_smoke.config2_frames`) and
+    of the reference host encoder's streams of them (ICT + 9/7, three
+    layers at ratios 24 / 48 / 96), run with its numpy DWT: the native
+    9/7 DWT rounds differently from the numpy oracle, which the port's
+    DWT equals bit for bit."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from grokimagecompression_tpu.core.image import Component, Image
+    from grokimagecompression_tpu.core.params import Transform
+    from grokimagecompression_tpu.ops import dwt_host
+    imgs = chip_smoke.config2_frames(chip_smoke.C2_FRAMES)
+    params = EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                           numlayers=3, rates=(24.0, 48.0, 96.0))
+    native = dwt_host._get_native
+    dwt_host._get_native = lambda: None
+    try:
+        streams = [ref_encoder.encode(Image(
+            xsiz=im.xsiz, ysiz=im.ysiz, components=[Component(
+                data=c.data, prec=c.prec, signed=c.signed, dx=c.dx,
+                dy=c.dy) for c in im.components]), params, device=False)
+            for im in imgs]
+    finally:
+        dwt_host._get_native = native
+    return {
+        "what": "BASELINE config 2: chip_smoke.config2_frames(4) and the "
+                "streams of grokimagecompression_tpu encoder.encode("
+                "EncoderParams(numresolutions=6, transform=DWT_97, "
+                "numlayers=3, rates=(24, 48, 96)), device=False) with "
+                "ops/dwt_host's numpy DWT; tests/test_torch_host_copies.py "
+                "writes it",
+        "frames": [chip_smoke.frame_digest(im) for im in imgs],
+        "streams": [hashlib.sha256(cs).hexdigest() for cs in streams],
+    }
+
+
+def test_config2_digest_file_is_current():
+    with open(C2_DIGESTS) as f:
+        assert json.load(f) == config2_digests()
+
+
+def test_quant_helpers_equal_reference():
+    from grokimagecompression_tpu.ops import mct_np
+    from grokimagecompression_tpu.ops import quant as ref_quant
+    from grokimagecompression_tpu_torch.ops import quant
+    for name in ("DWT_NORMS_53", "DWT_NORMS_97"):
+        assert getattr(quant, name) == getattr(ref_quant, name), name
+    assert quant.MCT_NORMS_IRREV == mct_np.MCT_NORMS_IRREV
+    assert quant.MCT_NORMS_REV == mct_np.MCT_NORMS_REV
+    for orient in range(4):
+        for level in range(12):
+            for rev in (True, False):
+                assert quant.band_norm(orient, level, rev) == \
+                    ref_quant.band_norm(orient, level, rev)
+            assert quant.default_irrev_stepsize(orient, level) == \
+                ref_quant.default_irrev_stepsize(orient, level)
+    for step in (1e-4, 0.0371, 0.49, 0.5, 1.0, 1.7, 3.25, 117.0):
+        for nbps in (8, 9, 12, 16):
+            em = quant.encode_stepsize(step, nbps)
+            assert em == ref_quant.encode_stepsize(step, nbps)
+            assert quant.decode_stepsize(*em, nbps) == \
+                ref_quant.decode_stepsize(*em, nbps)
+
+
+def test_deadzone_equals_host_quantizer():
+    import torch
+    from grokimagecompression_tpu.ops import quant as ref_quant
+    from grokimagecompression_tpu_torch.ops import quant
+    rng = np.random.default_rng(2)
+    v = (rng.standard_normal((64, 64)) * 300).astype(np.float32)
+    step = 1.0 / 2.08
+    v[0, :8] = np.float32(step) * np.arange(8, dtype=np.float32)  # on steps
+    mag, neg = ref_quant.quantize(v, step)
+    got = quant.deadzone(torch.from_numpy(v),
+                         torch.tensor(step, dtype=torch.float64))
+    np.testing.assert_array_equal(got.numpy(), mag.astype(np.int64))
+
+
+@pytest.mark.parametrize("base_step", [0.0, 2.5])
+@pytest.mark.parametrize("geom", [(2048, 2048, 6), (95, 81, 4),
+                                  (45, 27, 3)])
+def test_irreversible_plans_equal_reference(geom, base_step):
+    from grokimagecompression_tpu.core.params import Transform
+    w, h, nres = geom
+    img = natural_image(w, h, ncomp=3, seed=1) if w < 2048 else \
+        natural_image(64, 64, ncomp=3, seed=1)
+    params = EncoderParams(numresolutions=nres, transform=Transform.DWT_97,
+                           image_offset=(0, 0) if w == 2048 else (3, 1))
+    if w == 2048:
+        img = dataclasses.replace(img, xsiz=w, ysiz=h)
+    rsiz = ref_encoder.build_siz(img, params)
+    rcod = ref_encoder.build_cod(img, params)
+    pimg = convert.image_from_reference(img)
+    pparams = convert.params_from_reference(params)
+    psiz = encoder.build_siz(pimg, pparams)
+    pcod = encoder.build_cod(pimg, pparams)
+    for gb in (1, 2):
+        rqcd = ref_tile.default_qcd(rsiz, rcod, gb, base_step)
+        pqcd = tile.default_qcd(psiz, pcod, gb, base_step)
+        assert _asdict(pqcd) == _asdict(rqcd)
+        derived = dataclasses.replace(pqcd, style=1)      # SCALAR_DERIVED
+        rderived = dataclasses.replace(rqcd, style=1)
+        tr = tile_rect(0, psiz.xsiz, psiz.ysiz, psiz.xosiz, psiz.yosiz,
+                       psiz.xtsiz, psiz.ytsiz, psiz.xtosiz, psiz.ytosiz)
+        rtr = ref_rect(0, rsiz.xsiz, rsiz.ysiz, rsiz.xosiz, rsiz.yosiz,
+                       rsiz.xtsiz, rsiz.ytsiz, rsiz.xtosiz, rsiz.ytosiz)
+        for c in range(3):
+            for pq, rq in ((pqcd, rqcd), (derived, rderived)):
+                assert _asdict(tile.build_comp_plan(psiz, pcod, pq, tr, c)) \
+                    == _asdict(ref_tile.build_comp_plan(rsiz, rcod, rq, rtr,
+                                                        c))
+
+
+def _rd_blocks(mod_t2, n, seed):
+    """n code-blocks of the given T2 module with random monotone R-D
+    tables (a few with no passes)."""
+    from grokimagecompression_tpu_torch.core.geometry import (CodeBlock,
+                                                              Rect)
+    rng = np.random.default_rng(seed)
+    cbs = []
+    for i in range(n):
+        npas = int(rng.integers(0, 20)) if i % 7 else 0
+        rates = np.cumsum(rng.integers(0, 60, npas))
+        dists = np.cumsum(rng.random(npas) * rng.choice([1e2, 1e5], npas))
+        passes = [mod_t2.PassInfo(rate=int(r), distortion=float(d),
+                                  terminated=k == npas - 1)
+                  for k, (r, d) in enumerate(zip(rates, dists))]
+        # 12 blocks a precinct of a 4 x 3 code-block grid
+        geom = CodeBlock(rect=Rect(0, 0, 4, 4), cx=i % 12 % 4,
+                         cy=i % 12 // 4)
+        cbs.append(mod_t2.CblkEnc(geom=geom, data=bytes(int(rates[-1])
+                                                        if npas else 0),
+                                  numbps=5, imsb=2, numpasses=npas,
+                                  passes=passes))
+    return cbs
+
+
+def test_pcrd_hull_and_allocator_equal_reference():
+    from grokimagecompression_tpu.codestream import pcrd as ref_pcrd
+    from grokimagecompression_tpu.codestream import t2 as ref_t2
+    from grokimagecompression_tpu.t1 import t1_np
+    from grokimagecompression_tpu_torch.codestream import pcrd
+    from grokimagecompression_tpu_torch.codestream import t2 as port_t2
+
+    class RefT2:
+        PassInfo = t1_np.PassInfo
+        CblkEnc = ref_t2.CblkEnc
+
+    ours = _rd_blocks(port_t2, 40, seed=3)
+    theirs = _rd_blocks(RefT2, 40, seed=3)
+    for a, b in zip(ours, theirs):
+        assert [dataclasses.astuple(h) for h in pcrd.convex_hull(a)] == \
+            [dataclasses.astuple(h) for h in ref_pcrd.convex_hull(b)]
+    for rates, q in (((24.0, 48.0, 96.0), ()), ((3.0, 0.0), ()),
+                     ((8.0, 4.0, 1.5), ())):
+        got = []
+        for mod, cbs in ((pcrd, ours), (ref_pcrd, theirs)):
+            def sim(layer, cbs=cbs):
+                return sum(cb.pass_bytes(0, sum(cb.layer_npasses[:layer + 1]))
+                           + 3 for cb in cbs)
+            ctx = mod.RateControlCtx(cblks=cbs, numlayers=len(rates),
+                                     tile_samples=4096, image_samples=4096,
+                                     max_prec=8, simulate_upto=sim)
+            mod.PCRDAllocator(rates=rates, quality_psnr=q,
+                              image_bytes=4096)(ctx)
+            got.append([list(cb.layer_npasses) for cb in cbs])
+        assert got[0] == got[1], rates
+
+
+def test_tile_sim_equals_reference():
+    """The port's native tile simulator against the reference's on one
+    rate-controlled tile: byte totals per layer and per precinct group."""
+    from grokimagecompression_tpu.codestream import t2 as ref_t2
+    from grokimagecompression_tpu.native import t2_native as ref_native
+    from grokimagecompression_tpu.t1 import t1_np
+    from grokimagecompression_tpu_torch.codestream import t2 as port_t2
+    from grokimagecompression_tpu_torch.native import t2_native
+
+    class RefT2:
+        PassInfo = t1_np.PassInfo
+        CblkEnc = ref_t2.CblkEnc
+        PrecEnc = ref_t2.PrecEnc
+
+    sims = []
+    for mod, native in ((port_t2, t2_native), (RefT2, ref_native)):
+        cbs = _rd_blocks(mod, 48, seed=9)
+        groups = [((g, 0, 0), g % 3,
+                   [mod.PrecEnc(geom=_prec_geom(),
+                                cblks=cbs[12 * g:12 * g + 12])])
+                  for g in range(4)]
+        rng = np.random.default_rng(4)
+        cols = np.zeros((3, len(cbs)), np.int64)
+        for i, cb in enumerate(cbs):
+            cut = sorted(rng.integers(0, cb.numpasses + 1, 2)) \
+                if cb.numpasses else [0, 0]
+            cols[:, i] = (cut[0], cut[1] - cut[0], cb.numpasses - cut[1])
+        sim = native.TileSim(groups, 3, True)
+        for layer in range(3):
+            sim.write_rows(layer, cols[layer], cbs)
+        sims.append(sim)
+    for layer in range(3):
+        a_tot, a_g = sims[0].simulate(layer)
+        b_tot, b_g = sims[1].simulate(layer)
+        assert a_tot == b_tot and list(a_g) == list(b_g), layer
+    assert sims[0].comps == sims[1].comps
+
+
+def _prec_geom():
+    from grokimagecompression_tpu_torch.core.geometry import Precinct, Rect
+    return Precinct(index=0, rect=Rect(0, 0, 16, 12), cblk_grid_w=4,
+                    cblk_grid_h=3, cblks=())
+
+
+def test_pass_info_equals_reference():
+    from grokimagecompression_tpu.t1 import t1_np
+    from grokimagecompression_tpu_torch.codestream import t2 as port_t2
+    assert [(f.name, f.type, f.default) for f in
+            dataclasses.fields(port_t2.PassInfo)] == \
+        [(f.name, f.type, f.default) for f in
+         dataclasses.fields(t1_np.PassInfo)]
+
+
 if __name__ == "__main__":
     for path, style in ((DIGESTS, HT), (MQ_DIGESTS, 0)):
         with open(path, "w") as f:
             json.dump(config1_digests(style), f, indent=1)
             f.write("\n")
+    with open(C2_DIGESTS, "w") as f:
+        json.dump(config2_digests(), f, indent=1)
+        f.write("\n")

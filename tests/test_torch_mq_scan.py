@@ -4,8 +4,10 @@
 plain version `ops/mq_torch.mq_scan_plain` for CPU tensors. The `gpu`
 case holds the kernel against the plain version on the card, on random
 slot streams with one all-passthrough lane: every lane's segment bytes,
-lengths and end-of-scan state must be equal. The plain version itself is
-held to the reference in `tests/test_torch_mq_encode.py`.
+lengths and end-of-scan state must be equal, and with pass spans given
+the byte-outs at every pass end too. The plain version itself is held to
+the reference in `tests/test_torch_mq_encode.py` and (pass-end byte-outs)
+`tests/test_torch_rd_encode.py`.
 """
 
 import numpy as np
@@ -39,6 +41,16 @@ def test_wrapper_validates_inputs():
         mq_scan.mq_scan(z.T)
 
 
+def test_pass_spans_must_tile_the_stream():
+    z = torch.zeros((768, 2), dtype=torch.int8)
+    with pytest.raises(ValueError):
+        mq_scan.mq_scan(z, (256, 256, 512))      # 768 is not whole planes
+    with pytest.raises(ValueError):
+        mq_scan.mq_scan(z, (128, 128, 512))      # not 256-slot aligned
+    *_, cumbo = mq_scan.mq_scan(z, (256, 256, 256))
+    assert cumbo.shape == (3, 2) and not cumbo.any()
+
+
 def test_plain_scan_counts_no_launch_and_keeps_the_contract():
     before = dict(mq_scan.LAUNCHES)
     slots = _random_slots(np.random.default_rng(3), 300, 5)
@@ -70,3 +82,17 @@ def test_cuda_kernel_matches_plain():
         want = mq_torch.mq_scan_plain(slots)
         for name, w, g in zip(("data", "lens", "state"), want, got):
             assert torch.equal(w, g), f"T={T} B={B}: {name}"
+
+
+@pytest.mark.gpu
+def test_cuda_pass_byteouts_match_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    slots = _random_slots(np.random.default_rng(9), 3 * 1280, 70).to(dev)
+    spans = (256, 512, 512)
+    got = mq_scan.mq_scan(slots, spans)
+    torch.cuda.synchronize()
+    want = mq_torch.mq_scan_plain(slots, spans)
+    for name, w, g in zip(("data", "lens", "state", "cumbo"), want, got):
+        assert torch.equal(w, g), name

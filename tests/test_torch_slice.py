@@ -102,13 +102,12 @@ def _plans(img, params):
     tr = tile_rect(0, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                    siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
     ref_plan = ref_fused.build_plan(rsiz, rcod, rqcd, rtr, coder="ht")
-    if cod.transform != Transform.DWT_53:
-        # the port plans the reversible path only: its default_qcd raises
-        with pytest.raises(NotImplementedError):
-            default_qcd(siz, cod, 1, params.base_step)
-        return ref_plan, None
-    return ref_plan, fused_encode.build_plan(
+    plan = fused_encode.build_plan(
         siz, cod, default_qcd(siz, cod, 1, params.base_step), tr)
+    if cod.transform != Transform.DWT_53:
+        # the port's HT coder takes the reversible path only
+        assert plan is None
+    return ref_plan, plan
 
 
 @pytest.mark.parametrize("size,ncomp,numres,transform", [
@@ -122,7 +121,7 @@ def test_plan_from_reference_equals_build_plan(size, ncomp, numres,
     ref_plan, plan = _plans(img, EncoderParams(
         numresolutions=numres, cblk_style=HT, transform=transform))
     if plan is None:
-        # 9/7: the port plans the reversible path only
+        # 9/7: the port's HT coder takes the reversible path only
         with pytest.raises(NotImplementedError):
             convert.plan_from_reference(ref_plan)
         return
@@ -137,8 +136,10 @@ def test_out_of_slice_raises():
     # MQ: only the default code-block style 0 is ported
     mq_styles = (0x01, 0x02, 0x04, 0x08, 0x10, 0x20)   # LAZY .. SEGSYM
     for params in tuple(EncoderParams(cblk_style=s) for s in mq_styles) + (
-                   EncoderParams(cblk_style=0, transform=Transform.DWT_97),
-                   EncoderParams(cblk_style=0, rates=(20.0,)),
+                   EncoderParams(cblk_style=0, transform=Transform.DWT_97,
+                                 custom_mct=np.eye(3).tolist()),
+                   EncoderParams(cblk_style=0, rates=(20.0,),
+                                 rate_alloc="global"),
                    EncoderParams(cblk_style=0, roi_comp=0, roi_shift=3),
                    EncoderParams(cblk_style=HT, transform=Transform.DWT_97),
                    EncoderParams(cblk_style=HT, rates=(20.0,)),
@@ -164,7 +165,8 @@ def test_port_runs_without_jax():
     """Encode and decode round trips with both JAX and the reference
     package blocked, with the HT and the MQ coder; each stream equals the
     reference host encoder's, made in this process from the same frame.
-    The MQ modules are imported there too."""
+    The MQ modules, the DWT kernel's wrapper and the rate control are
+    imported there too."""
     rng = np.random.default_rng(5)
     data = rng.integers(0, 256, (64, 64)).astype(np.int32)
     params = EncoderParams(numresolutions=3, cblk_style=HT)
@@ -180,8 +182,9 @@ def test_port_runs_without_jax():
         from grokimagecompression_tpu_torch.codestream import decoder, encoder
         from grokimagecompression_tpu_torch.core.image import Component, Image
         from grokimagecompression_tpu_torch.core.params import EncoderParams
+        from grokimagecompression_tpu_torch.codestream import pcrd
         from grokimagecompression_tpu_torch.ops import (
-            mq_dec, mq_dec_torch, mq_scan, mq_tables, mq_torch, quant)
+            dwt, mq_dec, mq_dec_torch, mq_scan, mq_tables, mq_torch, quant)
         data = np.random.default_rng(5).integers(0, 256, (64, 64)).astype(
             np.int32)
         img = Image(xsiz=64, ysiz=64, components=[Component(

@@ -3,10 +3,11 @@
 `mct_torch` against `mct_jax`, `dwt_torch` against `dwt_jax` and the numpy
 oracle `dwt_np`, and the port's `pipeline._fwd_transform` against the
 reference pipeline, on the same numpy inputs. 5/3 and the integer MCT are
-exact. The float32 9/7 DWT and ICT are held to the numpy oracle exactly
-(same float32 operations, no FMA contraction on either side) and to XLA
-within 4 float32 ulps of each band's largest magnitude, because XLA on
-the CPU may contract a*b+c into an FMA.
+exact. The float32 9/7 DWT is held to the numpy oracle exactly (same
+float32 operations, no FMA contraction on either side) and to XLA within
+4 float32 ulps of each band's largest magnitude, because XLA on the CPU
+may contract a*b+c into an FMA; the ICT to XLA's within 4 ulps and, in
+the pipeline, to the host encoder's (`mct_np`) exactly.
 """
 
 import jax
@@ -19,7 +20,7 @@ from grokimagecompression_tpu.core.geometry import Rect, component_rect
 from grokimagecompression_tpu.core.params import EncoderParams, Transform
 from grokimagecompression_tpu.codestream.encoder import build_cod, build_siz
 from grokimagecompression_tpu.models import pipeline as ref_pipeline
-from grokimagecompression_tpu.ops import dwt_jax, dwt_np, mct_jax
+from grokimagecompression_tpu.ops import dwt_jax, dwt_np, mct_jax, mct_np
 from grokimagecompression_tpu_torch.models import pipeline
 from grokimagecompression_tpu_torch.ops import dwt_torch, mct_torch
 
@@ -145,9 +146,23 @@ def test_fwd_transform_matches_reference_pipeline(transform):
     assert dataclasses_fields(cfg) == dataclasses_fields(ref_cfg)
     comps = [np.stack([c.data[1:, 3:], c.data[1:, 3:] ^ 5])
              for c in img.components]
-    fwd = lambda *c: ref_pipeline._fwd_transform(ref_cfg, c)  # noqa: E731
-    # 9/7 op by op (see test_dwt97_within_ulps_of_jax)
-    want = (jax.jit(fwd) if transform == Transform.DWT_53 else fwd)(*comps)
+    if transform == Transform.DWT_53:
+        want = jax.jit(lambda *c: ref_pipeline._fwd_transform(ref_cfg, c))(
+            *comps)
+    else:
+        # the port's ICT rounds as the host encoder's matrix product
+        # (`mct_np.ict_fwd`), the reference of its streams, not as the
+        # reference pipeline's op-by-op sum: exact against the former;
+        # the 9/7 bands against the reference's DWT of the same ICT
+        # output, op by op (see test_dwt97_within_ulps_of_jax)
+        shifted = [mct_np.dc_shift_fwd(c.astype(np.int32), 8, False)
+                   for c in comps]
+        ycc = mct_np.ict_fwd(*shifted)
+        for a, b in zip(ycc, mct_torch.ict_fwd(
+                *(torch.from_numpy(x) for x in shifted))):
+            np.testing.assert_array_equal(a, b.numpy())
+        want = [dwt_jax.fwd_dwt_2d(jnp.asarray(y), r, 3, False)
+                for y, r in zip(ycc, ref_cfg.tc_rects)]
     got = pipeline._fwd_transform(cfg, [torch.from_numpy(c) for c in comps])
     for wc, gc in zip(want, got):
         assert set(wc) == set(gc) == set(pipeline._band_keys(3))
