@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Smoke test of the torch port on one CUDA GPU: build, check, run, time.
 
-Drives the port's five paths: at BASELINE config 1 (512x512 8-bit gray,
-5/3, 6 resolutions, 64x64 code-blocks, 64 frames in 32-frame chunks) the
+Drives the port's paths: at BASELINE config 1 (512x512 8-bit gray, 5/3,
+6 resolutions, 64x64 code-blocks, 64 frames in 32-frame chunks) the
 fused HT lossless encode through
 `grokimagecompression_tpu_torch.codestream.encoder.encode_batch`, its
 decode mirror through `codestream.decoder.decode_batch`, the Part-1 MQ
-lossless encode (default code-block style 0) through `encode_batch`, and
-its decode mirror through `decode_batch`; and at BASELINE config 2
-(2048x2048 8-bit RGB, ICT + 9/7, 6 resolutions, three quality layers at
-compression ratios 24, 48 and 96, PCRD rate control; 4 frames in 2-frame
-chunks) the rate-controlled MQ encode through `encode_batch`. It checks
-every CUDA kernel on those paths against its plain PyTorch version, and
-imports only the port, torch, numpy and the standard library.
+lossless encode (default code-block style 0) through `encode_batch`, its
+decode mirror through `decode_batch`, and the dense MQ scan through its
+entry point `ops/mq_scan.run_mq_scans`; at BASELINE config 2 (2048x2048
+8-bit RGB, ICT + 9/7, 6 resolutions, three quality layers at compression
+ratios 24, 48 and 96, PCRD rate control; 4 frames) the rate-controlled
+MQ encode through `encode_batch` (2-frame chunks, then the default
+chunk), its decode through `decode_batch`, and a layer-limited decode.
+It checks every CUDA kernel on those paths against its plain PyTorch
+version, and imports only the port, torch, numpy and the standard
+library.
 
 Phases, each fatal on failure:
   1. the card (nvidia-smi name and power limit) and the software versions;
@@ -33,7 +36,11 @@ Phases, each fatal on failure:
      inverse, 5/3 and 9/7, at the config-1 chunk shape, the config-2 frame
      shape, an odd-origin rect and a rect with single-sample levels, and
      the MQ coder's pass-end byte-outs on 64 lanes of the config-2 group
-     (cut to the planes whose coding the plain version does in ~30 s);
+     (cut to the planes whose coding the plain version does in ~30 s),
+     and the dense MQ scan (flat and blocked) on 128 lanes of the config-1
+     64x64 group cut to its leading planes; then `run_mq_scans` on the
+     whole group (188,416 x 2016 slots), every lane's words and partial
+     word equal to the compact kernel's segment before its flush tail;
   4. the encode slice: the 64 frames and the 64 streams of
      encode_batch(device="cuda") against the SHA-256 digests of
      grokimagecompression_tpu_torch/data/config1_ht_lossless.json (the
@@ -56,8 +63,20 @@ Phases, each fatal on failure:
      "cuda", chunk=2), every stream against
      grokimagecompression_tpu_torch/data/config2_pcrd_97.json (the
      reference host encoder's, run with its numpy DWT), the DWT and the MQ
-     kernel launched by that run; each layer's bytes, MP/s (best of 3) and
-     one chunk's time by stage.
+     kernel launched by that run; each layer's bytes, MP/s (best of 3),
+     one chunk's time by stage and the peak device memory;
+  9. the config-2 decode: the 4 streams through decode_batch(device=
+     "cuda"), every frame's pixels against the host decoder's digests in
+     grokimagecompression_tpu_torch/data/config2_decode_97.json (numpy
+     DWT), the MQ decoder and the DWT launched; MP/s (best of 3), peak
+     device memory and the chunk's time by stage;
+ 10. frame 0 encoded with rates (96, 48, 24), so that every layer carries
+     data, against that file's stream digest, and decoded at layers 1, 2
+     and all: the host decoder's pixels each time, three different MSEs;
+ 11. the 4 frames through encode_batch at its default chunk, which the
+     plan's bytes a frame (`fused_encode.mq_frame_bytes`) and the free
+     device memory cap: the streams against the digests, and the peak
+     device memory measured beside the model's prediction.
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -68,6 +87,7 @@ exits non-zero without one).
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -97,8 +117,11 @@ MQ_DEC = ("mq_dec_group", "mq_dec", "decode_group_plain",
           "grokimagecompression_tpu/ops/mq_dec_pallas.py:594",
           "grokimagecompression_tpu_torch/csrc/mq_dec.cu")
 DWT = ("dwt", "dwt", "dwt_torch",
-       "grokimagecompression_tpu/ops/dwt_pallas.py:254",
+       "grokimagecompression_tpu/ops/dwt_pallas.py:254 and :307",
        "grokimagecompression_tpu_torch/csrc/dwt.cu")
+MQ_DENSE = ("mq_scan_dense", "mq_dense", "mq_scan_dense_plain",
+            "grokimagecompression_tpu/ops/mq_scan_pallas.py:203",
+            "grokimagecompression_tpu_torch/csrc/mq_scan.cu")
 # BASELINE config 2: 2048x2048 8-bit RGB, ICT + 9/7, three layers at
 # compression ratios 24 / 48 / 96 (the reference's bench_chip_pcrd2k)
 C2_FRAMES = 4
@@ -106,9 +129,13 @@ C2_CHUNK = 2
 C2_SIZE = 2048
 C2_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                           "config2_pcrd_97.json")
+C2_DEC_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                              "config2_decode_97.json")
 # the plain MQ coder's decisions allowed in the config-2 byte-out check
-# (~1.5 ms a decision on the card)
+# (~1.5 ms a decision on the card), and in the dense scan's check (which
+# also packs words each step)
 PLAIN_MQ_DECISIONS = 20000
+PLAIN_DENSE_DECISIONS = 8000
 # the plain MQ decoder's longest run allowed at full depth on the 64x64
 # group (seconds, estimated from the 32x32 group's run)
 PLAIN_MQ_DEC_S = 90
@@ -196,6 +223,15 @@ def frame_digest(img) -> str:
     for c in img.components:
         h.update(np.ascontiguousarray(c.data, dtype="<i4").tobytes())
     return h.hexdigest()
+
+
+def frame_mse(img, ref) -> float:
+    """Mean squared error of an image's samples against a reference
+    image's, over every component, in float64."""
+    import numpy as np
+    err = sum(float(((a.data.astype(np.float64) - b.data) ** 2).sum())
+              for a, b in zip(img.components, ref.components))
+    return err / sum(c.data.size for c in img.components)
 
 
 def cuda_ms(fn, iters):
@@ -447,6 +483,106 @@ def check_mq_scan(mq_enc, chunk, results):
             line += (f"; kernel {ms:.3f} ms (bound {b_ms:.4f} ms by {b_by}: "
                      f"{b_terms})")
         print(line)
+
+
+def check_mq_dense(mq_enc, chunk, results, launches):
+    """Phase 3, the dense MQ scan: on 128 lanes of the config-1 64x64
+    group cut to the leading planes in which no lane codes more than
+    PLAIN_DENSE_DECISIONS decisions (and 256 no-op rows past the end),
+    every output (flat and blocked) bit-exact with the plain version; then
+    the reference's entry point `run_mq_scans` on the full group, the
+    path whose launches are counted, its words' bytes in order with each
+    lane's partial word equal to the compact kernel's segment before the
+    flush tail, and the kernel timed."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+    gin = list(mq_enc.group_inputs(chunk))
+    mag, neg, orient = gin[-1]
+    _, slots = mq_enc.group_slots(mag, neg, orient)
+    del gin, mag, neg, orient
+    h, w = mq_enc.plan.groups[-1][:2]
+    T, B = slots.shape
+    tp = mq_torch.slots_per_plane(h, w)
+    npl = T // tp
+    lanes = torch.linspace(0, B - 1, 128, device=slots.device).round().long()
+    sub = slots[:, lanes]
+    coded = (sub.view(npl, tp, 128) & 1).sum(dim=1).cumsum(0).amax(dim=1)
+    keep = max(1, int((coded <= PLAIN_DENSE_DECISIONS).sum()))
+    sub = sub[:keep * tp].contiguous()
+    got = mq_scan.scan_dense(sub, keep * tp + 256)
+    blocked = mq_scan.run_mq_scans_blocked(sub)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = mq_torch.mq_scan_dense_plain(sub, keep * tp + 256)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
+    for part, wv, g in zip(("words", "m8", "nbo", "state"), want, got):
+        if not torch.equal(wv, g):
+            raise AssertionError(f"mq_scan_dense {part} differ from the "
+                                 f"plain version ({keep} planes, 128 lanes)")
+    for part, wv, g in zip(("words", "m8", "nbo", "state"), want, blocked):
+        rows = wv if part == "state" else wv[:g.shape[0]]
+        if not torch.equal(rows.reshape(g.shape), g):
+            raise AssertionError(f"run_mq_scans_blocked {part} differ from "
+                                 f"the plain version")
+    err = max(int((wv.to(torch.int64) - g.to(torch.int64)).abs().max())
+              for wv, g in zip(want, got))
+    print(f"kernel mq_scan_dense: config-1 group {h}x{w}, 128 of {B} lanes, "
+          f"{keep} of {npl} planes (T={sub.shape[0]}, {int(coded[keep - 1])} "
+          f"decisions in the deepest lane), flat and blocked: bit-exact "
+          f"with plain (plain {plain_ms:.1f} ms)")
+
+    mq_scan.LAUNCHES["mq_dense"] = 0
+    words, mask, nbo, state = mq_scan.run_mq_scans(slots)
+    torch.cuda.synchronize()
+    launches["mq_dense"] = mq_scan.LAUNCHES["mq_dense"]
+    if launches["mq_dense"] < 1:
+        raise AssertionError("mq_scan_dense was not launched by "
+                             "run_mq_scans")
+    data, lens, _ = mq_scan.mq_scan(slots)
+    # per lane: its words' bytes (little-endian, step order), then wcnt
+    # bytes of its partial word, against its segment's first bytes
+    lens = lens.to(torch.int64)
+    seg0 = torch.cumsum(lens, 0) - lens
+    nw = mask.sum(dim=0)
+    wbytes = words.T[mask.T].contiguous().view(torch.uint8)
+    k = torch.arange(wbytes.numel(), device=slots.device)
+    wlane = torch.repeat_interleave(torch.arange(B, device=slots.device), nw)
+    wstart = torch.cumsum(nw, 0) - nw
+    wi = k // 4
+    pos = seg0[wlane[wi]] + 4 * (wi - wstart[wlane[wi]]) + k % 4
+    wcnt = state[5].to(torch.int64)
+    if bool((4 * nw + wcnt > lens).any()) or \
+            not torch.equal(data[pos], wbytes):
+        raise AssertionError("mq_scan_dense words differ from the compact "
+                             "kernel's segments")
+    j = torch.arange(4, device=slots.device)
+    part = j[None, :] < wcnt[:, None]
+    ppos = (seg0 + 4 * nw)[:, None] + j[None, :]
+    pbytes = (state[4].to(torch.int64)[:, None] >> (8 * j[None, :])) & 0xFF
+    if not torch.equal(data[ppos[part]].to(torch.int64), pbytes[part]):
+        raise AssertionError("mq_scan_dense partial words differ from the "
+                             "compact kernel's segments")
+    del words, mask, nbo, state, data, pos, k, wlane, wi, wbytes
+    for _ in range(2):
+        mq_scan.scan_dense(slots)
+    ms = cuda_ms(lambda: mq_scan.scan_dense(slots), 5)
+    emits = int((slots & 1).sum())
+    out_bytes = 3 * 4 * T * B + 4 * 11 * B
+    b_ms, b_by, b_terms = bound(
+        nbytes(slots) + out_bytes,
+        OPS["mq_decision"] * emits + OPS["mq_byte"] * int(lens.sum()))
+    results[MQ_DENSE[0]] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                                bound_ms=b_ms, bound_by=b_by)
+    print(f"mq_scan_dense through run_mq_scans on the full group: slots "
+          f"({T}, {B}), {emits} coding, {int(nw.sum())} words: every lane's "
+          f"words and partial word are its compact segment before the flush "
+          f"tail; launches {launches['mq_dense']}; kernel {ms:.3f} ms (bound "
+          f"{b_ms:.4f} ms by {b_by}: {b_terms})")
 
 
 def check_mq_decoder(streams, dev, results):
@@ -709,6 +845,83 @@ def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
     return stages, layers
 
 
+def c2_decode_stages(streams, dev):
+    """Time of one config-2 decode chunk (the 4 streams) by stage (host
+    clock, synchronised)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.models import fused_decode
+    from grokimagecompression_tpu_torch.ops import dwt, mct_torch
+
+    stages = {}
+    tt = time.perf_counter
+    t = tt()
+    hdr, trs, parsed = decoder.parse_batch(streams)
+    stages["T2 (host)"] = tt() - t
+    (plan,) = decoder.tile_groups(hdr, trs, parsed)
+    dec = fused_decode.decoder_for(plan, dev)
+    t = tt()
+    arrays = fused_decode.prepare_chunk(dec.plan, [
+        fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed])
+    stages["MQ lane packing (host)"] = tt() - t
+    torch.cuda.synchronize()
+    t = tt()
+    groups = fused_decode.upload(arrays, dev)
+    torch.cuda.synchronize()
+    stages["upload"] = tt() - t
+    t = tt()
+    packed = dec.decode(groups)
+    torch.cuda.synchronize()
+    stages["mq_dec_group"] = tt() - t
+    t = tt()
+    bands = dec.assemble(packed, [g[-1] for g in groups], len(streams))
+    torch.cuda.synchronize()
+    stages["dequantization + band placement"] = tt() - t
+    cfg = dec.plan.cfg
+    t = tt()
+    comps = [dwt.inv_dwt_2d(bands[c], cfg.tc_rects[c], cfg.numresolutions,
+                            cfg.reversible) for c in range(len(bands))]
+    torch.cuda.synchronize()
+    stages["inverse 9/7 DWT kernel"] = tt() - t
+    t = tt()
+    comps[0], comps[1], comps[2] = mct_torch.ict_inv(*comps[:3])
+    comps = [mct_torch.dc_shift_inv(torch.round(a).to(torch.int32),
+                                    cfg.precs[c], cfg.signeds[c])
+             for c, a in enumerate(comps)]
+    torch.cuda.synchronize()
+    stages["inverse ICT + rounding + DC unshift"] = tt() - t
+    t = tt()
+    [c.cpu() for c in comps]
+    stages["fetch"] = tt() - t
+    return stages
+
+
+def c2_memory_stages(enc, chunk):
+    """Peak device bytes of a config-2 encode chunk by stage, each above
+    what was allocated when the stage began: transform + quantize +
+    gather, the slot build with distortions, the MQ scan with byte-outs."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, torch.cuda.max_memory_allocated() - a0
+
+    gin, p_gather = peak(lambda: list(enc.group_inputs(*chunk)))
+    built, p_build = peak(lambda: [enc.group_slots(*g) for g in gin])
+    _, p_scan = peak(lambda: [
+        mq_scan.mq_scan(b[1], mq_torch.pass_spans_padded(h, w))
+        for (h, w, _), b in zip(enc.plan.groups, built)])
+    return {"transform + quantize + gather": p_gather,
+            "slot build + distortions": p_build, "mq_scan": p_scan}
+
+
 def mq_encode_stages(mq_enc, chunk, imgs, params):
     """Time of one 32-frame MQ encode chunk by stage (host clock,
     synchronised); the host T2 runs on encode_batch's 4-thread pool."""
@@ -773,7 +986,8 @@ def main() -> int:
     from grokimagecompression_tpu_torch.codestream import decoder, encoder
     from grokimagecompression_tpu_torch.codestream.tile import default_qcd
     from grokimagecompression_tpu_torch.core.geometry import tile_rect
-    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+    from grokimagecompression_tpu_torch.core.params import (DecoderParams,
+                                                            EncoderParams,
                                                             Transform)
     from grokimagecompression_tpu_torch.models import fused_encode
     from grokimagecompression_tpu_torch.ops import (_build, dwt, ht_dec,
@@ -847,11 +1061,14 @@ def main() -> int:
 
     # 3. kernels against their plain versions, at one chunk's shapes
     results = {}
+    launches = {}
     check_scans(enc, plan, chunk, results)
     first = encoder.encode_batch(imgs[:CHUNK], params, device="cuda",
                                  chunk=CHUNK)
     check_decoder(first, dev, results)
     check_mq_scan(mq_enc, chunk, results)
+    check_mq_dense(mq_enc, chunk, results, launches)
+    torch.cuda.empty_cache()
     check_mq_decoder(encoder.encode_batch(imgs[:CHUNK], mq_params,
                                           device="cuda", chunk=CHUNK),
                      dev, results)
@@ -869,7 +1086,6 @@ def main() -> int:
         raise AssertionError(f"config-1 frames {bad[:8]} differ from the "
                              f"digest file: numpy makes other frames here")
     mpix = FRAMES * SIZE * SIZE / 1e6
-    launches = {}
     for k in ht_scan.LAUNCHES:
         ht_scan.LAUNCHES[k] = 0
     dwt.LAUNCHES["dwt"] = 0
@@ -1007,11 +1223,15 @@ def main() -> int:
         raise AssertionError(f"config-2 frames {bad} differ from the digest "
                              f"file: numpy makes other frames here")
     c2_mpix = C2_FRAMES * C2_SIZE * C2_SIZE / 1e6
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     dwt.LAUNCHES["dwt"] = 0
     mq_scan.LAUNCHES["mq"] = 0
     out = encoder.encode_batch(c2_imgs, c2_params, device="cuda",
                                chunk=C2_CHUNK)
     torch.cuda.synchronize()
+    c2_peak = {C2_CHUNK: torch.cuda.max_memory_allocated() - base}
     launches["dwt"] = dwt.LAUNCHES["dwt"]
     print(f"config-2 encode slice launches: {dict(dwt.LAUNCHES)}, "
           f"{dict(mq_scan.LAUNCHES)}")
@@ -1041,6 +1261,108 @@ def main() -> int:
     print(f"one {C2_CHUNK}-frame config-2 encode chunk by stage (host "
           "clock, synchronised): "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+    del chunk2, stages
+
+    # 9. the config-2 decode, through the user entry point
+    with open(os.path.join(root, C2_DEC_DIGESTS)) as f:
+        c2_dec = json.load(f)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mq_dec.LAUNCHES["mq_dec"] = 0
+    dwt.LAUNCHES["dwt"] = 0
+    dec = decoder.decode_batch(out, device="cuda")
+    torch.cuda.synchronize()
+    dec_peak = torch.cuda.max_memory_allocated() - base
+    print(f"config-2 decode slice launches: {dict(mq_dec.LAUNCHES)}, "
+          f"{dict(dwt.LAUNCHES)}")
+    if mq_dec.LAUNCHES["mq_dec"] < 1 or dwt.LAUNCHES["dwt"] < 1:
+        raise AssertionError("mq_dec_group or the DWT kernel was not "
+                             "launched by the config-2 decode")
+    got = [frame_digest(d) for d in dec]
+    if got != c2_dec["decoded"]:
+        bad = [i for i, (g, w) in enumerate(zip(got, c2_dec["decoded"]))
+               if g != w]
+        raise AssertionError(f"config-2 decode: frames {bad} differ from the "
+                             f"host decoder's pixels")
+    print(f"config-2 decode slice: {C2_FRAMES} frames equal the host "
+          f"decoder's pixels (digests); MSE against the sources "
+          + ", ".join(f"{frame_mse(d, im):.4f}"
+                      for d, im in zip(dec, c2_imgs)))
+    best = best_of(3, lambda: decoder.decode_batch(out, device="cuda"))
+    print(f"decode_batch (config 2): {c2_mpix / best:.2f} MP/s (best of 3, "
+          f"{best:.3f} s for {C2_FRAMES} frames) on {card}; peak device "
+          f"memory {dec_peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
+          f"before")
+    c2_decode_stages(out, dev)
+    stages = c2_decode_stages(out, dev)
+    print(f"one {C2_FRAMES}-frame config-2 decode chunk by stage (host "
+          "clock, synchronised): "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+    del dec
+
+    # 10. a layer-limited decode of a config-2 frame whose layers carry data
+    lay = c2_dec["layered"]
+    lay_params = EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                               numlayers=3, rates=tuple(lay["rates"]))
+    (lay_cs,) = encoder.encode_batch(c2_imgs[:1], lay_params, device="cuda")
+    if hashlib.sha256(lay_cs).hexdigest() != lay["stream"]:
+        raise AssertionError("the rates (96, 48, 24) stream differs from the "
+                             "host encoder's")
+    mses = {}
+    for layers in ("1", "2", "0"):
+        mq_dec.LAUNCHES["mq_dec"] = 0
+        (img,) = decoder.decode_batch([lay_cs], DecoderParams(
+            layers=int(layers)), device="cuda")
+        if mq_dec.LAUNCHES["mq_dec"] < 1:
+            raise AssertionError("mq_dec_group was not launched by the "
+                                 "layer-limited decode")
+        if frame_digest(img) != lay["layers"][layers]["pixels"]:
+            raise AssertionError(f"layers={layers}: pixels differ from the "
+                                 f"host decoder's")
+        mses[layers] = frame_mse(img, c2_imgs[0])
+    if len(set(mses.values())) != 3:
+        raise AssertionError(f"the layer limit does not act: MSE {mses}")
+    print(f"config-2 frame 0 at rates {tuple(lay['rates'])} "
+          f"({len(lay_cs)} B, equal to the host encoder's): decoded at "
+          f"layers 1, 2 and all equal to the host decoder's pixels; MSE "
+          + ", ".join(f"{mses[k]:.4f}" for k in ("1", "2", "0")))
+
+    # 11. the config-2 encode at encode_batch's default chunk
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    free = encoder.free_device_bytes(dev)
+    c2_plan = c2_enc.plan
+    per_frame = fused_encode.mq_frame_bytes(c2_plan)
+    cap = fused_encode.chunk_cap(c2_plan, free)
+    default_chunk = inspect.signature(
+        encoder.encode_batch).parameters["chunk"].default
+    chosen = max(1, min(default_chunk, cap, C2_FRAMES))
+    torch.cuda.reset_peak_memory_stats()
+    out2 = encoder.encode_batch(c2_imgs, c2_params, device="cuda")
+    torch.cuda.synchronize()
+    c2_peak[chosen] = torch.cuda.max_memory_allocated() - base
+    if [hashlib.sha256(cs).hexdigest() for cs in out2] != \
+            c2_digests["streams"]:
+        raise AssertionError("config-2 streams at the default chunk differ "
+                             "from the host encoder's")
+    print(f"config-2 encode at the default chunk {default_chunk}: "
+          f"{free / 1e9:.2f} GB free, the plan's model "
+          f"{per_frame / 1e9:.3f} GB a frame caps a chunk at {cap} frames, "
+          f"so {chosen} (all {C2_FRAMES} frames); streams equal the host "
+          f"encoder's")
+    fixed = mq_scan.EMIT_BLOCK_BYTES
+    for n, peak in sorted(c2_peak.items()):
+        print(f"config-2 encode peak device memory at chunk {n}: "
+              f"{peak / 1e9:.3f} GB measured above the {base / 1e9:.3f} GB "
+              f"held before, {(n * per_frame + fixed) / 1e9:.3f} GB "
+              f"predicted (mq_frame_bytes x {n} + the counting "
+              f"temporaries) on {card}")
+    del out2
+    mem = c2_memory_stages(c2_enc, c2_chunk(0, 1))
+    print("one config-2 frame's encode, peak device memory by stage above "
+          "the stage's start: " + ", ".join(
+              f"{k} {v / 1e9:.3f} GB" for k, v in mem.items()))
 
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1050,7 +1372,7 @@ def main() -> int:
              bound_ms=results[name]["bound_ms"],
              bound_by=results[name]["bound_by"], library_ms=None)
         for name, key, _, replaces, source in SCANS + (DEC, MQ, MQ_DEC,
-                                                       DWT)]}))
+                                                       DWT, MQ_DENSE)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,7 +1,8 @@
 """Batch decode entry point on a torch device.
 
-Port of `grokimagecompression_tpu/codestream/decoder.py` for the
-lossless slices (HT, and Part-1 MQ in the default code-block style). The
+Port of `grokimagecompression_tpu/codestream/decoder.py` for the HT and
+Part-1 MQ (default code-block style) slices, 5/3 or 9/7, with an optional
+limit on the quality layers decoded. The
 main-header and tile-part walk (`CodestreamHeader`, `TilePart`,
 `_validate_siz`, `read_header`, `iter_tile_parts`) is copied from the
 reference; `decode_batch` is the port of the reference's fused
@@ -24,7 +25,7 @@ import numpy as np
 
 from ..core.geometry import ceil_div, tile_grid_size, tile_rect
 from ..core.image import Component, Image
-from ..core.params import DecoderParams, QuantStyle, Transform
+from ..core.params import DecoderParams
 from ..models import fused_decode
 from ..utils.device import DeviceLike, resolve_device
 from . import markers
@@ -248,9 +249,9 @@ def _out_of_slice(hdrs: List[CodestreamHeader],
                   params: DecoderParams) -> Optional[str]:
     """Why a batch of parsed headers is outside the ported slice, or
     None."""
-    if params.window is not None or params.reduce or params.layers \
+    if params.window is not None or params.reduce \
             or params.tile_index is not None:
-        return "a window, reduce, layer limit or single-tile decode"
+        return "a window, reduce or single-tile decode"
     h0 = hdrs[0]
     if any((h.siz, h.cod, h.qcd) != (h0.siz, h0.cod, h0.qcd)
            for h in hdrs[1:]):
@@ -259,8 +260,6 @@ def _out_of_slice(hdrs: List[CodestreamHeader],
     if not cod.cblk_style & 0x40 and cod.cblk_style != 0:
         return ("an MQ code-block style other than the default (bypass, "
                 "RESET, TERMALL, VSC, PTERM or SEGMARK)")
-    if cod.transform != Transform.DWT_53 or qcd.style != QuantStyle.NONE:
-        return "the irreversible (9/7) transform"
     if cod.mct not in (0, 1) or any(h.custom_mct is not None for h in hdrs):
         return "a custom MCT"
     if any(h.cod_comp or h.qcd_comp for h in hdrs):
@@ -278,9 +277,11 @@ def _out_of_slice(hdrs: List[CodestreamHeader],
     return None
 
 
-def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List):
-    """T2 of every tile of one stream: (per tile (t1_jobs, t1_job_slots,
-    plans, cods), set of tiles that have a tile-part)."""
+def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
+                 layers: int):
+    """T2 of every tile of one stream, keeping the passes of the first
+    `layers` quality layers (all when 0): (per tile (t1_jobs,
+    t1_job_slots, plans, cods), set of tiles that have a tile-part)."""
     tile_bodies: Dict[int, List[bytes]] = {}
     for tp in iter_tile_parts(data, hdr.main_header_end):
         if tp.cod or tp.qcd or tp.coc_raw or tp.qcc_raw or tp.poc_raw:
@@ -295,7 +296,7 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List):
     out = []
     for t, tr in enumerate(trs):
         r = decode_tile(b"".join(tile_bodies.get(t, [])), hdr.siz, hdr.cod,
-                        hdr.qcd, tr)
+                        hdr.qcd, tr, max_layers=layers)
         if hdr.cod.cblk_style & 0x40 and any(job[6] > 1 for job in r[0]):
             raise NotImplementedError(
                 "decode_batch on a torch device does not cover HT "
@@ -325,8 +326,8 @@ def parse_batch(datas: List[bytes], params: Optional[DecoderParams] = None):
            for t in range(ntx * nty)]
     nw = max(1, min(len(datas), 2 * (os.cpu_count() or 1)))
     with concurrent.futures.ThreadPoolExecutor(max_workers=nw) as ex:
-        parsed = list(ex.map(lambda i: _parse_frame(datas[i], hdrs[i], trs),
-                             range(len(datas))))
+        parsed = list(ex.map(lambda i: _parse_frame(
+            datas[i], hdrs[i], trs, params.layers), range(len(datas))))
     return hdrs[0], trs, parsed
 
 
@@ -356,9 +357,10 @@ def decode_batch(datas: List[bytes],
                  params: Optional[DecoderParams] = None,
                  device: DeviceLike = "cuda",
                  chunk: int = 32) -> List[Image]:
-    """Decode many same-geometry lossless codestreams (a serving batch),
-    coded with the HT block coder or the Part-1 MQ coder in the default
-    code-block style.
+    """Decode many same-geometry codestreams (a serving batch), coded
+    with the HT block coder or the Part-1 MQ coder in the default
+    code-block style, on the reversible 5/3 or the irreversible 9/7 path,
+    all quality layers or the first `params.layers`.
 
     T2 of every stream runs on a host thread pool; then the tiles of one
     decode plan are decoded `chunk` at a time, each chunk one host pass

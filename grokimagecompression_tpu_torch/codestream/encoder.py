@@ -24,6 +24,7 @@ import os
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 
 from ..core.geometry import ceil_div, tile_grid_size, tile_rect
 from ..core.image import Image
@@ -282,6 +283,25 @@ def _out_of_slice(images: List[Image], params: EncoderParams) -> Optional[str]:
     return None
 
 
+def free_device_bytes(dev: torch.device) -> Optional[int]:
+    """Free bytes of a CUDA device (`torch.cuda.mem_get_info`); None for
+    the CPU, where `encode_batch` does not cap its chunk."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.mem_get_info(dev)[0]
+
+
+def _capped_chunk(chunk: int, encoders, dev: torch.device) -> int:
+    """`chunk`, lowered for each MQ plan to the frames whose encode fits
+    in half the device's free memory (`fused_encode.chunk_cap`); as it is
+    for HT plans and on the CPU."""
+    free = free_device_bytes(dev)
+    for plan in encoders:
+        if free is not None and plan.coder == "mq":
+            chunk = min(chunk, fused_encode.chunk_cap(plan, free))
+    return chunk
+
+
 def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
                  device: DeviceLike = "cuda", chunk: int = 32) -> List[bytes]:
     """Encode same-geometry frames with the HT block coder (`cblk_style`
@@ -292,8 +312,10 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
     Frames are coded `chunk` at a time: each chunk is one upload and one
     fused device encode per tile, and the host T2 (with the rate
     allocation) of a chunk runs on a thread pool while the device codes
-    the next. The streams are byte-identical to the reference host
-    encoder's."""
+    the next. On a CUDA device an MQ chunk is capped to the frames whose
+    encode fits in half the free device memory (`_capped_chunk`), at least
+    one. The streams are byte-identical to the reference host encoder's,
+    whatever the chunk."""
     dev = resolve_device(device)
     params = params or EncoderParams()
     if not images:
@@ -335,7 +357,7 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
         tile_enc.append(encoders[plan])
 
     n = len(images)
-    chunk = max(1, min(chunk, n))
+    chunk = max(1, min(_capped_chunk(chunk, encoders, dev), n))
     results: List[Optional[bytes]] = [None] * n
     futures = []
     with concurrent.futures.ThreadPoolExecutor(

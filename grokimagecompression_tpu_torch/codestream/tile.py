@@ -395,11 +395,14 @@ def encode_tile(
 # --------------------------------------------------------------------------
 
 def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
-                tile: Rect):
+                tile: Rect, max_layers: int = 0):
     """Parse one tile's packet body into its entropy-decode jobs: the
     reference's `decode_tile(..., _return_jobs=True)`, through the
-    native T2 only, for streams without packed headers, COC/QCC, POC,
-    ROI or a layer limit.
+    native T2 only, for streams without packed headers, COC/QCC, POC or
+    ROI. With `max_layers` > 0 only the passes of the first `max_layers`
+    quality layers are kept: the native parser parses the later layers'
+    packets and drops their passes, where the reference parses the whole
+    tile in Python with `decode_packet(..., discard=True)`.
 
     Returns (t1_jobs, t1_job_slots, plans, cods): per included
     code-block a job (data, seg_lengths, w, h, orient, numbps,
@@ -446,7 +449,7 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
             ])
         packets.append((group_idx[key], l))
     rc = t2_native.decode_tile_packets(body, packets, groups, None, None,
-                                       cod.sop, cod.eph)
+                                       cod.sop, cod.eph, max_layers)
     if rc is None:
         raise ValueError("the native T2 parser rejected the tile's packets")
 

@@ -78,15 +78,15 @@ def plan_from_reference(ref_plan) -> FusedPlan:
 
 
 def dec_plan_from_reference(ref_plan) -> fused_decode.FusedDecPlan:
-    """A reference `models.fused_decode.FusedDecPlan` (HT, reversible)
-    -> the port's `FusedDecPlan`. The reference plans a lane for each
-    code-block that its plan's frame includes, in the order of the
-    tile's geometry; it equals the port's plan, which gives every
-    code-block a lane, when that frame includes them all."""
-    if ref_plan.coder != "ht" or any(s != 1.0 for s in ref_plan.stepsizes):
+    """A reference `models.fused_decode.FusedDecPlan` (HT or MQ, 5/3 or
+    9/7) -> the port's `FusedDecPlan`, its coder and band stepsizes
+    included. The reference plans a lane for each code-block that its
+    plan's frame includes, in the order of the tile's geometry; it equals
+    the port's plan, which gives every code-block a lane, when that frame
+    includes them all."""
+    if ref_plan.coder not in ("ht", "mq"):
         raise NotImplementedError(
-            f"only reversible HT decode plans are ported (got coder="
-            f"{ref_plan.coder!r})")
+            f"unknown block coder {ref_plan.coder!r}")
     groups = tuple(
         (w, h, tuple(fused_decode.DecBlock(
             comp=b.comp, key=tuple(b.key), y0=b.y0, x0=b.x0, h=b.h, w=b.w)
@@ -94,7 +94,9 @@ def dec_plan_from_reference(ref_plan) -> fused_decode.FusedDecPlan:
         for (w, h, lanes) in ref_plan.groups)
     return fused_decode.FusedDecPlan(
         cfg=_cfg_from_reference(ref_plan.cfg), groups=groups,
-        band_shapes=tuple(tuple(s) for s in ref_plan.band_shapes))
+        band_shapes=tuple(tuple(s) for s in ref_plan.band_shapes),
+        coder=ref_plan.coder,
+        stepsizes=tuple(float(s) for s in ref_plan.stepsizes))
 
 
 def image_from_reference(img) -> Image:

@@ -533,6 +533,11 @@ extern "C" {
 //     band-precinct arrays: grid dims (int32 x2), ncblks, kmax, style
 //   per cblk (int64 x 3): cx, cy, (unused)
 //   sop/eph flags
+//   nlayers: the quality layers kept; a packet of a later layer is parsed
+//     (its header updates the tag trees, Lblock and segment state) but its
+//     passes and bytes are dropped, as the Python parser's
+//     decode_packet(..., discard=True) does. A code-block's dropped layers
+//     are a suffix of its packets, so what is kept stays consistent.
 // Outputs per cblk: meta (int64 x 4): numbps, numpasses, nsegs, seg_base
 //   (index into seg_out); seg_out (int64 x 3 per segment): offset, length,
 //   numpasses.  Returns number of bytes consumed or -1 on error.
@@ -542,7 +547,7 @@ int64_t grok_t2_decode_tile(
     const int32_t* gband_off, const int32_t* band_grid,
     const int32_t* band_ncblks, const int32_t* band_kmax,
     const int32_t* band_style, const int64_t* cblk_meta, int sop, int eph,
-    int64_t* out_meta, int64_t* seg_out, int64_t seg_cap) {
+    int nlayers, int64_t* out_meta, int64_t* seg_out, int64_t seg_cap) {
   // Build precinct-group state.
   int total_cblks = 0;
   int total_bands = gband_off[ngroups];
@@ -576,6 +581,7 @@ int64_t grok_t2_decode_tile(
     if (pos >= body_len) break;
     int g = pkt_group[pi];
     int layer = pkt_layer[pi];
+    const bool keep = layer < nlayers;
     int b0 = gband_off[g], b1 = gband_off[g + 1];
     int style = band_style[b0];
     // optional SOP
@@ -632,15 +638,19 @@ int64_t grok_t2_decode_tile(
           int fl = 0;
           { int v = take; while (v > 1) { v >>= 1; fl++; } }
           int64_t ln = br.read_bits(cb->lblock + fl);
-          if (cb->nchunks >= T2D_MAX_CHUNKS) { bad = true; break; }
-          int ci2 = cb->nchunks++;
-          cb->chunk_seg[ci2] = si;
-          cb->chunk_np[ci2] = take;
-          cb->chunk_len[ci2] = ln;
-          pend.push_back({cb, ci2});
+          if (keep) {
+            if (cb->nchunks >= T2D_MAX_CHUNKS) { bad = true; break; }
+            int ci2 = cb->nchunks++;
+            cb->chunk_seg[ci2] = si;
+            cb->chunk_np[ci2] = take;
+            cb->chunk_len[ci2] = ln;
+            pend.push_back({cb, ci2});
+            cb->numpasses += take;
+          } else {
+            pend.push_back({nullptr, -1});   // bytes skipped, not kept
+          }
           chunk_lens.push_back(ln);
           cb->seg_np[si] += take;
-          cb->numpasses += take;
           remaining -= take;
         }
       }
@@ -655,7 +665,7 @@ int64_t grok_t2_decode_tile(
     for (size_t k = 0; k < pend.size(); k++) {
       CblkDecState* cb = pend[k].cb;
       int ci2 = pend[k].seg_idx;  // chunk index
-      cb->chunk_off[ci2] = pos;
+      if (cb) cb->chunk_off[ci2] = pos;
       pos += chunk_lens[k];
     }
     chunk_lens.clear();

@@ -43,8 +43,26 @@
 // every byte-out, so the scan does at most floor(15 E / 7) byte-outs of
 // one byte each; FLUSH writes at most 3 more. Bound: 15 E / 7 + 3.
 //
-// Plain C interface (bound with ctypes): the entry point launches on the
-// given stream and returns cudaGetLastError().
+// The dense scan (mq_scan_dense) replaces the Pallas TPU kernel
+// mq_scan_blocked of the same file (pallas_call at :264; its flat wrapper
+// mq_scan at :284), which nothing but the reference's own
+// mq_jax.run_mq_scans / run_mq_scans_blocked calls. It runs the same
+// coder and writes, for every step of the stream, the 32-bit word
+// completed there (bytes little-endian, as mq_jax.mq_step packs them),
+// that word's index among the lane's words of its 256-step chunk (-1
+// where none) and the step's byte-out count; then the 11-word state of
+// the reference (with the partial word and its byte count). The word
+// accumulator lives in registers (WordOut below). The TPU kernel's
+// (t_pad, S, 128) sublane blocking and its lane-tile x 256-step grid are
+// VMEM workarounds and are not carried over: one thread walks its lane's
+// whole stream, and the 256-step chunk survives only as the numbering of
+// m8. What bounds it: the same dependent coding steps as the compact
+// scan, and now 12 output bytes a step and lane (3.35 TB/s moves a
+// config-1 64x64 group's 4.6 GB in ~1.4 ms, well under the coder chain);
+// the stores are coalesced across a warp's neighbouring lanes.
+//
+// Plain C interface (bound with ctypes): the entry points launch on the
+// given stream and return cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -57,19 +75,52 @@ constexpr int kThreads = 32;
 constexpr int kCtxRows = 32;  // every 5-bit cx of a slot byte indexes a row
 constexpr int kCtxWords = 5;
 constexpr int kAhead = 16;   // slots loaded per lane before coding them
+constexpr int kChunk = 256;  // steps m8 numbers words within (mq_tables.DENSE_CHUNK)
 
+// Where the coder's bytes go. The compact scan writes them straight to
+// the lane's segment.
+struct SegmentOut {
+  uint8_t* seg;    // the lane's segment
+  int n;           // bytes written
+  __device__ __forceinline__ void put(uint8_t b) { seg[n++] = b; }
+  __device__ __forceinline__ void tick() {}
+};
+
+// The dense scan packs them into 32-bit words as the reference's
+// mq_jax.mq_step does (byte i of a word at bits 8 i .. 8 i + 7) and
+// reports, per step, the word completed and the step's byte-outs.
+struct WordOut {
+  uint32_t wacc;   // the word being filled
+  int wcnt;        // its bytes
+  uint32_t word;   // the word this step completed, where `full`
+  int full;
+  int nbo;         // this step's byte-outs
+  __device__ __forceinline__ void put(uint8_t b) {
+    wacc |= static_cast<uint32_t>(b) << (8 * wcnt);
+    if (++wcnt == 4) {
+      word = wacc;
+      full = 1;
+      wacc = 0u;
+      wcnt = 0;
+    }
+  }
+  __device__ __forceinline__ void tick() { ++nbo; }
+};
+
+template <class Out>
 struct Coder {
   uint32_t a, c;
   int ct, last;    // last: the delayed output byte, -1 before the first
-  uint8_t* seg;    // the lane's segment
-  int n;           // bytes written
+  Out out;
 };
 
 // BYTEOUT (C.3.2) with a one-byte delay register: a carry out of C only
 // ever reaches the byte written last, which is still held in `last`.
-__device__ __forceinline__ void byteout(Coder& k) {
+template <class Out>
+__device__ __forceinline__ void byteout(Coder<Out>& k) {
+  k.out.tick();
   if (k.last == 0xFF) {
-    k.seg[k.n++] = 0xFF;
+    k.out.put(0xFF);
     k.last = (k.c >> 20) & 0xFF;
     k.c &= 0xFFFFF;
     k.ct = 7;
@@ -80,7 +131,7 @@ __device__ __forceinline__ void byteout(Coder& k) {
       k.last += 1;
       if (k.last == 0xFF) {
         k.c &= 0x7FFFFFF;
-        k.seg[k.n++] = 0xFF;
+        k.out.put(0xFF);
         k.last = (k.c >> 20) & 0xFF;
         k.c &= 0xFFFFF;
         k.ct = 7;
@@ -89,14 +140,15 @@ __device__ __forceinline__ void byteout(Coder& k) {
     }
     k.c &= 0x7FFFFFF;
   }
-  if (k.last >= 0) k.seg[k.n++] = static_cast<uint8_t>(k.last);
+  if (k.last >= 0) k.out.put(static_cast<uint8_t>(k.last));
   k.last = (k.c >> 19) & 0xFF;
   k.c &= 0x7FFFF;
   k.ct = 8;
 }
 
 // ENCODE (C.2) of one emitting slot: decision d in context cx.
-__device__ __forceinline__ void encode(Coder& k, uint32_t slot,
+template <class Out>
+__device__ __forceinline__ void encode(Coder<Out>& k, uint32_t slot,
                                        uint8_t (*ctx)[kThreads], int tid,
                                        const uint32_t* tbl) {
   const int d = (slot >> 1) & 1;
@@ -139,6 +191,17 @@ __device__ __forceinline__ void encode(Coder& k, uint32_t slot,
   }
 }
 
+// Context states and Table C.2 into shared memory (every thread of the
+// block), as both scans start.
+__device__ __forceinline__ void init_shared(uint32_t* tbl,
+                                            uint8_t (*ctx)[kThreads],
+                                            int tid) {
+  for (int i = tid; i < kStates; i += kThreads) tbl[i] = packed_row(i);
+  for (int i = 0; i < kCtxRows; ++i)
+    ctx[i][tid] = i < kNumCtxs ? kCtxInit[i] : 0;
+  __syncthreads();
+}
+
 __global__ void __launch_bounds__(kThreads)
 mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
                const int64_t* __restrict__ seg_off, uint8_t* __restrict__ out,
@@ -147,14 +210,11 @@ mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
   __shared__ uint32_t tbl[kStates];
   __shared__ uint8_t ctx[kCtxRows][kThreads];
   const int tid = threadIdx.x;
-  for (int i = tid; i < kStates; i += kThreads) tbl[i] = packed_row(i);
-  for (int i = 0; i < kCtxRows; ++i)
-    ctx[i][tid] = i < kNumCtxs ? kCtxInit[i] : 0;
-  __syncthreads();
+  init_shared(tbl, ctx, tid);
   const int b = blockIdx.x * kThreads + tid;
   if (b >= B) return;
 
-  Coder k{0x8000u, 0u, 12, -1, out + seg_off[b], 0};
+  Coder<SegmentOut> k{0x8000u, 0u, 12, -1, {out + seg_off[b], 0}};
   const size_t sB = static_cast<size_t>(B);
   const uint8_t* col = slots + b;
   // pass ends of plane q: q tp + sa, q tp + sa + sb, (q + 1) tp
@@ -168,7 +228,7 @@ mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
     for (int j = 0; j < kAhead; ++j)
       if (ahead[j] & 1) encode(k, ahead[j], ctx, tid, tbl);
     if (t + kAhead == end) {
-      cumbo[row * sB + b] = k.n + (k.last >= 0);
+      cumbo[row * sB + b] = k.out.n + (k.last >= 0);
       ++row;
       const int q = row / 3, phase = row % 3;
       end = q * tp + (phase == 0 ? sa : phase == 1 ? sa + sb : tp);
@@ -199,8 +259,60 @@ mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
   byteout(k);
   k.c <<= k.ct;
   byteout(k);
-  if (k.last >= 0 && k.last != 0xFF) k.seg[k.n++] = static_cast<uint8_t>(k.last);
-  lens[b] = k.n;
+  if (k.last >= 0 && k.last != 0xFF) k.out.put(static_cast<uint8_t>(k.last));
+  lens[b] = k.out.n;
+}
+
+// The dense scan: the same coder, with the outputs of every step.
+__global__ void __launch_bounds__(kThreads)
+mq_scan_dense_kernel(const uint8_t* __restrict__ slots, int T, int T_out,
+                     int B, int32_t* __restrict__ words,
+                     int32_t* __restrict__ m8, int32_t* __restrict__ nbo,
+                     int32_t* __restrict__ state) {
+  __shared__ uint32_t tbl[kStates];
+  __shared__ uint8_t ctx[kCtxRows][kThreads];
+  const int tid = threadIdx.x;
+  init_shared(tbl, ctx, tid);
+  const int b = blockIdx.x * kThreads + tid;
+  if (b >= B) return;
+
+  Coder<WordOut> k{0x8000u, 0u, 12, -1, {0u, 0, 0u, 0, 0}};
+  const size_t sB = static_cast<size_t>(B);
+  const uint8_t* col = slots + b;
+  int cnt = 0;   // words of the lane in the current 256-step chunk
+  for (int t = 0; t < T_out; t += kAhead) {
+    uint8_t ahead[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j)
+      ahead[j] = t + j < T ? col[static_cast<size_t>(t + j) * sB] : 0;
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      const int s = t + j;
+      if (s >= T_out) break;
+      if (s % kChunk == 0) cnt = 0;
+      k.out.full = 0;
+      k.out.nbo = 0;
+      if (ahead[j] & 1) encode(k, ahead[j], ctx, tid, tbl);
+      const size_t o = static_cast<size_t>(s) * sB + b;
+      words[o] = k.out.full ? static_cast<int32_t>(k.out.word) : 0;
+      m8[o] = k.out.full ? cnt : -1;
+      nbo[o] = k.out.nbo;
+      cnt += k.out.full;
+    }
+  }
+
+  state[0 * sB + b] = static_cast<int32_t>(k.a);
+  state[1 * sB + b] = static_cast<int32_t>(k.c);
+  state[2 * sB + b] = k.ct;
+  state[3 * sB + b] = k.last;
+  state[4 * sB + b] = static_cast<int32_t>(k.out.wacc);
+  state[5 * sB + b] = k.out.wcnt;
+  for (int w = 0; w < kCtxWords; ++w) {
+    uint32_t word = 0u;
+    for (int j = 0; j < 4 && 4 * w + j < kNumCtxs; ++j)
+      word |= static_cast<uint32_t>(ctx[4 * w + j][tid]) << (8 * j);
+    state[(6 + w) * sB + b] = static_cast<int32_t>(word);
+  }
 }
 
 }  // namespace
@@ -221,6 +333,18 @@ int mq_scan(const void* slots, int T, int B, const void* seg_off, void* out,
       static_cast<const int64_t*>(seg_off), static_cast<uint8_t*>(out),
       static_cast<int32_t*>(lens), static_cast<int32_t*>(state),
       static_cast<int32_t*>(cumbo), sa, sb, tp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The dense scan. slots: (T, B) int8; words, m8, nbo: (T_out, B) int32
+// with T_out >= T (rows past T code no-op slots); state: (11, B) int32.
+int mq_scan_dense(const void* slots, int T, int T_out, int B, void* words,
+                  void* m8, void* nbo, void* state, void* stream) {
+  mq_scan_dense_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(slots), T, T_out, B,
+      static_cast<int32_t*>(words), static_cast<int32_t*>(m8),
+      static_cast<int32_t*>(nbo), static_cast<int32_t*>(state));
   return static_cast<int>(cudaGetLastError());
 }
 

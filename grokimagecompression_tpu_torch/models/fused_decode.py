@@ -31,10 +31,18 @@ buffer holding every band of every component, with plan-static
 indices, in place of the reference's chain of per-block
 `dynamic_update_slice` calls.
 
-Scope: reversible 5/3. The HT decoder needs every band's Mb + 3 <= 32
+On the irreversible (9/7) path the coefficients are float32: a nonzero
+magnitude takes its mid-point (0.5 for HT lanes; 0.5 * 2^pm at the lowest
+decoded plane pm for MQ lanes, `_lane_halves`) and is scaled by its
+band's stepsize (`FusedDecPlan.stepsizes`), each step rounded in float32
+in the host dequantizer's order (`quant.reconstruct`); the inverse 9/7
+DWT, inverse ICT and rounding follow in `pipeline._inv_transform`. Bands
+in which no block is coded stay zero.
+
+Scope: the HT decoder needs every band's Mb + 3 <= 32
 (`ht_dec_pallas.supports`); the MQ decoder keeps the sign in bit 31, so
-Mb <= 30, and one codeword segment per block. Not ported: 9/7
-dequantization and the single-tile `decode_tile_device`.
+Mb <= 30, and one codeword segment per block. Not ported: the
+single-tile `decode_tile_device`.
 """
 
 from __future__ import annotations
@@ -48,10 +56,9 @@ import torch
 from torch import nn
 
 from ..core.geometry import Rect
-from ..core.params import Transform
 from ..native import ht_prepass
 from ..ops import ht_dec, ht_tables, mq_dec
-from ..ops.quant import trunc_plane
+from ..ops.quant import reconstruct, trunc_plane
 from . import pipeline
 
 DUMMY_SEGMENT = b"\x00\x00"
@@ -80,6 +87,8 @@ class FusedDecPlan:
     # (w, h, lanes) per shape group, sorted by (w, h)
     groups: Tuple[Tuple[int, int, Tuple[DecBlock, ...]], ...]
     band_shapes: Tuple[Tuple[int, int, int, int, int], ...]  # (c, r, o, h, w)
+    # per band (band_shapes order): its stepsize, 1.0 when reversible
+    stepsizes: Tuple[float, ...]
     coder: str = "ht"           # the block coder: "ht" or "mq"
 
 
@@ -89,14 +98,11 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
     (`codestream/tile.build_comp_plan`) for the block coder `coder`
     ("ht" or "mq"): a lane for every code-block of the geometry, grouped
     by block (w, h), in the order of the tile's code-blocks within each
-    group. Raises NotImplementedError for the 9/7 transform and when a
-    band's Mb exceeds the decoder's word: Mb + 3 > 32 for HT, Mb > 30 for
-    MQ (the sign rides in bit 31)."""
+    group, and each band's stepsize (1.0 on the reversible path). Raises
+    NotImplementedError when a band's Mb exceeds the decoder's word:
+    Mb + 3 > 32 for HT, Mb > 30 for MQ (the sign rides in bit 31)."""
     if coder not in ("ht", "mq"):
         raise ValueError(f"unknown block coder {coder!r}")
-    if cod.transform != Transform.DWT_53:
-        raise NotImplementedError(
-            "the irreversible (9/7) fused decode is not ported")
     cfg = pipeline.config_for_tile(siz, cod, tile)
     kmax = max(p.bands[k].kmax for p in plans for k in p.bands)
     if coder == "ht" and kmax + 3 > 32:
@@ -107,11 +113,14 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
             f"band Mb {kmax}: the MQ decoder needs Mb <= {mq_dec.MAX_PLANES}")
     keys = pipeline._band_keys(cfg.numresolutions)
     band_shapes = []
+    stepsizes = []
     for c, p in enumerate(plans):
         rects = {(res.r, band.orient): band.rect
                  for res in p.layout.resolutions for band in res.bands}
         for k in keys:
             band_shapes.append((c, k[0], k[1], rects[k].h, rects[k].w))
+            stepsizes.append(1.0 if cfg.reversible
+                             else float(p.bands[k].stepsize))
     groups: Dict[Tuple[int, int], List[DecBlock]] = {}
     for c, p in enumerate(plans):
         for res in p.layout.resolutions:
@@ -127,7 +136,8 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
         cfg=cfg,
         groups=tuple((w, h, tuple(groups[(w, h)]))
                      for (w, h) in sorted(groups)),
-        band_shapes=tuple(band_shapes), coder=coder)
+        band_shapes=tuple(band_shapes), coder=coder,
+        stepsizes=tuple(stepsizes))
 
 
 def jobs_by_block(t1_jobs, t1_job_slots, plans) -> Dict[tuple, tuple]:
@@ -161,19 +171,24 @@ def _prepare_ht_group(jobs):
     return mel.view(np.int32), vlc.view(np.int32), ms.view(np.int32), valid
 
 
-def _lane_halves(nbps, npas) -> np.ndarray:
-    """Per-lane reversible mid-point addends: half of the block's lowest
-    decoded plane (`quant.trunc_plane`), 0 for a fully decoded block."""
+def _lane_halves(nbps, npas, rev: bool) -> np.ndarray:
+    """Per-lane mid-point reconstruction at the block's lowest decoded
+    plane pm (`quant.trunc_plane`): reversible, the int32 addend
+    2^(pm - 1) (0 for a fully decoded block); irreversible, the float32
+    factor 0.5 * 2^pm, as the host's dequantizer (`quant.dequantize`)."""
     pms = [trunc_plane(nb, n) for nb, n in zip(nbps, npas)]
-    return np.asarray([(1 << (pm - 1)) if pm > 0 else 0 for pm in pms],
-                      np.int32)
+    if rev:
+        return np.asarray([(1 << (pm - 1)) if pm > 0 else 0 for pm in pms],
+                          np.int32)
+    return np.asarray([0.5 * (1 << pm) for pm in pms], np.float32)
 
 
-def _prepare_mq_group(jobs):
+def _prepare_mq_group(jobs, rev: bool):
     """(data, off, nbps, npas, ori, halves) of an MQ lane group: the
-    `mq_dec.pack_lanes` arrays and the (F*B,) int32 mid-point addends. A
-    block with no job or no pass gets an idle lane. Raises
-    NotImplementedError for a block of several codeword segments."""
+    `mq_dec.pack_lanes` arrays and the (F*B,) mid-point addends or
+    factors (`_lane_halves`). A block with no job or no pass gets an
+    idle lane. Raises NotImplementedError for a block of several
+    codeword segments."""
     segs: List[bytes] = []
     ori, nbps, npas = [], [], []
     for job in jobs:
@@ -187,7 +202,7 @@ def _prepare_mq_group(jobs):
         nbps.append(job[5] if live else 0)
         npas.append(job[6] if live else 0)
     return mq_dec.pack_lanes(segs, ori, nbps, npas) + (
-        _lane_halves(nbps, npas),)
+        _lane_halves(nbps, npas, rev),)
 
 
 def prepare_chunk(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
@@ -196,7 +211,8 @@ def prepare_chunk(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
     numpy arrays of `_prepare_ht_group` or `_prepare_mq_group`, lanes
     frame-major. Raises ValueError when a frame has a job for a
     code-block that the plan does not hold."""
-    prepare = _prepare_mq_group if plan.coder == "mq" else _prepare_ht_group
+    prepare = (functools.partial(_prepare_mq_group, rev=plan.cfg.reversible)
+               if plan.coder == "mq" else _prepare_ht_group)
     placed = [0] * len(frames)
     out = []
     for (_, _, lanes) in plan.groups:
@@ -240,7 +256,12 @@ class _FusedDecoder(nn.Module):
             self._bands[(c, (r, o))] = (off, bh, bw)
             off += bh * bw
         self._total = off
+        steps = {(c, (r, o)): st for (c, r, o, _, _), st in zip(
+            plan.band_shapes, plan.stepsizes, strict=True)}
         for gi, (w, h, lanes) in enumerate(plan.groups):
+            self.register_buffer(f"step{gi}", torch.tensor(
+                [steps[(b.comp, b.key)] for b in lanes], dtype=torch.float32,
+                device=device))
             gh, gw = grid(w, h)
             yy, xx = np.mgrid[0:h, 0:w]
             src, dst = [], []
@@ -253,12 +274,19 @@ class _FusedDecoder(nn.Module):
             self.register_buffer(f"dst{gi}", torch.as_tensor(
                 np.concatenate([d.ravel() for d in dst]), device=device))
 
+    def _steps(self, gi: int, nframes: int) -> torch.Tensor:
+        """(F*B,) float32 stepsizes of group gi's lanes, frame-major."""
+        return getattr(self, f"step{gi}").repeat(nframes)
+
     def _scatter(self, coeffs, nframes: int
                  ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
-        """Per group (F*B, rows, columns) int32 coefficients scattered
-        into the band planes: one {(r, orient): (F, bh, bw)} dict per
+        """Per group (F*B, rows, columns) coefficients (int32, or float32
+        on the irreversible path) scattered into the band planes, zero
+        where no block is coded: one {(r, orient): (F, bh, bw)} dict per
         component."""
-        flat = torch.zeros((nframes, self._total), dtype=torch.int32,
+        dtype = (torch.int32 if self.plan.cfg.reversible
+                 else torch.float32)
+        flat = torch.zeros((nframes, self._total), dtype=dtype,
                            device=self.device)
         for gi, coeff in enumerate(coeffs):
             vals = coeff.reshape(nframes, -1).index_select(
@@ -303,10 +331,20 @@ class FusedHTDecoder(_FusedDecoder):
     def assemble(self, grids, valids, nframes: int
                  ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
         """Signed, validity-masked coefficients scattered into the band
-        planes: one {(r, orient): (F, bh, bw)} dict per component."""
+        planes: one {(r, orient): (F, bh, bw)} dict per component. On the
+        irreversible path nonzero magnitudes take the mid-point 0.5 and
+        the band's stepsize (`quant.reconstruct`), as the reference's
+        fused HT decode does."""
+        if self.plan.cfg.reversible:
+            return self._scatter(
+                [torch.where(signs != 0, -mags, mags) * valid[:, None, None]
+                 for (mags, signs), valid in zip(grids, valids)], nframes)
         return self._scatter(
-            [torch.where(signs != 0, -mags, mags) * valid[:, None, None]
-             for (mags, signs), valid in zip(grids, valids)], nframes)
+            [torch.where(valid[:, None, None] != 0, reconstruct(
+                mags, signs != 0, 0.5,
+                self._steps(gi, nframes)[:, None, None]), 0.0)
+             for gi, ((mags, signs), valid) in enumerate(zip(grids, valids))],
+            nframes)
 
 
 class FusedMQDecoder(_FusedDecoder):
@@ -325,13 +363,20 @@ class FusedMQDecoder(_FusedDecoder):
 
     def assemble(self, packed, halves, nframes: int
                  ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
-        """Signed coefficients, nonzero magnitudes plus their lane's
-        mid-point addend, scattered into the band planes."""
+        """Signed coefficients scattered into the band planes: reversible,
+        nonzero magnitudes plus their lane's mid-point addend;
+        irreversible, (magnitude + the lane's mid-point factor) times the
+        band's stepsize in float32 (`quant.reconstruct`)."""
         coeffs = []
-        for (w, h, _), p, half in zip(self.plan.groups, packed, halves):
+        for gi, ((w, h, _), p, half) in enumerate(zip(self.plan.groups,
+                                                      packed, halves)):
             mag = p & 0x7FFFFFFF
-            mag = torch.where(mag != 0, mag + half, mag)
-            coeffs.append(torch.where(p < 0, -mag, mag).T.reshape(-1, h, w))
+            if self.plan.cfg.reversible:
+                mag = torch.where(mag != 0, mag + half, mag)
+                v = torch.where(p < 0, -mag, mag)
+            else:
+                v = reconstruct(mag, p < 0, half, self._steps(gi, nframes))
+            coeffs.append(v.T.reshape(-1, h, w))
         return self._scatter(coeffs, nframes)
 
 

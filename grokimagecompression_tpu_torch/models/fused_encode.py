@@ -126,6 +126,75 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
         coder=coder, want_rd=bool(want_rd and coder == "mq"))
 
 
+# Device bytes of the MQ encode, read off the code (`FusedMQEncoder.forward`
+# and what it calls), per unit named:
+# - per tile sample: the transform's band planes, float32 or int32, held
+#   through every group (`group_inputs`);
+# - per sample of a group: its gathered coefficients (float32 or int32,
+#   4), magnitudes (int64, 8) and signs (bool, 1), held through the
+#   group's build and scan;
+# - per slot and lane: the slot stream (int8), held through the scan;
+# - per padded sample, one plane's slot build at its peak: the locals of
+#   `mq_torch._plane_slots`, all alive until it returns (about 30 planes
+#   of bool, int32 and int64: 106 B), the int64 context arithmetic of
+#   `_zc_ctx` or `_sc_ctx` (40 B at a time) and `build_slot_stream`'s
+#   padded inputs (12 B); with R-D tables `_plane_dists`' float64 terms
+#   (56 B);
+# - per slot of one plane and lane: the plane's slots as int32 and its
+#   int8 transposed copy (5 B);
+# - per lane, the scan: the segment buffer at the wrapper's bound,
+#   15 E / 7 + 3 bytes with E the lane's emitting slots (taken at their
+#   most, 2 a sample and 3 a stripe column a plane), its int64 offset,
+#   and with R-D tables the pass-end byte-outs (int32) and distortions
+#   (float64) of 3 passes a plane;
+# - per chunk, not per frame: the counting of E (`mq_scan.lane_emits`),
+#   at most `mq_scan.EMIT_BLOCK_BYTES` of temporaries.
+# Left out: the transform's own temporaries, which are freed before the
+# first group's slot build, and the packed segments and `pack_segments`'
+# index arrays, which scale with the bytes the coder writes, not with the
+# plan.
+PLANE_ANALYSIS_BYTES = 106 + 40 + 12
+PLANE_DIST_BYTES = 56
+GATHER_BYTES = 4 + 8 + 1
+# the share of the free device memory an encode chunk may plan to use: the
+# rest is left for the caching allocator's fragmentation, the model's
+# error and other work on the card
+MEMORY_SHARE = 0.5
+
+
+def mq_frame_bytes(plan: "FusedPlan") -> int:
+    """Peak device bytes one frame of an MQ plan takes in
+    `FusedMQEncoder.forward` (the terms above): the band planes, plus for
+    the costliest shape group its gathered blocks and slot stream and the
+    larger of one plane's slot build and the scan. Planes per group: its
+    largest Kmax, the most the stream can hold."""
+    if plan.coder != "mq":
+        raise ValueError("mq_frame_bytes needs an MQ plan")
+    bands = 4 * sum(r.w * r.h for r in plan.cfg.tc_rects)
+    peak = 0
+    for (h, w, blocks) in plan.groups:
+        lanes = len(blocks)
+        npl = max(b.kmax for b in blocks)
+        hp = -(-h // 4) * 4
+        tp = mq_torch.slots_per_plane(h, w)
+        emits = npl * (2 * h * w + 3 * (hp // 4) * w)
+        held = lanes * (GATHER_BYTES * h * w + npl * tp)
+        build = lanes * (hp * w * (PLANE_ANALYSIS_BYTES + (
+            PLANE_DIST_BYTES if plan.want_rd else 0)) + 5 * tp)
+        scan = lanes * (15 * emits // 7 + 3 + 8 + (
+            3 * npl * (4 + 8) if plan.want_rd else 0))
+        peak = max(peak, held + max(build, scan))
+    return bands + peak
+
+
+def chunk_cap(plan: "FusedPlan", free_bytes: int) -> int:
+    """The most frames of `plan` one chunk may hold so that its MQ encode
+    (`mq_frame_bytes` a frame, and the scan's counting temporaries once)
+    fits in MEMORY_SHARE of `free_bytes`, and at least 1."""
+    room = int(MEMORY_SHARE * free_bytes) - mq_scan.EMIT_BLOCK_BYTES
+    return max(1, room // mq_frame_bytes(plan))
+
+
 class FusedHTEncoder(nn.Module):
     """The fused HT encode for one plan. Buffers: the tables of
     `ht_tables.device_tables`. `forward(*frames)` takes one integer

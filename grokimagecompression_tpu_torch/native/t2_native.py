@@ -19,12 +19,16 @@ from ..ops import _build
 
 
 def decode_tile_packets(body: bytes, packets, groups, kmaxs_per_band,
-                        styles_per_band, sop: bool, eph: bool):
+                        styles_per_band, sop: bool, eph: bool,
+                        nlayers: int = 0):
     """Parse a tile's whole packet sequence natively.
 
     packets: [(group_index, layer), ...] in progression order.
     groups: per group, a list of PrecDec (band-precincts); their CblkDec
     objects are filled (numbps, numpasses, segs).
+    nlayers: keep the passes of the first `nlayers` layers only (all when
+    0); later layers' packets are parsed to stay in sync and dropped, as
+    `t2.decode_packet(..., discard=True)` drops them.
     Returns bytes consumed, or None if the native parser declined.
     """
     lib = _build.host_library()
@@ -66,7 +70,9 @@ def decode_tile_packets(body: bytes, packets, groups, kmaxs_per_band,
         pkt_group.ctypes.data, pkt_layer.ctypes.data, ngroups,
         gband_off.ctypes.data, grid_arr.ctypes.data, ncblk_arr.ctypes.data,
         kmax_arr.ctypes.data, style_arr.ctypes.data, meta.ctypes.data,
-        1 if sop else 0, 1 if eph else 0, out_meta.ctypes.data,
+        1 if sop else 0, 1 if eph else 0,
+        nlayers if nlayers > 0 else np.iinfo(np.int32).max,
+        out_meta.ctypes.data,
         seg_out.ctypes.data, seg_cap)
     if rc < 0:
         return None

@@ -145,11 +145,11 @@ def host_library() -> ctypes.CDLL:
     lib.grok_t2_simulate_tile.argtypes = [I, I, I, I, P, P, P, P, P, P, P, I,
                                           P]
     # (body, body_len, npackets, pkt_group, pkt_layer, ngroups, gband_off,
-    #  grid, ncblks, kmax, style, meta, sop, eph, out_meta, seg_out,
-    #  seg_cap)
+    #  grid, ncblks, kmax, style, meta, sop, eph, nlayers, out_meta,
+    #  seg_out, seg_cap)
     lib.grok_t2_decode_tile.restype = L
     lib.grok_t2_decode_tile.argtypes = [P, L, I, P, P, I, P, P, P, P, P, P,
-                                        I, I, P, P, L]
+                                        I, I, I, P, P, L]
     # (data, offs, lcups, scups, B, wm_mel, wm_vlc, wm_ms, out_mel,
     #  out_vlc, out_ms)
     lib.grok_ht_dec_prepass.restype = I
@@ -179,6 +179,10 @@ def load() -> ctypes.CDLL:
     lib.mq_scan.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int] \
         + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.mq_scan.restype = ctypes.c_int
+    # (slots, T, T_out, lanes, words, m8, nbo, state, stream)
+    lib.mq_scan_dense.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 5
+    lib.mq_scan_dense.restype = ctypes.c_int
     # (data, off, nbps, npas, ori, B, w, h, out, stats, stream)
     lib.mq_dec_group.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p] * 3

@@ -28,6 +28,14 @@ place by the kernel, and packed to their true lengths by one gather.
 `encode_blocks` is the whole block coder on a list of quantized blocks
 (slot build, scan, R-D tables), the counterpart of
 `mq_jax.mq_encode_blocks`.
+
+`run_mq_scans` and `run_mq_scans_blocked` are the dense-output scan, the
+counterparts of `mq_jax.run_mq_scans` / `run_mq_scans_blocked` (the
+Pallas `mq_scan_pallas.mq_scan` / `mq_scan_blocked`): per step the word
+completed, its chunk-local index and the byte-outs, and the reference's
+11-word state (`mq_torch.mq_scan_dense_plain` gives the contract). A CUDA
+tensor launches `csrc/mq_scan.cu`'s `mq_scan_dense` (counted in
+`LAUNCHES["mq_dense"]`) or raises; a CPU tensor takes the plain version.
 """
 
 from __future__ import annotations
@@ -39,9 +47,9 @@ import torch
 
 from ..utils.device import DeviceLike, resolve_device
 from . import _build, mq_torch
-from .mq_tables import NSTATE
+from .mq_tables import DENSE_CHUNK, DENSE_NSTATE, NSTATE
 
-LAUNCHES = {"mq": 0}
+LAUNCHES = {"mq": 0, "mq_dense": 0}
 
 
 def _check(slots: torch.Tensor) -> None:
@@ -56,11 +64,28 @@ def _check(slots: torch.Tensor) -> None:
         raise ValueError("the slot stream must be contiguous")
 
 
+# bytes of temporaries `lane_emits` may take at once
+EMIT_BLOCK_BYTES = 1 << 28
+
+
+def lane_emits(slots: torch.Tensor) -> torch.Tensor:
+    """(B,) int64: each lane's count E of emitting slots. A reduction to
+    int64 copies its int8 input to int64 first (8 bytes a slot: 7 GB for
+    one config-2 frame), so the rows are summed in blocks of at most
+    EMIT_BLOCK_BYTES of temporaries."""
+    T, B = slots.shape
+    emits = torch.zeros(B, dtype=torch.int64, device=slots.device)
+    rows = max(1, EMIT_BLOCK_BYTES // (9 * max(B, 1)))
+    for lo in range(0, T, rows):
+        emits += (slots[lo:lo + rows] & 1).sum(dim=0)
+    return emits
+
+
 def segment_offsets(slots: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """Byte offsets of the lanes' segment regions, (B + 1,) int64 on the
     slots' device, from each lane's bound 15 E / 7 + 3; and the buffer
     size (one synchronisation)."""
-    emits = (slots & 1).sum(dim=0)
+    emits = lane_emits(slots)
     bound = (15 * emits) // 7 + 3
     off = torch.zeros(slots.shape[1] + 1, dtype=torch.int64,
                       device=slots.device)
@@ -132,6 +157,58 @@ def mq_scan(slots: torch.Tensor, spans=None):
     off, total = segment_offsets(slots)
     out, lens, *rest = scan_into(slots, off, total, spans)
     return (pack_segments(out, off, lens), lens, *rest)
+
+
+def scan_dense(slots: torch.Tensor, t_out: int = 0):
+    """The dense scan over t_out >= T rows (T when 0): (words, m8, nbo,
+    state) as `mq_torch.mq_scan_dense_plain` returns them."""
+    _check(slots)
+    T, B = slots.shape
+    t_out = t_out or T
+    if t_out < T:
+        raise ValueError(f"t_out {t_out} is below the stream's {T} rows")
+    if slots.device.type == "cpu":
+        return mq_torch.mq_scan_dense_plain(slots, t_out)
+    dev = slots.device
+    words, m8, nbo = (torch.empty((t_out, B), dtype=torch.int32, device=dev)
+                      for _ in range(3))
+    state = torch.empty((DENSE_NSTATE, B), dtype=torch.int32, device=dev)
+    if B == 0:
+        return words, m8, nbo, state
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _build.load().mq_scan_dense(
+            slots.data_ptr(), T, t_out, B, words.data_ptr(), m8.data_ptr(),
+            nbo.data_ptr(), state.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mq_scan_dense launch failed: CUDA error {rc}")
+    LAUNCHES["mq_dense"] += 1
+    return words, m8, nbo, state
+
+
+def run_mq_scans(slots: torch.Tensor):
+    """Flat dense scan of a (T, B) int8 slot stream, any B: words (T, B)
+    int32, mask (T, B) bool (a word completes at the step), nbo (T, B)
+    int32 and the state (DENSE_NSTATE, B) int32, as the reference's
+    `mq_jax.run_mq_scans` (which returns the state as a tuple of rows)."""
+    words, m8, nbo, state = scan_dense(slots)
+    return words, m8 >= 0, nbo, state
+
+
+def run_mq_scans_blocked(slots: torch.Tensor):
+    """Blocked dense scan of a (T, B) int8 slot stream with B % 128 == 0:
+    words, m8, nbo as (t_pad, B // 128, 128) int32 views, t_pad = T
+    rounded up to a multiple of DENSE_CHUNK (the rows past T code no-op
+    slots), and the state as (DENSE_NSTATE, B // 128, 128), as the
+    reference's `mq_jax.run_mq_scans_blocked`."""
+    T, B = slots.shape
+    if B % 128:
+        raise ValueError(f"the blocked scan needs B % 128 == 0, got B={B}")
+    t_pad = -(-T // DENSE_CHUNK) * DENSE_CHUNK
+    words, m8, nbo, state = scan_dense(slots, t_pad)
+    blocked = (t_pad, B // 128, 128)
+    return (words.view(blocked), m8.view(blocked), nbo.view(blocked),
+            state.view(DENSE_NSTATE, B // 128, 128))
 
 
 def encode_blocks(blocks, want_rd: bool = False,

@@ -3,7 +3,8 @@
 Copies of `grokimagecompression_tpu/t1/mq.py` (Table C.2 as `MQ_TABLE`,
 the 19-context layout `CTX_*`) and of the packed forms of
 `grokimagecompression_tpu/ops/mq_jax.py` (`_TBL_PACKED`, `_CTX_INIT`,
-`NCTX_WORDS`, `_CTX_INIT_PACKED`). `tests/test_torch_host_copies.py`
+`NCTX_WORDS`, `_CTX_INIT_PACKED`, and `NSTATE` / `STATE_INIT` as
+`DENSE_NSTATE` / `DENSE_STATE_INIT`). `tests/test_torch_host_copies.py`
 holds them equal to the originals.
 
 The coder state of the port's MQ scan (`ops/mq_torch.py`,
@@ -97,3 +98,13 @@ _CTX_INIT_PACKED = [
 # yet) and the five packed context words.
 NSTATE = 4 + NCTX_WORDS
 STATE_INIT = [0x8000, 0, 12, -1] + _CTX_INIT_PACKED
+
+# The reference's coder state (`mq_jax.NSTATE`, `STATE_INIT`): the port's
+# with the word accumulator after the delayed byte, `wacc` (the bytes of
+# the word being filled, little-endian) and `wcnt` (how many). Only the
+# dense-output scan (`ops/mq_scan.run_mq_scans`) keeps it.
+DENSE_NSTATE = 6 + NCTX_WORDS
+DENSE_STATE_INIT = [0x8000, 0, 12, -1, 0, 0] + _CTX_INIT_PACKED
+# The dense scan numbers a lane's words within chunks of this many steps
+# (its `m8` output; the reference's scan kernel chunk `_CHUNK`).
+DENSE_CHUNK = 256

@@ -46,6 +46,7 @@ import torch
 
 from ..codestream.t2 import PassInfo
 from .mq_tables import (CTX_MAG, CTX_RL, CTX_SC, CTX_UNI, CTX_ZC,
+                        DENSE_CHUNK,
                         NCTX_WORDS, NUM_CTXS, STATE_INIT, _CTX_INIT,
                         _TBL_PACKED)
 
@@ -550,11 +551,9 @@ def pack_contexts(ctx: torch.Tensor) -> torch.Tensor:
     return (c4 << shifts).sum(dim=1)
 
 
-def emitting_slots(slots: torch.Tensor) -> torch.Tensor:
-    """The lanes' emitting slots moved to the front of their columns:
-    (E, B) int64, zero after a lane's own count, with E the largest
-    count. Slots with emit = 0 leave the coder as it is, so coding the
-    result gives the same bytes as coding `slots`."""
+def _emitting(slots: torch.Tensor):
+    """(dense, rank, lane, t): `emitting_slots`, and for each emitting slot
+    its lane, its row t in `slots` and its row rank in `dense`."""
     emit = (slots & 1) != 0
     counts = emit.sum(dim=0)
     B = slots.shape[1]
@@ -564,7 +563,15 @@ def emitting_slots(slots: torch.Tensor) -> torch.Tensor:
     rank = torch.arange(lane.shape[0], device=slots.device) - start[lane]
     dense = torch.zeros((E, B), dtype=torch.int64, device=slots.device)
     dense[rank, lane] = slots[t, lane].to(torch.int64)
-    return dense
+    return dense, rank, lane, t
+
+
+def emitting_slots(slots: torch.Tensor) -> torch.Tensor:
+    """The lanes' emitting slots moved to the front of their columns:
+    (E, B) int64, zero after a lane's own count, with E the largest
+    count. Slots with emit = 0 leave the coder as it is, so coding the
+    result gives the same bytes as coding `slots`."""
+    return _emitting(slots)[0]
 
 
 def pass_ends(T: int, spans) -> List[int]:
@@ -613,6 +620,74 @@ def mq_scan_plain(slots: torch.Tensor, spans=None):
                         device=dev)
     coded = torch.cumsum((slots & 1).to(torch.int64), dim=0)[ends - 1]
     return res + (nbo.gather(0, coded).to(torch.int32),)
+
+
+def _int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [-2^31, 2^32) -> int32 of the same low 32 bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def mq_scan_dense_plain(slots: torch.Tensor, t_out: int = 0):
+    """The MQ coder over a (T, B) int8 slot stream with dense per-step
+    outputs, the plain version of `csrc/mq_scan.cu`'s `mq_scan_dense`
+    and of the reference's `mq_jax._mq_scan_w` / `mq_scan_pallas.
+    mq_scan_blocked`. Returns, over t_out >= T rows (T when 0; rows past
+    T are steps of no-op slots):
+      words (t_out, B) int32: the 32-bit word completed at the step, its
+        bytes in coding order from the least significant (0 where none);
+      m8 (t_out, B) int32: that word's index among the lane's words of
+        its DENSE_CHUNK-step chunk, -1 where none;
+      nbo (t_out, B) int32: the step's byte-outs (0-3), the first one of
+        a lane included, which writes no byte;
+      state (DENSE_NSTATE, B) int32: A, C, CT, the delayed byte, the
+        partial word `wacc` and its byte count `wcnt`, the five packed
+        context words.
+    At most 3 bytes a step, so at most one word completes a step. The
+    coder runs over each lane's emitting slots only (`_emitting`)."""
+    dev = slots.device
+    T, B = slots.shape
+    t_out = t_out or T
+    if t_out < T:
+        raise ValueError(f"t_out {t_out} is below the stream's {T} rows")
+    dense, rank, lane, t = _emitting(slots)
+    tbl = _luts(dev)["tbl"]
+    state = init_state(B, dev)
+    E = dense.shape[0]
+    wacc = torch.zeros(B, dtype=torch.int64, device=dev)
+    wcnt = torch.zeros(B, dtype=torch.int64, device=dev)
+    words = torch.zeros((E, B), dtype=torch.int64, device=dev)
+    full = torch.zeros((E, B), dtype=torch.bool, device=dev)
+    nbo = torch.zeros((E, B), dtype=torch.int64, device=dev)
+    for k in range(E):
+        had_byte = state[3] >= 0
+        state, outs, valids = mq_step(state, dense[k], tbl)
+        # a byte-out writes the delayed byte, except the lane's first
+        nbo[k] = valids.sum(dim=0) + (~had_byte & (state[3] >= 0))
+        for j in range(3):
+            wacc = torch.where(valids[j], wacc | (outs[j] << (8 * wcnt)),
+                               wacc)
+            wcnt = wcnt + valids[j]
+            done = wcnt == 4
+            words[k] = torch.where(done, wacc, words[k])
+            full[k] |= done
+            wacc = torch.where(done, 0, wacc)
+            wcnt = torch.where(done, 0, wcnt)
+    out_w = torch.zeros((t_out, B), dtype=torch.int32, device=dev)
+    out_full = torch.zeros((t_out, B), dtype=torch.bool, device=dev)
+    out_nbo = torch.zeros((t_out, B), dtype=torch.int32, device=dev)
+    out_w[t, lane] = _int32(words[rank, lane])
+    out_full[t, lane] = full[rank, lane]
+    out_nbo[t, lane] = nbo[rank, lane].to(torch.int32)
+    nch = -(-t_out // DENSE_CHUNK)
+    mc = torch.zeros((nch * DENSE_CHUNK, B), dtype=torch.int32, device=dev)
+    mc[:t_out] = out_full.to(torch.int32)
+    mc = mc.view(nch, DENSE_CHUNK, B)
+    m8 = torch.where(mc > 0, torch.cumsum(mc, dim=1) - 1, -1) \
+        .view(-1, B)[:t_out].to(torch.int32)
+    a, c, ct, last, ctx = state
+    st = torch.cat([torch.stack([a, c, ct, last, wacc, wcnt]),
+                    pack_contexts(ctx)])
+    return out_w, m8, out_nbo, _int32(st)
 
 
 # ---------------------------------------------------------------------------

@@ -3,10 +3,12 @@ use it.
 
 Copies of `grokimagecompression_tpu/ops/quant.py` (the basis norms,
 `band_norm`, `encode_stepsize`, `decode_stepsize`,
-`default_irrev_stepsize`, `trunc_plane`) and of the irreversible MCT
-norms of `ops/mct_np.py`; `tests/test_torch_host_copies.py` holds them
-equal to the originals. `deadzone` is the port's quantizer for the 9/7
-bands: the host encoder's rule, floor(|v| / step) in float64.
+`default_irrev_stepsize`, `trunc_plane`, `dequantize`) and of the
+irreversible MCT norms of `ops/mct_np.py`;
+`tests/test_torch_host_copies.py` holds them equal to the originals.
+`deadzone` is the port's quantizer for the 9/7 bands: the host encoder's
+rule, floor(|v| / step) in float64. `reconstruct` is the 9/7 decode's
+dequantizer on torch tensors, the host's float32 `dequantize`.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 # L2 norms of the synthesis basis vectors per [orient][level] — standard
@@ -86,3 +89,30 @@ def trunc_plane(numbps: int, numpasses: int) -> int:
     if numbps <= 0 or numpasses <= 0:
         return 0
     return max(0, numbps - 1 - ((numpasses + 1) // 3))
+
+
+def dequantize(mag: np.ndarray, neg: np.ndarray, stepsize: float,
+               half_bit: bool = True, p_min: int = 0) -> np.ndarray:
+    """Mid-point reconstruction: (q + 0.5 * 2^p_min) * delta for q > 0,
+    where p_min is the block's lowest decoded bit-plane (trunc_plane);
+    0 for fully decoded blocks."""
+    m = mag.astype(np.float32)
+    if half_bit:
+        half = np.float32(0.5 * (1 << p_min))
+        m = np.where(mag > 0, m + half, m)
+    v = m * np.float32(stepsize)
+    return np.where(neg > 0, -v, v).astype(np.float32)
+
+
+def reconstruct(mag: torch.Tensor, neg: torch.Tensor, half, step
+                ) -> torch.Tensor:
+    """`dequantize` on tensors, float32 throughout: (mag + half where
+    mag != 0) * step, negated where `neg`. `half` and `step` are float32
+    tensors (or floats) that broadcast against `mag`: per lane, the
+    factor 0.5 * 2^pm of the block's lowest decoded plane and the band's
+    stepsize. Each operation is its own rounding, in the host's order (no
+    fused multiply-add)."""
+    m = mag.to(torch.float32)
+    m = torch.where(mag != 0, m + half, m)
+    v = m * step
+    return torch.where(neg, -v, v)

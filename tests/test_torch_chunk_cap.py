@@ -1,0 +1,94 @@
+"""`encode_batch`'s chunk, capped to the device memory an MQ plan needs.
+
+`fused_encode.mq_frame_bytes` gives a plan's peak device bytes a frame
+in the MQ encode, and `fused_encode.chunk_cap` the frames that fit in
+half of a given free byte count, at least one; `encoder.encode_batch`
+caps its chunk with them on a CUDA device (`free_device_bytes`). On the
+CPU the free byte count is given by the test. The streams must not
+depend on the chunk.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+from grokimagecompression_tpu_torch.codestream import encoder
+from grokimagecompression_tpu_torch.codestream.tile import default_qcd
+from grokimagecompression_tpu_torch.core.geometry import tile_rect
+from grokimagecompression_tpu_torch.core.image import Component, Image
+from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                        Transform)
+from grokimagecompression_tpu_torch.models import fused_encode
+from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _plan(img, params, coder="mq"):
+    siz = encoder.build_siz(img, params)
+    cod = encoder.build_cod(img, params)
+    qcd = default_qcd(siz, cod, params.num_guard_bits, params.base_step)
+    tr = tile_rect(0, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz, siz.xtsiz,
+                   siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    return fused_encode.build_plan(siz, cod, qcd, tr, coder=coder,
+                                   want_rd=bool(params.rates))
+
+
+def _config2_plan():
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    img = chip_smoke.config2_frames(1)[0]
+    return _plan(img, EncoderParams(numresolutions=6,
+                                    transform=Transform.DWT_97, numlayers=3,
+                                    rates=(24.0, 48.0, 96.0)))
+
+
+def _frames(n, w=32, h=32):
+    rng = np.random.default_rng(8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    return [Image(xsiz=w, ysiz=h, components=[Component(
+        data=(128 + 60 * np.sin(yy / 5.0 + i) * np.cos(xx / 7.0)
+              + rng.integers(0, 16, (h, w))).astype(np.int32),
+        prec=8, signed=False, dx=1, dy=1)]) for i in range(n)]
+
+
+def test_chunk_cap_from_free_bytes():
+    plan = _config2_plan()
+    per = fused_encode.mq_frame_bytes(plan)
+    (h, w, blocks), = plan.groups
+    stream = len(blocks) * 15 * mq_torch.slots_per_plane(h, w)
+    assert stream < per < 8 * stream             # the slot stream leads
+    fixed = mq_scan.EMIT_BLOCK_BYTES
+    assert fused_encode.chunk_cap(plan, 2 * (9 * per + fixed)) == 9
+    assert fused_encode.chunk_cap(plan, 2 * (9 * per + fixed) - 2) == 8
+    assert fused_encode.chunk_cap(plan, 0) == 1
+    # the default chunk of 32 config-2 frames does not fit an 80 GB card
+    assert fused_encode.chunk_cap(plan, 80 * 10 ** 9) < 32
+    with pytest.raises(ValueError):
+        fused_encode.mq_frame_bytes(_plan(
+            _frames(1)[0], EncoderParams(numresolutions=3, cblk_style=0x40),
+            coder="ht"))
+
+
+def test_streams_do_not_depend_on_the_chunk(monkeypatch):
+    """A small 9/7 plan with rates: the streams at chunk 1, 2 and 4 are
+    equal, and a free byte count that caps the chunk to 1 encodes them
+    one frame a chunk, to the same streams."""
+    imgs = _frames(4)
+    params = EncoderParams(numresolutions=3, transform=Transform.DWT_97,
+                           numlayers=2, rates=(30.0, 10.0), cblk_w_exp=4,
+                           cblk_h_exp=4)
+    want = encoder.encode_batch(imgs, params, device="cpu", chunk=4)
+    for chunk in (1, 2):
+        assert encoder.encode_batch(imgs, params, device="cpu",
+                                    chunk=chunk) == want
+    sizes = []
+    submit = fused_encode.encode_tile_submit
+    monkeypatch.setattr(encoder, "free_device_bytes", lambda dev: 1)
+    monkeypatch.setattr(fused_encode, "encode_tile_submit",
+                        lambda comps, enc: sizes.append(comps[0].shape[0])
+                        or submit(comps, enc))
+    assert encoder.encode_batch(imgs, params, device="cpu") == want
+    assert sizes == [1, 1, 1, 1]

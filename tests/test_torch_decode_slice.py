@@ -21,7 +21,7 @@ import torch
 from grokimagecompression_tpu.codestream import decoder as ref_decoder
 from grokimagecompression_tpu.codestream import encoder as ref_encoder
 from grokimagecompression_tpu.core.image import Component, Image
-from grokimagecompression_tpu.core.params import EncoderParams, Transform
+from grokimagecompression_tpu.core.params import EncoderParams
 from grokimagecompression_tpu_torch.codestream import decoder
 from grokimagecompression_tpu_torch.core.params import DecoderParams
 from grokimagecompression_tpu_torch.models import pipeline
@@ -196,7 +196,6 @@ def test_equals_reference_fused_decode_batch():
 def test_out_of_slice_raises():
     img = _frames(1, 24, 24)
     for params in (EncoderParams(cblk_style=0x01),   # MQ with bypass
-                   EncoderParams(cblk_style=HT, transform=Transform.DWT_97),
                    EncoderParams(cblk_style=HT, ht_refinement=True),
                    EncoderParams(cblk_style=HT, ppt_markers=True),
                    EncoderParams(cblk_style=HT, ppm_markers=True),
@@ -204,7 +203,7 @@ def test_out_of_slice_raises():
         with pytest.raises(NotImplementedError):
             decoder.decode_batch(_encode(img, params), device="cpu")
     cs = _encode(img, EncoderParams(cblk_style=HT, numresolutions=3))
-    for dparams in (DecoderParams(reduce=1), DecoderParams(layers=1),
+    for dparams in (DecoderParams(reduce=1),
                     DecoderParams(window=(0, 0, 8, 8)),
                     DecoderParams(tile_index=0)):
         with pytest.raises(NotImplementedError):

@@ -15,7 +15,9 @@ Run `PYTHONPATH=. python tests/test_torch_host_copies.py` from the
 repository root to rewrite the digest files.
 """
 
+import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import os
@@ -49,6 +51,7 @@ DATA = os.path.join(REPO, "grokimagecompression_tpu_torch", "data")
 DIGESTS = os.path.join(DATA, "config1_ht_lossless.json")
 MQ_DIGESTS = os.path.join(DATA, "config1_mq_lossless.json")
 C2_DIGESTS = os.path.join(DATA, "config2_pcrd_97.json")
+C2_DEC_DIGESTS = os.path.join(DATA, "config2_decode_97.json")
 
 CASES = [
     ("gray", [natural_image(64, 64, seed=0)],
@@ -135,6 +138,45 @@ def test_tile_parse_and_plans_equal_reference(name, imgs, params):
     for gb in (1, 2):
         assert _asdict(tile.default_qcd(psiz, pcod, gb)) == \
             _asdict(ref_tile.default_qcd(rsiz, rcod, gb))
+
+
+LAYERED = [
+    ("lrcp", dict(rates=(96.0, 48.0, 24.0))),
+    ("rpcl_sop_eph", dict(rates=(24.0, 12.0, 6.0), progression=2,
+                          sop_markers=True, eph_markers=True)),
+]
+
+
+@pytest.mark.parametrize("name,kw", LAYERED, ids=[c[0] for c in LAYERED])
+def test_layer_limited_parse_equals_reference(name, kw):
+    """The native parser's layer limit against the reference's Python
+    parse with `decode_packet(..., discard=True)`: the same jobs and
+    code-block states at every limit."""
+    from grokimagecompression_tpu.core.params import Transform
+    img = natural_image(48, 40, ncomp=3, seed=12)
+    cs = _stream([img], EncoderParams(
+        numresolutions=3, transform=Transform.DWT_97, numlayers=3,
+        cblk_w_exp=4, cblk_h_exp=4, **kw))
+    hdr = decoder.read_header(cs)
+    ref_hdr = ref_decoder.read_header(cs)
+    body = b"".join(tp.body for tp in decoder.iter_tile_parts(
+        cs, hdr.main_header_end))
+    args = tuple(getattr(hdr.siz, k) for k in (
+        "xsiz", "ysiz", "xosiz", "yosiz", "xtsiz", "ytsiz", "xtosiz",
+        "ytosiz"))
+    npasses = []
+    for layers in (1, 2, 3):
+        _, w_jobs, w_slots, _, _ = ref_tile.decode_tile(
+            body, ref_hdr.siz, ref_hdr.cod, ref_hdr.qcd, ref_rect(0, *args),
+            max_layers=layers, _return_jobs=True)
+        g_jobs, g_slots, _, _ = tile.decode_tile(
+            body, hdr.siz, hdr.cod, hdr.qcd, tile_rect(0, *args),
+            max_layers=layers)
+        assert g_jobs == w_jobs
+        assert [_slot_key(s) for s in g_slots] == \
+            [_slot_key(s) for s in w_slots]
+        npasses.append(sum(j[6] for j in g_jobs))
+    assert npasses[0] < npasses[1] < npasses[2]
 
 
 @pytest.mark.parametrize("name,imgs,params", CASES, ids=IDS)
@@ -254,31 +296,61 @@ def test_port_frames_digest_like_reference_frames():
         data.astype("<i4").tobytes()).hexdigest()
 
 
+@contextlib.contextmanager
+def _numpy_dwt():
+    """The reference host codec with its numpy DWT only: `dwt_host`'s
+    dispatch and the decoder's packed native inverse
+    (`codestream/tile.py`), which only GROK_TPU_DWT=python turns off.
+    The native 9/7 DWT rounds differently from the numpy oracle, which
+    the port's DWT equals bit for bit."""
+    from grokimagecompression_tpu.ops import dwt_host
+    native, env = dwt_host._get_native, os.environ.get("GROK_TPU_DWT")
+    dwt_host._get_native = lambda: None
+    os.environ["GROK_TPU_DWT"] = "python"
+    try:
+        yield
+    finally:
+        dwt_host._get_native = native
+        if env is None:
+            del os.environ["GROK_TPU_DWT"]
+        else:
+            os.environ["GROK_TPU_DWT"] = env
+
+
+def _c2_params(rates):
+    from grokimagecompression_tpu.core.params import Transform
+    return EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                         numlayers=3, rates=rates)
+
+
+def _reference_image(im):
+    from grokimagecompression_tpu.core.image import Component, Image
+    return Image(xsiz=im.xsiz, ysiz=im.ysiz, components=[Component(
+        data=c.data, prec=c.prec, signed=c.signed, dx=c.dx, dy=c.dy)
+        for c in im.components])
+
+
+@functools.lru_cache(maxsize=1)
+def _config2_streams():
+    """The 4 config-2 frames and the reference host encoder's streams of
+    them (ICT + 9/7, three layers at ratios 24 / 48 / 96), numpy DWT."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    imgs = chip_smoke.config2_frames(chip_smoke.C2_FRAMES)
+    with _numpy_dwt():
+        streams = [ref_encoder.encode(_reference_image(im),
+                                      _c2_params((24.0, 48.0, 96.0)),
+                                      device=False) for im in imgs]
+    return imgs, streams
+
+
 def config2_digests():
     """SHA-256 of the 4 config-2 frames (`chip_smoke.config2_frames`) and
     of the reference host encoder's streams of them (ICT + 9/7, three
-    layers at ratios 24 / 48 / 96), run with its numpy DWT: the native
-    9/7 DWT rounds differently from the numpy oracle, which the port's
-    DWT equals bit for bit."""
+    layers at ratios 24 / 48 / 96), run with its numpy DWT."""
     sys.path.insert(0, REPO)
     import chip_smoke
-
-    from grokimagecompression_tpu.core.image import Component, Image
-    from grokimagecompression_tpu.core.params import Transform
-    from grokimagecompression_tpu.ops import dwt_host
-    imgs = chip_smoke.config2_frames(chip_smoke.C2_FRAMES)
-    params = EncoderParams(numresolutions=6, transform=Transform.DWT_97,
-                           numlayers=3, rates=(24.0, 48.0, 96.0))
-    native = dwt_host._get_native
-    dwt_host._get_native = lambda: None
-    try:
-        streams = [ref_encoder.encode(Image(
-            xsiz=im.xsiz, ysiz=im.ysiz, components=[Component(
-                data=c.data, prec=c.prec, signed=c.signed, dx=c.dx,
-                dy=c.dy) for c in im.components]), params, device=False)
-            for im in imgs]
-    finally:
-        dwt_host._get_native = native
+    imgs, streams = _config2_streams()
     return {
         "what": "BASELINE config 2: chip_smoke.config2_frames(4) and the "
                 "streams of grokimagecompression_tpu encoder.encode("
@@ -294,6 +366,50 @@ def config2_digests():
 def test_config2_digest_file_is_current():
     with open(C2_DIGESTS) as f:
         assert json.load(f) == config2_digests()
+
+
+def config2_decode_digests():
+    """SHA-256 of the reference host decoder's pixels (numpy DWT) of the 4
+    config-2 streams, and of frame 0 encoded with its layers the other
+    way round, ratios 96 / 48 / 24 (so that each layer carries data: at
+    24 / 48 / 96 layers 1 and 2 are empty packets), decoded at layers 1,
+    2 and all, with the host's MSE against the frame at each."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from grokimagecompression_tpu.core.params import (DecoderParams as
+                                                      RefDecoderParams)
+    imgs, streams = _config2_streams()
+    rates = (96.0, 48.0, 24.0)
+    with _numpy_dwt():
+        decoded = [chip_smoke.frame_digest(ref_decoder.decode(
+            cs, device=False)) for cs in streams]
+        cs = ref_encoder.encode(_reference_image(imgs[0]), _c2_params(rates),
+                                device=False)
+        layered = {}
+        for layers in (1, 2, 0):
+            out = ref_decoder.decode(cs, RefDecoderParams(layers=layers),
+                                     device=False)
+            layered[str(layers)] = {
+                "pixels": chip_smoke.frame_digest(out),
+                "mse": chip_smoke.frame_mse(out, imgs[0])}
+    return {
+        "what": "the reference host decoder (grokimagecompression_tpu "
+                "decoder.decode(device=False), numpy DWT: "
+                "dwt_host._get_native None and GROK_TPU_DWT=python) on the "
+                "streams of config2_pcrd_97.json, and on frame 0 encoded "
+                "as there with rates (96, 48, 24), decoded at layers 1, 2 "
+                "and 0 (all); tests/test_torch_host_copies.py writes it",
+        "decoded": decoded,
+        "layered": {"rates": list(rates),
+                    "stream": hashlib.sha256(cs).hexdigest(),
+                    "layers": layered},
+    }
+
+
+def test_config2_decode_digest_file_is_current():
+    with open(C2_DEC_DIGESTS) as f:
+        assert json.load(f) == config2_decode_digests()
 
 
 def test_quant_helpers_equal_reference():
@@ -317,6 +433,30 @@ def test_quant_helpers_equal_reference():
             assert em == ref_quant.encode_stepsize(step, nbps)
             assert quant.decode_stepsize(*em, nbps) == \
                 ref_quant.decode_stepsize(*em, nbps)
+
+
+def test_dequantize_and_reconstruct_equal_reference():
+    """The copy of `quant.dequantize` equals the reference's, and the
+    decode's tensor form `quant.reconstruct` equals both, bit for bit."""
+    import torch
+    from grokimagecompression_tpu.ops import quant as ref_quant
+    from grokimagecompression_tpu_torch.ops import quant
+    rng = np.random.default_rng(3)
+    mag = rng.integers(0, 1 << 15, (32, 48)).astype(np.uint32)
+    mag[rng.random(mag.shape) < 0.3] = 0
+    neg = (rng.random(mag.shape) < 0.5).astype(np.uint8)
+    for step in (0.0371, 0.4807, 1.0, 3.25):
+        for pm in (0, 1, 4):
+            want = ref_quant.dequantize(mag, neg, step, p_min=pm)
+            got = quant.dequantize(mag, neg, step, p_min=pm)
+            assert got.dtype == np.float32
+            np.testing.assert_array_equal(got, want)
+            rec = quant.reconstruct(
+                torch.from_numpy(mag.astype(np.int32)),
+                torch.from_numpy(neg != 0),
+                torch.tensor(0.5 * (1 << pm), dtype=torch.float32),
+                torch.tensor(step, dtype=torch.float32))
+            np.testing.assert_array_equal(rec.numpy(), want)
 
 
 def test_deadzone_equals_host_quantizer():
@@ -484,4 +624,7 @@ if __name__ == "__main__":
             f.write("\n")
     with open(C2_DIGESTS, "w") as f:
         json.dump(config2_digests(), f, indent=1)
+        f.write("\n")
+    with open(C2_DEC_DIGESTS, "w") as f:
+        json.dump(config2_decode_digests(), f, indent=1)
         f.write("\n")

@@ -5,9 +5,12 @@ plain version `ops/mq_torch.mq_scan_plain` for CPU tensors. The `gpu`
 case holds the kernel against the plain version on the card, on random
 slot streams with one all-passthrough lane: every lane's segment bytes,
 lengths and end-of-scan state must be equal, and with pass spans given
-the byte-outs at every pass end too. The plain version itself is held to
-the reference in `tests/test_torch_mq_encode.py` and (pass-end byte-outs)
-`tests/test_torch_rd_encode.py`.
+the byte-outs at every pass end too; and the dense-output scan
+(`mq_scan.scan_dense`) must equal its plain version on every step's word,
+word index and byte-outs and on the 11-word state. The plain versions
+themselves are held to the reference in `tests/test_torch_mq_encode.py`,
+(pass-end byte-outs) `tests/test_torch_rd_encode.py` and (dense scan)
+`tests/test_torch_mq_dense.py`.
 """
 
 import numpy as np
@@ -49,6 +52,16 @@ def test_pass_spans_must_tile_the_stream():
         mq_scan.mq_scan(z, (128, 128, 512))      # not 256-slot aligned
     *_, cumbo = mq_scan.mq_scan(z, (256, 256, 256))
     assert cumbo.shape == (3, 2) and not cumbo.any()
+
+
+def test_lane_emits_in_blocks(monkeypatch):
+    """The per-lane count of emitting slots, summed in row blocks (here
+    of 1 to 7 rows, ending mid-block), equals the whole-stream sum."""
+    slots = _random_slots(np.random.default_rng(5), 300, 7)
+    want = (slots & 1).sum(dim=0)
+    for block in (9 * 7, 9 * 7 * 4, 9 * 7 * 7, 1):
+        monkeypatch.setattr(mq_scan, "EMIT_BLOCK_BYTES", block)
+        assert torch.equal(mq_scan.lane_emits(slots), want)
 
 
 def test_plain_scan_counts_no_launch_and_keeps_the_contract():
@@ -96,3 +109,20 @@ def test_cuda_pass_byteouts_match_plain():
     want = mq_torch.mq_scan_plain(slots, spans)
     for name, w, g in zip(("data", "lens", "state", "cumbo"), want, got):
         assert torch.equal(w, g), name
+
+
+@pytest.mark.gpu
+def test_cuda_dense_kernel_matches_plain():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(11)
+    for T, B, t_out in ((2048, 2017, 0), (700, 33, 768)):
+        slots = _random_slots(rng, T, B).to(dev)
+        before = mq_scan.LAUNCHES["mq_dense"]
+        got = mq_scan.scan_dense(slots, t_out)
+        torch.cuda.synchronize()
+        assert mq_scan.LAUNCHES["mq_dense"] == before + 1
+        want = mq_torch.mq_scan_dense_plain(slots, t_out or T)
+        for name, w, g in zip(("words", "m8", "nbo", "state"), want, got):
+            assert torch.equal(w, g), f"T={T} B={B}: {name}"

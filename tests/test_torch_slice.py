@@ -161,12 +161,18 @@ def test_cuda_request_without_cuda_raises():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_port_runs_without_jax():
+def test_port_runs_without_jax(monkeypatch):
     """Encode and decode round trips with both JAX and the reference
     package blocked, with the HT and the MQ coder; each stream equals the
     reference host encoder's, made in this process from the same frame.
-    The MQ modules, the DWT kernel's wrapper and the rate control are
-    imported there too."""
+    A 9/7 stream with two quality layers, encoded there too, decodes at
+    its first layer to the reference host decoder's pixels (both with the
+    numpy DWT), and the dense MQ scan runs. The MQ modules, the DWT
+    kernel's wrapper and the rate control are imported there too."""
+    from grokimagecompression_tpu.core.params import DecoderParams
+    from grokimagecompression_tpu.ops import dwt_host
+    monkeypatch.setattr(dwt_host, "_get_native", lambda: None)
+    monkeypatch.setenv("GROK_TPU_DWT", "python")
     rng = np.random.default_rng(5)
     data = rng.integers(0, 256, (64, 64)).astype(np.int32)
     params = EncoderParams(numresolutions=3, cblk_style=HT)
@@ -174,6 +180,13 @@ def test_port_runs_without_jax():
     mq_params = EncoderParams(numresolutions=2, cblk_style=0)
     want_mq = ref_encoder.encode(convert_image(data[:8, :12]), mq_params,
                                  device=False)
+    p97 = dict(numresolutions=2, numlayers=2, rates=(20.0, 5.0),
+               cblk_w_exp=3, cblk_h_exp=3)
+    small97 = natural_image(32, 24, seed=9).components[0].data
+    want_97 = ref_encoder.encode(convert_image(small97), EncoderParams(
+        transform=Transform.DWT_97, **p97), device=False)
+    want_97_l1 = decoder.decode(want_97, DecoderParams(layers=1),
+                                device=False).components[0].data
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -202,6 +215,24 @@ def test_port_runs_without_jax():
         assert cs.hex() == "{want_mq.hex()}"
         (out,) = decoder.decode_batch([cs], device="cpu")
         assert np.array_equal(out.components[0].data, data[:8, :12])
+        from grokimagecompression_tpu_torch.core.params import (
+            DecoderParams, Transform)
+        small97 = np.frombuffer(bytes.fromhex("{small97.astype('<i4').tobytes().hex()}"),
+                                "<i4").reshape(24, 32)
+        (cs,) = encoder.encode_batch(
+            [Image(xsiz=32, ysiz=24, components=[Component(
+                data=small97, prec=8, signed=False, dx=1, dy=1)])],
+            EncoderParams(transform=Transform.DWT_97, **{p97!r}),
+            device="cpu")
+        assert cs.hex() == "{want_97.hex()}"
+        (out,) = decoder.decode_batch([cs], DecoderParams(layers=1),
+                                      device="cpu")
+        assert out.components[0].data.astype("<i4").tobytes().hex() == \
+            "{want_97_l1.astype('<i4').tobytes().hex()}"
+        import torch
+        words, mask, nbo, state = mq_scan.run_mq_scans(
+            torch.ones((300, 4), dtype=torch.int8))
+        assert state.shape == (mq_tables.DENSE_NSTATE, 4)
         assert not any(m.split(".")[0] in ("jax", "grokimagecompression_tpu")
                        for m in sys.modules if sys.modules[m] is not None)
         print("OK")
