@@ -32,7 +32,12 @@ Phases, each fatal on failure:
      one chunk of MQ streams (16x16 and 32x32 at full depth; 64x64 at full
      depth when the plain version's time, estimated from the 32x32 group,
      is at most 90 s, else every lane cut to its first 3 passes for the
-     comparison; the kernel is timed at full depth), the DWT forward and
+     comparison; the kernel is timed at full depth, beside its time
+     before its redesign),
+     the lanes-per-block trials of both MQ kernels on the 64x64 group,
+     and of the coder on a config-2 2-frame group (each source built with
+     every lane count of LANE_TRIALS, each build bit-exact with the
+     shipped kernel, all timed in turns), the DWT forward and
      inverse, 5/3 and 9/7, at the config-1 chunk shape, the config-2 frame
      shape, an odd-origin rect and a rect with single-sample levels, and
      the MQ coder's pass-end byte-outs on 64 lanes of the config-2 group
@@ -77,8 +82,10 @@ Phases, each fatal on failure:
      plan's bytes a frame (`fused_encode.mq_frame_bytes`) and the free
      device memory cap: the streams against the digests, and the peak
      device memory measured beside the model's prediction.
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel,
+whose `launches` counts the calls of what its `ms` times on the kernel's
+path (a whole DWT; a group kernel on the timed 64x64 group); the last
+line is {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py (needs one CUDA card;
 exits non-zero without one).
@@ -90,6 +97,7 @@ import hashlib
 import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -139,6 +147,15 @@ PLAIN_DENSE_DECISIONS = 8000
 # the plain MQ decoder's longest run allowed at full depth on the 64x64
 # group (seconds, estimated from the 32x32 group's run)
 PLAIN_MQ_DEC_S = 90
+# lanes a block tried for the MQ decoder and the MQ coder (each source's
+# kLanes; the coder's staged rows hold at most 8 lanes)
+LANE_TRIALS = {"mq_dec.cu": (16, 8, 4, 2, 1), "mq_scan.cu": (8, 4, 2, 1)}
+# the MQ kernels' times before their redesign (this script's run of the
+# earlier design, on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
+# beside the new ones
+BEFORE_MS = {"mq_dec_group": 49.524, "mq_scan": 29.226,
+             "mq_scan_dense": 42.143}
+BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
            "ms": ("ms_vals", "ms_lens")}
 # Bounds. H100 SXM peak rates: 3.35 TB/s of device memory; integer
@@ -270,6 +287,152 @@ def time_kernel(kernel, plain, args):
     return ms, cuda_ms(lambda: plain(*args), 1)
 
 
+class Calls:
+    """Counts, inside a `with` block, the calls of `module.name` whose
+    arguments satisfy `pred`: the calls of what a kernel's `ms` times on
+    its path (the wrappers' LAUNCHES still show that the kernel ran)."""
+
+    def __init__(self, module, name, pred):
+        self.module, self.name, self.pred = module, name, pred
+        self.n = 0
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            self.n += bool(self.pred(*args, **kwargs))
+            return orig(*args, **kwargs)
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def start_lane_trials():
+    """One nvcc per source and lane count of LANE_TRIALS: the source with
+    its kLanes line changed, into build/torch_kernels/. Returns [(source,
+    lanes, library path, cmd, process)]."""
+    from grokimagecompression_tpu_torch.ops import _build
+    pat = r"constexpr int kLanes = \d+;"
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    trials = []
+    for source, counts in LANE_TRIALS.items():
+        with open(os.path.join(_build.CSRC, source)) as f:
+            src = f.read()
+        if len(re.findall(pat, src)) != 1:
+            raise AssertionError(f"{source} has no single kLanes line")
+        for n in counts:
+            cu = os.path.join(_build.BUILD_DIR, f"trial_{n}_{source}")
+            with open(cu, "w") as f:
+                f.write(re.sub(pat, f"constexpr int kLanes = {n};", src))
+            so = cu[:-3] + ".so"
+            cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+                   "-Xcompiler", "-fPIC", "-shared", "-I", _build.CSRC,
+                   "-o", so, cu]
+            trials.append((source, n, so, cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    return trials
+
+
+def finish_lane_trials(trials):
+    """Wait for the trial builds; {source: {lanes: loaded library}}."""
+    import ctypes
+    libs = {source: {} for source in LANE_TRIALS}
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for source, n, so, cmd, proc in trials:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise AssertionError(f"nvcc failed on the {n}-lane trial of "
+                                 f"{source}:\n{' '.join(cmd)}\n{out}")
+        lib = ctypes.CDLL(so)
+        if source == "mq_dec.cu":
+            lib.mq_dec_group.argtypes = [P] * 6 + [I] * 3 + [P] * 3
+            lib.mq_dec_group.restype = I
+        else:
+            lib.mq_scan.argtypes = [P, I, I] + [P] * 5 + [I] * 3 + [P]
+            lib.mq_scan.restype = I
+        libs[source][n] = lib
+    return libs
+
+
+def in_turns(runs, want, label):
+    """Each trial `runs[n]()` (a launch as the wrapper makes it) equal to
+    `want`, then timed in turns (descending lane counts, then ascending),
+    10 launches a turn. {lanes: mean ms}."""
+    import torch
+    for n, run in runs.items():
+        got = run()
+        torch.cuda.synchronize()
+        if not all(torch.equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"the {n}-lane trial of {label} differs "
+                                 f"from the shipped kernel")
+    times = {n: [] for n in runs}
+    for n in list(runs) + list(runs)[::-1]:
+        times[n].append(cuda_ms(runs[n], 10))
+    return {n: sum(t) / len(t) for n, t in times.items()}
+
+
+def dec_lane_trial(libs, args, want):
+    """The MQ decoder built with each trial's lanes a block, launched as
+    the wrapper launches it (zeroed output, lane order) on `args` = (data,
+    off, nbps, npas, ori, w, h), against the shipped kernel's samples and
+    statistics `want`."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_dec
+    data, off, nbps, npas, ori, w, h = args
+    B = nbps.shape[0]
+
+    def launcher(lib):
+        def run():
+            out = torch.zeros((h * w, B), dtype=torch.int32,
+                              device=data.device)
+            stats = torch.empty((2, B), dtype=torch.int32,
+                                device=data.device)
+            order = mq_dec.lane_order(off, nbps, npas)
+            rc = lib.mq_dec_group(
+                data.data_ptr(), off.data_ptr(), nbps.data_ptr(),
+                npas.data_ptr(), ori.data_ptr(), order.data_ptr(), B, w, h,
+                out.data_ptr(), stats.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise AssertionError(f"trial launch failed: CUDA error {rc}")
+            return out, stats
+        return run
+    return in_turns({n: launcher(lib) for n, lib in libs.items()}, want,
+                    "mq_dec_group")
+
+
+def scan_lane_trial(libs, slots, want):
+    """The MQ coder built with each trial's lanes a block, launched as
+    `mq_scan.scan_into` launches it, on `slots`, against the shipped
+    kernel's segments, lengths and state `want`."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_scan
+    from grokimagecompression_tpu_torch.ops.mq_tables import NSTATE
+    T, B = slots.shape
+    off, total = mq_scan.segment_offsets(slots)
+    out = torch.empty(max(total, 1), dtype=torch.uint8, device=slots.device)
+    lens = torch.empty(B, dtype=torch.int32, device=slots.device)
+    state = torch.empty((NSTATE, B), dtype=torch.int32, device=slots.device)
+
+    def launcher(lib):
+        def run():
+            rc = lib.mq_scan(slots.data_ptr(), T, B, off.data_ptr(),
+                             out.data_ptr(), lens.data_ptr(),
+                             state.data_ptr(), None, 0, 0, 0,
+                             torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise AssertionError(f"trial launch failed: CUDA error {rc}")
+            return mq_scan.pack_segments(out, off, lens), lens, state
+        return run
+    return in_turns({n: launcher(lib) for n, lib in libs.items()}, want,
+                    "mq_scan")
+
+
 def check_scans(enc, plan, chunk, results):
     """Phase 3, encode side: the three scans on each shape group."""
     import torch
@@ -305,7 +468,7 @@ def check_scans(enc, plan, chunk, results):
                                             OPS[key] * events)
                 results[name] = dict(ms=ms, plain_ms=plain_ms,
                                      max_abs_err=err, bound_ms=b_ms,
-                                     bound_by=b_by)
+                                     bound_by=b_by, shape=tuple(a.shape))
                 line += (f"; {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
                          f"{b_ms:.4f} ms by {b_by}: {b_terms})")
             print(line)
@@ -438,9 +601,10 @@ def decode_stages(streams, dev, host_stage):
     return stages
 
 
-def check_mq_scan(mq_enc, chunk, results):
+def check_mq_scan(mq_enc, chunk, results, trial_libs):
     """Phase 3, MQ: the MQ coder on the slot streams of each shape group
-    of one chunk, every lane against the plain version."""
+    of one chunk, every lane against the plain version; on the 64x64
+    group the lanes-per-block trial (`scan_lane_trial`)."""
     import torch
 
     from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
@@ -474,14 +638,34 @@ def check_mq_scan(mq_enc, chunk, results):
             off, total = mq_scan.segment_offsets(slots)
             for _ in range(3):
                 mq_scan.scan_into(slots, off, total)
+            # one launch a scan: what the kernel's ms covers
             ms = cuda_ms(lambda: mq_scan.scan_into(slots, off, total), 20)
             b_ms, b_by, b_terms = bound(
                 nbytes(slots, *got),
                 OPS["mq_decision"] * emits + OPS["mq_byte"] * got[0].numel())
             results[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                                 bound_ms=b_ms, bound_by=b_by)
-            line += (f"; kernel {ms:.3f} ms (bound {b_ms:.4f} ms by {b_by}: "
-                     f"{b_terms})")
+                                 bound_ms=b_ms, bound_by=b_by,
+                                 shape=tuple(slots.shape))
+            per_lane = mq_scan.lane_emits(slots)
+            # the chain that sets the time from below: the lane with the
+            # most coding slots, alone
+            deep = slots[:, int(per_lane.argmax())].contiguous().view(T, 1)
+            d_off, d_total = mq_scan.segment_offsets(deep)
+            mq_scan.scan_into(deep, d_off, d_total)
+            alone = cuda_ms(lambda: mq_scan.scan_into(deep, d_off, d_total),
+                            10)
+            results[name]["alone_ms"] = alone
+            trial = scan_lane_trial(trial_libs, slots, got)
+            results[name]["trial"] = trial
+            line += (f"; kernel {ms:.3f} ms (before the redesign: "
+                     f"{BEFORE_MS[name]:.3f} ms on {BEFORE_CARD}; bound "
+                     f"{b_ms:.4f} ms by {b_by}: "
+                     f"{b_terms}); the longest lane codes "
+                     f"{int(per_lane.max())} slots (mean "
+                     f"{float(per_lane.double().mean()):.0f}), alone "
+                     f"{alone:.3f} ms; lanes a "
+                     f"block (trial builds, in turns, bit-exact): "
+                     + ", ".join(f"{n} {t:.3f} ms" for n, t in trial.items()))
         print(line)
 
 
@@ -581,13 +765,16 @@ def check_mq_dense(mq_enc, chunk, results, launches):
     print(f"mq_scan_dense through run_mq_scans on the full group: slots "
           f"({T}, {B}), {emits} coding, {int(nw.sum())} words: every lane's "
           f"words and partial word are its compact segment before the flush "
-          f"tail; launches {launches['mq_dense']}; kernel {ms:.3f} ms (bound "
+          f"tail; launches {launches['mq_dense']}; kernel {ms:.3f} ms (before "
+          f"the coders' redesign: {BEFORE_MS['mq_scan_dense']:.3f} ms on "
+          f"{BEFORE_CARD}; bound "
           f"{b_ms:.4f} ms by {b_by}: {b_terms})")
 
 
-def check_mq_decoder(streams, dev, results):
+def check_mq_decoder(streams, dev, results, trial_libs):
     """Phase 3, MQ decode: the MQ decoder on the lane groups of one chunk
-    of MQ streams, every lane against the plain version."""
+    of MQ streams, every lane against the plain version; on the 64x64
+    group the lanes-per-block trial (`lane_trial`)."""
     import torch
 
     from grokimagecompression_tpu_torch.codestream import decoder
@@ -647,19 +834,38 @@ def check_mq_decoder(streams, dev, results):
             ms = cuda_ms(lambda: mq_dec.decode_group(*full), 20)
             packed, stats = mq_dec.decode_group(*full, with_stats=True)
             nb = nbps.to(torch.int64)
-            visits = w * h * int(torch.minimum(
-                npas_full.to(torch.int64), (3 * nb - 2).clamp(min=0)).sum())
+            passes = torch.minimum(npas_full.to(torch.int64),
+                                   (3 * nb - 2).clamp(min=0))
+            visits = w * h * int(passes.sum())
             ndec, nbyte = (int(v) for v in stats.to(torch.int64).sum(1))
             b_ms, b_by, b_terms = bound(
                 nbytes(data, off, nbps, npas_full, ori, packed, stats),
                 OPS["mqd_decision"] * ndec + OPS["mqd_byte"] * nbyte
                 + OPS["mqd_visit"] * visits)
+            trial = dec_lane_trial(trial_libs, full, (packed, stats))
+            # the chain that sets the time from below: the lane with the
+            # most decisions, alone
+            k = int(stats[0].argmax())
+            lo, hi = int(off[k]), int(off[k + 1])
+            one = (data[lo:hi].contiguous(), (off[k:k + 2] - lo).contiguous(),
+                   nbps[k:k + 1], npas_full[k:k + 1], ori[k:k + 1], w, h)
+            mq_dec.decode_group(*one)
+            alone = cuda_ms(lambda: mq_dec.decode_group(*one), 10)
             results[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                                 bound_ms=b_ms, bound_by=b_by)
-            line += (f"; kernel {ms:.3f} ms at full depth: {ndec} "
+                                 bound_ms=b_ms, bound_by=b_by, trial=trial)
+            line += (f"; kernel {ms:.3f} ms at full depth (before the "
+                     f"redesign: {BEFORE_MS[name]:.3f} ms on {BEFORE_CARD}): "
+                     f"{ndec} "
                      f"decisions, {nbyte} BYTEINs, {visits} sample visits "
                      f"(bound {b_ms:.4f} ms by {b_by}: {b_terms}; the "
-                     f"operation term an estimate)")
+                     f"operation term an estimate); per lane at most "
+                     f"{int(stats[0].max())} decisions, "
+                     f"{w * h * int(passes.max())} sample visits and "
+                     f"{-(-h // 4) * w * int(passes.max())} stripe-column "
+                     f"visits in {int(passes.max())} passes; the lane with "
+                     f"the most decisions alone {alone:.3f} ms; lanes a block "
+                     f"(trial builds, in turns, bit-exact): " + ", ".join(
+                         f"{n} {t:.3f} ms" for n, t in trial.items()))
         print(line)
 
 
@@ -781,6 +987,30 @@ def check_mq_cumbo(enc, chunk):
           f"(T={sub.shape[0]}), {int(coded[keep - 1])} decisions in the "
           f"deepest lane -> cumbo {tuple(got[3].shape)}: bit-exact with "
           f"plain (plain {start.elapsed_time(stop):.1f} ms)")
+
+
+def c2_scan_trial(enc, chunk, results, trial_libs):
+    """Phase 3, the MQ coder's lanes-per-block trial on a config-2 chunk's
+    group (2 frames: 6144 lanes, ~4x the config-1 group's coding slots):
+    where the lanes outnumber the SMs' resident warps, a trial's lanes a
+    block trade the warp's divergence against its share of the staging
+    and compaction."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+    ((mag, neg, orient),) = list(enc.group_inputs(*chunk))
+    _, slots, _ = enc.group_slots(mag, neg, orient)
+    del mag, neg, orient
+    h, w = enc.plan.groups[0][:2]
+    want = mq_scan.mq_scan(slots, mq_torch.pass_spans_padded(h, w))[:3]
+    trial = scan_lane_trial(trial_libs, slots, want)
+    results[MQ[0]]["trial_c2"] = trial
+    print(f"kernel mq_scan lanes-a-block trial on the config-2 group of "
+          f"{chunk[0].shape[0]} frames, slots {tuple(slots.shape)} "
+          f"(trial builds, in turns, bit-exact): "
+          + ", ".join(f"{n} {t:.3f} ms" for n, t in trial.items()))
+    del slots
+    torch.cuda.empty_cache()
 
 
 def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
@@ -1006,13 +1236,15 @@ def main() -> int:
           f"python {sys.version.split()[0]}, numpy {np.__version__}, "
           f"device {torch.cuda.get_device_name(0)}")
 
-    # 2. builds
+    # 2. builds (the MQ decoder's lanes-per-block trials alongside)
     t0 = time.perf_counter()
+    trials = start_lane_trials()
     so, log = _build.build()
     _build.load()
+    trial_libs = finish_lane_trials(trials)
     print(f"built {os.path.relpath(so)} from {', '.join(_build.SOURCES)} "
-          f"with nvcc {' '.join(_build.ARCH_FLAGS)} in "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"with nvcc {' '.join(_build.ARCH_FLAGS)}, and the lanes-per-"
+          f"block trials {LANE_TRIALS}, in {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line \
                 or "spill" in line:
@@ -1066,15 +1298,17 @@ def main() -> int:
     first = encoder.encode_batch(imgs[:CHUNK], params, device="cuda",
                                  chunk=CHUNK)
     check_decoder(first, dev, results)
-    check_mq_scan(mq_enc, chunk, results)
+    check_mq_scan(mq_enc, chunk, results, trial_libs["mq_scan.cu"])
     check_mq_dense(mq_enc, chunk, results, launches)
     torch.cuda.empty_cache()
     check_mq_decoder(encoder.encode_batch(imgs[:CHUNK], mq_params,
                                           device="cuda", chunk=CHUNK),
-                     dev, results)
+                     dev, results, trial_libs["mq_dec.cu"])
     check_dwt(dev, results)
     check_mq_cumbo(c2_enc, c2_chunk(0, 1))
     torch.cuda.empty_cache()
+    c2_scan_trial(c2_enc, c2_chunk(0, C2_CHUNK), results,
+                  trial_libs["mq_scan.cu"])
 
     # 4. the encode slice, through the user entry point
     with open(os.path.join(root, DIGESTS)) as f:
@@ -1089,14 +1323,19 @@ def main() -> int:
     for k in ht_scan.LAUNCHES:
         ht_scan.LAUNCHES[k] = 0
     dwt.LAUNCHES["dwt"] = 0
-    out = encoder.encode_batch(imgs, params, device="cuda", chunk=CHUNK)
-    torch.cuda.synchronize()
+    counters = [Calls(ht_scan, name, lambda a, *_, s=results[name]["shape"]:
+                      tuple(a.shape) == s) for name, *_ in SCANS]
+    with counters[0], counters[1], counters[2]:
+        out = encoder.encode_batch(imgs, params, device="cuda", chunk=CHUNK)
+        torch.cuda.synchronize()
+    calls = {key: c.n for (_, key, *_), c in zip(SCANS, counters)}
     launches.update(ht_scan.LAUNCHES)
     print(f"encode slice launches: {dict(ht_scan.LAUNCHES)}, "
           f"{dict(dwt.LAUNCHES)}")
     for name, key, _, _, _ in SCANS:
-        if launches[key] < 1:
-            raise AssertionError(f"{name} was not launched by the slice")
+        if launches[key] < 1 or not 1 <= calls[key] <= launches[key]:
+            raise AssertionError(f"{name} was not launched by the slice "
+                                 f"on its timed group")
     if dwt.LAUNCHES["dwt"] < 1:
         raise AssertionError("the DWT kernel was not launched by the slice")
     if len(out) != FRAMES:
@@ -1122,13 +1361,17 @@ def main() -> int:
     # 5. the decode slice, through the user entry point
     ht_dec.LAUNCHES["dec"] = 0
     dwt.LAUNCHES["dwt"] = 0
-    dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
-    torch.cuda.synchronize()
+    with Calls(ht_dec, "decode_group",
+               lambda *a: (a[3], a[4]) == (64, 64)) as counter:
+        dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
+        torch.cuda.synchronize()
+    calls["dec"] = counter.n
     launches["dec"] = ht_dec.LAUNCHES["dec"]
     print(f"decode slice launches: {dict(ht_dec.LAUNCHES)}, "
           f"{dict(dwt.LAUNCHES)}")
-    if launches["dec"] < 1:
-        raise AssertionError("ht_dec_group was not launched by the slice")
+    if launches["dec"] < 1 or not 1 <= calls["dec"] <= launches["dec"]:
+        raise AssertionError("ht_dec_group was not launched by the slice "
+                             "on the 64x64 group")
     if dwt.LAUNCHES["dwt"] < 1:
         raise AssertionError("the DWT kernel was not launched by the "
                              "decode slice")
@@ -1155,13 +1398,18 @@ def main() -> int:
         raise AssertionError("the two digest files hold other frames")
     mq_scan.LAUNCHES["mq"] = 0
     dwt.LAUNCHES["dwt"] = 0
-    out = encoder.encode_batch(imgs, mq_params, device="cuda", chunk=CHUNK)
-    torch.cuda.synchronize()
+    with Calls(mq_scan, "scan_into", lambda a, *_: a.shape[1]
+               == results[MQ[0]]["shape"][1]) as counter:
+        out = encoder.encode_batch(imgs, mq_params, device="cuda",
+                                   chunk=CHUNK)
+        torch.cuda.synchronize()
+    calls["mq"] = counter.n
     launches["mq"] = mq_scan.LAUNCHES["mq"]
     print(f"MQ encode slice launches: {dict(mq_scan.LAUNCHES)}, "
           f"{dict(dwt.LAUNCHES)}")
-    if launches["mq"] < 1:
-        raise AssertionError("mq_scan was not launched by the MQ slice")
+    if launches["mq"] < 1 or not 1 <= calls["mq"] <= launches["mq"]:
+        raise AssertionError("mq_scan was not launched by the MQ slice on "
+                             "the 64x64 group")
     if dwt.LAUNCHES["dwt"] < 1:
         raise AssertionError("the DWT kernel was not launched by the MQ "
                              "slice")
@@ -1187,13 +1435,18 @@ def main() -> int:
     # 7. the MQ decode slice, through the user entry point
     mq_dec.LAUNCHES["mq_dec"] = 0
     dwt.LAUNCHES["dwt"] = 0
-    dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
-    torch.cuda.synchronize()
+    with Calls(mq_dec, "decode_group",
+               lambda *a, **_: (a[5], a[6]) == (64, 64)) as counter:
+        dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
+        torch.cuda.synchronize()
+    calls["mq_dec"] = counter.n
     launches["mq_dec"] = mq_dec.LAUNCHES["mq_dec"]
     print(f"MQ decode slice launches: {dict(mq_dec.LAUNCHES)}, "
           f"{dict(dwt.LAUNCHES)}")
-    if launches["mq_dec"] < 1:
-        raise AssertionError("mq_dec_group was not launched by the slice")
+    if launches["mq_dec"] < 1 or not 1 <= calls["mq_dec"] <= \
+            launches["mq_dec"]:
+        raise AssertionError("mq_dec_group was not launched by the slice "
+                             "on the 64x64 group")
     if dwt.LAUNCHES["dwt"] < 1:
         raise AssertionError("the DWT kernel was not launched by the MQ "
                              "decode slice")
@@ -1228,14 +1481,18 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     dwt.LAUNCHES["dwt"] = 0
     mq_scan.LAUNCHES["mq"] = 0
-    out = encoder.encode_batch(c2_imgs, c2_params, device="cuda",
-                               chunk=C2_CHUNK)
-    torch.cuda.synchronize()
+    with Calls(dwt, "fwd_dwt_2d", lambda a, *_: tuple(a.shape[-2:])
+               == (C2_SIZE, C2_SIZE)) as counter:
+        out = encoder.encode_batch(c2_imgs, c2_params, device="cuda",
+                                   chunk=C2_CHUNK)
+        torch.cuda.synchronize()
+    calls["dwt"] = counter.n
     c2_peak = {C2_CHUNK: torch.cuda.max_memory_allocated() - base}
     launches["dwt"] = dwt.LAUNCHES["dwt"]
     print(f"config-2 encode slice launches: {dict(dwt.LAUNCHES)}, "
           f"{dict(mq_scan.LAUNCHES)}")
-    if launches["dwt"] < 1 or mq_scan.LAUNCHES["mq"] < 1:
+    if launches["dwt"] < 1 or mq_scan.LAUNCHES["mq"] < 1 or \
+            calls["dwt"] < 1:
         raise AssertionError("the DWT or the MQ kernel was not launched by "
                              "the config-2 slice")
     if len(out) != C2_FRAMES:
@@ -1364,9 +1621,14 @@ def main() -> int:
           "the stage's start: " + ", ".join(
               f"{k} {v / 1e9:.3f} GB" for k, v in mem.items()))
 
+    calls["mq_dense"] = launches["mq_dense"]
+    print(f"launches in the kernels line, the calls of what each kernel's ms "
+          f"times on its path (a group kernel on the 64x64 group, the DWT "
+          f"whole config-2 forward transforms): {calls}; all launches of "
+          f"those runs: {launches}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
-             launches=launches[key],
+             launches=calls[key],
              max_abs_err=results[name]["max_abs_err"],
              ms=results[name]["ms"], plain_ms=results[name]["plain_ms"],
              bound_ms=results[name]["bound_ms"],

@@ -16,21 +16,47 @@
 // byte-out count at the end of every coding pass: the length the host
 // coder's buffer has reached there, the n bytes written plus the byte
 // still held in the delay register. The passes of a plane are the stream
-// sections (sa, sb, sc) of ops/mq_torch.pass_spans_padded, each a
-// multiple of 256 slots, so every pass end falls on a 16-slot load group.
+// sections (sa, sb, sc) of ops/mq_torch.pass_spans_padded.
 //
-// What bounds it: one lane is one code-block whose coder walks its slots
-// one dependent step after another, so the kernel is bound by the latency
-// of those steps in one thread, not by the bytes (a config-1 chunk's
-// 64x64 group is ~0.5 GB of slots, 0.15 ms of HBM time). The design:
-//   - one thread per lane, A/C/CT/the delayed byte in registers, the 19
-//     context states as bytes in shared memory (one column per thread),
-//     Table C.2 in shared memory (the lookups diverge across a warp);
-//   - slots are read lanes-last, so a warp reads 32 neighbouring bytes a
-//     step; they are loaded 16 steps at a time ahead of the coding, and
-//     emit = 0 slots are skipped by a branch (most of a stream is padding
-//     and positions that code nothing); no activity map, no 128-lane
-//     blocking;
+// What bounds it: one lane is one code-block whose coder walks its coding
+// slots one dependent step after another (a context word loaded, A and C
+// updated, the word stored back on a transition, bytes out), so the
+// kernel is bound by the latency of those steps in one thread, not by the
+// bytes (a config-1 chunk's 64x64 group is ~0.4 GB of slots, 0.12 ms of
+// HBM time). Only ~14 % of a config-1 stream's slots code; a warp that
+// walked all T steps together would run the coder at nearly every step,
+// since one of its lanes codes there. The design:
+//   - kLanes lanes a block of one warp: lanes that share a warp diverge
+//     and take turns, while the whole warp stages and compacts their
+//     tiles. Fewer lanes a warp shorten the turns where the lanes are few
+//     (the coder waits on its chain) and cost issue slots where they are
+//     many (the SMs' warps compete): chip_smoke.py builds 8, 4, 2 and 1
+//     and times them in turns on a config-1 group (2016 lanes; 1 is
+//     fastest) and a config-2 2-frame group (6144 lanes; 4 is fastest),
+//     and 4 has the least sum (PERF.md). B = 2016 lanes make 504 blocks
+//     over the 132 SMs;
+//   - the slots arrive in tiles of kTile = 128 rows x the block's lanes
+//     (~6 KB of shared memory a block, so that the blocks of a large
+//     group, such as a config-2 chunk's 1536, are all resident), by
+//     cp.async into shared memory, double-buffered: the next tile loads
+//     while the current one is coded. A tile row's kLanes bytes lie at any
+//     alignment (B and the lane offset are arbitrary), so each row copies
+//     the one or two aligned 8-byte words that cover them (one where B is
+//     a multiple of 8) and the reader shifts them into place;
+//   - the whole warp then compacts the tile: per 32 rows, one warp vote
+//     per lane gives the rows where that lane codes, and each lane's
+//     coding slots go to its own list (row, decision, context) in
+//     shared memory. Each lane's thread then codes only its own list: a
+//     warp takes max over its lanes of E steps a tile, E being a lane's
+//     coding slots there, not kTile steps;
+//   - A, C, CT and the delayed byte in registers; each context one word of
+//     mq_tables.cuh in shared memory (Table C.2 read only on a
+//     transition); the next coding slot and its context word are loaded a
+//     step ahead, so the chain waits on a shared load only on a
+//     transition; RENORME shifts by the count of leading zeros;
+//   - the pass-end byte-outs (rate control) are recorded when a lane's
+//     position passes each pass end, before its next coding slot or at the
+//     tile's end, passes in which it codes nothing included;
 //   - bytes go straight to the lane's segment: no word accumulator, no
 //     compaction caps, no overflow flag. The wrapper lays the segments out
 //     by an exact bound (below), so a lane can never overflow;
@@ -65,17 +91,24 @@
 // given stream and return cudaGetLastError().
 
 #include <cstdint>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "mq_tables.cuh"
 
 namespace {
 
-constexpr int kThreads = 32;
-constexpr int kCtxRows = 32;  // every 5-bit cx of a slot byte indexes a row
+constexpr int kThreads = 32;   // a block is one warp
+constexpr int kLanes = 4;      // lanes a block of the compact scan
+constexpr int kTile = 128;     // slot rows a tile
+// aligned 8-byte words that cover a tile row's kLanes bytes at any offset
+constexpr int kWords = (7 + kLanes + 7) / 8;
+constexpr int kRow = 8 * kWords;   // bytes a staged tile row
+static_assert(kLanes <= 8, "a staged row is read as at most two words");
+constexpr int kCtxRows = 32;   // every 5-bit cx of a slot byte indexes a row
 constexpr int kCtxWords = 5;
-constexpr int kAhead = 16;   // slots loaded per lane before coding them
-constexpr int kChunk = 256;  // steps m8 numbers words within (mq_tables.DENSE_CHUNK)
+constexpr int kAhead = 16;     // slots the dense scan loads before coding
+constexpr int kChunk = 256;    // steps m8 numbers words within (mq_tables.DENSE_CHUNK)
 
 // Where the coder's bytes go. The compact scan writes them straight to
 // the lane's segment.
@@ -146,39 +179,34 @@ __device__ __forceinline__ void byteout(Coder<Out>& k) {
   k.ct = 8;
 }
 
-// ENCODE (C.2) of one emitting slot: decision d in context cx.
+// ENCODE (C.2) of decision d in the context whose word `cw` is at `cp`;
+// returns the context's word after it (stored at `cp` where it changed).
 template <class Out>
-__device__ __forceinline__ void encode(Coder<Out>& k, uint32_t slot,
-                                       uint8_t (*ctx)[kThreads], int tid,
-                                       const uint32_t* tbl) {
-  const int d = (slot >> 1) & 1;
-  const int cx = (slot >> 2) & (kCtxRows - 1);
-  const int p = ctx[cx][tid];
-  const int mps = p & 1;
-  const uint32_t row = tbl[p >> 1];
-  const uint32_t qe = row >> 13;
+__device__ __forceinline__ uint32_t encode(Coder<Out>& k, int d,
+                                           uint32_t cw, uint32_t* cp,
+                                           const uint32_t* rows) {
+  const uint32_t qe = cw >> 16;
+  const int lps = d != static_cast<int>(cw & 1);
   k.a -= qe;
-  if (d == mps) {
+  if (!lps) {
     if (k.a & 0x8000u) {      // MPS without renormalisation
       k.c += qe;
-      return;
+      return cw;
     }
     if (k.a < qe) {
       k.a = qe;
     } else {
       k.c += qe;
     }
-    ctx[cx][tid] = static_cast<uint8_t>((((row >> 7) & 63) << 1) | mps);
   } else {
     if (k.a < qe) {
       k.c += qe;
     } else {
       k.a = qe;
     }
-    const int sw = row & 1;
-    ctx[cx][tid] =
-        static_cast<uint8_t>((((row >> 1) & 63) << 1) | (sw ? 1 - mps : mps));
   }
+  cw = ctx_next(cw, lps, rows);
+  *cp = cw;
   // RENORME: A is in [1, 0xFFFF]; shift until its bit 15 is set
   int sh = __clz(static_cast<int>(k.a)) - 16;
   k.a <<= sh;
@@ -189,69 +217,33 @@ __device__ __forceinline__ void encode(Coder<Out>& k, uint32_t slot,
     sh -= s;
     if (k.ct == 0) byteout(k);
   }
+  return cw;
 }
 
-// Context states and Table C.2 into shared memory (every thread of the
-// block), as both scans start.
-__device__ __forceinline__ void init_shared(uint32_t* tbl,
-                                            uint8_t (*ctx)[kThreads],
-                                            int tid) {
-  for (int i = tid; i < kStates; i += kThreads) tbl[i] = packed_row(i);
-  for (int i = 0; i < kCtxRows; ++i)
-    ctx[i][tid] = i < kNumCtxs ? kCtxInit[i] : 0;
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kThreads)
-mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
-               const int64_t* __restrict__ seg_off, uint8_t* __restrict__ out,
-               int32_t* __restrict__ lens, int32_t* __restrict__ state,
-               int32_t* __restrict__ cumbo, int sa, int sb, int tp) {
-  __shared__ uint32_t tbl[kStates];
-  __shared__ uint8_t ctx[kCtxRows][kThreads];
-  const int tid = threadIdx.x;
-  init_shared(tbl, ctx, tid);
-  const int b = blockIdx.x * kThreads + tid;
-  if (b >= B) return;
-
-  Coder<SegmentOut> k{0x8000u, 0u, 12, -1, {out + seg_off[b], 0}};
-  const size_t sB = static_cast<size_t>(B);
-  const uint8_t* col = slots + b;
-  // pass ends of plane q: q tp + sa, q tp + sa + sb, (q + 1) tp
-  int row = 0, end = cumbo ? sa : -1;
-  int t = 0;
-  for (; t + kAhead <= T; t += kAhead) {
-    uint8_t ahead[kAhead];
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j) ahead[j] = col[(t + j) * sB];
-#pragma unroll
-    for (int j = 0; j < kAhead; ++j)
-      if (ahead[j] & 1) encode(k, ahead[j], ctx, tid, tbl);
-    if (t + kAhead == end) {
-      cumbo[row * sB + b] = k.out.n + (k.last >= 0);
-      ++row;
-      const int q = row / 3, phase = row % 3;
-      end = q * tp + (phase == 0 ? sa : phase == 1 ? sa + sb : tp);
-    }
-  }
-  for (; t < T; ++t) {
-    const uint8_t s = col[t * sB];
-    if (s & 1) encode(k, s, ctx, tid, tbl);
-  }
-
-  state[0 * sB + b] = static_cast<int32_t>(k.a);
-  state[1 * sB + b] = static_cast<int32_t>(k.c);
-  state[2 * sB + b] = k.ct;
-  state[3 * sB + b] = k.last;
+// The end-of-scan state A, C, CT, the delayed byte at rows 0-3 of
+// `state`, the context states packed 4 to a word from row `row`.
+template <class Out>
+__device__ __forceinline__ void store_state(const Coder<Out>& k,
+                                            const uint32_t* ctx, int stride,
+                                            const uint32_t* rows,
+                                            int32_t* state, size_t sB,
+                                            int row) {
+  state[0] = static_cast<int32_t>(k.a);
+  state[sB] = static_cast<int32_t>(k.c);
+  state[2 * sB] = k.ct;
+  state[3 * sB] = k.last;
   for (int w = 0; w < kCtxWords; ++w) {
     uint32_t word = 0u;
     for (int j = 0; j < 4 && 4 * w + j < kNumCtxs; ++j)
-      word |= static_cast<uint32_t>(ctx[4 * w + j][tid]) << (8 * j);
-    state[(4 + w) * sB + b] = static_cast<int32_t>(word);
+      word |= ctx_state(ctx[(4 * w + j) * stride], rows) << (8 * j);
+    state[(row + w) * sB] = static_cast<int32_t>(word);
   }
+}
 
-  // FLUSH (C.3.4): set the bits of C to the interval's top, two
-  // byte-outs, then the delayed byte unless it is 0xFF
+// FLUSH (C.3.4): set the bits of C to the interval's top, two byte-outs,
+// then the delayed byte unless it is 0xFF.
+template <class Out>
+__device__ __forceinline__ void flush(Coder<Out>& k) {
   const uint32_t tempc = k.c + k.a;
   k.c |= 0xFFFFu;
   if (k.c >= tempc) k.c -= 0x8000u;
@@ -260,19 +252,152 @@ mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
   k.c <<= k.ct;
   byteout(k);
   if (k.last >= 0 && k.last != 0xFF) k.out.put(static_cast<uint8_t>(k.last));
+}
+
+// Stage tile rows [t0, t0 + kTile) of the block's lanes into `raw`: row r
+// gets the aligned 8-byte word holding its first lane's byte, and the
+// next one where its kLanes bytes cross into it and it starts inside the
+// stream. An aligned word that holds a byte of the stream lies inside the
+// stream's allocation (PyTorch's are whole multiples of 512 bytes); its
+// bytes outside the stream belong to no lane of the block. One commit
+// group a tile, empty past the stream's end.
+__device__ __forceinline__ void stage_tile(uint8_t (*raw)[kRow],
+                                           uintptr_t base, uintptr_t stop,
+                                           int T, size_t sB, int t0,
+                                           int tid) {
+  for (int r = tid; r < kTile; r += kThreads) {
+    const int t = t0 + r;
+    if (t >= T) break;
+    const uintptr_t g = base + static_cast<size_t>(t) * sB;
+    const uintptr_t c0 = g & ~uintptr_t{7};
+    __pipeline_memcpy_async(raw[r], reinterpret_cast<const void*>(c0), 8);
+    if (kWords > 1 && (g & 7) + kLanes > 8 && c0 + 8 < stop)
+      __pipeline_memcpy_async(raw[r] + 8,
+                              reinterpret_cast<const void*>(c0 + 8), 8);
+  }
+  __pipeline_commit();
+}
+
+__global__ void __launch_bounds__(kThreads)
+mq_scan_kernel(const uint8_t* __restrict__ slots, int T, int B,
+               const int64_t* __restrict__ seg_off, uint8_t* __restrict__ out,
+               int32_t* __restrict__ lens, int32_t* __restrict__ state,
+               int32_t* __restrict__ cumbo, int sa, int sb, int tp) {
+  __shared__ __align__(16) uint8_t raw[2][kTile][kRow];
+  __shared__ uint16_t list[kLanes][kTile];   // row << 6 | d | cx << 1
+  __shared__ uint32_t rows[kStates];
+  __shared__ uint32_t ctx[kCtxRows][kLanes];
+  const int tid = threadIdx.x;
+  const int b0 = blockIdx.x * kLanes;
+  const size_t sB = static_cast<size_t>(B);
+  const uintptr_t base = reinterpret_cast<uintptr_t>(slots) + b0;
+  const uintptr_t stop = reinterpret_cast<uintptr_t>(slots) + T * sB;
+  stage_tile(raw[0], base, stop, T, sB, 0, tid);
+  stage_tile(raw[1], base, stop, T, sB, kTile, tid);
+  for (int i = tid; i < kStates; i += kThreads) rows[i] = ctx_row(i);
+  for (int i = tid; i < kCtxRows * kLanes; i += kThreads)
+    ctx[i / kLanes][i % kLanes] = ctx_init(i / kLanes);
+  __syncthreads();   // the tables, also for a stream of no tile
+
+  // thread tid < kLanes codes lane b; every thread stages and compacts
+  const int b = b0 + tid;
+  const bool coder = tid < kLanes && b < B;
+  uint32_t* lane_ctx = &ctx[0][tid % kLanes];
+  Coder<SegmentOut> k{0x8000u, 0u, 12, -1,
+                      {coder ? out + seg_off[b] : nullptr, 0}};
+  // pass ends of plane q: q tp + sa, q tp + sa + sb, (q + 1) tp
+  int prow = 0, end = cumbo && coder ? sa : T + 1;
+  const auto passed = [&](int t) {
+    while (end <= t) {
+      cumbo[prow * sB + b] = k.out.n + (k.last >= 0);
+      ++prow;
+      const int q = prow / 3, phase = prow % 3;
+      end = q * tp + (phase == 0 ? sa : phase == 1 ? sa + sb : tp);
+    }
+  };
+
+  for (int i = 0, t0 = 0; t0 < T; ++i, t0 += kTile) {
+    uint8_t (*tile)[kRow] = raw[i & 1];
+    __pipeline_wait_prior(1);
+    __syncthreads();
+    // compact: per 32 rows, each lane's coding rows by one warp vote
+    int cnt[kLanes];
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) cnt[j] = 0;
+    for (int r0 = 0; r0 < kTile && t0 + r0 < T; r0 += kThreads) {
+      const int r = r0 + tid, t = t0 + r;
+      uint64_t v = 0;
+      if (t < T) {
+        const int s = 8 * static_cast<int>((base + t * sB) & 7);
+        const uint64_t* w = reinterpret_cast<const uint64_t*>(tile[r]);
+        const uint64_t lo = w[0], hi = kWords > 1 ? w[1] : 0;
+        v = s ? (lo >> s) | (hi << (64 - s)) : lo;
+      }
+      const unsigned below = (1u << tid) - 1;
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        const uint32_t slot = static_cast<uint32_t>(v >> (8 * j)) & 0xFFu;
+        const unsigned m = __ballot_sync(0xFFFFFFFFu, slot & 1);
+        if (slot & 1)
+          list[j][cnt[j] + __popc(m & below)] =
+              static_cast<uint16_t>((r << 6) | ((slot >> 1) & 63));
+        cnt[j] += __popc(m);
+      }
+    }
+    __syncthreads();
+    // the tile after next into the buffer just read
+    stage_tile(tile, base, stop, T, sB, t0 + 2 * kTile, tid);
+    if (coder) {
+      int e = 0;
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j)
+        if (j == tid) e = cnt[j];
+      // the lane's offsets into the list and the context words stay in
+      // registers: the empty asm keeps the compiler from deriving them
+      // again from the thread index on every step
+      int li = tid * kTile, ci = tid;
+      asm volatile("" : "+r"(li), "+r"(ci));
+      const uint16_t* lst = &list[0][0];
+      uint32_t* words = &ctx[0][0];
+      // the next slot and its context word are loaded a step ahead, off
+      // the chain; the word is forwarded where the step changes it
+      int ent = e ? lst[li] : 0;
+      int wi = ((ent >> 1) & (kCtxRows - 1)) * kLanes + ci;
+      uint32_t cw = words[wi];
+      for (int n = 1; n <= e; ++n) {
+        const int nent = n < e ? lst[li + n] : 0;
+        const int nwi = ((nent >> 1) & (kCtxRows - 1)) * kLanes + ci;
+        const uint32_t ncw = words[nwi];
+        passed(t0 + (ent >> 6));
+        const uint32_t after = encode(k, ent & 1, cw, words + wi, rows);
+        cw = nwi == wi ? after : ncw;
+        wi = nwi;
+        ent = nent;
+      }
+      passed(min(t0 + kTile, T));
+    }
+  }
+  __pipeline_wait_prior(0);
+  if (!coder) return;
+
+  store_state(k, lane_ctx, kLanes, rows, state + b, sB, 4);
+  flush(k);
   lens[b] = k.out.n;
 }
 
-// The dense scan: the same coder, with the outputs of every step.
+// The dense scan: the same coder, with the outputs of every step; one
+// thread a lane, kThreads lanes a block.
 __global__ void __launch_bounds__(kThreads)
 mq_scan_dense_kernel(const uint8_t* __restrict__ slots, int T, int T_out,
                      int B, int32_t* __restrict__ words,
                      int32_t* __restrict__ m8, int32_t* __restrict__ nbo,
                      int32_t* __restrict__ state) {
-  __shared__ uint32_t tbl[kStates];
-  __shared__ uint8_t ctx[kCtxRows][kThreads];
+  __shared__ uint32_t rows[kStates];
+  __shared__ uint32_t ctx[kCtxRows][kThreads];
   const int tid = threadIdx.x;
-  init_shared(tbl, ctx, tid);
+  for (int i = tid; i < kStates; i += kThreads) rows[i] = ctx_row(i);
+  for (int i = 0; i < kCtxRows; ++i) ctx[i][tid] = ctx_init(i);
+  __syncthreads();
   const int b = blockIdx.x * kThreads + tid;
   if (b >= B) return;
 
@@ -292,7 +417,10 @@ mq_scan_dense_kernel(const uint8_t* __restrict__ slots, int T, int T_out,
       if (s % kChunk == 0) cnt = 0;
       k.out.full = 0;
       k.out.nbo = 0;
-      if (ahead[j] & 1) encode(k, ahead[j], ctx, tid, tbl);
+      if (ahead[j] & 1) {
+        uint32_t* cp = &ctx[(ahead[j] >> 2) & (kCtxRows - 1)][tid];
+        encode(k, (ahead[j] >> 1) & 1, *cp, cp, rows);
+      }
       const size_t o = static_cast<size_t>(s) * sB + b;
       words[o] = k.out.full ? static_cast<int32_t>(k.out.word) : 0;
       m8[o] = k.out.full ? cnt : -1;
@@ -301,18 +429,9 @@ mq_scan_dense_kernel(const uint8_t* __restrict__ slots, int T, int T_out,
     }
   }
 
-  state[0 * sB + b] = static_cast<int32_t>(k.a);
-  state[1 * sB + b] = static_cast<int32_t>(k.c);
-  state[2 * sB + b] = k.ct;
-  state[3 * sB + b] = k.last;
+  store_state(k, &ctx[0][tid], kThreads, rows, state + b, sB, 6);
   state[4 * sB + b] = static_cast<int32_t>(k.out.wacc);
   state[5 * sB + b] = k.out.wcnt;
-  for (int w = 0; w < kCtxWords; ++w) {
-    uint32_t word = 0u;
-    for (int j = 0; j < 4 && 4 * w + j < kNumCtxs; ++j)
-      word |= static_cast<uint32_t>(ctx[4 * w + j][tid]) << (8 * j);
-    state[(6 + w) * sB + b] = static_cast<int32_t>(word);
-  }
 }
 
 }  // namespace
@@ -323,11 +442,11 @@ extern "C" {
 // segments in `out`, each region at least 15 E / 7 + 3 bytes; lens: (B,)
 // int32; state: (9, B) int32; cumbo: null, or (3 T / tp, B) int32 for the
 // byte-outs at the pass ends of planes of tp = sa + sb + sc slots (T a
-// multiple of tp; sa, sb, tp multiples of 16).
+// multiple of tp).
 int mq_scan(const void* slots, int T, int B, const void* seg_off, void* out,
             void* lens, void* state, void* cumbo, int sa, int sb, int tp,
             void* stream) {
-  mq_scan_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+  mq_scan_kernel<<<(B + kLanes - 1) / kLanes, kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(slots), T, B,
       static_cast<const int64_t*>(seg_off), static_cast<uint8_t*>(out),

@@ -1,7 +1,8 @@
 // Part-1 MQ coder tables shared by the MQ kernels (mq_scan.cu, mq_dec.cu):
-// Table C.2 and the initial context states of Annex D. Each translation
-// unit gets its own copy in constant memory (internal linkage).
-// ops/mq_tables.py holds the same values for the torch side.
+// Table C.2, the initial context states of Annex D, and the context word
+// the kernels keep per context. Each translation unit gets its own copy in
+// constant memory (internal linkage). ops/mq_tables.py holds the same
+// values for the torch side.
 
 #pragma once
 
@@ -42,12 +43,36 @@ __constant__ QeRow kTable[kStates] = {
 __constant__ uint8_t kCtxInit[kNumCtxs] = {8, 0, 0, 0, 0, 0, 0, 0, 0, 0,
                                            0, 0, 0, 0, 0, 0, 0, 6, 92};
 
-// A Table C.2 row packed as qe << 13 | nmps << 7 | nlps << 1 | switch,
-// the form the kernels keep in shared memory.
-__device__ __forceinline__ uint32_t packed_row(int i) {
+// The context word: a context's Table C.2 row with its MPS,
+//   qe << 16 | nmps << 8 | nlps << 2 | switch << 1 | mps,
+// so that a decision reads one shared word, and Table C.2 (these words
+// with mps 0, in shared memory) is read only on a state transition.
+__device__ __forceinline__ uint32_t ctx_row(int i) {
   const QeRow r = kTable[i];
-  return (static_cast<uint32_t>(r.qe) << 13) | (r.nmps << 7) |
-         (r.nlps << 1) | r.sw;
+  return (static_cast<uint32_t>(r.qe) << 16) | (r.nmps << 8) |
+         (r.nlps << 2) | (r.sw << 1);
+}
+
+__device__ __forceinline__ uint32_t ctx_init(int cx) {
+  const int p = cx < kNumCtxs ? kCtxInit[cx] : 0;
+  return ctx_row(p >> 1) | (p & 1);
+}
+
+// The word after a renormalising decision: NLPS (and MPS ^ SWITCH) after
+// an LPS, NMPS after an MPS. `rows` holds ctx_row(0 .. kStates - 1).
+__device__ __forceinline__ uint32_t ctx_next(uint32_t cw, int lps,
+                                             const uint32_t* rows) {
+  const int idx = lps ? (cw >> 2) & 63 : (cw >> 8) & 63;
+  return rows[idx] | ((cw & 1) ^ (lps & (cw >> 1)));
+}
+
+// (index << 1) | mps of a context word: the row whose (Qe, NMPS) it holds
+// (unique in Table C.2).
+__device__ __forceinline__ uint32_t ctx_state(uint32_t cw,
+                                              const uint32_t* rows) {
+  int i = 0;
+  while (i < kStates - 1 && (rows[i] >> 8) != (cw >> 8)) ++i;
+  return (static_cast<uint32_t>(i) << 1) | (cw & 1);
 }
 
 }  // namespace

@@ -183,8 +183,8 @@ def load() -> ctypes.CDLL:
     lib.mq_scan_dense.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p] * 5
     lib.mq_scan_dense.restype = ctypes.c_int
-    # (data, off, nbps, npas, ori, B, w, h, out, stats, stream)
-    lib.mq_dec_group.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+    # (data, off, nbps, npas, ori, order, B, w, h, out, stats, stream)
+    lib.mq_dec_group.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
         + [ctypes.c_void_p] * 3
     lib.mq_dec_group.restype = ctypes.c_int
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64

@@ -14,7 +14,10 @@ per lane).
 
 A CUDA tensor launches the kernel of `csrc/mq_dec.cu` (and counts the
 launch in `LAUNCHES`) or raises; a CPU tensor takes the plain version
-`mq_dec_torch.decode_group_plain`. The TPU kernel's host unstuffing into
+`mq_dec_torch.decode_group_plain`. The kernel takes the lanes in the
+order of `lane_order` (most passes first, then most segment bytes), so
+that the lanes of a warp end together; it writes each lane's samples to
+the lane's own column, so the output stays in lane order. The TPU kernel's host unstuffing into
 field words, its power-of-two byte buckets and (S, 128) lane blocking
 are gone: the kernel reads the raw bytes at their exact offsets.
 """
@@ -88,6 +91,18 @@ def _check(data, off, nbps, npas, ori, w: int, h: int) -> None:
                          f"non-decreasing offsets inside the data")
 
 
+def lane_order(off: torch.Tensor, nbps: torch.Tensor,
+               npas: torch.Tensor) -> torch.Tensor:
+    """(B,) int32: the lanes by work, descending: the passes the decoder
+    walks (npas, at most 3 nbps - 2), then the segment bytes; ties keep
+    lane order."""
+    nb = nbps.to(torch.int64)
+    passes = torch.where(nb > 0, torch.minimum(npas.to(torch.int64),
+                                               3 * nb - 2), 0)
+    key = (passes << 40) | (off[1:] - off[:-1])
+    return torch.argsort(key, descending=True, stable=True).to(torch.int32)
+
+
 def decode_group(data: torch.Tensor, off: torch.Tensor, nbps: torch.Tensor,
                  npas: torch.Tensor, ori: torch.Tensor, w: int, h: int,
                  with_stats: bool = False):
@@ -104,10 +119,11 @@ def decode_group(data: torch.Tensor, off: torch.Tensor, nbps: torch.Tensor,
     if B:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            order = lane_order(off, nbps, npas)
             rc = _build.load().mq_dec_group(
                 data.data_ptr(), off.data_ptr(), nbps.data_ptr(),
-                npas.data_ptr(), ori.data_ptr(), B, w, h, out.data_ptr(),
-                stats.data_ptr(), stream)
+                npas.data_ptr(), ori.data_ptr(), order.data_ptr(), B, w, h,
+                out.data_ptr(), stats.data_ptr(), stream)
         if rc != 0:
             raise RuntimeError(f"mq_dec_group launch failed: CUDA error {rc}")
         LAUNCHES["mq_dec"] += 1

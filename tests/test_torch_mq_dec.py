@@ -10,11 +10,17 @@
   reference's `t1_np.encode_cblk`;
 - the plain decoder's statistics and the round trip through the port's
   own MQ encoder (`mq_torch.build_slot_stream`, `mq_scan.mq_scan`);
-- the wrapper's checks.
+- the wrapper's checks, and its lane order (`mq_dec.lane_order`: a
+  permutation by work that leaves the samples in lane order).
 The Pallas kernel itself is not run here: the reference keeps its
 interpret mode opt-in for its cost. The `gpu` case holds the CUDA kernel
 against the plain version on the card, lane for lane, on segments of the
-port's MQ encoder with truncated and idle lanes.
+port's MQ encoder: partial stripes, one-column and one-row blocks, 4 x
+1024, all four orientations and lanes of very different depth in one
+launch, truncated, cut, marker-planted and idle lanes, and lane counts
+that are not a multiple of the kernel's block. The plain version is
+held to the JAX reference and the Annex-D oracle at the same awkward
+shapes in `tests/test_torch_mq_redesign_parity.py`.
 
 The reference is imported inside the tests that use it, so the `gpu` case
 also runs where only torch is installed.
@@ -105,11 +111,14 @@ def test_plain_equals_annex_d_oracle(name, spec):
     _assert_equal(got, _oracle(blocks), blocks)
 
 
-def _port_blocks(rng, h, w, n, dev, hi=300):
+def _port_blocks(rng, h, w, n, dev, hi=300, deep=False):
     """n random w x h blocks of magnitudes below `hi` (orientations
-    cycling, lane 1 all zero) through the port's MQ encoder on `dev`:
-    (mag, neg, orient) numpy, segments, numbps."""
+    cycling, lane 1 all zero; with `deep`, lane k's magnitudes cut to
+    k % 9 + 1 bits, so that depths differ) through the port's MQ encoder
+    on `dev`: (mag, neg, orient) numpy, segments, numbps."""
     mag = (rng.random((n, h, w)) < 0.5) * rng.integers(0, hi, (n, h, w))
+    if deep:
+        mag = mag & ((1 << (np.arange(n) % 9 + 1)) - 1)[:, None, None]
     mag[1] = 0
     neg = rng.integers(0, 2, (n, h, w))
     orient = np.arange(n) % 4
@@ -168,21 +177,70 @@ def test_wrapper_validates_inputs():
         (16, 2)
 
 
+def _plant_markers(seg: bytes) -> bytes:
+    """`seg` with 0xFF bytes planted before a byte above 0x8F (a marker)
+    and before one below it (a stuffed byte), and a trailing 0xFF."""
+    s = bytearray(seg)
+    if len(s) > 8:
+        s[len(s) // 2:len(s) // 2 + 2] = b"\xff\x93"
+        s[len(s) // 3:len(s) // 3 + 2] = b"\xff\x21"
+        s[-1] = 0xFF
+    return bytes(s)
+
+
+def test_lane_order_is_a_permutation_by_work():
+    """`lane_order` sorts the lanes by the passes the decoder walks, then
+    by segment bytes, both descending, idle lanes last; decoding the lanes
+    in that order and putting them back gives the samples in lane
+    order."""
+    rng = np.random.default_rng(13)
+    _, _, orient, segs, nbps = _port_blocks(rng, 6, 5, 9, "cpu", deep=True)
+    npas = np.where(nbps > 0, 3 * nbps - 2, 0)
+    npas[3] = min(npas[3], 2)
+    arrays = [torch.from_numpy(a) for a in mq_dec.pack_lanes(
+        segs + [b""], list(orient) + [0], list(nbps) + [0], list(npas) + [0])]
+    data, off, nb, npa, ori = arrays
+    order = mq_dec.lane_order(off, nb, npa)
+    assert order.dtype == torch.int32
+    assert sorted(order.tolist()) == list(range(nb.shape[0]))
+    walked = torch.where(nb > 0, torch.minimum(npa, 3 * nb - 2), 0)
+    key = [(int(walked[i]), int(off[i + 1] - off[i])) for i in order]
+    assert key == sorted(key, reverse=True) and key[-1] == (0, 0)
+    # the lanes re-packed in that order decode to the same lanes' samples
+    o = order.tolist()
+    perm = [torch.from_numpy(a) for a in mq_dec.pack_lanes(
+        [(segs + [b""])[i] for i in o], ori[o].tolist(), nb[o].tolist(),
+        npa[o].tolist())]
+    want = mq_dec.decode_group(*arrays, 5, 6)
+    got = mq_dec.decode_group(*perm, 5, 6)
+    assert torch.equal(got[:, torch.argsort(order)], want)
+
+
 @pytest.mark.gpu
 def test_cuda_decoder_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
-    # (4096, 1) needs more than 48 KB of shared memory for 16 lanes
-    for (h, w, n, hi) in ((64, 64, 5, 16), (32, 32, 6, 300), (5, 7, 6, 300),
-                          (4, 512, 5, 8), (4096, 1, 5, 4)):
-        mag, _, orient, segs, nbps = _port_blocks(rng, h, w, n, dev, hi)
+    # partial stripes (h = 5, 6, 7), one column, one row, 4 x 1024 and
+    # (4096, 1), whose state words need more than 48 KB of shared memory;
+    # lane counts 6 to 38, not a multiple of the kernel's block
+    for (h, w, n, hi, deep) in (
+            (64, 64, 5, 16, False), (32, 32, 6, 300, False),
+            (5, 7, 6, 300, False), (5, 8, 13, 300, True),
+            (6, 9, 13, 300, True), (7, 3, 9, 300, True),
+            (9, 1, 9, 300, True), (1, 11, 9, 300, True),
+            (1, 1, 5, 300, False), (8, 8, 37, 300, True),
+            (4, 512, 5, 8, False), (4, 1024, 7, 8, True),
+            (4096, 1, 5, 4, False)):
+        mag, _, orient, segs, nbps = _port_blocks(rng, h, w, n, dev, hi,
+                                                  deep)
         npas = np.where(nbps > 0, 3 * nbps - 2, 0)
-        # truncations: lane 2 to 4 passes, lane 3 to half its bytes, and
-        # an idle lane
+        # truncations: lane 2 to 4 passes, lane 3 to half its bytes, lane 4
+        # with planted markers, and an idle lane
         npas[2] = min(npas[2], 4)
         segs[3] = segs[3][:len(segs[3]) // 2]
+        segs[4] = _plant_markers(segs[4])
         arrays = [torch.from_numpy(a).to(dev) for a in mq_dec.pack_lanes(
             segs + [b""], list(orient) + [0], list(nbps) + [0],
             list(npas) + [0])]
@@ -195,5 +253,5 @@ def test_cuda_decoder_matches_plain():
         assert torch.equal(got, want), f"{w}x{h} samples"
         assert torch.equal(gstats, wstats), f"{w}x{h} statistics"
         mags, _ = mq_dec_torch.unpack(got.cpu().numpy())
-        for b in (0, 1, 4):
+        for b in (0, 1) + tuple(range(5, n)):
             assert np.array_equal(mags[:, b].reshape(h, w), mag[b])

@@ -7,7 +7,14 @@ slot streams with one all-passthrough lane: every lane's segment bytes,
 lengths and end-of-scan state must be equal, and with pass spans given
 the byte-outs at every pass end too; and the dense-output scan
 (`mq_scan.scan_dense`) must equal its plain version on every step's word,
-word index and byte-outs and on the 11-word state. The plain versions
+word index and byte-outs and on the 11-word state. The kernel's cases
+reach what its tiles and per-lane compaction treat specially: lanes with
+no coding slot, passes with none, coding slots clustered at tile and pass
+boundaries, streams that are not a whole number of tiles, lane counts
+that are not a whole number of blocks, and a stream that starts off the
+8-byte alignment. The plain coder is held to the JAX reference and the
+Annex-D oracle at awkward block shapes in
+`tests/test_torch_mq_redesign_parity.py`. The plain versions
 themselves are held to the reference in `tests/test_torch_mq_encode.py`,
 (pass-end byte-outs) `tests/test_torch_rd_encode.py` and (dense scan)
 `tests/test_torch_mq_dense.py`.
@@ -27,9 +34,9 @@ def _random_slots(rng, T, B):
     so carries and 0xFF stuffing occur), and lane 1 all passthrough
     (emit = 0 with d and cx bits set)."""
     emit = rng.random((T, B)) < rng.choice([0.02, 0.1, 0.5, 1.0], (1, B))
+    emit[:, 1 % B] = False
     d = rng.random((T, B)) < rng.choice([0.05, 0.5, 0.95], (1, B))
     cx = rng.integers(0, NUM_CTXS, (T, B))
-    emit[:, 1] = False
     slots = emit.astype(np.int64) | (d.astype(np.int64) << 1) | (cx << 2)
     return torch.from_numpy(slots.astype(np.int8))
 
@@ -80,14 +87,43 @@ def test_plain_scan_counts_no_launch_and_keeps_the_contract():
     assert torch.equal(state[:, 1], want.to(torch.int32))
 
 
+def _clustered_slots(rng, T, B, rows):
+    """Slots that code only at `rows` (in every lane but lane 2, which
+    never codes), and lane 3 coding nowhere in rows 300 .. 1100."""
+    slots = np.zeros((T, B), np.int64)
+    for t in rows:
+        slots[t] = 1 | (rng.integers(0, 2, B) << 1) \
+            | (rng.integers(0, NUM_CTXS, B) << 2)
+    slots[:, 2] = 0
+    slots[300:1100, 3] = 0
+    return torch.from_numpy(slots.astype(np.int8))
+
+
+def _misaligned(slots: torch.Tensor, shift: int) -> torch.Tensor:
+    """A copy of `slots` whose data starts `shift` bytes past an aligned
+    address."""
+    T, B = slots.shape
+    buf = torch.zeros(T * B + shift, dtype=torch.int8, device=slots.device)
+    buf[shift:] = slots.reshape(-1)
+    return buf[shift:].view(T, B)
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     rng = np.random.default_rng(7)
-    for T, B in ((2048, 2017), (1000, 33)):
-        slots = _random_slots(rng, T, B).to(dev)
+    # the kernel's tiles (128 rows) and blocks (4 lanes): T and B on and
+    # off them
+    cases = [_random_slots(rng, T, B) for T, B in (
+        (2048, 2017), (1000, 33), (513, 9), (1, 3), (1536, 8), (700, 5))]
+    cases.append(_misaligned(_random_slots(rng, 600, 13).to(dev), 3))
+    cases.append(_clustered_slots(rng, 1100, 11, list(range(505, 519))
+                                  + list(range(1020, 1030)) + [1099]))
+    for slots in cases:
+        slots = slots.to(dev)
+        T, B = slots.shape
         before = mq_scan.LAUNCHES["mq"]
         got = mq_scan.mq_scan(slots)
         torch.cuda.synchronize()
@@ -102,13 +138,22 @@ def test_cuda_pass_byteouts_match_plain():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    slots = _random_slots(np.random.default_rng(9), 3 * 1280, 70).to(dev)
+    rng = np.random.default_rng(9)
     spans = (256, 512, 512)
-    got = mq_scan.mq_scan(slots, spans)
-    torch.cuda.synchronize()
-    want = mq_torch.mq_scan_plain(slots, spans)
-    for name, w, g in zip(("data", "lens", "state", "cumbo"), want, got):
-        assert torch.equal(w, g), name
+    # coding slots clustered at tile ends (128 k) and pass ends (256,
+    # 768, 1280, ...), passes in which lanes 2 and 3 code nothing
+    clustered = _clustered_slots(
+        rng, 3 * 1280, 11, list(range(0, 5)) + list(range(250, 262))
+        + list(range(506, 518)) + list(range(763, 770))
+        + list(range(1279, 1285)) + list(range(2550, 2565)) + [3 * 1280 - 1])
+    for slots in (_random_slots(rng, 3 * 1280, 70), clustered):
+        slots = slots.to(dev)
+        got = mq_scan.mq_scan(slots, spans)
+        torch.cuda.synchronize()
+        want = mq_torch.mq_scan_plain(slots, spans)
+        for name, w, g in zip(("data", "lens", "state", "cumbo"), want,
+                              got):
+            assert torch.equal(w, g), f"B={slots.shape[1]}: {name}"
 
 
 @pytest.mark.gpu
