@@ -25,7 +25,11 @@ Phases, each fatal on failure:
   3. the kernels at the main paths' shapes, each equal to its plain
      version on every lane and both timed with CUDA events: the three
      encode scans on the three shape groups of one chunk, the HT decoder on
-     the three lane groups of one chunk of the encoded streams, the MQ coder
+     the raw segments of the three lane groups of one chunk of the encoded
+     streams (against the host prepass and the plain decoder; the lane with
+     the most MagSgn bytes timed alone; the threads trial of its lanes a
+     block and threads a lane on each group and on a config-2 HT 9/7 group
+     of 6144 lanes), the MQ coder
      on the slot streams of the three MQ shape groups of one chunk (the
      plain version steps over each lane's coding slots only: the others
      leave its coder as it is), the MQ decoder on the three lane groups of
@@ -39,7 +43,9 @@ Phases, each fatal on failure:
      every lane count of LANE_TRIALS, each build bit-exact with the
      shipped kernel, all timed in turns), the DWT forward and
      inverse, 5/3 and 9/7, at the config-1 chunk shape, the config-2 frame
-     shape, an odd-origin rect and a rect with single-sample levels, and
+     shape, an odd-origin rect, a rect with single-sample levels and one a
+     sample wider and higher than the kernel's tile (one launch per level
+     and direction; both main shapes timed forward and inverse), and
      the MQ coder's pass-end byte-outs on 64 lanes of the config-2 group
      (cut to the planes whose coding the plain version does in ~30 s),
      and the dense MQ scan (flat and blocked) on 128 lanes of the config-1
@@ -54,7 +60,8 @@ Phases, each fatal on failure:
      time by stage;
   5. the decode slice: the 64 streams through decode_batch(device="cuda"),
      every frame equal to its source, the decode kernel and the DWT
-     launched by that run; MP/s (best of 3) and one chunk's time by stage;
+     launched by that run and the host prepass called by none of it; MP/s
+     (best of 3) and one chunk's time by stage;
   6. the MQ encode slice: the 64 frames through encode_batch(device=
      "cuda") with cblk_style 0, every stream against
      grokimagecompression_tpu_torch/data/config1_mq_lossless.json (the
@@ -101,6 +108,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 
 FRAMES = 64
 CHUNK = 32
@@ -147,14 +155,19 @@ PLAIN_DENSE_DECISIONS = 8000
 # the plain MQ decoder's longest run allowed at full depth on the 64x64
 # group (seconds, estimated from the 32x32 group's run)
 PLAIN_MQ_DEC_S = 90
-# lanes a block tried for the MQ decoder and the MQ coder (each source's
-# kLanes; the coder's staged rows hold at most 8 lanes)
-LANE_TRIALS = {"mq_dec.cu": (16, 8, 4, 2, 1), "mq_scan.cu": (8, 4, 2, 1)}
-# the MQ kernels' times before their redesign (this script's run of the
-# earlier design, on an NVIDIA H100 80GB HBM3 at 700.00 W), printed
-# beside the new ones
+# lanes a block tried for the MQ decoder, the MQ coder and the HT decoder
+# (each source's kLanes; the coder's staged rows hold at most 8 lanes);
+# the HT decoder also with two threads a lane (its kSplit)
+LANE_TRIALS = {"mq_dec.cu": (16, 8, 4, 2, 1), "mq_scan.cu": (8, 4, 2, 1),
+               "ht_dec.cu": (32, 16, 8)}
+SPLIT_TRIALS = {"ht_dec.cu": (False, True)}
+# times before a kernel's redesign (this script's run of the earlier
+# design, on an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside the
+# new ones: the MQ kernels' one-thread-a-lane designs, the HT decoder on
+# prepass words and the DWT of two launches a level
 BEFORE_MS = {"mq_dec_group": 49.524, "mq_scan": 29.226,
-             "mq_scan_dense": 42.143}
+             "mq_scan_dense": 42.143, "ht_dec_group": 1.910,
+             "dwt forward": 1.832, "dwt inverse": 1.972}
 BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
            "ms": ("ms_vals", "ms_lens")}
@@ -264,6 +277,33 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters, kernel):
+    """Mean device milliseconds a call of fn() spends in the kernels whose
+    name holds `kernel` (torch.profiler's CUDA activity over `iters`
+    calls), or None when the profiler records no device time: the
+    kernels' own time, without the wrapper's host work around them."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if kernel in e.key:
+            total += getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+    return total / 1e3 / iters if total > 0 else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.3f} ms"
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -310,11 +350,14 @@ class Calls:
 
 
 def start_lane_trials():
-    """One nvcc per source and lane count of LANE_TRIALS: the source with
-    its kLanes line changed, into build/torch_kernels/. Returns [(source,
-    lanes, library path, cmd, process)]."""
+    """One nvcc per source and lane count of LANE_TRIALS (and, for the
+    sources of SPLIT_TRIALS, per kSplit value): the source with its kLanes
+    (and kSplit) line changed, into build/torch_kernels/. Returns [(source,
+    key, library path, cmd, process)], the key the lane count, or (lanes,
+    split) for a source of SPLIT_TRIALS."""
     from grokimagecompression_tpu_torch.ops import _build
     pat = r"constexpr int kLanes = \d+;"
+    split_pat = r"constexpr bool kSplit = \w+;"
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     trials = []
     for source, counts in LANE_TRIALS.items():
@@ -322,15 +365,24 @@ def start_lane_trials():
             src = f.read()
         if len(re.findall(pat, src)) != 1:
             raise AssertionError(f"{source} has no single kLanes line")
-        for n in counts:
-            cu = os.path.join(_build.BUILD_DIR, f"trial_{n}_{source}")
+        splits = SPLIT_TRIALS.get(source)
+        if splits and len(re.findall(split_pat, src)) != 1:
+            raise AssertionError(f"{source} has no single kSplit line")
+        for n, split in ((n, sp) for n in counts for sp in splits or (None,)):
+            key = n if split is None else (n, split)
+            text = re.sub(pat, f"constexpr int kLanes = {n};", src)
+            if split is not None:
+                text = re.sub(split_pat, "constexpr bool kSplit = "
+                              f"{'true' if split else 'false'};", text)
+            tag = f"{n}{'s' if split else ''}"
+            cu = os.path.join(_build.BUILD_DIR, f"trial_{tag}_{source}")
             with open(cu, "w") as f:
-                f.write(re.sub(pat, f"constexpr int kLanes = {n};", src))
+                f.write(text)
             so = cu[:-3] + ".so"
             cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
                    "-Xcompiler", "-fPIC", "-shared", "-I", _build.CSRC,
                    "-o", so, cu]
-            trials.append((source, n, so, cmd, subprocess.Popen(
+            trials.append((source, key, so, cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
     return trials
@@ -350,6 +402,9 @@ def finish_lane_trials(trials):
         if source == "mq_dec.cu":
             lib.mq_dec_group.argtypes = [P] * 6 + [I] * 3 + [P] * 3
             lib.mq_dec_group.restype = I
+        elif source == "ht_dec.cu":
+            lib.ht_dec_group.argtypes = [P] * 5 + [I] * 3 + [P] * 6
+            lib.ht_dec_group.restype = I
         else:
             lib.mq_scan.argtypes = [P, I, I] + [P] * 5 + [I] * 3 + [P]
             lib.mq_scan.restype = I
@@ -357,17 +412,25 @@ def finish_lane_trials(trials):
     return libs
 
 
+def trial_label(key) -> str:
+    """A trial build's name: its lanes a block, and "x2" for two threads
+    a lane."""
+    if isinstance(key, tuple):
+        return f"{key[0]}{' x2' if key[1] else ''}"
+    return str(key)
+
+
 def in_turns(runs, want, label):
     """Each trial `runs[n]()` (a launch as the wrapper makes it) equal to
-    `want`, then timed in turns (descending lane counts, then ascending),
-    10 launches a turn. {lanes: mean ms}."""
+    `want`, then timed in turns (in the order of `runs`, then back),
+    10 launches a turn. {trial key: mean ms}."""
     import torch
     for n, run in runs.items():
         got = run()
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
-            raise AssertionError(f"the {n}-lane trial of {label} differs "
-                                 f"from the shipped kernel")
+            raise AssertionError(f"the {trial_label(n)} trial of {label} "
+                                 f"differs from the shipped kernel")
     times = {n: [] for n in runs}
     for n in list(runs) + list(runs)[::-1]:
         times[n].append(cuda_ms(runs[n], 10))
@@ -433,6 +496,48 @@ def scan_lane_trial(libs, slots, want):
                     "mq_scan")
 
 
+def ht_lane_trial(libs, args, want):
+    """The HT decoder built with each trial's lanes a block and threads a
+    lane, launched as `ht_dec.decode_segments` launches it on `args` =
+    (data, off, lcup, scup, w, h, tables), against the shipped kernel's
+    magnitudes and signs `want`; a build whose two-thread ring stalled
+    differs (its stall count is compared with 0)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import ht_dec
+    data, off, lcup, scup, w, h, tables = args
+    B = lcup.shape[0]
+    order = ht_dec.lane_order(lcup)
+    stalled = torch.zeros(1, dtype=torch.int32, device=data.device)
+
+    def launcher(lib):
+        def run():
+            mags = torch.empty_like(want[0])
+            signs = torch.empty_like(want[1])
+            rc = lib.ht_dec_group(
+                data.data_ptr(), off.data_ptr(), lcup.data_ptr(),
+                scup.data_ptr(), order.data_ptr(), B, w, h,
+                tables["dec0"].data_ptr(), tables["dec1"].data_ptr(),
+                mags.data_ptr(), signs.data_ptr(), stalled.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise AssertionError(f"trial launch failed: CUDA error {rc}")
+            return mags, signs, stalled
+        return run
+    return in_turns({n: launcher(lib) for n, lib in libs.items()},
+                    tuple(want) + (torch.zeros_like(stalled),),
+                    "ht_dec_group")
+
+
+def print_trial(name, what, trial):
+    best = min(trial, key=trial.get)
+    print(f"kernel {name} trial on {what} (trial builds, in turns, "
+          f"bit-exact; lanes a block, x2: two threads a lane): "
+          + ", ".join(f"{trial_label(n)} {t:.3f} ms"
+                      for n, t in trial.items())
+          + f"; fastest {trial_label(best)}")
+
+
 def check_scans(enc, plan, chunk, results):
     """Phase 3, encode side: the three scans on each shape group."""
     import torch
@@ -474,55 +579,151 @@ def check_scans(enc, plan, chunk, results):
             print(line)
 
 
-def check_decoder(streams, dev, results):
-    """Phase 3, decode side: the HT decoder on the lane groups of one
-    chunk of streams."""
+def check_decoder(streams, dev, results, trial_libs):
+    """Phase 3, decode side: the HT decoder on the raw segments of every
+    lane group of one chunk of streams, every lane against the plain
+    version (the host prepass, then the plain decoder on the card); on
+    each group the threads trial (`ht_lane_trial`); on the 64x64 group
+    the kernel's time and the lane with the most MagSgn bytes alone."""
+    import numpy as np
     import torch
 
     from grokimagecompression_tpu_torch.codestream import decoder
     from grokimagecompression_tpu_torch.models import fused_decode
+    from grokimagecompression_tpu_torch.native import ht_prepass
     from grokimagecompression_tpu_torch.ops import ht_dec, ht_tables
 
     hdr, trs, parsed = decoder.parse_batch(streams)
     plan = fused_decode.build_plan(parsed[0][0][0][2], hdr.siz, hdr.cod,
                                    trs[0])
     tables = ht_tables.device_dec_tables(dev)
-    arrays = fused_decode.upload(fused_decode.prepare_chunk(
-        plan, [fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed]),
-        dev)
-    name, key, _, _, _ = DEC
-    for (w, h, lanes), (mel, vlc, ms, _) in zip(plan.groups, arrays):
-        args = (mel, vlc, ms, w, h, tables)
-        got = ht_dec.decode_group(*args)
-        want = ht_dec.decode_group_plain(mel, vlc, ms, w, h,
-                                         tables["dec0"], tables["dec1"])
+    host = fused_decode.prepare_chunk(
+        plan, [fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed])
+    name = DEC[0]
+    trials = {}
+    for (w, h, _), arrs, group in zip(plan.groups, host,
+                                          fused_decode.upload(host, dev)):
+        data, off, lcup, scup = group[:4]
+        B = lcup.shape[0]
+        args = (data, off, lcup, scup, w, h, tables)
+        got = ht_dec.decode_segments(*args)
+        raw, o = arrs[0].tobytes(), arrs[1]
+        segs = [raw[o[i]:o[i + 1]] for i in range(B)]
+        words = [torch.from_numpy(a.view(np.int32)).to(dev)
+                 for a in ht_prepass.prepass_group(segs, arrs[2].tolist(),
+                                                   arrs[3].tolist())]
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ht_dec.decode_group_plain(*words, w, h, tables["dec0"],
+                                         tables["dec1"])
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
         err = max(int((wv.to(torch.int64) - g.to(torch.int64)).abs().max())
                   for wv, g in zip(want, got))
         for part, wv, g in zip(("mags", "signs"), want, got):
             if not torch.equal(wv, g):
                 raise AssertionError(
                     f"{name} {part} differ from the plain version "
-                    f"({w}x{h} blocks, B={mel.shape[1]})")
-        line = (f"kernel {name}: {w}x{h} blocks, B={mel.shape[1]}, words "
-                f"{mel.shape[0]}/{vlc.shape[0]}/{ms.shape[0]} -> "
-                f"{tuple(got[0].shape)}: bit-exact with plain")
+                    f"({w}x{h} blocks, B={B})")
+        trial = ht_lane_trial(trial_libs, args, got)
+        trials[f"config 1, {w}x{h}, B={B}"] = trial
+        line = (f"kernel {name}: {w}x{h} blocks, B={B}, {data.numel()} "
+                f"segment bytes -> {tuple(got[0].shape)}: bit-exact with "
+                f"plain (host prepass + decode_group_plain) on every lane "
+                f"(plain {plain_ms:.1f} ms)")
         if (w, h) == (64, 64):
-            ms_k, plain_ms = time_kernel(
-                ht_dec.decode_group,
-                lambda *a: ht_dec.decode_group_plain(
-                    *a[:5], a[5]["dec0"], a[5]["dec1"]), args)
-            steps = ht_dec.grid_dims(w, h)[2] * mel.shape[1]
+            for _ in range(3):
+                ht_dec.decode_segments(*args)
+            ms_k = cuda_ms(lambda: ht_dec.decode_segments(*args), 20)
+            dev_k = device_ms(lambda: ht_dec.decode_segments(*args), 10,
+                              "ht_dec_kernel")
+            steps = ht_dec.grid_dims(w, h)[2] * B
             nsig = int((got[0] != 0).sum())
             b_ms, b_by, b_terms = bound(
-                nbytes(mel, vlc, ms, tables["dec0"], tables["dec1"], *got),
+                nbytes(data, off, lcup, scup, tables["dec0"],
+                       tables["dec1"], *got),
                 OPS["dec_step"] * steps + OPS["dec_sample"] * nsig)
+            # the chain that bounds the kernel from below: the lane with
+            # the most MagSgn bytes, alone
+            k = int((lcup - scup).argmax())
+            lo, hi = int(off[k]), int(off[k + 1])
+            one = (data[lo:hi].contiguous(), (off[k:k + 2] - lo).contiguous(),
+                   lcup[k:k + 1], scup[k:k + 1], w, h, tables)
+            ht_dec.decode_segments(*one)
+            alone = cuda_ms(lambda: ht_dec.decode_segments(*one), 10)
+            alone_dev = device_ms(lambda: ht_dec.decode_segments(*one), 10,
+                                  "ht_dec_kernel")
             results[name] = dict(ms=ms_k, plain_ms=plain_ms,
                                  max_abs_err=err, bound_ms=b_ms,
-                                 bound_by=b_by)
-            line += (f"; {ms_k:.3f} ms (plain {plain_ms:.1f} ms, bound "
-                     f"{b_ms:.4f} ms by {b_by}: {b_terms})")
+                                 bound_by=b_by, alone_ms=alone)
+            line += (f"; {ms_k:.3f} ms, of it {fmt_ms(dev_k)} in the "
+                     f"kernel (profiler) (on prepass words before the "
+                     f"redesign: {BEFORE_MS[name]:.3f} ms on {BEFORE_CARD}; "
+                     f"bound {b_ms:.4f} ms by {b_by}: {b_terms}); the lane "
+                     f"with the most MagSgn bytes "
+                     f"({int(lcup[k] - scup[k])} of {int(lcup[k])}) alone "
+                     f"{alone:.3f} ms, of it {fmt_ms(alone_dev)} in the "
+                     f"kernel")
         print(line)
+        print_trial(name, f"the config-1 {w}x{h} group, B={B}", trial)
+    results[name]["trial"] = trials
+
+
+def c2_ht_trial(enc, chunk, results, trial_libs):
+    """Phase 3, the HT decoder's threads trial on the lane group of a
+    config-2 HT 9/7 decode: the quantized 9/7 code-blocks of a config-2
+    chunk (2 frames, 6144 64x64 lanes) HT-coded by the port's HT encode
+    stages, each lane's Mb its own magnitudes' bit length (the cleanup
+    segments a config-2 HT 9/7 stream carries; HT rate control is not
+    ported). The trial builds are held to the shipped kernel, and the
+    shipped kernel to the plain version on 256 of the lanes."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.native import ht_prepass
+    from grokimagecompression_tpu_torch.ops import ht_dec, ht_tables, ht_torch
+    dev = chunk[0].device
+    ((mag, neg, _),) = list(enc.group_inputs(*chunk))
+    h, w = mag.shape[1:]
+    mag = mag.to(torch.int64)
+    top = mag.amax(dim=(1, 2))
+    mbs = sum((top >> b) > 0 for b in range(32)).clamp(min=1)
+    streams = ht_torch.encode_streams(mag, neg, mbs, ht_tables.device_tables(
+        dev), int(mbs.max()))
+    metrics = ht_torch.group_metrics(mag.shape[0], *streams)
+    words = ht_torch.place_words([streams])
+    segs = [bytes(s) for s in ht_tables.assemble_segments_host(
+        words.cpu().numpy(), metrics.cpu().numpy())]
+    del mag, neg, streams, words
+    scups = [(s[-1] << 4) + (s[-2] & 0xF) for s in segs]
+    tables = ht_tables.device_dec_tables(dev)
+    data, off, lcup, scup = (torch.from_numpy(a).to(dev) for a in
+                             ht_dec.pack_segments(segs, scups))
+    B = len(segs)
+    args = (data, off, lcup, scup, w, h, tables)
+    got = ht_dec.decode_segments(*args)
+    pick = np.linspace(0, B - 1, 256).round().astype(int)
+    sub = [segs[i] for i in pick]
+    sub_words = [torch.from_numpy(a.view(np.int32)).to(dev)
+                 for a in ht_prepass.prepass_group(
+                     sub, [len(x) for x in sub], [scups[i] for i in pick])]
+    want = ht_dec.decode_group_plain(*sub_words, w, h, tables["dec0"],
+                                     tables["dec1"])
+    idx = torch.as_tensor(pick, device=dev)
+    for part, wv, g in zip(("mags", "signs"), want, got):
+        if not torch.equal(wv, g[idx]):
+            raise AssertionError(f"{DEC[0]} {part} differ from the plain "
+                                 f"version on the config-2 HT lanes")
+    trial = ht_lane_trial(trial_libs, args, got)
+    results[DEC[0]]["trial"][f"config 2, {w}x{h}, B={B}"] = trial
+    print(f"kernel {DEC[0]}: config-2 HT 9/7 group of {chunk[0].shape[0]} "
+          f"frames, {w}x{h} blocks, B={B}, {data.numel()} segment bytes: "
+          f"bit-exact with plain on 256 lanes spread over the group")
+    print_trial(DEC[0], f"the config-2 HT 9/7 group, B={B}", trial)
+    torch.cuda.empty_cache()
 
 
 def encode_stages(enc, chunk):
@@ -561,7 +762,7 @@ def encode_stages(enc, chunk):
 def decode_stages(streams, dev, host_stage):
     """Time of one 32-frame decode chunk by stage (host clock,
     synchronised); `host_stage` names the host work between T2 and the
-    upload (the HT prepass, the MQ lane packing)."""
+    upload (the lane packing)."""
     import torch
 
     from grokimagecompression_tpu_torch.codestream import decoder
@@ -886,21 +1087,31 @@ def dwt_work(shape, rect, nres, reversible):
 
 def check_dwt(dev, results):
     """Phase 3, DWT: forward and inverse, 5/3 and 9/7, at the config-1
-    chunk, the config-2 frame, an odd-origin rect and a rect with
-    single-sample levels, each bit-exact with the plain version; the two
-    main shapes timed."""
+    chunk, the config-2 frame, an odd-origin rect, a rect with
+    single-sample levels and a rect one sample wider and higher than the
+    kernel's tile there, each bit-exact with the plain version and each
+    transform at most one launch per level (none for a level of no
+    samples); the two main shapes timed, forward and inverse, beside
+    their bounds."""
     import torch
 
     from grokimagecompression_tpu_torch.core.geometry import Rect
     from grokimagecompression_tpu_torch.ops import dwt, dwt_torch
+    over = dwt.TILES[0] + 1
     cases = (("config-1 chunk", (CHUNK, SIZE, SIZE), Rect(0, 0, SIZE, SIZE),
               6, True),
              ("config-2 frame", (3, C2_SIZE, C2_SIZE),
               Rect(0, 0, C2_SIZE, C2_SIZE), 6, False),
              ("odd origin", (2, 67, 93), Rect(1, 3, 94, 70), 4, None),
              ("single-sample levels", (2, 17, 1), Rect(5, 2, 6, 19), 3,
-              None))
+              None),
+             ("a tile + 1", (40, over, over), Rect(1, 1, over + 1, over + 1),
+              3, None))
+    if dwt.tile_for(40, over, over) != dwt.TILES[0]:
+        raise AssertionError("the tile + 1 case does not take the largest "
+                             "tile")
     gen = torch.Generator().manual_seed(0)
+    times = {}
     for label, shape, rect, nres, timed in cases:
         for rev in (True, False):
             x = torch.randint(-128, 128, shape, generator=gen,
@@ -908,9 +1119,15 @@ def check_dwt(dev, results):
             if not rev:
                 x = x + torch.rand(shape, generator=gen)
             x = x.to(dev)
+            before = dwt.LAUNCHES["dwt"]
             got = dwt.fwd_dwt_2d(x, rect, nres, rev)
-            want = dwt_torch.fwd_dwt_2d(x, rect, nres, rev)
             back = dwt.inv_dwt_2d(got, rect, nres, rev)
+            made = dwt.LAUNCHES["dwt"] - before
+            if not 1 <= made <= 2 * (nres - 1):
+                raise AssertionError(f"dwt made {made} launches for "
+                                     f"{nres - 1} levels, forward and "
+                                     f"inverse ({label})")
+            want = dwt_torch.fwd_dwt_2d(x, rect, nres, rev)
             back_want = dwt_torch.inv_dwt_2d(want, rect, nres, rev)
             torch.cuda.synchronize()
             err = 0.0
@@ -926,7 +1143,7 @@ def check_dwt(dev, results):
             line = (f"kernel dwt: {label} {tuple(shape)} at "
                     f"({rect.x0}, {rect.y0}), {nres} resolutions, "
                     f"{'5/3 int32' if rev else '9/7 float32'}: forward and "
-                    f"inverse bit-exact with plain")
+                    f"inverse bit-exact with plain in {made} launches")
             if timed is rev:
                 nb, ops = dwt_work(shape, rect, nres, rev)
                 b_ms, b_by, b_terms = bound(nb, ops,
@@ -938,14 +1155,26 @@ def check_dwt(dev, results):
                     ms, plain_ms = time_kernel(
                         lambda a, k=kern: k(a, rect, nres, rev),
                         lambda a, p=plain: p(a, rect, nres, rev), (arg,))
-                    line += (f"; {name} {ms:.3f} ms (plain {plain_ms:.1f} "
-                             f"ms, bound {b_ms:.4f} ms by {b_by}: "
-                             f"{b_terms})")
+                    dev_ms = device_ms(
+                        lambda a=arg, k=kern: k(a, rect, nres, rev), 10,
+                        "fwd_kernel" if name == "forward" else "inv_kernel")
+                    times[f"{label} {name}"] = dict(ms=ms, plain_ms=plain_ms,
+                                                    bound_ms=b_ms,
+                                                    device_ms=dev_ms)
+                    line += (f"; {name} {ms:.3f} ms, of it "
+                             f"{fmt_ms(dev_ms)} in the kernel's launches "
+                             f"(profiler) (plain {plain_ms:.1f} ms, bound "
+                             f"{b_ms:.4f} ms by {b_by}: {b_terms})")
+                    if label == "config-2 frame":
+                        line += (f" [before the redesign: "
+                                 f"{BEFORE_MS['dwt ' + name]:.3f} ms on "
+                                 f"{BEFORE_CARD}]")
                     if label == "config-2 frame" and name == "forward":
                         results["dwt"] = dict(ms=ms, plain_ms=plain_ms,
                                               max_abs_err=err, bound_ms=b_ms,
                                               bound_by=b_by)
             print(line)
+    results["dwt"]["times"] = times
 
 
 def check_mq_cumbo(enc, chunk):
@@ -1220,6 +1449,7 @@ def main() -> int:
                                                             EncoderParams,
                                                             Transform)
     from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.native import ht_prepass
     from grokimagecompression_tpu_torch.ops import (_build, dwt, ht_dec,
                                                     ht_scan, ht_tables,
                                                     mq_dec, mq_scan)
@@ -1297,7 +1527,7 @@ def main() -> int:
     check_scans(enc, plan, chunk, results)
     first = encoder.encode_batch(imgs[:CHUNK], params, device="cuda",
                                  chunk=CHUNK)
-    check_decoder(first, dev, results)
+    check_decoder(first, dev, results, trial_libs["ht_dec.cu"])
     check_mq_scan(mq_enc, chunk, results, trial_libs["mq_scan.cu"])
     check_mq_dense(mq_enc, chunk, results, launches)
     torch.cuda.empty_cache()
@@ -1309,6 +1539,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     c2_scan_trial(c2_enc, c2_chunk(0, C2_CHUNK), results,
                   trial_libs["mq_scan.cu"])
+    c2_ht_trial(c2_enc, c2_chunk(0, C2_CHUNK), results,
+                trial_libs["ht_dec.cu"])
 
     # 4. the encode slice, through the user entry point
     with open(os.path.join(root, DIGESTS)) as f:
@@ -1361,14 +1593,19 @@ def main() -> int:
     # 5. the decode slice, through the user entry point
     ht_dec.LAUNCHES["dec"] = 0
     dwt.LAUNCHES["dwt"] = 0
-    with Calls(ht_dec, "decode_group",
-               lambda *a: (a[3], a[4]) == (64, 64)) as counter:
+    ht_prepass.CALLS["prepass"] = 0
+    with Calls(ht_dec, "decode_segments",
+               lambda *a: (a[4], a[5]) == (64, 64)) as counter:
         dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
         torch.cuda.synchronize()
     calls["dec"] = counter.n
     launches["dec"] = ht_dec.LAUNCHES["dec"]
     print(f"decode slice launches: {dict(ht_dec.LAUNCHES)}, "
-          f"{dict(dwt.LAUNCHES)}")
+          f"{dict(dwt.LAUNCHES)}; host prepass calls: "
+          f"{ht_prepass.CALLS['prepass']}")
+    if ht_prepass.CALLS["prepass"] != 0:
+        raise AssertionError("the CUDA decode route called the host "
+                             "prepass")
     if launches["dec"] < 1 or not 1 <= calls["dec"] <= launches["dec"]:
         raise AssertionError("ht_dec_group was not launched by the slice "
                              "on the 64x64 group")
@@ -1385,8 +1622,8 @@ def main() -> int:
                                                    chunk=CHUNK))
     print(f"decode_batch: {mpix / best:.2f} MP/s (best of 3, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
-    decode_stages(out[:CHUNK], dev, "prepass (host)")
-    stages = decode_stages(out[:CHUNK], dev, "prepass (host)")
+    decode_stages(out[:CHUNK], dev, "lane packing (host)")
+    stages = decode_stages(out[:CHUNK], dev, "lane packing (host)")
     print(f"one {CHUNK}-frame decode chunk by stage (host clock, "
           "synchronised): "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))

@@ -8,11 +8,12 @@ chunk of same-geometry tiles, the group decoder of each block shape, then
 band-plane assembly and the inverse DWT, inverse MCT and DC unshift
 (`pipeline._inv_transform`). Only the sample planes come back.
 
-- HT (`FusedHTDecoder`): the host unstuffs each block's cleanup segment
-  into dense stream words (`native/ht_prepass.py`); the CUDA HT decoder
-  (`ops/ht_dec.py`) decodes them; a per-lane validity mask zeroes blocks
-  that a frame leaves out or whose segment is structurally invalid (they
-  decode a dummy two-byte segment).
+- HT (`FusedHTDecoder`): the host packs each block's raw cleanup segment
+  (`ops/ht_dec.pack_segments`); the CUDA HT decoder
+  (`ops/ht_dec.decode_segments`) unstuffs and decodes them (on the CPU
+  its plain version runs the host prepass first); a per-lane validity
+  mask zeroes blocks that a frame leaves out or whose segment is
+  structurally invalid (they decode a dummy two-byte segment).
 - MQ (`FusedMQDecoder`, Part-1, default code-block style): the host packs
   each block's raw codeword segment (`ops/mq_dec.pack_lanes`); the CUDA MQ
   decoder (`ops/mq_dec.py`) decodes them; a block that a frame leaves out
@@ -56,7 +57,6 @@ import torch
 from torch import nn
 
 from ..core.geometry import Rect
-from ..native import ht_prepass
 from ..ops import ht_dec, ht_tables, mq_dec
 from ..ops.quant import reconstruct, trunc_plane
 from . import pipeline
@@ -156,8 +156,8 @@ def _scup(seg: bytes) -> int:
 
 
 def _prepare_ht_group(jobs):
-    """(mel, vlc, ms, valid) of an HT lane group: (W, F*B) int32 stream
-    words and (F*B,) int32 validity."""
+    """(data, off, lcup, scup, valid) of an HT lane group: the
+    `ht_dec.pack_segments` arrays and the (F*B,) int32 validity."""
     segs: List[bytes] = []
     valid = np.zeros(len(jobs), np.int32)
     for j, job in enumerate(jobs):
@@ -165,10 +165,8 @@ def _prepare_ht_group(jobs):
         ok = len(data) >= 2 and 2 <= _scup(data) <= len(data)
         segs.append(data if ok else DUMMY_SEGMENT)
         valid[j] = ok
-    lcups = [len(s) for s in segs]
     scups = [_scup(s) if v else 2 for s, v in zip(segs, valid)]
-    mel, vlc, ms = ht_prepass.prepass_group(segs, lcups, scups)
-    return mel.view(np.int32), vlc.view(np.int32), ms.view(np.int32), valid
+    return ht_dec.pack_segments(segs, scups) + (valid,)
 
 
 def _lane_halves(nbps, npas, rev: bool) -> np.ndarray:
@@ -310,7 +308,7 @@ class _FusedDecoder(nn.Module):
 class FusedHTDecoder(_FusedDecoder):
     """The fused HT decode for one plan. Buffers: the decode LUTs
     (`ht_tables.device_dec_tables`) and the band assembly indices. A
-    group's tensors are (mel, vlc, ms, valid)."""
+    group's tensors are (data, off, lcup, scup, valid)."""
 
     def __init__(self, plan: FusedDecPlan, tables: Dict[str, torch.Tensor]):
         super().__init__(plan, tables["dec0"].device, lambda w, h: (
@@ -324,9 +322,8 @@ class FusedHTDecoder(_FusedDecoder):
     def decode(self, groups):
         """The group decoder per shape group: [(mags, signs)], each
         (F*B, 2*ny, 4*nx) int32."""
-        return [ht_dec.decode_group(mel, vlc, ms, w, h, self.tables())
-                for (w, h, _), (mel, vlc, ms, _) in zip(self.plan.groups,
-                                                        groups)]
+        return [ht_dec.decode_segments(*g[:4], w, h, self.tables())
+                for (w, h, _), g in zip(self.plan.groups, groups)]
 
     def assemble(self, grids, valids, nframes: int
                  ) -> List[Dict[Tuple[int, int], torch.Tensor]]:

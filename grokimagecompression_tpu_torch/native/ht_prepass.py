@@ -3,8 +3,10 @@
 
 A copy of `ht_dec_prepass` from `grokimagecompression_tpu/native/
 t1_native.py`: each HT cleanup segment's three streams (MEL forward, VLC
-backward, MagSgn forward) are unstuffed into dense bit words once on the
-host, so the device decoder carries only per-lane bit offsets.
+backward, MagSgn forward) are unstuffed into dense bit words on the host.
+It is the first half of the plain version of the CUDA HT decoder
+(`ops/ht_dec.decode_segments`), whose kernel unstuffs the raw segments
+itself.
 """
 
 from __future__ import annotations
@@ -15,6 +17,10 @@ import numpy as np
 
 from ..ops import _build
 
+# calls of `ht_dec_prepass`: the CUDA decode route makes none (the kernel
+# reads the raw segments), the CPU route one per lane group
+CALLS = {"prepass": 0}
+
 
 def ht_dec_prepass(segs: List[bytes], lcups, scups, wm_mel: int,
                    wm_vlc: int, wm_ms: int
@@ -24,6 +30,7 @@ def ht_dec_prepass(segs: List[bytes], lcups, scups, wm_mel: int,
     device decoder. Lane i's stream bit p sits at word p // 32: MEL
     MSB-first (bit 31 - p % 32), VLC and MagSgn LSB-first (bit p % 32);
     past each stream's end MEL and MagSgn read 1-bits, VLC 0-bits."""
+    CALLS["prepass"] += 1
     B = len(segs)
     data = np.frombuffer(b"".join(segs) or b"\x00", dtype=np.uint8)
     offs = np.zeros(B + 1, np.int64)

@@ -169,10 +169,10 @@ def load() -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    # (mel, vlc, ms, wm_mel, wm_vlc, wm_ms, lanes, w, h, dec0, dec1,
-    #  mags, signs, stream)
-    lib.ht_dec_group.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p] * 5
+    # (data, off, lcup, scup, order, lanes, w, h, dec0, dec1, mags, signs,
+    #  stalled, stream)
+    lib.ht_dec_group.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p] * 6
     lib.ht_dec_group.restype = ctypes.c_int
     # (slots, T, lanes, seg_off, out, lens, state, cumbo, sa, sb, tp,
     #  stream)
@@ -188,15 +188,12 @@ def load() -> ctypes.CDLL:
         + [ctypes.c_void_p] * 3
     lib.mq_dec_group.restype = ctypes.c_int
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-    # (in, in_bs, in_rs, out, N, h, w, parity, rev, k, stream)
-    lib.dwt_fwd_v.argtypes = [P, L, L, P, I, I, I, I, I, P, P]
-    # (buf, scratch, rows, w, parity, rev, k, stream)
-    lib.dwt_fwd_h.argtypes = [P, P, I, I, I, I, P, P]
-    # (ll, bs, rs, hl, bs, rs, lh, bs, rs, hh, bs, rs, out, scratch, N,
-    #  h_lo, h_hi, w_lo, w_hi, parity, rev, k, stream)
-    lib.dwt_inv_h.argtypes = [P, L, L] * 4 + [P, P] + [I] * 7 + [P, P]
-    # (buf, out, N, h, h_lo, w, parity, rev, k, stream)
-    lib.dwt_inv_v.argtypes = [P, P] + [I] * 6 + [P, P]
-    for fn in (lib.dwt_fwd_v, lib.dwt_fwd_h, lib.dwt_inv_h, lib.dwt_inv_v):
+    # (in, in_bs, in_rs, out, scratch, slot1, N, h, w, levels, lv, rev, k,
+    #  stream)
+    lib.dwt_fwd.argtypes = [P, L, L, P, P, L] + [I] * 4 + [P, I, P, P]
+    # (ll, ll_bs, ll_rs, bands, out, scratch, N, h, w, levels, lv, rev, k,
+    #  stream)
+    lib.dwt_inv.argtypes = [P, L, L, P, P, P] + [I] * 4 + [P, I, P, P]
+    for fn in (lib.dwt_fwd, lib.dwt_inv):
         fn.restype = ctypes.c_int
     return lib

@@ -160,7 +160,7 @@ def dec_tables_on(dec_tables, device: torch.device
                   ) -> Dict[str, torch.Tensor]:
     """The two (1024,) CxtVLC decode LUTs (initial and other quad rows)
     -> {"dec0", "dec1"} int32 tensors on `device`, as
-    `ops/ht_dec.decode_group` reads them."""
+    `ops/ht_dec.decode_segments` reads them."""
     return {k: torch.as_tensor(np.asarray(a, np.int32), device=device)
             for k, a in zip(("dec0", "dec1"), dec_tables, strict=True)}
 

@@ -13,6 +13,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from grokimagecompression_tpu_torch.codestream import encoder
 from grokimagecompression_tpu_torch.codestream.tile import default_qcd
@@ -22,6 +23,18 @@ from grokimagecompression_tpu_torch.core.params import (EncoderParams,
                                                         Transform)
 from grokimagecompression_tpu_torch.models import fused_encode
 from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -24,6 +24,18 @@ import torch
 from grokimagecompression_tpu_torch.core.geometry import Rect
 from grokimagecompression_tpu_torch.ops import dwt, dwt_torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # (x0, y0, x1, y1, numresolutions)
 GEOMS = [
     (0, 0, 64, 48, 3),
@@ -31,6 +43,14 @@ GEOMS = [
     (3, 5, 40, 37, 2),
     (5, 2, 6, 17, 3),        # 1 wide: single-sample lines at every level
     (7, 9, 10, 11, 3),       # 3 x 2: single-sample lines from level 1 on
+    # one below, at and one above the CUDA kernel's tile sides (64, 32,
+    # 16: dwt.TILES), some at odd origins
+    (0, 0, 63, 63, 3),
+    (0, 0, 64, 64, 3),
+    (1, 3, 66, 68, 3),
+    (1, 1, 32, 34, 2),
+    (3, 5, 19, 21, 2),
+    (0, 0, 17, 15, 2),
 ]
 IDS = [f"{g[2] - g[0]}x{g[3] - g[1]}@{g[0]},{g[1]}_r{g[4]}" for g in GEOMS]
 
@@ -128,25 +148,45 @@ def test_band_shapes_match_numpy():
         {k: (3,) + v.shape for k, v in want.items()}
 
 
+def test_tile_choice_fills_the_card():
+    """Each level takes the largest tile that still gives MIN_CTAS CTAs."""
+    assert dwt.tile_for(32, 512, 512) == 64       # config-1 chunk, level 0
+    assert dwt.tile_for(32, 32, 32) == 16
+    assert dwt.tile_for(3, 2048, 2048) == 64      # config-2 frame
+    assert dwt.tile_for(3, 256, 256) == 32
+    assert dwt.tile_for(3, 128, 128) == 16
+    for n, h, w in [(1, 1, 1), (2, 65, 65), (40, 64, 64)]:
+        t = dwt.tile_for(n, h, w)
+        assert t in dwt.TILES
+        assert t == dwt.TILES[-1] or n * -(-h // t) * -(-w // t) >= \
+            dwt.MIN_CTAS
+
+
 @pytest.mark.gpu
-def test_cuda_kernel_matches_plain():
+def test_cuda_kernel_matches_plain(monkeypatch):
+    """Every geometry under each tile side: MIN_CTAS 1 takes the largest
+    tile, the default the wrapper's choice, a huge one the smallest."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
     geoms = GEOMS + [(0, 0, 512, 512, 6), (0, 0, 2048, 256, 6),
-                     (0, 0, 13000, 4, 2)]      # a row wider than smem
-    for *corners, nres in geoms:
+                     (0, 0, 13000, 4, 2), (0, 0, 200, 70, 2),
+                     (0, 1, 264, 141, 3)]
+    cases = [(g, r, m) for g in geoms for r in (True, False)
+             for m in (1, dwt.MIN_CTAS, 1 << 30)]
+    for (*corners, nres), reversible, min_ctas in cases:
+        monkeypatch.setattr(dwt, "MIN_CTAS", min_ctas)
         rect = Rect(*corners)
-        for reversible in (True, False):
-            x = torch.from_numpy(_input(rect, reversible, seed=1))
-            want = dwt_torch.fwd_dwt_2d(x, rect, nres, reversible)
-            before = dwt.LAUNCHES["dwt"]
-            got = dwt.fwd_dwt_2d(x.to(dev), rect, nres, reversible)
-            back = dwt.inv_dwt_2d(got, rect, nres, reversible)
-            torch.cuda.synchronize()
-            assert dwt.LAUNCHES["dwt"] > before
-            for k in want:
-                assert torch.equal(got[k].cpu(), want[k]), (corners, k)
-            assert torch.equal(
-                back.cpu(), dwt_torch.inv_dwt_2d(want, rect, nres,
-                                                 reversible)), corners
+        x = torch.from_numpy(_input(rect, reversible, seed=1))
+        want = dwt_torch.fwd_dwt_2d(x, rect, nres, reversible)
+        before = dwt.LAUNCHES["dwt"]
+        got = dwt.fwd_dwt_2d(x.to(dev), rect, nres, reversible)
+        back = dwt.inv_dwt_2d(got, rect, nres, reversible)
+        torch.cuda.synchronize()
+        # at most one launch per level and direction (none for a level of
+        # no samples)
+        assert before < dwt.LAUNCHES["dwt"] <= before + 2 * (nres - 1)
+        for k in want:
+            assert torch.equal(got[k].cpu(), want[k]), (corners, k, min_ctas)
+        assert torch.equal(back.cpu(), dwt_torch.inv_dwt_2d(
+            want, rect, nres, reversible)), (corners, min_ctas)

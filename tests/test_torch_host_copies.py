@@ -25,6 +25,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 from grokimagecompression_tpu.codestream import decoder as ref_decoder
 from grokimagecompression_tpu.codestream import encoder as ref_encoder
@@ -44,6 +45,18 @@ from grokimagecompression_tpu_torch.codestream.t2 import PrecDec, CblkDec
 from grokimagecompression_tpu_torch.ops import mq_tables
 
 from conftest import natural_image
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 HT = 0x40
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -11,8 +11,9 @@
   reference's native HT encoder, with empty lanes and magnitudes near the
   Mb gate;
 - the port's tables and decode LUTs against the reference's.
-The `gpu` case holds the CUDA kernel against the plain version on the
-card, on segments of the port's own HT encoder.
+The `gpu` case holds the CUDA kernel (`decode_segments`, on raw segments)
+against the plain version on the card, on segments of the port's own HT
+encoder and on the raw-reader edge segments.
 
 The reference is imported inside the helpers and tests that use it, not
 at module level, so the `gpu` case also runs where only torch is
@@ -28,6 +29,17 @@ from grokimagecompression_tpu_torch.models import fused_decode
 from grokimagecompression_tpu_torch.native import ht_prepass
 from grokimagecompression_tpu_torch.ops import (ht_dec, ht_dec_torch,
                                                 ht_tables, ht_torch)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _blocks(rng, h, w, dens, mbits, n, mb=12):
@@ -212,27 +224,48 @@ def test_port_segments_equal_native_segments():
 
 @pytest.mark.gpu
 def test_cuda_decoder_matches_plain():
+    """`decode_segments` on the card against the plain decoder of the
+    prepass words on the card: segments of the port's HT encoder at
+    several shapes (with the dummy segment), the raw-reader edge segments
+    of `test_torch_ht_dec_raw.py` (0xFF before bytes above and below 0x8F,
+    scup == lcup, 2-3-byte segments) decoded as 16x16 and 64x64 blocks,
+    and one lane group whose segments sit past 2^31 bytes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    from test_torch_ht_dec_raw import _edge_segments
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
     tables = convert.dec_tables_from_reference(ht_tables._dec_tables(), dev)
+    groups = []
     for (h, w, dens, mbits, mb, n) in [(64, 64, 0.3, 9, 12, 40),
                                        (64, 64, 0.01, 9, 12, 8),
                                        (32, 32, 0.4, 27, 28, 9),
+                                       (16, 16, 0.5, 8, 10, 33),
                                        (5, 7, 0.6, 6, 10, 5),
                                        (4, 1024, 0.3, 8, 10, 3)]:
-        cases = _blocks(rng, h, w, dens, mbits, n, mb=mb)
-        segs, lcups, scups = _port_segments(cases, dev)
-        segs.append(fused_decode.DUMMY_SEGMENT)
-        lcups.append(2)
-        scups.append(2)
-        words = [a.to(dev) for a in _words(segs, lcups, scups)]
+        segs, lcups, scups = _port_segments(
+            _blocks(rng, h, w, dens, mbits, n, mb=mb), dev)
+        groups.append((segs + [fused_decode.DUMMY_SEGMENT], scups + [2], w,
+                       h, 0))
+    edge, edge_scups = _edge_segments(np.random.default_rng(12), 60)
+    groups += [(edge, edge_scups, 16, 16, 0), (edge, edge_scups, 64, 64, 0)]
+    groups.append(groups[3][:4] + ((1 << 31) + 5,))
+    for segs, scups, w, h, lead in groups:
+        data, off, lcup, scup = (torch.from_numpy(a).to(dev) for a in
+                                 ht_dec.pack_segments(segs, scups))
+        if lead:      # the group's bytes behind `lead` others
+            big = torch.zeros(lead + data.numel(), dtype=torch.uint8,
+                              device=dev)
+            big[lead:] = data
+            data, off = big, off + lead
         before = ht_dec.LAUNCHES["dec"]
-        got = ht_dec.decode_group(*words, w, h, tables)
+        got = ht_dec.decode_segments(data, off, lcup, scup, w, h, tables)
         torch.cuda.synchronize()
         assert ht_dec.LAUNCHES["dec"] == before + 1
+        del data
+        words = [a.to(dev) for a in _words(segs, [len(x) for x in segs],
+                                           scups)]
         want = ht_dec_torch.decode_group_plain(*words, w, h, tables["dec0"],
                                                tables["dec1"])
-        assert torch.equal(got[0], want[0]), f"{w}x{h} mags"
-        assert torch.equal(got[1], want[1]), f"{w}x{h} signs"
+        assert torch.equal(got[0], want[0]), f"{w}x{h} mags (lead {lead})"
+        assert torch.equal(got[1], want[1]), f"{w}x{h} signs (lead {lead})"

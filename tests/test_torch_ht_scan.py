@@ -17,6 +17,17 @@ import torch
 from grokimagecompression_tpu_torch.ops import ht_scan
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jax_scan(kind, a, b):
     import jax.numpy as jnp
     from jax import lax

@@ -34,6 +34,17 @@ from grokimagecompression_tpu_torch.ops import (mq_dec, mq_dec_torch,
                                                 mq_scan, mq_torch)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _mk(rng, h, w, dens, hi, orient):
     mag = rng.integers(0, hi, (h, w)).astype(np.uint32)
     mag = np.where(rng.random((h, w)) < 1 - dens, 0, mag).astype(np.uint32)

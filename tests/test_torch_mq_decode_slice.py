@@ -17,6 +17,7 @@ per decision of the batch's busiest lanes.
 
 import numpy as np
 import pytest
+import torch
 
 from grokimagecompression_tpu.codestream import decoder as ref_decoder
 from grokimagecompression_tpu.codestream import encoder as ref_encoder
@@ -26,6 +27,18 @@ from grokimagecompression_tpu_torch.codestream import decoder
 from grokimagecompression_tpu_torch.models import fused_decode
 
 from conftest import natural_image
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 SMALL = dict(cblk_w_exp=4, cblk_h_exp=4)
 

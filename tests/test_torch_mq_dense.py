@@ -31,6 +31,17 @@ from grokimagecompression_tpu_torch.ops import mq_scan, mq_tables, mq_torch
 from test_torch_mq_scan import _random_slots
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _reference(slots, blocked):
     """The reference's dense scan of a (T, B) int8 stream, as numpy."""
     s = jnp.asarray(slots.numpy().astype(np.int32))

@@ -34,6 +34,17 @@ from grokimagecompression_tpu_torch.ops import mq_dec_torch, mq_torch
 from test_torch_mq_dec import _plant_markers
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _blocks(rng, h, w, n, hi):
     """n blocks (orientations cycling; lane 1 all zero, lane k's
     magnitudes cut to k % 7 + 1 bits so that depths differ)."""

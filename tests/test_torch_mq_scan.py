@@ -28,6 +28,17 @@ from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
 from grokimagecompression_tpu_torch.ops.mq_tables import NSTATE, NUM_CTXS
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_slots(rng, T, B):
     """Slot bytes emit | d << 1 | cx << 2 with per-lane emit densities
     from sparse to dense, skewed decisions (long MPS runs and LPS bursts,

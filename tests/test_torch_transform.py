@@ -26,6 +26,18 @@ from grokimagecompression_tpu_torch.ops import dwt_torch, mct_torch
 
 from conftest import natural_image
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Torch on one thread: the plain versions run many small CPU ops, and
+    under pytest-xdist's workers torch's OpenMP threads oversubscribe the
+    cores and spin (a case of 2.4 s alone took 43 s among six workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the rects of tests/test_dwt_jax.py, plus a subsampled tile-component
 RECTS = [
     Rect(0, 0, 64, 64),
