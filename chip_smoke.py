@@ -23,8 +23,16 @@ Phases, each fatal on failure:
      source, all started together) and the port's host library from
      csrc/host/*.cpp with g++;
   3. the kernels at the main paths' shapes, each equal to its plain
-     version on every lane and both timed with CUDA events: the three
-     encode scans on the three shape groups of one chunk, the HT decoder on
+     version on every lane and both timed with CUDA events: the HT
+     cleanup encoder on the three shape groups of one chunk (the plain
+     version: torch op streams, plain scans, metrics, word placement and
+     the host splice; on the 64x64 group its device time by
+     torch.profiler, the lane with the most MagSgn bytes timed alone, the
+     cycles of its stages (clock64 in an instrumented build) on that lane
+     and on a block of the whole group, and the trial of its code-blocks a
+     CTA and coder placement, also on a
+     config-2 HT 9/7 group of 6144 lanes, where 256 lanes are held to the
+     plain version), the HT decoder on
      the raw segments of the three lane groups of one chunk of the encoded
      streams (against the host prepass and the plain decoder; the lane with
      the most MagSgn bytes timed alone; the threads trial of its lanes a
@@ -55,9 +63,11 @@ Phases, each fatal on failure:
   4. the encode slice: the 64 frames and the 64 streams of
      encode_batch(device="cuda") against the SHA-256 digests of
      grokimagecompression_tpu_torch/data/config1_ht_lossless.json (the
-     frames, and the reference host encoder's streams), every scan kernel
-     and the DWT launched by that run; MP/s (best of 3) and one chunk's
-     time by stage;
+     frames, and the reference host encoder's streams), the HT encoder
+     kernel launched on every shape group and the DWT launched by that
+     run, and the torch op streams (`ht_torch.op_streams`) and the host
+     splice (`ht_tables.assemble_segments_host`) called by none of it;
+     MP/s (best of 3) and one chunk's time by stage;
   5. the decode slice: the 64 streams through decode_batch(device="cuda"),
      every frame equal to its source, the decode kernel and the DWT
      launched by that run and the host prepass called by none of it; MP/s
@@ -100,6 +110,7 @@ exits non-zero without one).
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import inspect
 import json
@@ -118,11 +129,9 @@ DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
 MQ_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                           "config1_mq_lossless.json")
 # (name, LAUNCHES key, plain-version name, TPU kernel it replaces, source)
-SCANS = tuple(
-    (f"{k}_scan", k, f"{k}_scan_plain",
-     f"grokimagecompression_tpu/ops/ht_scan_pallas.py:{line}",
-     "grokimagecompression_tpu_torch/csrc/ht_scan.cu")
-    for k, line in (("mel", 214), ("vlc", 282), ("ms", 308)))
+ENC = ("ht_encode", "enc", "encode_segments_plain",
+       "grokimagecompression_tpu/ops/ht_scan_pallas.py:175 and :257",
+       "grokimagecompression_tpu_torch/csrc/ht_enc.cu")
 DEC = ("ht_dec_group", "dec", "decode_group_plain",
        "grokimagecompression_tpu/ops/ht_dec_pallas.py:534",
        "grokimagecompression_tpu_torch/csrc/ht_dec.cu")
@@ -156,28 +165,35 @@ PLAIN_DENSE_DECISIONS = 8000
 # group (seconds, estimated from the 32x32 group's run)
 PLAIN_MQ_DEC_S = 90
 # lanes a block tried for the MQ decoder, the MQ coder and the HT decoder
-# (each source's kLanes; the coder's staged rows hold at most 8 lanes);
-# the HT decoder also with two threads a lane (its kSplit)
+# (each source's kLanes; the coder's staged rows hold at most 8 lanes),
+# and code-blocks a CTA for the HT encoder (its kBlocks); the HT decoder
+# also with two threads a lane (its kSplit), the HT encoder with its three
+# coders in three warps or in one (its kWarpCoders)
 LANE_TRIALS = {"mq_dec.cu": (16, 8, 4, 2, 1), "mq_scan.cu": (8, 4, 2, 1),
-               "ht_dec.cu": (32, 16, 8)}
-SPLIT_TRIALS = {"ht_dec.cu": (False, True)}
+               "ht_dec.cu": (32, 16, 8), "ht_enc.cu": (1, 2, 4)}
+SPLIT_TRIALS = {"ht_dec.cu": (False, True), "ht_enc.cu": (True, False)}
+LANE_NAMES = {"ht_enc.cu": "kBlocks"}
+SPLIT_NAMES = {"ht_dec.cu": "kSplit", "ht_enc.cu": "kWarpCoders"}
 # times before a kernel's redesign (this script's run of the earlier
 # design, on an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside the
 # new ones: the MQ kernels' one-thread-a-lane designs, the HT decoder on
-# prepass words and the DWT of two launches a level
+# prepass words, the DWT of two launches a level, and the HT encode's
+# three scans on the 64x64 group's op streams (MagSgn 0.756, VLC 0.526,
+# MEL 0.312 ms; the op-stream build, metrics and host splice not counted)
 BEFORE_MS = {"mq_dec_group": 49.524, "mq_scan": 29.226,
              "mq_scan_dense": 42.143, "ht_dec_group": 1.910,
-             "dwt forward": 1.832, "dwt inverse": 1.972}
+             "dwt forward": 1.832, "dwt inverse": 1.972,
+             "ht_encode": 0.756 + 0.526 + 0.312}
 BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
-           "ms": ("ms_vals", "ms_lens")}
 # Bounds. H100 SXM peak rates: 3.35 TB/s of device memory; integer
 # operations at 16.7 TOP/s (132 SMs x 64 INT32 lanes x 1.98 GHz: half the
 # FP32 lanes behind the card's 67 TFLOP/s FP32 peak, no FMA doubling).
 # The operation counts per lane are estimates read off the kernels'
-# sources, not instruction counts: a MEL event ~25, a VLC or MagSgn append
-# ~30 (an append's bytes pushed one by one), a decode step ~200 plus ~25
-# per significant sample. The MQ coder is charged what the encode
+# sources, not instruction counts: the HT encoder ~40 a sample for the
+# per-quad stages (significance, exponents, context, codeword, MEL events
+# and MagSgn lengths, spread over the samples), ~10 a significant sample
+# (its MagSgn append) and ~8 a segment byte (emitted, then written), on
+# this run's data; a decode step ~200 plus ~25 per significant sample. The MQ coder is charged what the encode
 # procedure (Annex C.2) needs at least, on this run's data: 10 per coded
 # decision, the cost of its shortest path (MPS, no renormalisation: take
 # d and cx from the slot, load the context, take its MPS, load Qe, A -=
@@ -198,7 +214,8 @@ STREAMS = {"mel": ("mel_valid", "mel_bit"), "vlc": ("vlc_vals", "vlc_lens"),
 HBM_BYTES_S = 3.35e12
 INT_OPS_S = 132 * 64 * 1.98e9
 F32_OPS_S = 67e12
-OPS = {"mel": 25, "vlc": 30, "ms": 30, "dec_step": 200, "dec_sample": 25,
+OPS = {"enc_sample": 40, "enc_sig": 10, "enc_byte": 8,
+       "dec_step": 200, "dec_sample": 25,
        "mq_decision": 10, "mq_byte": 10, "mqd_decision": 10, "mqd_byte": 10,
        "mqd_visit": 2}
 
@@ -351,28 +368,32 @@ class Calls:
 
 def start_lane_trials():
     """One nvcc per source and lane count of LANE_TRIALS (and, for the
-    sources of SPLIT_TRIALS, per kSplit value): the source with its kLanes
-    (and kSplit) line changed, into build/torch_kernels/. Returns [(source,
-    key, library path, cmd, process)], the key the lane count, or (lanes,
+    sources of SPLIT_TRIALS, per value of their bool): the source with
+    its kLanes (LANE_NAMES: another name) line and its SPLIT_NAMES bool
+    line changed, into build/torch_kernels/. Returns [(source, key,
+    library path, cmd, process)], the key the lane count, or (lanes,
     split) for a source of SPLIT_TRIALS."""
     from grokimagecompression_tpu_torch.ops import _build
-    pat = r"constexpr int kLanes = \d+;"
-    split_pat = r"constexpr bool kSplit = \w+;"
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     trials = []
     for source, counts in LANE_TRIALS.items():
+        lanes = LANE_NAMES.get(source, "kLanes")
+        pat = rf"constexpr int {lanes} = \d+;"
+        split_name = SPLIT_NAMES.get(source)
+        split_pat = rf"constexpr bool {split_name} = \w+;"
         with open(os.path.join(_build.CSRC, source)) as f:
             src = f.read()
         if len(re.findall(pat, src)) != 1:
-            raise AssertionError(f"{source} has no single kLanes line")
+            raise AssertionError(f"{source} has no single {lanes} line")
         splits = SPLIT_TRIALS.get(source)
         if splits and len(re.findall(split_pat, src)) != 1:
-            raise AssertionError(f"{source} has no single kSplit line")
+            raise AssertionError(f"{source} has no single {split_name} "
+                                 f"line")
         for n, split in ((n, sp) for n in counts for sp in splits or (None,)):
             key = n if split is None else (n, split)
-            text = re.sub(pat, f"constexpr int kLanes = {n};", src)
+            text = re.sub(pat, f"constexpr int {lanes} = {n};", src)
             if split is not None:
-                text = re.sub(split_pat, "constexpr bool kSplit = "
+                text = re.sub(split_pat, f"constexpr bool {split_name} = "
                               f"{'true' if split else 'false'};", text)
             tag = f"{n}{'s' if split else ''}"
             cu = os.path.join(_build.BUILD_DIR, f"trial_{tag}_{source}")
@@ -386,6 +407,91 @@ def start_lane_trials():
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
     return trials
+
+
+def start_clock_build():
+    """One nvcc of an instrumented copy of csrc/ht_enc.cu that records, for
+    block 0, clock64() after each barrier of the kernel and at the end of
+    each coder (MagSgn, VLC, MEL), read back by `ht_enc_clocks`. Returns
+    (library path, cmd, process)."""
+    from grokimagecompression_tpu_torch.ops import _build
+    with open(os.path.join(_build.CSRC, "ht_enc.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {", "namespace {\n__device__ long long "
+                      "g_clk[32];\n#define CLK(n) if (threadIdx.x == 0 && "
+                      "blockIdx.x == 0) g_clk[n] = clock64();", 1)
+    k0 = src.index("ht_enc_kernel(const int32_t*")
+    body = src[k0:]
+    marks = iter(range(1, 32))
+    body = re.sub(r"__syncthreads\(\);",
+                  lambda m: f"__syncthreads(); CLK({next(marks)})", body)
+    body = body.replace("uint32_t smem_raw[];", "uint32_t smem_raw[];\n"
+                        "  CLK(0)", 1)
+    for i, name in enumerate(("ms_coder_warp", "vlc_coder_warp",
+                              "mel_coder")):
+        body, n = re.subn(rf"({name}\([^;]*\);)", rf"{{ \1 if (blockIdx.x "
+                          rf"== 0) g_clk[{20 + i}] = clock64(); }}", body,
+                          count=1)
+        if n != 1:
+            raise AssertionError(f"ht_enc.cu's kernel calls no {name}")
+    src = src[:k0] + body + (
+        '\nextern "C" int ht_enc_clocks(long long* h) { return (int)'
+        'cudaMemcpyFromSymbol(h, g_clk, sizeof(long long) * 32); }\n')
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(_build.BUILD_DIR, "clocks_ht_enc.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    so = cu[:-3] + ".so"
+    cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+           "-Xcompiler", "-fPIC", "-shared", "-o", so, cu]
+    return so, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+
+
+def finish_clock_build(build):
+    """Wait for `start_clock_build`'s nvcc; the loaded library."""
+    import ctypes
+    so, cmd, proc = build
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc failed on the instrumented ht_enc.cu:\n"
+                             f"{' '.join(cmd)}\n{out}")
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.ht_enc_group.argtypes = [P] * 6 + [I] * 4 + [P]
+    lib.ht_enc_group.restype = I
+    lib.ht_enc_clocks.argtypes = [P]
+    lib.ht_enc_clocks.restype = I
+    return lib
+
+
+def enc_stage_clocks(lib, coeffs, mbs, tables):
+    """Block 0's cycles from the kernel's start to each barrier (load,
+    stage A, stages B+C, the scan and bit packing, the coders, the
+    fuse rule) and to each coder's end, in the instrumented build, after
+    two warm launches: ([6 barrier marks], [MagSgn, VLC, MEL ends])."""
+    import ctypes
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import ht_enc
+    out, off, lens = ht_enc.encode_into(coeffs, mbs, tables)
+    B, H, W = coeffs.shape
+    for _ in range(3):
+        rc = lib.ht_enc_group(
+            coeffs.data_ptr(), mbs.data_ptr(),
+            tables["enc_packed"].data_ptr(), off.data_ptr(), out.data_ptr(),
+            lens.data_ptr(), B, H // 2, W // 2,
+            min(int(mbs.max()) + 2, 32),
+            torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"instrumented launch failed: CUDA error "
+                                 f"{rc}")
+    torch.cuda.synchronize()
+    clk = (ctypes.c_longlong * 32)()
+    if lib.ht_enc_clocks(clk) != 0:
+        raise AssertionError("reading the stage clocks failed")
+    return ([clk[i] - clk[0] for i in range(1, 7)],
+            [clk[20 + i] - clk[0] for i in range(3)])
 
 
 def finish_lane_trials(trials):
@@ -405,6 +511,9 @@ def finish_lane_trials(trials):
         elif source == "ht_dec.cu":
             lib.ht_dec_group.argtypes = [P] * 5 + [I] * 3 + [P] * 6
             lib.ht_dec_group.restype = I
+        elif source == "ht_enc.cu":
+            lib.ht_enc_group.argtypes = [P] * 6 + [I] * 4 + [P]
+            lib.ht_enc_group.restype = I
         else:
             lib.mq_scan.argtypes = [P, I, I] + [P] * 5 + [I] * 3 + [P]
             lib.mq_scan.restype = I
@@ -412,21 +521,27 @@ def finish_lane_trials(trials):
     return libs
 
 
-def trial_label(key) -> str:
-    """A trial build's name: its lanes a block, and "x2" for two threads
-    a lane."""
+def trial_label(key, warps=False) -> str:
+    """A trial build's name: its lanes (code-blocks) a block, and "x2"
+    for two threads a lane; with `warps` (the HT encoder) "w" for its
+    coders in three warps, "t" for them in one."""
     if isinstance(key, tuple):
+        if warps:
+            return f"{key[0]}{'w' if key[1] else 't'}"
         return f"{key[0]}{' x2' if key[1] else ''}"
     return str(key)
 
 
-def in_turns(runs, want, label):
-    """Each trial `runs[n]()` (a launch as the wrapper makes it) equal to
-    `want`, then timed in turns (in the order of `runs`, then back),
-    10 launches a turn. {trial key: mean ms}."""
+def in_turns(runs, want, label, post=None):
+    """Each trial `runs[n]()` (a launch as the wrapper makes it; its
+    outputs through `post` when given) equal to `want`, then timed in
+    turns (in the order of `runs`, then back), 10 launches a turn.
+    {trial key: mean ms}."""
     import torch
     for n, run in runs.items():
         got = run()
+        if post is not None:
+            got = post(got)
         torch.cuda.synchronize()
         if not all(torch.equal(g, w) for g, w in zip(got, want)):
             raise AssertionError(f"the {trial_label(n)} trial of {label} "
@@ -529,53 +644,145 @@ def ht_lane_trial(libs, args, want):
                     "ht_dec_group")
 
 
-def print_trial(name, what, trial):
+def print_trial(name, what, trial, warps=False):
     best = min(trial, key=trial.get)
+    legend = ("code-blocks a CTA, w: the three coders in three warps, t: "
+              "in one warp" if warps else
+              "lanes a block, x2: two threads a lane")
     print(f"kernel {name} trial on {what} (trial builds, in turns, "
-          f"bit-exact; lanes a block, x2: two threads a lane): "
-          + ", ".join(f"{trial_label(n)} {t:.3f} ms"
+          f"bit-exact; {legend}): "
+          + ", ".join(f"{trial_label(n, warps)} {t:.3f} ms"
                       for n, t in trial.items())
-          + f"; fastest {trial_label(best)}")
+          + f"; fastest {trial_label(best, warps)}")
 
 
-def check_scans(enc, plan, chunk, results):
-    """Phase 3, encode side: the three scans on each shape group."""
+def enc_lane_trial(libs, args, want):
+    """The HT encoder built with each trial's code-blocks a CTA and coder
+    placement, launched as `ht_enc.encode_into` launches it on `args` =
+    (coeffs, mbs, tables), against the shipped kernel's packed segments
+    and lengths `want`; the launches alone are timed."""
     import torch
 
-    from grokimagecompression_tpu_torch.ops import ht_scan, ht_torch
-    for gi, (mag, neg, mbs, mbb) in enumerate(enc.group_inputs(chunk)):
-        ops = ht_torch.op_streams(mag, neg, mbs, enc.tables(), mbb)
+    from grokimagecompression_tpu_torch.ops import ht_enc
+    coeffs, mbs, tables = args
+    B, H, W = coeffs.shape
+    out, off, lens = ht_enc.encode_into(*args)
+    m_max = min(int(mbs.max()) + 2, 32)
+
+    def launcher(lib):
+        def run():
+            rc = lib.ht_enc_group(
+                coeffs.data_ptr(), mbs.data_ptr(),
+                tables["enc_packed"].data_ptr(), off.data_ptr(),
+                out.data_ptr(), lens.data_ptr(), B, H // 2, W // 2, m_max,
+                torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise AssertionError(f"trial launch failed: CUDA error {rc}")
+            return out, lens
+        return run
+    return in_turns({n: launcher(lib) for n, lib in libs.items()}, want,
+                    "ht_encode", post=lambda r: (
+                        ht_enc.pack(r[0], off, r[1]), r[1]))
+
+
+def split_segments(data, lens):
+    """Packed segments -> a list of bytes objects, lane after lane."""
+    import numpy as np
+    buf = data.cpu().numpy().tobytes()
+    ends = np.cumsum(lens.cpu().numpy(), dtype=np.int64)
+    return [buf[e - n:e] for e, n in zip(ends, lens.tolist())]
+
+
+def ms_bytes(data, lens):
+    """(B,) int64: each packed HT segment's MagSgn bytes, its length less
+    the scup of its last two bytes."""
+    import torch
+    ends = torch.cumsum(lens.to(torch.int64), 0)
+    last = data[ends - 1].to(torch.int64)
+    scup = (last << 4) | (data[ends - 2].to(torch.int64) & 0xF)
+    return lens.to(torch.int64) - scup
+
+
+def check_encoder(enc, plan, chunk, results, trial_libs, clock_lib):
+    """Phase 3, encode side: the HT encoder on each shape group of one
+    chunk, every lane's segment against the plain version on the card;
+    on the 64x64 group the kernel's call and device time, the lane with
+    the most MagSgn bytes alone, its stage clocks (`enc_stage_clocks`)
+    and the trial (`enc_lane_trial`)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import ht_enc
+    name = ENC[0]
+    for gi, (coeffs, mbs) in enumerate(enc.group_inputs(chunk)):
+        tables = enc.tables()
+        args = (coeffs, mbs, tables)
+        got = ht_enc.encode_segments(*args)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = ht_enc.encode_segments_plain(*args)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
         qh, qw, _ = plan.groups[gi]
-        biggest = gi == len(plan.groups) - 1
-        for name, key, plain_name, _, _ in SCANS:
-            a, b = (ops[k] for k in STREAMS[key])
-            kernel = getattr(ht_scan, name)
-            plain = getattr(ht_scan, plain_name)
-            got = kernel(a, b)
-            want = plain(a, b)
-            torch.cuda.synchronize()
-            err = max(int((w.to(torch.int64) - g.to(torch.int64))
-                          .abs().max()) if w.numel() else 0
-                      for w, g in zip(want, got))
-            for part, w, g in zip(("words", "mask", "state"), want, got):
-                if not torch.equal(w, g):
-                    raise AssertionError(
-                        f"{name} {part} differs from the plain version "
-                        f"(group {qh}x{qw} quads, B={a.shape[1]})")
-            line = (f"kernel {name}: group {qh}x{qw} quads, ops "
-                    f"{tuple(a.shape)} -> words {tuple(got[0].shape)}: "
-                    f"bit-exact with plain")
-            if biggest:
-                ms, plain_ms = time_kernel(kernel, plain, (a, b))
-                events = int((a != 0).sum()) if key == "mel" \
-                    else int((b > 0).sum())
-                b_ms, b_by, b_terms = bound(nbytes(a, b, *got),
-                                            OPS[key] * events)
-                results[name] = dict(ms=ms, plain_ms=plain_ms,
-                                     max_abs_err=err, bound_ms=b_ms,
-                                     bound_by=b_by, shape=tuple(a.shape))
-                line += (f"; {ms:.3f} ms (plain {plain_ms:.1f} ms, bound "
-                         f"{b_ms:.4f} ms by {b_by}: {b_terms})")
+        B = coeffs.shape[0]
+        for part, w, g in zip(("data", "lens"), want, got):
+            if not torch.equal(w, g):
+                raise AssertionError(
+                    f"{name} {part} differ from the plain version (group "
+                    f"{qh}x{qw} quads, B={B})")
+        line = (f"kernel {name}: group {qh}x{qw} quads, B={B}, "
+                f"{got[0].numel()} segment bytes: bit-exact with plain "
+                f"(op streams, plain scans, metrics, placement, host "
+                f"splice: {plain_ms:.1f} ms) on every lane")
+        if gi == len(plan.groups) - 1:
+            for _ in range(3):
+                ht_enc.encode_segments(*args)
+            ms_k = cuda_ms(lambda: ht_enc.encode_segments(*args), 20)
+            dev_k = device_ms(lambda: ht_enc.encode_segments(*args), 10,
+                              "ht_enc_kernel")
+            nsig = int((coeffs != 0).sum())
+            b_ms, b_by, b_terms = bound(
+                nbytes(coeffs, mbs, tables["enc_packed"], *got),
+                OPS["enc_sample"] * coeffs.numel() + OPS["enc_sig"] * nsig
+                + OPS["enc_byte"] * got[0].numel())
+            msb = ms_bytes(*got)
+            k = int(msb.argmax())
+            one = (coeffs[k:k + 1], mbs[k:k + 1], tables)
+            ht_enc.encode_segments(*one)
+            alone = cuda_ms(lambda: ht_enc.encode_segments(*one), 10)
+            alone_dev = device_ms(lambda: ht_enc.encode_segments(*one), 10,
+                                  "ht_enc_kernel")
+            trial = enc_lane_trial(trial_libs, args, got)
+            results[name] = dict(
+                ms=ms_k, device_ms=dev_k, plain_ms=plain_ms, max_abs_err=0,
+                bound_ms=b_ms, bound_by=b_by, alone_ms=alone,
+                shape=tuple(coeffs.shape),
+                trial={f"config 1, {2 * qw}x{2 * qh}, B={B}": trial})
+            line += (f"; {ms_k:.3f} ms, of it {fmt_ms(dev_k)} in the "
+                     f"kernel (profiler) (before the redesign, the three "
+                     f"scans alone: {BEFORE_MS[name]:.3f} ms on "
+                     f"{BEFORE_CARD}; bound {b_ms:.4f} ms by {b_by}: "
+                     f"{b_terms}); the lane with the most MagSgn bytes "
+                     f"({int(msb[k])} of {int(got[1][k])}) alone "
+                     f"{alone:.3f} ms, of it {fmt_ms(alone_dev)} in the "
+                     f"kernel")
+            print(line)
+            print_trial(name, f"the config-1 {2 * qw}x{2 * qh} group, B={B}",
+                        trial, warps=True)
+            for what, a in (("the lane with the most MagSgn bytes alone",
+                             one[:2]), ("block 0 of the whole group",
+                                        args[:2])):
+                marks, ends = enc_stage_clocks(clock_lib, *a, tables)
+                print(f"kernel {name} stage clocks on {what} (an "
+                      f"instrumented build, clock64, cycles from the "
+                      f"kernel's start): load {marks[0]}, stage A "
+                      f"{marks[1]}, stages B+C {marks[2]}, scan and bit "
+                      f"packing {marks[3]}, coders {marks[4]} (MagSgn, VLC, "
+                      f"MEL end at {ends[0]}, {ends[1]}, {ends[2]}), fuse "
+                      f"rule {marks[5]}")
+        else:
             print(line)
 
 
@@ -672,47 +879,61 @@ def check_decoder(streams, dev, results, trial_libs):
     results[name]["trial"] = trials
 
 
-def c2_ht_trial(enc, chunk, results, trial_libs):
-    """Phase 3, the HT decoder's threads trial on the lane group of a
-    config-2 HT 9/7 decode: the quantized 9/7 code-blocks of a config-2
-    chunk (2 frames, 6144 64x64 lanes) HT-coded by the port's HT encode
-    stages, each lane's Mb its own magnitudes' bit length (the cleanup
-    segments a config-2 HT 9/7 stream carries; HT rate control is not
-    ported). The trial builds are held to the shipped kernel, and the
-    shipped kernel to the plain version on 256 of the lanes."""
+def c2_ht_trial(enc, chunk, results, trial_libs, enc_libs):
+    """Phase 3 on the lane group of a config-2 HT 9/7 decode: the
+    quantized 9/7 code-blocks of a config-2 chunk (2 frames, 6144 64x64
+    lanes) HT-coded by the port's HT encoder, each lane's Mb its own
+    magnitudes' bit length (the cleanup segments a config-2 HT 9/7 stream
+    carries; HT rate control is not ported). The encoder is held to its
+    plain version on 256 of the lanes and its trial builds to the shipped
+    kernel; then the HT decoder's threads trial on the segments, the
+    decoder held to its plain version on 256 lanes."""
     import numpy as np
     import torch
 
     from grokimagecompression_tpu_torch.native import ht_prepass
-    from grokimagecompression_tpu_torch.ops import ht_dec, ht_tables, ht_torch
+    from grokimagecompression_tpu_torch.ops import ht_dec, ht_enc, ht_tables
     dev = chunk[0].device
     ((mag, neg, _),) = list(enc.group_inputs(*chunk))
     h, w = mag.shape[1:]
     mag = mag.to(torch.int64)
     top = mag.amax(dim=(1, 2))
-    mbs = sum((top >> b) > 0 for b in range(32)).clamp(min=1)
-    streams = ht_torch.encode_streams(mag, neg, mbs, ht_tables.device_tables(
-        dev), int(mbs.max()))
-    metrics = ht_torch.group_metrics(mag.shape[0], *streams)
-    words = ht_torch.place_words([streams])
-    segs = [bytes(s) for s in ht_tables.assemble_segments_host(
-        words.cpu().numpy(), metrics.cpu().numpy())]
-    del mag, neg, streams, words
+    mbs = sum((top >> b) > 0 for b in range(32)).clamp(min=1).to(torch.int32)
+    coeffs = torch.where(neg, -mag, mag).to(torch.int32)
+    del mag, neg
+    tables = ht_tables.device_tables(dev)
+    got_enc = ht_enc.encode_segments(coeffs, mbs, tables)
+    B = coeffs.shape[0]
+    pick = np.linspace(0, B - 1, 256).round().astype(int)
+    idx = torch.as_tensor(pick, device=dev)
+    want_enc = ht_enc.encode_segments_plain(coeffs[idx].contiguous(),
+                                            mbs[idx].contiguous(), tables)
+    segs = split_segments(*got_enc)
+    if [segs[i] for i in pick] != split_segments(*want_enc):
+        raise AssertionError(f"{ENC[0]} differs from the plain version on "
+                             f"the config-2 HT lanes")
+    enc_trial = enc_lane_trial(enc_libs, (coeffs, mbs, tables), got_enc)
+    results[ENC[0]]["trial"][f"config 2 HT 9/7, {w}x{h}, B={B}"] = \
+        enc_trial
+    print(f"kernel {ENC[0]}: config-2 HT 9/7 group of {chunk[0].shape[0]} "
+          f"frames, {w}x{h} blocks, B={B}, Mb up to {int(mbs.max())}, "
+          f"{got_enc[0].numel()} segment bytes: bit-exact with plain on 256 "
+          f"lanes spread over the group")
+    print_trial(ENC[0], f"the config-2 HT 9/7 group, B={B}", enc_trial,
+                warps=True)
+    del coeffs, got_enc
     scups = [(s[-1] << 4) + (s[-2] & 0xF) for s in segs]
     tables = ht_tables.device_dec_tables(dev)
     data, off, lcup, scup = (torch.from_numpy(a).to(dev) for a in
                              ht_dec.pack_segments(segs, scups))
-    B = len(segs)
     args = (data, off, lcup, scup, w, h, tables)
     got = ht_dec.decode_segments(*args)
-    pick = np.linspace(0, B - 1, 256).round().astype(int)
     sub = [segs[i] for i in pick]
     sub_words = [torch.from_numpy(a.view(np.int32)).to(dev)
                  for a in ht_prepass.prepass_group(
                      sub, [len(x) for x in sub], [scups[i] for i in pick])]
     want = ht_dec.decode_group_plain(*sub_words, w, h, tables["dec0"],
                                      tables["dec1"])
-    idx = torch.as_tensor(pick, device=dev)
     for part, wv, g in zip(("mags", "signs"), want, got):
         if not torch.equal(wv, g[idx]):
             raise AssertionError(f"{DEC[0]} {part} differ from the plain "
@@ -727,11 +948,13 @@ def c2_ht_trial(enc, chunk, results, trial_libs):
 
 
 def encode_stages(enc, chunk):
-    """Device time of one 32-frame encode chunk by stage (host clock,
-    synchronised)."""
+    """Time of one 32-frame encode chunk by stage (host clock,
+    synchronised), as `FusedHTEncoder.forward` and
+    `encode_tile_collect` run it."""
     import torch
 
-    from grokimagecompression_tpu_torch.ops import ht_scan, ht_torch
+    from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.ops import ht_enc
     stages = {}
     tt = time.perf_counter
     torch.cuda.synchronize()
@@ -740,22 +963,16 @@ def encode_stages(enc, chunk):
     torch.cuda.synchronize()
     stages["transform+gather"] = tt() - t
     t = tt()
-    ops = [ht_torch.op_streams(m, n, s, enc.tables(), mb)
-           for (m, n, s, mb) in gin]
+    outs = [ht_enc.encode_into(co, mbs, enc.tables()) for co, mbs in gin]
     torch.cuda.synchronize()
-    stages["op streams"] = tt() - t
+    stages["HT encode kernel"] = tt() - t
     t = tt()
-    groups = [(ht_scan.mel_scan(o["mel_valid"], o["mel_bit"]),
-               ht_scan.vlc_scan(o["vlc_vals"], o["vlc_lens"]),
-               ht_scan.ms_scan(o["ms_vals"], o["ms_lens"])) for o in ops]
-    torch.cuda.synchronize()
-    stages["scans"] = tt() - t
+    lens = torch.cat([o[2] for o in outs]).cpu().numpy()
+    data = torch.cat([ht_enc.pack(*o) for o in outs]).cpu().numpy()
+    stages["pack+fetch"] = tt() - t
     t = tt()
-    torch.cat([ht_torch.group_metrics(g[0][2].shape[1], *g)
-               for g in groups]).cpu()
-    ht_torch.place_words(groups).cpu()
-    torch.cuda.synchronize()
-    stages["metrics+placement+fetch"] = tt() - t
+    fused_encode.assemble_collected_ht(enc.plan, chunk.shape[0], lens, data)
+    stages["host slice"] = tt() - t
     return stages
 
 
@@ -1451,8 +1668,9 @@ def main() -> int:
     from grokimagecompression_tpu_torch.models import fused_encode
     from grokimagecompression_tpu_torch.native import ht_prepass
     from grokimagecompression_tpu_torch.ops import (_build, dwt, ht_dec,
-                                                    ht_scan, ht_tables,
-                                                    mq_dec, mq_scan)
+                                                    ht_enc, ht_tables,
+                                                    ht_torch, mq_dec,
+                                                    mq_scan)
 
     # 1. the card
     smi = subprocess.run(
@@ -1469,9 +1687,11 @@ def main() -> int:
     # 2. builds (the MQ decoder's lanes-per-block trials alongside)
     t0 = time.perf_counter()
     trials = start_lane_trials()
+    clock_build = start_clock_build()
     so, log = _build.build()
     _build.load()
     trial_libs = finish_lane_trials(trials)
+    clock_lib = finish_clock_build(clock_build)
     print(f"built {os.path.relpath(so)} from {', '.join(_build.SOURCES)} "
           f"with nvcc {' '.join(_build.ARCH_FLAGS)}, and the lanes-per-"
           f"block trials {LANE_TRIALS}, in {time.perf_counter() - t0:.1f} s")
@@ -1524,7 +1744,8 @@ def main() -> int:
     # 3. kernels against their plain versions, at one chunk's shapes
     results = {}
     launches = {}
-    check_scans(enc, plan, chunk, results)
+    check_encoder(enc, plan, chunk, results, trial_libs["ht_enc.cu"],
+                  clock_lib)
     first = encoder.encode_batch(imgs[:CHUNK], params, device="cuda",
                                  chunk=CHUNK)
     check_decoder(first, dev, results, trial_libs["ht_dec.cu"])
@@ -1540,7 +1761,7 @@ def main() -> int:
     c2_scan_trial(c2_enc, c2_chunk(0, C2_CHUNK), results,
                   trial_libs["mq_scan.cu"])
     c2_ht_trial(c2_enc, c2_chunk(0, C2_CHUNK), results,
-                trial_libs["ht_dec.cu"])
+                trial_libs["ht_dec.cu"], trial_libs["ht_enc.cu"])
 
     # 4. the encode slice, through the user entry point
     with open(os.path.join(root, DIGESTS)) as f:
@@ -1552,22 +1773,32 @@ def main() -> int:
         raise AssertionError(f"config-1 frames {bad[:8]} differ from the "
                              f"digest file: numpy makes other frames here")
     mpix = FRAMES * SIZE * SIZE / 1e6
-    for k in ht_scan.LAUNCHES:
-        ht_scan.LAUNCHES[k] = 0
+    ht_enc.LAUNCHES["enc"] = 0
     dwt.LAUNCHES["dwt"] = 0
-    counters = [Calls(ht_scan, name, lambda a, *_, s=results[name]["shape"]:
-                      tuple(a.shape) == s) for name, *_ in SCANS]
-    with counters[0], counters[1], counters[2]:
+    per_group = [Calls(ht_enc, "encode_segments",
+                       lambda a, *_, s=(2 * qh, 2 * qw): tuple(a.shape[1:])
+                       == s) for (qh, qw, _) in plan.groups]
+    plain_calls = [Calls(ht_torch, "op_streams", lambda *a: True),
+                   Calls(ht_tables, "assemble_segments_host",
+                         lambda *a: True)]
+    with contextlib.ExitStack() as counting:
+        for c in per_group + plain_calls:
+            counting.enter_context(c)
         out = encoder.encode_batch(imgs, params, device="cuda", chunk=CHUNK)
         torch.cuda.synchronize()
-    calls = {key: c.n for (_, key, *_), c in zip(SCANS, counters)}
-    launches.update(ht_scan.LAUNCHES)
-    print(f"encode slice launches: {dict(ht_scan.LAUNCHES)}, "
-          f"{dict(dwt.LAUNCHES)}")
-    for name, key, _, _, _ in SCANS:
-        if launches[key] < 1 or not 1 <= calls[key] <= launches[key]:
-            raise AssertionError(f"{name} was not launched by the slice "
-                                 f"on its timed group")
+    calls = {ENC[1]: per_group[-1].n}
+    launches["enc"] = ht_enc.LAUNCHES["enc"]
+    print(f"encode slice launches: {dict(ht_enc.LAUNCHES)} (calls by "
+          f"group: {[c.n for c in per_group]}), {dict(dwt.LAUNCHES)}; "
+          f"op stream builds: {plain_calls[0].n}, host splices: "
+          f"{plain_calls[1].n}")
+    if any(c.n for c in plain_calls):
+        raise AssertionError("the CUDA encode route built op streams or "
+                             "spliced segments on the host")
+    if any(c.n < 1 for c in per_group) or \
+            launches["enc"] != sum(c.n for c in per_group):
+        raise AssertionError("ht_encode was not launched by the slice on "
+                             "every shape group")
     if dwt.LAUNCHES["dwt"] < 1:
         raise AssertionError("the DWT kernel was not launched by the slice")
     if len(out) != FRAMES:
@@ -1870,8 +2101,8 @@ def main() -> int:
              ms=results[name]["ms"], plain_ms=results[name]["plain_ms"],
              bound_ms=results[name]["bound_ms"],
              bound_by=results[name]["bound_by"], library_ms=None)
-        for name, key, _, replaces, source in SCANS + (DEC, MQ, MQ_DEC,
-                                                       DWT, MQ_DENSE)]}))
+        for name, key, _, replaces, source in (ENC, DEC, MQ, MQ_DEC, DWT,
+                                               MQ_DENSE)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

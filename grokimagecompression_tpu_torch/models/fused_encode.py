@@ -3,9 +3,10 @@
 Port of `grokimagecompression_tpu/models/fused_encode.py`. For a batch
 of same-geometry frames it runs DC shift -> MCT -> DWT (`ops/dwt.py`)
 -> code-block gather on the device, then
-- HT (`FusedHTEncoder`, reversible 5/3): HT op streams -> the MEL / VLC
-  / MagSgn scans -> exact word placement; the host splices the final
-  segment bytes (`ht_tables.assemble_segments_host`);
+- HT (`FusedHTEncoder`, reversible 5/3): the HT cleanup encoder
+  (`ops/ht_enc.encode_segments`), which returns each shape group's
+  finished segments packed lane after lane; the host only slices them
+  (`assemble_collected_ht`);
 - MQ (`FusedMQEncoder`, Part-1 default code-block style, 5/3 or 9/7):
   the 9/7 bands' deadzone quantization in float64 (the host encoder's
   rule, so the streams are the host's byte for byte) -> bit-plane count
@@ -24,7 +25,7 @@ group, then block order within the (group, frame), as in the reference;
 
 Not ported: the HT coder on 9/7 bands, and the reference's
 word-compaction caps, overflow flags, host re-encode and size-hinted
-fetch, which the exact placement makes unnecessary.
+fetch, which segments written in place on the device make unnecessary.
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ from torch import nn
 from ..codestream.tile import build_comp_plan
 from ..core.geometry import Rect
 from ..core.params import Transform
-from ..ops import ht_tables, ht_torch, mq_scan, mq_torch, quant
+from ..ops import ht_enc, mq_scan, mq_torch, quant
 from . import pipeline
 
 
@@ -199,8 +200,10 @@ class FusedHTEncoder(nn.Module):
     """The fused HT encode for one plan. Buffers: the tables of
     `ht_tables.device_tables`. `forward(*frames)` takes one integer
     (N, h_c, w_c) tensor per component, on the module's device, and
-    returns (metrics (B_total, 16) int32, packed words (W,) int32) with
-    B_total = N * plan.nblocks."""
+    returns (lens (B_total,) int32, data (sum(lens),) uint8): each block's
+    HT cleanup segment, packed block after block, with B_total = N *
+    plan.nblocks. On the card each shape group is one launch of the HT
+    encoder kernel; on the CPU its plain version."""
 
     def __init__(self, plan: FusedPlan, tables: Dict[str, torch.Tensor]):
         super().__init__()
@@ -219,8 +222,9 @@ class FusedHTEncoder(nn.Module):
         return {k: getattr(self, k) for k in self._table_keys}
 
     def group_inputs(self, *frames):
-        """Yield (mag, neg, mbs, mbb) per shape group: the gathered,
-        padded (N * nb, 2qh, 2qw) code-blocks of the frames, frame-major."""
+        """Yield (coeffs, mbs) per shape group: the gathered, padded
+        (N * nb, 2qh, 2qw) int32 code-blocks of the frames, frame-major,
+        and their (N * nb,) int32 Mb."""
         nframes = frames[0].shape[0]
         bands_list = pipeline._fwd_transform(self.plan.cfg, frames)
         for (qh, qw, blocks), kmaxs in zip(self.plan.groups, self._kmaxs):
@@ -233,20 +237,18 @@ class FusedHTEncoder(nn.Module):
                         blk, (0, 2 * qw - b.w, 0, 2 * qh - b.h))
                 mats.append(blk)
             v = torch.stack(mats, dim=1).reshape(-1, 2 * qh, 2 * qw)
-            mbs = torch.as_tensor(np.tile(kmaxs, nframes), device=v.device)
-            yield v.abs().to(torch.int64), v < 0, mbs, int(kmaxs.max())
+            mbs = torch.as_tensor(np.tile(kmaxs, nframes).astype(np.int32),
+                                  device=v.device)
+            yield v.to(torch.int32).contiguous(), mbs
 
     def forward(self, *frames):
         tables = self.tables()
-        metrics = []
-        streams = []
-        for mag, neg, mbs, mbb in self.group_inputs(*frames):
-            mel, vlc, ms = ht_torch.encode_streams(mag, neg, mbs, tables,
-                                                   mbb)
-            metrics.append(ht_torch.group_metrics(mag.shape[0], mel, vlc,
-                                                  ms))
-            streams.append((mel, vlc, ms))
-        return torch.cat(metrics), ht_torch.place_words(streams)
+        lens, data = [], []
+        for coeffs, mbs in self.group_inputs(*frames):
+            d, n = ht_enc.encode_segments(coeffs, mbs, tables)
+            data.append(d)
+            lens.append(n)
+        return torch.cat(lens), torch.cat(data)
 
 
 class FusedMQEncoder(nn.Module):
@@ -355,16 +357,19 @@ def encode_tile_collect(handle) -> List[List]:
     return assemble_collected_ht(plan, nframes, *outs)
 
 
-def assemble_collected_ht(plan: FusedPlan, nframes: int, metrics_np,
-                          words_np) -> List[List[bytes]]:
-    """Host splice of a fetched HT result into per-frame segment lists."""
-    segs = ht_tables.assemble_segments_host(words_np, metrics_np)
+def assemble_collected_ht(plan: FusedPlan, nframes: int, lens_np,
+                          data_np) -> List[List[bytes]]:
+    """Per-frame segment lists from a fetched HT result: each block's
+    finished segment sliced out of the packed bytes."""
+    ends = np.cumsum(lens_np, dtype=np.int64).tolist()
+    buf = data_np.tobytes()
     res = [[b""] * plan.nblocks for _ in range(nframes)]
     pos = 0
     for gidx, (_, _, blocks) in enumerate(plan.groups):
         for f in range(nframes):
             for j in range(len(blocks)):
-                res[f][plan.order[gidx][j]] = segs[pos]
+                res[f][plan.order[gidx][j]] = \
+                    buf[ends[pos] - int(lens_np[pos]):ends[pos]]
                 pos += 1
     return res
 

@@ -32,7 +32,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-SOURCES = ("ht_scan.cu", "ht_dec.cu", "mq_scan.cu", "mq_dec.cu", "dwt.cu")
+SOURCES = ("ht_enc.cu", "ht_dec.cu", "mq_scan.cu", "mq_dec.cu", "dwt.cu")
 HEADERS = ("mq_tables.cuh",)
 # flags of single sources: the DWT's float32 lifting must not be
 # contracted into FMAs (bit-exactness with dwt_np)
@@ -163,12 +163,14 @@ def load() -> ctypes.CDLL:
     point's argtypes/restype declared."""
     path, _ = build()
     lib = ctypes.CDLL(path)
-    for fn in (lib.ht_mel_scan, lib.ht_vlc_scan, lib.ht_ms_scan):
-        # (ops, ops, steps, lanes, words, mask, state, stream)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    # (coeffs, mbs, tbl, off, out, lens, lanes, qh, qw, m_max, stream)
+    lib.ht_enc_group.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    lib.ht_enc_group.restype = ctypes.c_int
+    # (src, off, lens, ends, dst, lanes, stream)
+    lib.ht_enc_pack.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int,
+                                                        ctypes.c_void_p]
+    lib.ht_enc_pack.restype = ctypes.c_int
     # (data, off, lcup, scup, order, lanes, w, h, dec0, dec1, mags, signs,
     #  stalled, stream)
     lib.ht_dec_group.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 \

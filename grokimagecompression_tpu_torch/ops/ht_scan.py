@@ -1,10 +1,9 @@
-"""HT stream coders (MEL / VLC / MagSgn): CUDA kernels and plain torch.
+"""HT stream coders (MEL / VLC / MagSgn): the plain torch versions.
 
 Port of `grokimagecompression_tpu/ops/ht_scan_pallas.py`. One code-block
 is one lane; each lane walks its own (T,) op stream with a bit-serial
 coder state and emits 32-bit little-endian words (at most one per step),
-a valid mask, and its final state. Contract of each scan, shared by the
-kernel and the plain version:
+a valid mask, and its final state. Contract of each scan:
 
 - `mel_scan(valid, bit)`: (T, B) int32 with T % 4 == 0, four events per
   step -> words (T/4, B) int32, mask (T/4, B) bool, state (7, B) int32
@@ -14,11 +13,13 @@ kernel and the plain version:
 - `ms_scan(vals, lens)`: (T, B) int32 appends of <= 16 bits -> words
   (T, B), mask, state (5, B) (q, qbits, maxb, wacc, wcnt).
 
-The wrappers dispatch on the tensor's device: a CUDA tensor launches the
-kernel of `csrc/ht_scan.cu` (and counts the launch in `LAUNCHES`) or
-raises; a CPU tensor takes the plain torch version, a Python loop over
-the step bodies below, which run in int64 so the uint32 word accumulator
-never overflows.
+These scans are part of the plain version of the HT encoder
+(`ops/ht_enc.encode_segments_plain`). On the card the encoder is one
+kernel, `csrc/ht_enc.cu`, which builds the streams and codes them in
+shared memory, so no op stream reaches a scan there: a scan wrapper
+given a CUDA tensor raises. On a CPU tensor it runs the plain version,
+a Python loop over the step bodies below, which run in int64 so the
+uint32 word accumulator never overflows.
 """
 
 from __future__ import annotations
@@ -27,10 +28,7 @@ from typing import Tuple
 
 import torch
 
-from . import _build
 from .ht_tables import MEL_EXP
-
-LAUNCHES = {"mel": 0, "vlc": 0, "ms": 0}
 
 MEL_INIT = (0, 0, 8, 0, 0, 0, 0)
 VLC_INIT = (0xF, 4, 1, 0, 0)
@@ -158,7 +156,7 @@ def _to_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Plain versions (used for CPU tensors, and as the reference on the card)
+# Plain versions (the scans of the HT encoder's plain version)
 # ---------------------------------------------------------------------------
 
 
@@ -213,53 +211,29 @@ def _check(a: torch.Tensor, b: torch.Tensor, t_multiple: int = 1) -> None:
         raise TypeError(f"expected int32, got {a.dtype} and {b.dtype}")
     if a.device != b.device:
         raise ValueError(f"inputs on {a.device} and {b.device}")
-    if a.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {a.device}")
+    if a.device.type != "cpu":
+        raise ValueError(f"the scans run on CPU tensors only, got "
+                         f"{a.device}: on the card the HT encoder is "
+                         f"ops/ht_enc.encode_segments")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("inputs must be contiguous")
     if a.shape[0] % t_multiple:
         raise ValueError(f"T={a.shape[0]} is not a multiple of {t_multiple}")
 
 
-def _launch(key: str, a: torch.Tensor, b: torch.Tensor, steps: int,
-            nstate: int) -> ScanOut:
-    B = a.shape[1]
-    dev = a.device
-    words = torch.empty((steps, B), dtype=torch.int32, device=dev)
-    mask = torch.empty((steps, B), dtype=torch.bool, device=dev)
-    state = torch.empty((nstate, B), dtype=torch.int32, device=dev)
-    if B == 0:
-        return words, mask, state
-    fn = getattr(_build.load(), f"ht_{key}_scan")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(a.data_ptr(), b.data_ptr(), steps, B, words.data_ptr(),
-                mask.data_ptr(), state.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"ht_{key}_scan launch failed: CUDA error {rc}")
-    LAUNCHES[key] += 1
-    return words, mask, state
-
-
 def mel_scan(valid: torch.Tensor, bit: torch.Tensor) -> ScanOut:
     """MEL coder, four events per step (see module docstring)."""
     _check(valid, bit, 4)
-    if valid.device.type == "cpu":
-        return mel_scan_plain(valid, bit)
-    return _launch("mel", valid, bit, valid.shape[0] // 4, 7)
+    return mel_scan_plain(valid, bit)
 
 
 def vlc_scan(vals: torch.Tensor, lens: torch.Tensor) -> ScanOut:
     """VLC bit packer with the 0x8F/0x7F stuffing rule."""
     _check(vals, lens)
-    if vals.device.type == "cpu":
-        return vlc_scan_plain(vals, lens)
-    return _launch("vlc", vals, lens, vals.shape[0], 5)
+    return vlc_scan_plain(vals, lens)
 
 
 def ms_scan(vals: torch.Tensor, lens: torch.Tensor) -> ScanOut:
     """MagSgn bit packer with 0xFF stuffing."""
     _check(vals, lens)
-    if vals.device.type == "cpu":
-        return ms_scan_plain(vals, lens)
-    return _launch("ms", vals, lens, vals.shape[0], 5)
+    return ms_scan_plain(vals, lens)

@@ -2,7 +2,7 @@
 
 Copies of the table and host parts of `grokimagecompression_tpu/ops/
 ht_jax.py` (`_load_vlc_sources`, the CxtVLC encode and UVLC tables,
-`MEL_EXP`, `assemble_segments_host`, `seg_byte_lengths`) and of
+`MEL_EXP`, `assemble_segments_host`) and of
 `ops/ht_dec_jax.py` (the CxtVLC decode LUTs, `_dec_tables`). The CxtVLC
 septuples are read from the port's copy of the normative table source,
 `csrc/host/ht_tables.inc`.
@@ -148,12 +148,27 @@ def _dec_tables() -> Tuple[np.ndarray, np.ndarray]:
 # ---------------------------------------------------------------------------
 
 
+def enc_packed(tables) -> np.ndarray:
+    """Encode tables in `_tables()` order -> the (2081,) int32 table the
+    CUDA encoder (`csrc/ht_enc.cu`) reads: enc0 | enc1 << 16 at each of
+    the 2048 CxtVLC indices, then the UVLC table for u = 0..32, prefix |
+    prefix length << 8 | suffix << 16 | suffix length << 24."""
+    enc0, enc1, upre, upre_len, usuf, usuf_len = (
+        np.asarray(a).astype(np.int64) for a in tables)
+    uvlc = upre | (upre_len << 8) | (usuf << 16) | (usuf_len << 24)
+    return np.concatenate([enc0 | (enc1 << 16), uvlc]).astype(
+        np.uint32).view(np.int32)
+
+
 def tables_on(tables, device: torch.device) -> Dict[str, torch.Tensor]:
     """Encode tables in `_tables()` order -> int64 tensors on `device`,
-    keyed as `ops/ht_torch` reads them, plus the 4-bit popcount table."""
+    keyed as `ops/ht_torch` reads them, plus the 4-bit popcount table and
+    the CUDA encoder's packed int32 table (`enc_packed`)."""
     arrays = tuple(tables) + (np.asarray(POPCOUNT4),)
-    return {k: torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
-            for k, a in zip(TABLE_KEYS, arrays, strict=True)}
+    out = {k: torch.as_tensor(np.asarray(a).astype(np.int64), device=device)
+           for k, a in zip(TABLE_KEYS, arrays, strict=True)}
+    out["enc_packed"] = torch.as_tensor(enc_packed(tables), device=device)
+    return out
 
 
 def dec_tables_on(dec_tables, device: torch.device
@@ -235,13 +250,3 @@ def assemble_segments_host(words_np: np.ndarray,
         seg[-2] = (seg[-2] & 0xF0) | (scup & 0xF)
         out.append(bytes(seg))
     return out
-
-
-def seg_byte_lengths(metrics_np: np.ndarray) -> np.ndarray:
-    """Final segment byte length per block (for rate accounting without
-    assembling)."""
-    m = metrics_np.astype(np.int64)
-    ms_len_f = m[:, 0] + m[:, 4] - m[:, 5]
-    mel_len_f = m[:, 1] + m[:, 6] + m[:, 9]
-    vlc_n_f = 1 + m[:, 2] + (m[:, 9] & ~m[:, 10] & 1)
-    return ms_len_f + mel_len_f + vlc_n_f

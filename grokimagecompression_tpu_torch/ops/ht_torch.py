@@ -1,4 +1,4 @@
-"""HTJ2K cleanup-pass encoder: the device stages, in torch.
+"""HTJ2K cleanup-pass encoder stages in torch: the plain version.
 
 Port of the device half of `grokimagecompression_tpu/ops/ht_jax.py`.
 Everything up to the three stream coders is elementwise work over the
@@ -6,8 +6,10 @@ Everything up to the three stream coders is elementwise work over the
 exponents, VLC contexts, kappa / u_q, CxtVLC + UVLC codewords and MagSgn
 bit counts. The sequential part is the three stream scans
 (`ops/ht_scan.py`), after which `group_metrics` derives the per-block
-termination metrics that `ht_jax.assemble_segments_host` turns into the
-final segment bytes.
+termination metrics that `ht_tables.assemble_segments_host` turns into
+the final segment bytes. Together they are the plain version of the HT
+encoder, `ht_enc.encode_segments_plain`; on the card the encoder is the
+kernel of `csrc/ht_enc.cu`, which runs none of this.
 
 Values the reference keeps in uint32 (and lets wrap) are int64 here,
 masked with 0xFFFFFFFF where the wrap matters; torch has neither a
@@ -266,12 +268,13 @@ def op_streams(mag, neg, mbs, tables, mbb: int) -> Dict[str, torch.Tensor]:
 
 
 def encode_streams(mag, neg, mbs, tables, mbb: int = 32):
-    """One shape group through the three stream scans. Returns (mel, vlc,
-    ms), each (words, mask, state) as `ops/ht_scan.py` describes."""
+    """One shape group through the three plain stream scans, on the
+    device of `mag`. Returns (mel, vlc, ms), each (words, mask, state) as
+    `ops/ht_scan.py` describes."""
     ops = op_streams(mag, neg, mbs, tables, mbb)
-    mel = ht_scan.mel_scan(ops["mel_valid"], ops["mel_bit"])
-    vlc = ht_scan.vlc_scan(ops["vlc_vals"], ops["vlc_lens"])
-    ms = ht_scan.ms_scan(ops["ms_vals"], ops["ms_lens"])
+    mel = ht_scan.mel_scan_plain(ops["mel_valid"], ops["mel_bit"])
+    vlc = ht_scan.vlc_scan_plain(ops["vlc_vals"], ops["vlc_lens"])
+    ms = ht_scan.ms_scan_plain(ops["ms_vals"], ops["ms_lens"])
     return mel, vlc, ms
 
 

@@ -28,7 +28,7 @@ from grokimagecompression_tpu_torch import convert
 from grokimagecompression_tpu_torch.models import fused_decode
 from grokimagecompression_tpu_torch.native import ht_prepass
 from grokimagecompression_tpu_torch.ops import (ht_dec, ht_dec_torch,
-                                                ht_tables, ht_torch)
+                                                ht_enc, ht_tables)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -65,24 +65,22 @@ def _segments(cases):
 
 
 def _port_segments(cases, device):
-    """Segments of the port's HT encode stages on `device` (one shape
-    group), as `models/fused_encode.py` codes them."""
+    """Segments of the port's HT encoder on `device` (one shape group), as
+    `models/fused_encode.py` codes them (`ht_enc.encode_segments`: the
+    kernel on the card, its plain version on the CPU)."""
     h, w = cases[0][0].shape
     qh, qw = (h + 1) // 2, (w + 1) // 2
-    mag = np.zeros((len(cases), 2 * qh, 2 * qw), np.int64)
-    neg = np.zeros(mag.shape, bool)
+    co = np.zeros((len(cases), 2 * qh, 2 * qw), np.int64)
     for i, (m, n, _) in enumerate(cases):
-        mag[i, :h, :w] = m
-        neg[i, :h, :w] = n
-    mbs = torch.as_tensor([c[2] for c in cases], device=device)
+        co[i, :h, :w] = np.where(n == 1, -m.astype(np.int64), m)
+    mbs = torch.as_tensor([c[2] for c in cases], dtype=torch.int32,
+                          device=device)
     tables = convert.tables_from_reference(ht_tables._tables(), device)
-    streams = ht_torch.encode_streams(
-        torch.from_numpy(mag).to(device), torch.from_numpy(neg).to(device),
-        mbs, tables, int(mbs.max()))
-    metrics = ht_torch.group_metrics(len(cases), *streams)
-    words = ht_torch.place_words([streams])
-    return _lengths(ht_tables.assemble_segments_host(
-        words.cpu().numpy(), metrics.cpu().numpy()))
+    data, lens = ht_enc.encode_segments(
+        torch.from_numpy(co.astype(np.int32)).to(device), mbs, tables)
+    ends = np.cumsum(lens.cpu().numpy(), dtype=np.int64)
+    buf = data.cpu().numpy().tobytes()
+    return _lengths([buf[e - n:e] for e, n in zip(ends, lens.tolist())])
 
 
 def _words(segs, lcups, scups):
