@@ -57,9 +57,14 @@ Phases, each fatal on failure:
      the MQ coder's pass-end byte-outs on 64 lanes of the config-2 group
      (cut to the planes whose coding the plain version does in ~30 s),
      and the dense MQ scan (flat and blocked) on 128 lanes of the config-1
-     64x64 group cut to its leading planes; then `run_mq_scans` on the
-     whole group (188,416 x 2016 slots), every lane's words and partial
-     word equal to the compact kernel's segment before its flush tail;
+     64x64 group cut to its leading planes, with 256 no-op rows past the
+     stream; then `run_mq_scans` on the whole group (188,416 x 2016
+     slots), every lane's words and partial word equal to the compact
+     kernel's segment before its flush tail, its call and device time,
+     the lane with the most coding slots alone, block 0's stage clocks (an
+     instrumented build) and the trial of its lanes a warp x warps a
+     block, also on the config-2 2-frame group (whose words are held to
+     the compact kernel's segments too);
   4. the encode slice: the 64 frames and the 64 streams of
      encode_batch(device="cuda") against the SHA-256 digests of
      grokimagecompression_tpu_torch/data/config1_ht_lossless.json (the
@@ -146,7 +151,7 @@ DWT = ("dwt", "dwt", "dwt_torch",
        "grokimagecompression_tpu_torch/csrc/dwt.cu")
 MQ_DENSE = ("mq_scan_dense", "mq_dense", "mq_scan_dense_plain",
             "grokimagecompression_tpu/ops/mq_scan_pallas.py:203",
-            "grokimagecompression_tpu_torch/csrc/mq_scan.cu")
+            "grokimagecompression_tpu_torch/csrc/mq_dense.cu")
 # BASELINE config 2: 2048x2048 8-bit RGB, ICT + 9/7, three layers at
 # compression ratios 24 / 48 / 96 (the reference's bench_chip_pcrd2k)
 C2_FRAMES = 4
@@ -166,14 +171,20 @@ PLAIN_DENSE_DECISIONS = 8000
 PLAIN_MQ_DEC_S = 90
 # lanes a block tried for the MQ decoder, the MQ coder and the HT decoder
 # (each source's kLanes; the coder's staged rows hold at most 8 lanes),
-# and code-blocks a CTA for the HT encoder (its kBlocks); the HT decoder
-# also with two threads a lane (its kSplit), the HT encoder with its three
-# coders in three warps or in one (its kWarpCoders)
+# lanes a warp for the dense MQ scan (its kLanes), and code-blocks a CTA
+# for the HT encoder (its kBlocks); the HT decoder also with two threads a
+# lane (its kSplit), the HT encoder with its three coders in three warps
+# or in one (its kWarpCoders), the dense scan with 1, 4 or 8 warps a block
+# (its kWarps). A bool trial constant is a `constexpr bool` line, an int
+# one a `constexpr int` line.
 LANE_TRIALS = {"mq_dec.cu": (16, 8, 4, 2, 1), "mq_scan.cu": (8, 4, 2, 1),
-               "ht_dec.cu": (32, 16, 8), "ht_enc.cu": (1, 2, 4)}
-SPLIT_TRIALS = {"ht_dec.cu": (False, True), "ht_enc.cu": (True, False)}
+               "mq_dense.cu": (1, 2, 4, 8), "ht_dec.cu": (32, 16, 8),
+               "ht_enc.cu": (1, 2, 4)}
+SPLIT_TRIALS = {"ht_dec.cu": (False, True), "ht_enc.cu": (True, False),
+                "mq_dense.cu": (1, 4, 8)}
 LANE_NAMES = {"ht_enc.cu": "kBlocks"}
-SPLIT_NAMES = {"ht_dec.cu": "kSplit", "ht_enc.cu": "kWarpCoders"}
+SPLIT_NAMES = {"ht_dec.cu": "kSplit", "ht_enc.cu": "kWarpCoders",
+               "mq_dense.cu": "kWarps"}
 # times before a kernel's redesign (this script's run of the earlier
 # design, on an NVIDIA H100 80GB HBM3 at 700.00 W), printed beside the
 # new ones: the MQ kernels' one-thread-a-lane designs, the HT decoder on
@@ -294,27 +305,39 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
-def device_ms(fn, iters, kernel):
+def device_ms(fn, iters, kernel, launched):
     """Mean device milliseconds a call of fn() spends in the kernels whose
     name holds `kernel` (torch.profiler's CUDA activity over `iters`
-    calls), or None when the profiler records no device time: the
-    kernels' own time, without the wrapper's host work around them."""
+    calls), or None when the profiler records no device time or fewer
+    kernels than `launched()` (the wrapper's launch count) grew by: the
+    kernels' own time, without the wrapper's host work around them. Once
+    more kernel libraries are loaded, a window that ends in this port's
+    kernel loses its last records (on torch 2.11 + CUDA 12.8, measured:
+    2 of 4 dense scans recorded, none of one), so the window ends in a
+    few small torch kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
+    pad = torch.zeros(1, device="cuda")
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            before = launched()
             for _ in range(iters):
                 fn()
+            n = launched() - before
             torch.cuda.synchronize()
-    total = 0.0
+            for _ in range(8):
+                pad.add_(1)
+            torch.cuda.synchronize()
+    total, count = 0.0, 0
     for e in prof.key_averages():
         if kernel in e.key:
             total += getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
-    return total / 1e3 / iters if total > 0 else None
+            count += e.count
+    return total / 1e3 / iters if total > 0 and count == n else None
 
 
 def fmt_ms(ms) -> str:
@@ -368,10 +391,10 @@ class Calls:
 
 def start_lane_trials():
     """One nvcc per source and lane count of LANE_TRIALS (and, for the
-    sources of SPLIT_TRIALS, per value of their bool): the source with
-    its kLanes (LANE_NAMES: another name) line and its SPLIT_NAMES bool
-    line changed, into build/torch_kernels/. Returns [(source, key,
-    library path, cmd, process)], the key the lane count, or (lanes,
+    sources of SPLIT_TRIALS, per value of their second constant): the
+    source with its kLanes (LANE_NAMES: another name) line and its
+    SPLIT_NAMES line changed, into build/torch_kernels/. Returns [(source,
+    key, library path, cmd, process)], the key the lane count, or (lanes,
     split) for a source of SPLIT_TRIALS."""
     from grokimagecompression_tpu_torch.ops import _build
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
@@ -380,12 +403,13 @@ def start_lane_trials():
         lanes = LANE_NAMES.get(source, "kLanes")
         pat = rf"constexpr int {lanes} = \d+;"
         split_name = SPLIT_NAMES.get(source)
-        split_pat = rf"constexpr bool {split_name} = \w+;"
+        splits = SPLIT_TRIALS.get(source)
+        kind = "bool" if splits and isinstance(splits[0], bool) else "int"
+        split_pat = rf"constexpr {kind} {split_name} = \w+;"
         with open(os.path.join(_build.CSRC, source)) as f:
             src = f.read()
         if len(re.findall(pat, src)) != 1:
             raise AssertionError(f"{source} has no single {lanes} line")
-        splits = SPLIT_TRIALS.get(source)
         if splits and len(re.findall(split_pat, src)) != 1:
             raise AssertionError(f"{source} has no single {split_name} "
                                  f"line")
@@ -393,9 +417,12 @@ def start_lane_trials():
             key = n if split is None else (n, split)
             text = re.sub(pat, f"constexpr int {lanes} = {n};", src)
             if split is not None:
-                text = re.sub(split_pat, f"constexpr bool {split_name} = "
-                              f"{'true' if split else 'false'};", text)
-            tag = f"{n}{'s' if split else ''}"
+                value = (("true" if split else "false") if kind == "bool"
+                         else str(split))
+                text = re.sub(split_pat, f"constexpr {kind} {split_name} = "
+                              f"{value};", text)
+            tag = (str(n) if split is None else f"{n}{'s' if split else ''}"
+                   if kind == "bool" else f"{n}x{split}")
             cu = os.path.join(_build.BUILD_DIR, f"trial_{tag}_{source}")
             with open(cu, "w") as f:
                 f.write(text)
@@ -465,6 +492,97 @@ def finish_clock_build(build):
     return lib
 
 
+def start_dense_clock_build():
+    """One nvcc of an instrumented copy of csrc/mq_dense.cu: thread 0 of
+    block 0 adds the clock64() cycles since its last mark to a counter at
+    each barrier of the kernel and at the end of each tile's expansion, so
+    that over the whole stream they split into waiting for the staged
+    tile, compaction, coding (the block's slowest coder) and expansion;
+    read back by `mq_dense_clocks`. Returns (library path, cmd,
+    process)."""
+    from grokimagecompression_tpu_torch.ops import _build
+    with open(os.path.join(_build.CSRC, "mq_dense.cu")) as f:
+        src = f.read()
+    src = src.replace("namespace {", "namespace {\n__device__ long long "
+                      "g_clk[8];\n#define CLK(n) if (threadIdx.x == 0 && "
+                      "blockIdx.x == 0) { const long long now = clock64(); "
+                      "g_clk[n] += now - clk_last; clk_last = now; }", 1)
+    k0 = src.index("mq_dense_kernel(const uint8_t*")
+    body = src[k0:]
+    body = body.replace("Smem& s = *reinterpret_cast<Smem*>(smem_raw);",
+                        "Smem& s = *reinterpret_cast<Smem*>(smem_raw);\n"
+                        "  long long clk_last = clock64();", 1)
+    marks = iter(range(1, 5))
+    body, n = re.subn(r"__syncthreads\(\);",
+                      lambda m: f"__syncthreads(); CLK({next(marks)})", body)
+    body, m = re.subn(r"(nbo\[o\] = n;\n    \})", r"\1\n    CLK(5)", body)
+    if (n, m) != (4, 1):
+        raise AssertionError(f"mq_dense.cu's kernel has {n} barriers and "
+                             f"{m} expansion loops, not 4 and 1")
+    src = src[:k0] + body + (
+        '\nextern "C" int mq_dense_clocks(long long* h, int reset) {\n'
+        '  if (reset) { static const long long z[8] = {0}; return (int)'
+        'cudaMemcpyToSymbol(g_clk, z, sizeof(z)); }\n  return (int)'
+        'cudaMemcpyFromSymbol(h, g_clk, sizeof(long long) * 8); }\n')
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(_build.BUILD_DIR, "clocks_mq_dense.cu")
+    with open(cu, "w") as f:
+        f.write(src)
+    so = cu[:-3] + ".so"
+    cmd = [_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17", "-O3",
+           "-Xcompiler", "-fPIC", "-shared", "-I", _build.CSRC, "-o", so, cu]
+    return so, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+
+
+def finish_dense_clock_build(build):
+    """Wait for `start_dense_clock_build`'s nvcc; the loaded library."""
+    import ctypes
+    so, cmd, proc = build
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"nvcc failed on the instrumented mq_dense.cu:"
+                             f"\n{' '.join(cmd)}\n{out}")
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.mq_scan_dense.argtypes = [P, I, I, I] + [P] * 5
+    lib.mq_scan_dense.restype = I
+    lib.mq_dense_clocks.argtypes = [P, I]
+    lib.mq_dense_clocks.restype = I
+    return lib
+
+
+def dense_stage_clocks(lib, slots):
+    """Block 0's cycles (thread 0, summed over the tiles of one launch on
+    `slots`, after a warm launch) by stage: {stage: cycles}."""
+    import ctypes
+    import torch
+
+    from grokimagecompression_tpu_torch.ops.mq_tables import DENSE_NSTATE
+    T, B = slots.shape
+    outs = [torch.empty((T, B), dtype=torch.int32, device=slots.device)
+            for _ in range(3)]
+    state = torch.empty((DENSE_NSTATE, B), dtype=torch.int32,
+                        device=slots.device)
+    clk = (ctypes.c_longlong * 8)()
+    for _ in range(2):
+        if lib.mq_dense_clocks(clk, 1) != 0:
+            raise AssertionError("resetting the stage clocks failed")
+        rc = lib.mq_scan_dense(slots.data_ptr(), T, T, B,
+                               *(o.data_ptr() for o in outs),
+                               state.data_ptr(),
+                               torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise AssertionError(f"instrumented launch failed: CUDA error "
+                                 f"{rc}")
+        torch.cuda.synchronize()
+    if lib.mq_dense_clocks(clk, 0) != 0:
+        raise AssertionError("reading the stage clocks failed")
+    return {"set-up": clk[1], "waiting for the staged tile": clk[2],
+            "compaction": clk[3], "staging + coding (slowest coder)": clk[4],
+            "expansion": clk[5]}
+
+
 def enc_stage_clocks(lib, coeffs, mbs, tables):
     """Block 0's cycles from the kernel's start to each barrier (load,
     stage A, stages B+C, the scan and bit packing, the coders, the
@@ -514,6 +632,9 @@ def finish_lane_trials(trials):
         elif source == "ht_enc.cu":
             lib.ht_enc_group.argtypes = [P] * 6 + [I] * 4 + [P]
             lib.ht_enc_group.restype = I
+        elif source == "mq_dense.cu":
+            lib.mq_scan_dense.argtypes = [P, I, I, I] + [P] * 5
+            lib.mq_scan_dense.restype = I
         else:
             lib.mq_scan.argtypes = [P, I, I] + [P] * 5 + [I] * 3 + [P]
             lib.mq_scan.restype = I
@@ -524,7 +645,10 @@ def finish_lane_trials(trials):
 def trial_label(key, warps=False) -> str:
     """A trial build's name: its lanes (code-blocks) a block, and "x2"
     for two threads a lane; with `warps` (the HT encoder) "w" for its
-    coders in three warps, "t" for them in one."""
+    coders in three warps, "t" for them in one; the dense MQ scan's
+    lanes a warp x warps a block."""
+    if isinstance(key, tuple) and not isinstance(key[1], bool):
+        return f"{key[0]}x{key[1]}"
     if isinstance(key, tuple):
         if warps:
             return f"{key[0]}{'w' if key[1] else 't'}"
@@ -611,6 +735,35 @@ def scan_lane_trial(libs, slots, want):
                     "mq_scan")
 
 
+def dense_lane_trial(libs, slots, want):
+    """The dense MQ scan built with each trial's lanes a warp and warps a
+    block, launched as `mq_scan.scan_dense` launches it on `slots` (t_out =
+    T) into one set of outputs (filled with -7 before a build's first
+    launch), against the shipped kernel's words, m8, nbo and state
+    `want`."""
+    import torch
+    T, B = slots.shape
+    outs = [torch.empty_like(w) for w in want]
+
+    def launcher(lib):
+        first = [True]
+
+        def run():
+            if first[0]:
+                for o in outs:
+                    o.fill_(-7)
+                first[0] = False
+            rc = lib.mq_scan_dense(slots.data_ptr(), T, T, B,
+                                   *(o.data_ptr() for o in outs),
+                                   torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise AssertionError(f"trial launch failed: CUDA error {rc}")
+            return outs
+        return run
+    return in_turns({n: launcher(lib) for n, lib in libs.items()}, want,
+                    "mq_scan_dense")
+
+
 def ht_lane_trial(libs, args, want):
     """The HT decoder built with each trial's lanes a block and threads a
     lane, launched as `ht_dec.decode_segments` launches it on `args` =
@@ -644,11 +797,11 @@ def ht_lane_trial(libs, args, want):
                     "ht_dec_group")
 
 
-def print_trial(name, what, trial, warps=False):
+def print_trial(name, what, trial, warps=False, legend=None):
     best = min(trial, key=trial.get)
-    legend = ("code-blocks a CTA, w: the three coders in three warps, t: "
-              "in one warp" if warps else
-              "lanes a block, x2: two threads a lane")
+    legend = legend or (
+        "code-blocks a CTA, w: the three coders in three warps, t: in one "
+        "warp" if warps else "lanes a block, x2: two threads a lane")
     print(f"kernel {name} trial on {what} (trial builds, in turns, "
           f"bit-exact; {legend}): "
           + ", ".join(f"{trial_label(n, warps)} {t:.3f} ms"
@@ -741,7 +894,7 @@ def check_encoder(enc, plan, chunk, results, trial_libs, clock_lib):
                 ht_enc.encode_segments(*args)
             ms_k = cuda_ms(lambda: ht_enc.encode_segments(*args), 20)
             dev_k = device_ms(lambda: ht_enc.encode_segments(*args), 10,
-                              "ht_enc_kernel")
+                              "ht_enc_kernel", lambda: ht_enc.LAUNCHES["enc"])
             nsig = int((coeffs != 0).sum())
             b_ms, b_by, b_terms = bound(
                 nbytes(coeffs, mbs, tables["enc_packed"], *got),
@@ -753,7 +906,8 @@ def check_encoder(enc, plan, chunk, results, trial_libs, clock_lib):
             ht_enc.encode_segments(*one)
             alone = cuda_ms(lambda: ht_enc.encode_segments(*one), 10)
             alone_dev = device_ms(lambda: ht_enc.encode_segments(*one), 10,
-                                  "ht_enc_kernel")
+                                  "ht_enc_kernel",
+                                  lambda: ht_enc.LAUNCHES["enc"])
             trial = enc_lane_trial(trial_libs, args, got)
             results[name] = dict(
                 ms=ms_k, device_ms=dev_k, plain_ms=plain_ms, max_abs_err=0,
@@ -846,7 +1000,7 @@ def check_decoder(streams, dev, results, trial_libs):
                 ht_dec.decode_segments(*args)
             ms_k = cuda_ms(lambda: ht_dec.decode_segments(*args), 20)
             dev_k = device_ms(lambda: ht_dec.decode_segments(*args), 10,
-                              "ht_dec_kernel")
+                              "ht_dec_kernel", lambda: ht_dec.LAUNCHES["dec"])
             steps = ht_dec.grid_dims(w, h)[2] * B
             nsig = int((got[0] != 0).sum())
             b_ms, b_by, b_terms = bound(
@@ -862,7 +1016,8 @@ def check_decoder(streams, dev, results, trial_libs):
             ht_dec.decode_segments(*one)
             alone = cuda_ms(lambda: ht_dec.decode_segments(*one), 10)
             alone_dev = device_ms(lambda: ht_dec.decode_segments(*one), 10,
-                                  "ht_dec_kernel")
+                                  "ht_dec_kernel",
+                                  lambda: ht_dec.LAUNCHES["dec"])
             results[name] = dict(ms=ms_k, plain_ms=plain_ms,
                                  max_abs_err=err, bound_ms=b_ms,
                                  bound_by=b_by, alone_ms=alone)
@@ -1087,7 +1242,78 @@ def check_mq_scan(mq_enc, chunk, results, trial_libs):
         print(line)
 
 
-def check_mq_dense(mq_enc, chunk, results, launches):
+def check_dense_words(slots, words, mask, state, what):
+    """Per lane: its dense words' bytes (little-endian, step order), then
+    wcnt bytes of its partial word, against its segment's first bytes from
+    the compact kernel (`mq_scan.mq_scan`) on the same slots: the segment
+    before the flush tail. Returns (the lanes' total segment bytes, the
+    number of words)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_scan
+    B = slots.shape[1]
+    dev = slots.device
+    data, lens, _ = mq_scan.mq_scan(slots)
+    lens = lens.to(torch.int64)
+    seg0 = torch.cumsum(lens, 0) - lens
+    nw = mask.sum(dim=0)
+    wbytes = words.T[mask.T].contiguous().view(torch.uint8)
+    k = torch.arange(wbytes.numel(), device=dev)
+    wlane = torch.repeat_interleave(torch.arange(B, device=dev), nw)
+    wstart = torch.cumsum(nw, 0) - nw
+    wi = k // 4
+    pos = seg0[wlane[wi]] + 4 * (wi - wstart[wlane[wi]]) + k % 4
+    wcnt = state[5].to(torch.int64)
+    if bool((4 * nw + wcnt > lens).any()) or \
+            not torch.equal(data[pos], wbytes):
+        raise AssertionError(f"mq_scan_dense words differ from the compact "
+                             f"kernel's segments ({what})")
+    j = torch.arange(4, device=dev)
+    part = j[None, :] < wcnt[:, None]
+    ppos = (seg0 + 4 * nw)[:, None] + j[None, :]
+    pbytes = (state[4].to(torch.int64)[:, None] >> (8 * j[None, :])) & 0xFF
+    if not torch.equal(data[ppos[part]].to(torch.int64), pbytes[part]):
+        raise AssertionError(f"mq_scan_dense partial words differ from the "
+                             f"compact kernel's segments ({what})")
+    return int(lens.sum()), int(nw.sum())
+
+
+def dense_device_ms(slots, deep):
+    """The dense scan's device time a call by torch.profiler (`device_ms`)
+    on `slots` and on `deep`, in a child process that loads only the
+    shipped kernel library: in this process, with the trial and
+    instrumented builds loaded, the profiler records only some of the
+    dense kernel's launches (measured on torch 2.11 + CUDA 12.8: 2 of 4,
+    none of one), and `device_ms` rejects such a count."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import _build
+    path = os.path.join(_build.BUILD_DIR, "dense_slots.pt")
+    torch.save({"slots": slots.cpu(), "deep": deep.cpu()}, path)
+    code = (
+        "import json, sys, torch\n"
+        "sys.path.insert(0, sys.argv[2])\n"
+        "import chip_smoke as cs\n"
+        "from grokimagecompression_tpu_torch.ops import mq_scan\n"
+        "d = torch.load(sys.argv[1])\n"
+        "n = lambda: mq_scan.LAUNCHES['mq_dense']\n"
+        "print(json.dumps([cs.device_ms(\n"
+        "    lambda s=d[k].cuda(): mq_scan.scan_dense(s), 3,\n"
+        "    'mq_dense_kernel', n) for k in ('slots', 'deep')]))\n")
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    try:
+        proc = subprocess.run([sys.executable, "-c", code, path, root],
+                              capture_output=True, text=True, timeout=600)
+    finally:
+        os.unlink(path)
+    if proc.returncode != 0:
+        raise AssertionError(f"the profiler's child process failed "
+                             f"({proc.returncode}):\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def check_mq_dense(mq_enc, chunk, results, launches, trial_libs, clock_lib):
     """Phase 3, the dense MQ scan: on 128 lanes of the config-1 64x64
     group cut to the leading planes in which no lane codes more than
     PLAIN_DENSE_DECISIONS decisions (and 256 no-op rows past the end),
@@ -1095,7 +1321,10 @@ def check_mq_dense(mq_enc, chunk, results, launches):
     the reference's entry point `run_mq_scans` on the full group, the
     path whose launches are counted, its words' bytes in order with each
     lane's partial word equal to the compact kernel's segment before the
-    flush tail, and the kernel timed."""
+    flush tail; the kernel's call and device time, the lane with the most
+    coding slots alone, the stage clocks of block 0
+    (`dense_stage_clocks`) and the lanes-a-warp x warps-a-block trial
+    (`dense_lane_trial`)."""
     import torch
 
     from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
@@ -1135,8 +1364,9 @@ def check_mq_dense(mq_enc, chunk, results, launches):
               for wv, g in zip(want, got))
     print(f"kernel mq_scan_dense: config-1 group {h}x{w}, 128 of {B} lanes, "
           f"{keep} of {npl} planes (T={sub.shape[0]}, {int(coded[keep - 1])} "
-          f"decisions in the deepest lane), flat and blocked: bit-exact "
-          f"with plain (plain {plain_ms:.1f} ms)")
+          f"decisions in the deepest lane, 256 no-op rows past T), flat and "
+          f"blocked: bit-exact with plain (plain {plain_ms:.1f} ms)")
+    del got, blocked, want
 
     mq_scan.LAUNCHES["mq_dense"] = 0
     words, mask, nbo, state = mq_scan.run_mq_scans(slots)
@@ -1145,31 +1375,9 @@ def check_mq_dense(mq_enc, chunk, results, launches):
     if launches["mq_dense"] < 1:
         raise AssertionError("mq_scan_dense was not launched by "
                              "run_mq_scans")
-    data, lens, _ = mq_scan.mq_scan(slots)
-    # per lane: its words' bytes (little-endian, step order), then wcnt
-    # bytes of its partial word, against its segment's first bytes
-    lens = lens.to(torch.int64)
-    seg0 = torch.cumsum(lens, 0) - lens
-    nw = mask.sum(dim=0)
-    wbytes = words.T[mask.T].contiguous().view(torch.uint8)
-    k = torch.arange(wbytes.numel(), device=slots.device)
-    wlane = torch.repeat_interleave(torch.arange(B, device=slots.device), nw)
-    wstart = torch.cumsum(nw, 0) - nw
-    wi = k // 4
-    pos = seg0[wlane[wi]] + 4 * (wi - wstart[wlane[wi]]) + k % 4
-    wcnt = state[5].to(torch.int64)
-    if bool((4 * nw + wcnt > lens).any()) or \
-            not torch.equal(data[pos], wbytes):
-        raise AssertionError("mq_scan_dense words differ from the compact "
-                             "kernel's segments")
-    j = torch.arange(4, device=slots.device)
-    part = j[None, :] < wcnt[:, None]
-    ppos = (seg0 + 4 * nw)[:, None] + j[None, :]
-    pbytes = (state[4].to(torch.int64)[:, None] >> (8 * j[None, :])) & 0xFF
-    if not torch.equal(data[ppos[part]].to(torch.int64), pbytes[part]):
-        raise AssertionError("mq_scan_dense partial words differ from the "
-                             "compact kernel's segments")
-    del words, mask, nbo, state, data, pos, k, wlane, wi, wbytes
+    seg_bytes, nwords = check_dense_words(slots, words, mask, state,
+                                          "config-1 group")
+    del words, mask, nbo, state
     for _ in range(2):
         mq_scan.scan_dense(slots)
     ms = cuda_ms(lambda: mq_scan.scan_dense(slots), 5)
@@ -1177,16 +1385,42 @@ def check_mq_dense(mq_enc, chunk, results, launches):
     out_bytes = 3 * 4 * T * B + 4 * 11 * B
     b_ms, b_by, b_terms = bound(
         nbytes(slots) + out_bytes,
-        OPS["mq_decision"] * emits + OPS["mq_byte"] * int(lens.sum()))
-    results[MQ_DENSE[0]] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
-                                bound_ms=b_ms, bound_by=b_by)
+        OPS["mq_decision"] * emits + OPS["mq_byte"] * seg_bytes)
+    # the chain that sets the time from below: the lane with the most
+    # coding slots, alone
+    per_lane = mq_scan.lane_emits(slots)
+    deep = slots[:, int(per_lane.argmax())].contiguous().view(T, 1)
+    mq_scan.scan_dense(deep)
+    alone = cuda_ms(lambda: mq_scan.scan_dense(deep), 5)
+    dev_ms, alone_dev = dense_device_ms(slots, deep)
+    clocks = dense_stage_clocks(clock_lib, slots)
+    want = mq_scan.scan_dense(slots)
+    trial = dense_lane_trial(trial_libs, slots, want)
+    del want
+    torch.cuda.empty_cache()
+    results[MQ_DENSE[0]] = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                max_abs_err=err, bound_ms=b_ms,
+                                bound_by=b_by, alone_ms=alone,
+                                trial={f"config 1, {w}x{h}, B={B}": trial})
     print(f"mq_scan_dense through run_mq_scans on the full group: slots "
-          f"({T}, {B}), {emits} coding, {int(nw.sum())} words: every lane's "
+          f"({T}, {B}), {emits} coding, {nwords} words: every lane's "
           f"words and partial word are its compact segment before the flush "
-          f"tail; launches {launches['mq_dense']}; kernel {ms:.3f} ms (before "
-          f"the coders' redesign: {BEFORE_MS['mq_scan_dense']:.3f} ms on "
-          f"{BEFORE_CARD}; bound "
-          f"{b_ms:.4f} ms by {b_by}: {b_terms})")
+          f"tail; launches {launches['mq_dense']}; {ms:.3f} ms a call, of "
+          f"it {fmt_ms(dev_ms)} in the kernel (profiler, in a child "
+          f"process) (one thread a lane "
+          f"before the redesign: {BEFORE_MS['mq_scan_dense']:.3f} ms on "
+          f"{BEFORE_CARD}; bound {b_ms:.4f} ms by {b_by}: {b_terms}); the "
+          f"lane with the most coding slots ({int(per_lane.max())}, mean "
+          f"{float(per_lane.double().mean()):.0f}) alone {alone:.3f} ms, of "
+          f"it {fmt_ms(alone_dev)} in the kernel")
+    total = sum(clocks.values())
+    print("kernel mq_scan_dense stage clocks on block 0 of the full group "
+          "(an instrumented build, clock64, thread 0, cycles summed over "
+          "the tiles): " + ", ".join(
+              f"{k} {v} ({100 * v / max(total, 1):.1f} %)"
+              for k, v in clocks.items()))
+    print_trial(MQ_DENSE[0], f"the config-1 {w}x{h} group, B={B}", trial,
+                legend="lanes a warp x warps a block")
 
 
 def check_mq_decoder(streams, dev, results, trial_libs):
@@ -1374,7 +1608,8 @@ def check_dwt(dev, results):
                         lambda a, p=plain: p(a, rect, nres, rev), (arg,))
                     dev_ms = device_ms(
                         lambda a=arg, k=kern: k(a, rect, nres, rev), 10,
-                        "fwd_kernel" if name == "forward" else "inv_kernel")
+                        "fwd_kernel" if name == "forward" else "inv_kernel",
+                        lambda: dwt.LAUNCHES["dwt"])
                     times[f"{label} {name}"] = dict(ms=ms, plain_ms=plain_ms,
                                                     bound_ms=b_ms,
                                                     device_ms=dev_ms)
@@ -1435,12 +1670,15 @@ def check_mq_cumbo(enc, chunk):
           f"plain (plain {start.elapsed_time(stop):.1f} ms)")
 
 
-def c2_scan_trial(enc, chunk, results, trial_libs):
+def c2_scan_trial(enc, chunk, results, trial_libs, dense_libs):
     """Phase 3, the MQ coder's lanes-per-block trial on a config-2 chunk's
     group (2 frames: 6144 lanes, ~4x the config-1 group's coding slots):
     where the lanes outnumber the SMs' resident warps, a trial's lanes a
     block trade the warp's divergence against its share of the staging
-    and compaction."""
+    and compaction. Then the dense scan on the same group: every lane's
+    words and partial word against the compact kernel's segment, its call
+    time and its lanes-a-warp x warps-a-block trial (the shipped kernel's
+    outputs, 20.8 GB, and one trial set held at once)."""
     import torch
 
     from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
@@ -1455,6 +1693,26 @@ def c2_scan_trial(enc, chunk, results, trial_libs):
           f"{chunk[0].shape[0]} frames, slots {tuple(slots.shape)} "
           f"(trial builds, in turns, bit-exact): "
           + ", ".join(f"{n} {t:.3f} ms" for n, t in trial.items()))
+    del want
+    words, mask, nbo, state = mq_scan.run_mq_scans(slots)
+    _, nwords = check_dense_words(slots, words, mask, state,
+                                  "config-2 group")
+    del words, mask, nbo, state
+    torch.cuda.empty_cache()
+    mq_scan.scan_dense(slots)
+    ms = cuda_ms(lambda: mq_scan.scan_dense(slots), 3)
+    want = mq_scan.scan_dense(slots)
+    dense = dense_lane_trial(dense_libs, slots, want)
+    del want
+    key = f"config 2, {w}x{h}, B={slots.shape[1]}"
+    results[MQ_DENSE[0]]["trial"][key] = dense
+    results[MQ_DENSE[0]]["c2_ms"] = ms
+    print(f"mq_scan_dense through run_mq_scans on the config-2 group, slots "
+          f"{tuple(slots.shape)}, {nwords} words: every lane's words and "
+          f"partial word are its compact segment before the flush tail; "
+          f"{ms:.3f} ms a call")
+    print_trial(MQ_DENSE[0], f"the config-2 group, B={slots.shape[1]}",
+                dense, legend="lanes a warp x warps a block")
     del slots
     torch.cuda.empty_cache()
 
@@ -1688,13 +1946,16 @@ def main() -> int:
     t0 = time.perf_counter()
     trials = start_lane_trials()
     clock_build = start_clock_build()
+    dense_clock_build = start_dense_clock_build()
     so, log = _build.build()
     _build.load()
     trial_libs = finish_lane_trials(trials)
     clock_lib = finish_clock_build(clock_build)
+    dense_clock_lib = finish_dense_clock_build(dense_clock_build)
     print(f"built {os.path.relpath(so)} from {', '.join(_build.SOURCES)} "
-          f"with nvcc {' '.join(_build.ARCH_FLAGS)}, and the lanes-per-"
-          f"block trials {LANE_TRIALS}, in {time.perf_counter() - t0:.1f} s")
+          f"with nvcc {' '.join(_build.ARCH_FLAGS)}, the lanes-per-"
+          f"block trials {LANE_TRIALS} x {SPLIT_TRIALS} and two "
+          f"instrumented builds, in {time.perf_counter() - t0:.1f} s")
     for line in log.splitlines():
         if "registers" in line or "Compiling entry" in line \
                 or "spill" in line:
@@ -1750,7 +2011,8 @@ def main() -> int:
                                  chunk=CHUNK)
     check_decoder(first, dev, results, trial_libs["ht_dec.cu"])
     check_mq_scan(mq_enc, chunk, results, trial_libs["mq_scan.cu"])
-    check_mq_dense(mq_enc, chunk, results, launches)
+    check_mq_dense(mq_enc, chunk, results, launches,
+                   trial_libs["mq_dense.cu"], dense_clock_lib)
     torch.cuda.empty_cache()
     check_mq_decoder(encoder.encode_batch(imgs[:CHUNK], mq_params,
                                           device="cuda", chunk=CHUNK),
@@ -1759,7 +2021,7 @@ def main() -> int:
     check_mq_cumbo(c2_enc, c2_chunk(0, 1))
     torch.cuda.empty_cache()
     c2_scan_trial(c2_enc, c2_chunk(0, C2_CHUNK), results,
-                  trial_libs["mq_scan.cu"])
+                  trial_libs["mq_scan.cu"], trial_libs["mq_dense.cu"])
     c2_ht_trial(c2_enc, c2_chunk(0, C2_CHUNK), results,
                 trial_libs["ht_dec.cu"], trial_libs["ht_enc.cu"])
 

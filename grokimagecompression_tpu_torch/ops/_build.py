@@ -32,8 +32,9 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
-SOURCES = ("ht_enc.cu", "ht_dec.cu", "mq_scan.cu", "mq_dec.cu", "dwt.cu")
-HEADERS = ("mq_tables.cuh",)
+SOURCES = ("ht_enc.cu", "ht_dec.cu", "mq_scan.cu", "mq_dense.cu", "mq_dec.cu",
+           "dwt.cu")
+HEADERS = ("mq_tables.cuh", "mq_coder.cuh")
 # flags of single sources: the DWT's float32 lifting must not be
 # contracted into FMAs (bit-exactness with dwt_np)
 SOURCE_FLAGS = {"dwt.cu": ("--fmad=false",)}

@@ -34,8 +34,9 @@ counterparts of `mq_jax.run_mq_scans` / `run_mq_scans_blocked` (the
 Pallas `mq_scan_pallas.mq_scan` / `mq_scan_blocked`): per step the word
 completed, its chunk-local index and the byte-outs, and the reference's
 11-word state (`mq_torch.mq_scan_dense_plain` gives the contract). A CUDA
-tensor launches `csrc/mq_scan.cu`'s `mq_scan_dense` (counted in
+tensor launches `csrc/mq_dense.cu`'s `mq_scan_dense` (counted in
 `LAUNCHES["mq_dense"]`) or raises; a CPU tensor takes the plain version.
+Both kernels share the coder of `csrc/mq_coder.cuh`.
 """
 
 from __future__ import annotations

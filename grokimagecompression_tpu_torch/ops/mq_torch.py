@@ -442,7 +442,7 @@ def bit_planes(mag: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The MQ coder (plain version of csrc/mq_scan.cu)
+# The MQ coder (plain version of csrc/mq_scan.cu and csrc/mq_dense.cu)
 # ---------------------------------------------------------------------------
 
 
@@ -629,7 +629,7 @@ def _int32(x: torch.Tensor) -> torch.Tensor:
 
 def mq_scan_dense_plain(slots: torch.Tensor, t_out: int = 0):
     """The MQ coder over a (T, B) int8 slot stream with dense per-step
-    outputs, the plain version of `csrc/mq_scan.cu`'s `mq_scan_dense`
+    outputs, the plain version of `csrc/mq_dense.cu`'s `mq_scan_dense`
     and of the reference's `mq_jax._mq_scan_w` / `mq_scan_pallas.
     mq_scan_blocked`. Returns, over t_out >= T rows (T when 0; rows past
     T are steps of no-op slots):
@@ -650,9 +650,34 @@ def mq_scan_dense_plain(slots: torch.Tensor, t_out: int = 0):
     if t_out < T:
         raise ValueError(f"t_out {t_out} is below the stream's {T} rows")
     dense, rank, lane, t = _emitting(slots)
+    words, full, nbo, st = dense_steps(dense)
+    out_w = torch.zeros((t_out, B), dtype=torch.int32, device=dev)
+    out_full = torch.zeros((t_out, B), dtype=torch.bool, device=dev)
+    out_nbo = torch.zeros((t_out, B), dtype=torch.int32, device=dev)
+    out_w[t, lane] = _int32(words[rank, lane])
+    out_full[t, lane] = full[rank, lane]
+    out_nbo[t, lane] = nbo[rank, lane].to(torch.int32)
+    nch = -(-t_out // DENSE_CHUNK)
+    mc = torch.zeros((nch * DENSE_CHUNK, B), dtype=torch.int32, device=dev)
+    mc[:t_out] = out_full.to(torch.int32)
+    mc = mc.view(nch, DENSE_CHUNK, B)
+    m8 = torch.where(mc > 0, torch.cumsum(mc, dim=1) - 1, -1) \
+        .view(-1, B)[:t_out].to(torch.int32)
+    return out_w, m8, out_nbo, st
+
+
+def dense_steps(dense: torch.Tensor):
+    """The dense coder's record of each lane's coding steps, in order, on
+    the lanes' emitting slots `dense` (E, B) (`emitting_slots`): (words,
+    full, nbo, state). Row k of the (E, B) int64 `words`, bool `full` and
+    int64 `nbo` is the lane's k-th emitting slot: the word completed there
+    (0 where none), whether one was, the step's byte-outs; `state` is
+    `mq_scan_dense_plain`'s. The dense rows place the k-th record at the
+    lane's k-th emitting row."""
+    dev = dense.device
+    E, B = dense.shape
     tbl = _luts(dev)["tbl"]
     state = init_state(B, dev)
-    E = dense.shape[0]
     wacc = torch.zeros(B, dtype=torch.int64, device=dev)
     wcnt = torch.zeros(B, dtype=torch.int64, device=dev)
     words = torch.zeros((E, B), dtype=torch.int64, device=dev)
@@ -672,22 +697,10 @@ def mq_scan_dense_plain(slots: torch.Tensor, t_out: int = 0):
             full[k] |= done
             wacc = torch.where(done, 0, wacc)
             wcnt = torch.where(done, 0, wcnt)
-    out_w = torch.zeros((t_out, B), dtype=torch.int32, device=dev)
-    out_full = torch.zeros((t_out, B), dtype=torch.bool, device=dev)
-    out_nbo = torch.zeros((t_out, B), dtype=torch.int32, device=dev)
-    out_w[t, lane] = _int32(words[rank, lane])
-    out_full[t, lane] = full[rank, lane]
-    out_nbo[t, lane] = nbo[rank, lane].to(torch.int32)
-    nch = -(-t_out // DENSE_CHUNK)
-    mc = torch.zeros((nch * DENSE_CHUNK, B), dtype=torch.int32, device=dev)
-    mc[:t_out] = out_full.to(torch.int32)
-    mc = mc.view(nch, DENSE_CHUNK, B)
-    m8 = torch.where(mc > 0, torch.cumsum(mc, dim=1) - 1, -1) \
-        .view(-1, B)[:t_out].to(torch.int32)
     a, c, ct, last, ctx = state
     st = torch.cat([torch.stack([a, c, ct, last, wacc, wcnt]),
                     pack_contexts(ctx)])
-    return out_w, m8, out_nbo, _int32(st)
+    return words, full, nbo, _int32(st)
 
 
 # ---------------------------------------------------------------------------

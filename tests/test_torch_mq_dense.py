@@ -16,6 +16,17 @@ words' bytes, in order, with the state's partial word, must also be the
 plain compact coder's segment before its flush tail. The CUDA kernel is
 held to the plain version on the card in `tests/test_torch_mq_scan.py`
 (which, unlike this file, imports no JAX).
+
+`_expand_tiles` is a numpy model of how the kernel (`csrc/mq_dense.cu`)
+turns its compacted walk back into dense rows: per 128-row tile and lane,
+one 32-bit vote per 32 rows marks the coding rows; the coder records, for
+each of its coding steps, the byte-outs, the word completed and that
+word's index in its 256-row chunk (a count carried from tile to tile and
+reset every second tile); and row r of a lane takes the record whose
+index is the lane's coding rows before its group plus the popcount of
+the vote's bits below r. Fed the plain coder's per-step records
+(`mq_torch.dense_steps`), it must rebuild the plain version's and the
+reference's rows exactly.
 """
 
 import numpy as np
@@ -159,3 +170,79 @@ def test_wrappers_validate_and_count_no_launch_on_the_cpu():
         mq_scan.run_mq_scans_blocked(z)          # B % 128 != 0
     with pytest.raises(ValueError):
         mq_scan.scan_dense(z, 200)               # t_out < T
+
+
+def _expand_tiles(slots, t_out, tile=128, chunk=256):
+    """The kernel's tile expansion as numpy: (words, m8, nbo) (t_out, B)
+    int32 from the plain coder's per-coding-step records and the per-32-row
+    votes of each tile's coding rows."""
+    emit = (slots.numpy() & 1).astype(bool)
+    T, B = emit.shape
+    rec_w, rec_full, rec_nbo, _ = (a.numpy() for a in mq_torch.dense_steps(
+        mq_torch.emitting_slots(slots)))
+    lanes = np.arange(B)
+    words = np.zeros((t_out, B), np.int64)
+    m8 = np.full((t_out, B), -1, np.int64)
+    nbo = np.zeros((t_out, B), np.int64)
+    done = np.zeros(B, np.int64)      # entries coded in earlier tiles
+    wc = np.zeros(B, np.int64)        # words of the current chunk
+    for t0 in range(0, t_out, tile):
+        rows = np.zeros((tile, B), bool)
+        n = max(0, min(tile, T - t0))
+        rows[:n] = emit[t0:t0 + n]
+        if t0 % chunk == 0:
+            wc[:] = 0
+        # the coder: each entry's chunk-local word index
+        count = rows.sum(axis=0)
+        idx = np.zeros((tile, B), np.int64)
+        for e in range(int(count.max(initial=0))):
+            k = np.minimum(done + e, max(rec_full.shape[0] - 1, 0))
+            live = e < count
+            idx[e] = wc
+            wc += live & rec_full[k, lanes]
+        # the expansion: votes of 32 rows, the entries before them
+        bits = rows.reshape(tile // 32, 32, B).astype(np.uint64)
+        votes = (bits << np.arange(32, dtype=np.uint64)[None, :, None]) \
+            .sum(axis=1)
+        ones = np.bitwise_count(votes).astype(np.int64)
+        before = np.cumsum(ones, 0) - ones
+        for r in range(min(tile, t_out - t0)):
+            vote = votes[r // 32]
+            coding = (vote >> np.uint64(r % 32)) & np.uint64(1) == 1
+            below = vote & np.uint64((1 << (r % 32)) - 1)
+            e = before[r // 32] + np.bitwise_count(below).astype(np.int64)
+            k = np.where(coding, done + e, 0)
+            full = coding & rec_full[k, lanes]
+            nbo[t0 + r] = np.where(coding, rec_nbo[k, lanes], 0)
+            words[t0 + r] = np.where(full, rec_w[k, lanes], 0)
+            m8[t0 + r] = np.where(full, idx[np.minimum(e, tile - 1), lanes],
+                                  -1)
+        done += count
+    return [np.where(a >= 1 << 31, a - (1 << 32), a).astype(np.int32)
+            for a in (words, m8, nbo)]
+
+
+@pytest.mark.parametrize("T,B,t_out", [
+    (300, 5, 0),        # T off the 128-row tile, into a second chunk
+    (300, 5, 512),      # no-op rows past T to the next 256
+    (600, 33, 0),       # across two 256-row chunk boundaries
+    (600, 33, 768),
+])
+def test_tile_expansion_model(T, B, t_out):
+    """The numpy model of the kernel's expansion, on the plain coder's
+    records, equals the plain dense scan and the reference's
+    `mq_jax.run_mq_scans` (on the stream padded with no-op rows to
+    t_out) on every row."""
+    slots = _random_slots(np.random.default_rng(T + B + t_out), T, B)
+    t_out = t_out or T
+    got = _expand_tiles(slots, t_out)
+    want = mq_torch.mq_scan_dense_plain(slots, t_out)
+    for name, g, w in zip(("words", "m8", "nbo"), got, want):
+        np.testing.assert_array_equal(g, w.numpy(), err_msg=name)
+    padded = torch.cat([slots, torch.zeros((t_out - T, B), dtype=torch.int8)])
+    ref = _reference(padded, blocked=False)
+    np.testing.assert_array_equal(got[0], ref[0], err_msg="words")
+    np.testing.assert_array_equal(got[1] >= 0, ref[1], err_msg="mask")
+    np.testing.assert_array_equal(got[2], ref[2], err_msg="nbo")
+    assert (got[1] >= 1).any()               # chunks of several words
+    assert (got[1][T:] == -1).all() and not got[2][T:].any()

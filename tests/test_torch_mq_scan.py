@@ -6,8 +6,9 @@ case holds the kernel against the plain version on the card, on random
 slot streams with one all-passthrough lane: every lane's segment bytes,
 lengths and end-of-scan state must be equal, and with pass spans given
 the byte-outs at every pass end too; and the dense-output scan
-(`mq_scan.scan_dense`) must equal its plain version on every step's word,
-word index and byte-outs and on the 11-word state. The kernel's cases
+(`mq_scan.scan_dense`, `csrc/mq_dense.cu`) must equal its plain version
+on every step's word, word index and byte-outs and on the 11-word state,
+with t_out = T and with no-op rows past T. The kernel's cases
 reach what its tiles and per-lane compaction treat specially: lanes with
 no coding slot, passes with none, coding slots clustered at tile and pass
 boundaries, streams that are not a whole number of tiles, lane counts
@@ -167,18 +168,53 @@ def test_cuda_pass_byteouts_match_plain():
             assert torch.equal(w, g), f"B={slots.shape[1]}: {name}"
 
 
+def _skewed_slots(rng, T, B):
+    """Every lane codes one context, an LPS among long MPS runs: its
+    estimate falls to the smallest Qe, so an LPS renormalises by up to 15
+    bits and some steps make two or three byte-outs."""
+    d = rng.random((T, B)) < rng.choice([0.001, 0.002, 0.005], (1, B))
+    return torch.from_numpy((1 | (d.astype(np.int8) << 1)).astype(np.int8))
+
+
+# the dense kernel's cases: lane counts on and off its blocks (up to 64
+# lanes), a stream off the 8-byte alignment, coding slots clustered at
+# tile and chunk ends, steps of several byte-outs
+_DENSE_CASES = {
+    "B1": lambda rng: _random_slots(rng, 700, 1),
+    "B5": lambda rng: _random_slots(rng, 700, 5),
+    "B33": lambda rng: _random_slots(rng, 1000, 33),
+    "B2017": lambda rng: _random_slots(rng, 2048, 2017),
+    "misaligned": lambda rng: _random_slots(rng, 600, 13),
+    "clustered": lambda rng: _clustered_slots(
+        rng, 1100, 11, list(range(120, 136)) + list(range(250, 262))
+        + list(range(505, 519)) + list(range(1020, 1030)) + [1099]),
+    "multi_byteout": lambda rng: _skewed_slots(rng, 3000, 40),
+}
+
+
 @pytest.mark.gpu
-def test_cuda_dense_kernel_matches_plain():
+@pytest.mark.parametrize("pad", [False, True], ids=["t_out=T", "t_out=256k"])
+@pytest.mark.parametrize("case", list(_DENSE_CASES))
+def test_cuda_dense_kernel_matches_plain(case, pad):
+    """The dense scan (`csrc/mq_dense.cu`) equals its plain version on
+    every step's word, word index and byte-outs and on the 11-word state,
+    over t_out = T rows or no-op rows up to the next 256 past T; one
+    counted launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda")
-    rng = np.random.default_rng(11)
-    for T, B, t_out in ((2048, 2017, 0), (700, 33, 768)):
-        slots = _random_slots(rng, T, B).to(dev)
-        before = mq_scan.LAUNCHES["mq_dense"]
-        got = mq_scan.scan_dense(slots, t_out)
-        torch.cuda.synchronize()
-        assert mq_scan.LAUNCHES["mq_dense"] == before + 1
-        want = mq_torch.mq_scan_dense_plain(slots, t_out or T)
-        for name, w, g in zip(("words", "m8", "nbo", "state"), want, got):
-            assert torch.equal(w, g), f"T={T} B={B}: {name}"
+    slots = _DENSE_CASES[case](np.random.default_rng(11)).to(dev)
+    if case == "misaligned":
+        slots = _misaligned(slots, 3)
+        assert slots.data_ptr() % 8 == 3
+    T, B = slots.shape
+    t_out = T + 256 - T % 256 if pad else T
+    before = mq_scan.LAUNCHES["mq_dense"]
+    got = mq_scan.scan_dense(slots, t_out)
+    torch.cuda.synchronize()
+    assert mq_scan.LAUNCHES["mq_dense"] == before + 1
+    want = mq_torch.mq_scan_dense_plain(slots, t_out)
+    for name, w, g in zip(("words", "m8", "nbo", "state"), want, got):
+        assert torch.equal(w, g), f"{case}, t_out={t_out}: {name}"
+    if case == "multi_byteout":
+        assert (got[2] >= 2).any()
