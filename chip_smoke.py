@@ -12,7 +12,10 @@ entry point `ops/mq_scan.run_mq_scans`; at BASELINE config 2 (2048x2048
 8-bit RGB, ICT + 9/7, 6 resolutions, three quality layers at compression
 ratios 24, 48 and 96, PCRD rate control; 4 frames) the rate-controlled
 MQ encode through `encode_batch` (2-frame chunks, then the default
-chunk), its decode through `decode_batch`, and a layer-limited decode.
+chunk), its decode through `decode_batch`, and a layer-limited decode;
+and at config 2 with the HT block coder on 9/7 the encode at the default
+base step, its decode, and the encode at ratio 24 (1 bpp) by the search
+of each frame's quantizer step.
 It checks every CUDA kernel on those paths against its plain PyTorch
 version, and imports only the port, torch, numpy and the standard
 library.
@@ -103,8 +106,29 @@ Phases, each fatal on failure:
  11. the 4 frames through encode_batch at its default chunk, which the
      plan's bytes a frame (`fused_encode.mq_frame_bytes`) and the free
      device memory cap: the streams against the digests, and the peak
-     device memory measured beside the model's prediction.
-The line before the last is a JSON object with one entry per kernel,
+     device memory measured beside the model's prediction;
+ 12. (a) the config-2 HT 9/7 encode: the 4 frames through encode_batch(
+     device="cuda") with cblk_style 0x40 at the default base step and
+     chunk, every stream against grokimagecompression_tpu_torch/data/
+     config2_ht_97.json (the reference host encoder's, numpy DWT), the
+     DWT and the HT encoder launched and the plain HT encoder, the torch
+     op streams and the host splice called by none of it; MP/s (best of
+     3), one chunk's time by stage and the peak device memory beside
+     `fused_encode.ht_frame_bytes`;
+ 13. (b) those streams through decode_batch(device="cuda"): every frame's
+     pixels against the host decoder's digests in the same file, the HT
+     decoder and the DWT launched, the host prepass not called; MP/s
+     (best of 3) and the chunk's time by stage;
+ 14. (c) the 4 frames at rates=(24.0,) (1 bpp), HT rate control: every
+     stream against the file's digests and within its target, every
+     probe launching the HT encoder, none of the plain versions called;
+     per frame its search calls, probe launches and confirm encodes;
+     MP/s (best of 3) and the time split into transform + gather, probes
+     (with their device span), confirm encodes and host T2.
+Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
+process that loads only the shipped kernel library (the profiler's
+launch-count check holds there). The line before the last is a JSON
+object with one entry per kernel,
 whose `launches` counts the calls of what its `ms` times on the kernel's
 path (a whole DWT; a group kernel on the timed 64x64 group); the last
 line is {"ok": true, "device": {...}}.
@@ -116,6 +140,7 @@ exits non-zero without one).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import hashlib
 import inspect
 import json
@@ -161,6 +186,8 @@ C2_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                           "config2_pcrd_97.json")
 C2_DEC_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                               "config2_decode_97.json")
+C2_HT_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                             "config2_ht_97.json")
 # the plain MQ coder's decisions allowed in the config-2 byte-out check
 # (~1.5 ms a decision on the card), and in the dense scan's check (which
 # also packs words each step)
@@ -1038,8 +1065,7 @@ def c2_ht_trial(enc, chunk, results, trial_libs, enc_libs):
     """Phase 3 on the lane group of a config-2 HT 9/7 decode: the
     quantized 9/7 code-blocks of a config-2 chunk (2 frames, 6144 64x64
     lanes) HT-coded by the port's HT encoder, each lane's Mb its own
-    magnitudes' bit length (the cleanup segments a config-2 HT 9/7 stream
-    carries; HT rate control is not ported). The encoder is held to its
+    magnitudes' bit length. The encoder is held to its
     plain version on 256 of the lanes and its trial builds to the shipped
     kernel; then the HT decoder's threads trial on the segments, the
     decoder held to its plain version on 256 lanes."""
@@ -1536,6 +1562,36 @@ def dwt_work(shape, rect, nres, reversible):
                                                       else 7)
 
 
+def dwt_device_ms(shape, rect, nres):
+    """The 9/7 forward DWT's device time a call by torch.profiler
+    (`device_ms`, with its launch-count check) on random float32 planes of
+    `shape`, in a child process that loads only the shipped kernel
+    library: in this process, with the trial and instrumented builds
+    loaded, the profiler drops records (see `dense_device_ms`)."""
+    code = (
+        "import json, sys, torch\n"
+        "sys.path.insert(0, sys.argv[1])\n"
+        "import chip_smoke as cs\n"
+        "from grokimagecompression_tpu_torch.core.geometry import Rect\n"
+        "from grokimagecompression_tpu_torch.ops import dwt\n"
+        "shape, r, nres = json.loads(sys.argv[2])\n"
+        "g = torch.Generator().manual_seed(0)\n"
+        "x = (torch.rand(shape, generator=g) * 255 - 128).cuda()\n"
+        "rect = Rect(*r)\n"
+        "print(json.dumps(cs.device_ms(\n"
+        "    lambda: dwt.fwd_dwt_2d(x, rect, nres, False), 10,\n"
+        "    'fwd_kernel', lambda: dwt.LAUNCHES['dwt'])))\n")
+    root = os.path.dirname(os.path.abspath(__file__))
+    arg = json.dumps([list(shape), [rect.x0, rect.y0, rect.x1, rect.y1],
+                      nres])
+    proc = subprocess.run([sys.executable, "-c", code, root, arg],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"the DWT profiler's child process failed "
+                             f"({proc.returncode}):\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
 def check_dwt(dev, results):
     """Phase 3, DWT: forward and inverse, 5/3 and 9/7, at the config-1
     chunk, the config-2 frame, an odd-origin rect, a rect with
@@ -1622,6 +1678,11 @@ def check_dwt(dev, results):
                                  f"{BEFORE_MS['dwt ' + name]:.3f} ms on "
                                  f"{BEFORE_CARD}]")
                     if label == "config-2 frame" and name == "forward":
+                        alone = dwt_device_ms(shape, rect, nres)
+                        times[f"{label} {name}"]["device_ms_alone"] = alone
+                        line += (f", {fmt_ms(alone)} in the kernel's "
+                                 f"launches in a process that loads only "
+                                 f"the shipped library (profiler)")
                         results["dwt"] = dict(ms=ms, plain_ms=plain_ms,
                                               max_abs_err=err, bound_ms=b_ms,
                                               bound_by=b_by)
@@ -1779,9 +1840,10 @@ def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
     return stages, layers
 
 
-def c2_decode_stages(streams, dev):
+def c2_decode_stages(streams, dev, coder="MQ", kernel="mq_dec_group"):
     """Time of one config-2 decode chunk (the 4 streams) by stage (host
-    clock, synchronised)."""
+    clock, synchronised); `coder` and `kernel` name the lane packing and
+    the decode kernel stages."""
     import torch
 
     from grokimagecompression_tpu_torch.codestream import decoder
@@ -1798,7 +1860,7 @@ def c2_decode_stages(streams, dev):
     t = tt()
     arrays = fused_decode.prepare_chunk(dec.plan, [
         fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed])
-    stages["MQ lane packing (host)"] = tt() - t
+    stages[f"{coder} lane packing (host)"] = tt() - t
     torch.cuda.synchronize()
     t = tt()
     groups = fused_decode.upload(arrays, dev)
@@ -1807,7 +1869,7 @@ def c2_decode_stages(streams, dev):
     t = tt()
     packed = dec.decode(groups)
     torch.cuda.synchronize()
-    stages["mq_dec_group"] = tt() - t
+    stages[kernel] = tt() - t
     t = tt()
     bands = dec.assemble(packed, [g[-1] for g in groups], len(streams))
     torch.cuda.synchronize()
@@ -1856,6 +1918,97 @@ def c2_memory_stages(enc, chunk):
             "slot build + distortions": p_build, "mq_scan": p_scan}
 
 
+def c2_ht_encode_stages(enc, chunk, imgs, params):
+    """Time of one config-2 HT 9/7 encode chunk by stage (host clock,
+    synchronised), as `FusedHTEncoder.forward`, `encode_tile_collect` and
+    `encode_batch`'s host T2 on its 4-thread pool run it."""
+    import concurrent.futures
+
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.ops import ht_enc
+    stages = {}
+    tt = time.perf_counter
+    torch.cuda.synchronize()
+    t = tt()
+    enc.transform(*chunk)
+    torch.cuda.synchronize()
+    stages["transform (DWT kernel)"] = tt() - t
+    t = tt()
+    gin = list(enc.group_inputs(*chunk))
+    torch.cuda.synchronize()
+    stages["quantize + gather"] = tt() - t - stages["transform (DWT kernel)"]
+    t = tt()
+    outs = [ht_enc.encode_into(co, mbs, enc.tables()) for co, mbs in gin]
+    torch.cuda.synchronize()
+    stages["HT encode kernel"] = tt() - t
+    t = tt()
+    lens = torch.cat([o[2] for o in outs]).cpu().numpy()
+    data = torch.cat([ht_enc.pack(*o) for o in outs]).cpu().numpy()
+    stages["pack + fetch"] = tt() - t
+    t = tt()
+    segs = fused_encode.assemble_collected_ht(enc.plan, chunk[0].shape[0],
+                                              lens, data)
+    stages["host slice"] = tt() - t
+    t = tt()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
+        list(pool.map(lambda f: encoder.encode(imgs[f], params,
+                                               {0: segs[f]}),
+                      range(len(segs))))
+    stages["host T2"] = tt() - t
+    return stages
+
+
+class Timed:
+    """Inside a `with` block, wraps `module.name` to record each call's
+    arguments, its host seconds (ending in a device synchronisation when
+    `sync`), the milliseconds between CUDA events recorded before and
+    after it (device work, and the device's wait for the host between),
+    and the HT encoder's launches during it."""
+
+    def __init__(self, module, name, sync=True):
+        self.module, self.name, self.sync = module, name, sync
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        from grokimagecompression_tpu_torch.ops import ht_enc
+        orig = self.orig = getattr(self.module, self.name)
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            n0 = ht_enc.LAUNCHES["enc"]
+            t0 = time.perf_counter()
+            start.record()
+            out = orig(*args, **kwargs)
+            stop.record()
+            if self.sync:
+                torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            self.calls.append(dict(
+                args=args, s=t1 - t0, t0=t0, t1=t1,
+                device_ms=start.elapsed_time(stop) if self.sync else None,
+                launches=ht_enc.LAUNCHES["enc"] - n0))
+            return out
+        setattr(self.module, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+    def total(self, key="s"):
+        return sum(c[key] or 0.0 for c in self.calls)
+
+    def span(self):
+        """Seconds from the first call's start to the last call's end."""
+        return (max(c["t1"] for c in self.calls)
+                - min(c["t0"] for c in self.calls)) if self.calls else 0.0
+
+
 def mq_encode_stages(mq_enc, chunk, imgs, params):
     """Time of one 32-frame MQ encode chunk by stage (host clock,
     synchronised); the host T2 runs on encode_batch's 4-thread pool."""
@@ -1894,6 +2047,247 @@ def mq_encode_stages(mq_enc, chunk, imgs, params):
                       range(chunk.shape[0])))
     stages["host T2"] = tt() - t
     return stages
+
+
+def ht_model(plan, chunk, rate_control=False):
+    """`fused_encode`'s HT memory model of a chunk: `ht_frame_bytes` a
+    frame and the encoder's stepsizes once (as `chunk_cap` counts)."""
+    from grokimagecompression_tpu_torch.models import fused_encode
+    return (chunk * fused_encode.ht_frame_bytes(plan, rate_control)
+            + fused_encode.HT_STEP_BYTES * plan.nblocks)
+
+
+def c2_ht_phases(c2_imgs, frame_digests, c2_siz, c2_tr, c2_chunk, dev,
+                 card):
+    """Phases 12-14: BASELINE config 2 with the HT block coder on 9/7, at
+    the default base step (a), its decode (b), and at ratio 24 (c)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.codestream.tile import default_qcd
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.native import ht_prepass
+    from grokimagecompression_tpu_torch.ops import (dwt, ht_dec, ht_enc,
+                                                    ht_tables, ht_torch)
+    root = os.path.dirname(os.path.abspath(__file__))
+    c2_mpix = C2_FRAMES * C2_SIZE * C2_SIZE / 1e6
+    # 12. (a) the config-2 HT 9/7 encode at the default base step
+    with open(os.path.join(root, C2_HT_DIGESTS)) as f:
+        ht_digests = json.load(f)
+    if ht_digests["frames"] != frame_digests:
+        raise AssertionError("the config-2 digest files hold other frames")
+    ht_params = EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                              cblk_style=0x40)
+    ht_cod = encoder.build_cod(c2_imgs[0], ht_params)
+    ht_plan = fused_encode.build_plan(
+        c2_siz, ht_cod, default_qcd(c2_siz, ht_cod, 1, 0.0), c2_tr)
+    ht_enc97 = fused_encode.FusedHTEncoder(ht_plan,
+                                           ht_tables.device_tables(dev))
+    plain = [Calls(ht_enc, "encode_segments_plain", lambda *a: True),
+             Calls(ht_torch, "op_streams", lambda *a: True),
+             Calls(ht_tables, "assemble_segments_host", lambda *a: True)]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    free = encoder.free_device_bytes(dev)
+    torch.cuda.reset_peak_memory_stats()
+    ht_enc.LAUNCHES["enc"] = 0
+    dwt.LAUNCHES["dwt"] = 0
+    with contextlib.ExitStack() as counting:
+        for c in plain:
+            counting.enter_context(c)
+        out = encoder.encode_batch(c2_imgs, ht_params, device="cuda")
+        torch.cuda.synchronize()
+    ht_peak = torch.cuda.max_memory_allocated() - base
+    print(f"config-2 HT 9/7 encode launches: {dict(ht_enc.LAUNCHES)}, "
+          f"{dict(dwt.LAUNCHES)}; plain encoder calls, op stream builds, "
+          f"host splices: {[c.n for c in plain]}")
+    if ht_enc.LAUNCHES["enc"] < 1 or dwt.LAUNCHES["dwt"] < 1:
+        raise AssertionError("the HT encoder or the DWT kernel was not "
+                             "launched by the config-2 HT encode")
+    if any(c.n for c in plain):
+        raise AssertionError("the CUDA HT 9/7 encode route ran the plain "
+                             "encoder or its op streams")
+    if [hashlib.sha256(cs).hexdigest() for cs in out] != \
+            ht_digests["fixed"]["streams"]:
+        raise AssertionError("config-2 HT 9/7 streams differ from the host "
+                             "encoder's")
+    ht_chunk = max(1, min(inspect.signature(encoder.encode_batch)
+                          .parameters["chunk"].default,
+                          fused_encode.chunk_cap(ht_plan, free), C2_FRAMES))
+    print(f"config-2 HT 9/7 encode (default base step): {C2_FRAMES} streams "
+          f"match the host encoder's digests ({[len(cs) for cs in out]} B)")
+    best = best_of(3, lambda: encoder.encode_batch(c2_imgs, ht_params,
+                                                   device="cuda"))
+    print(f"encode_batch (config 2, HT 9/7): {c2_mpix / best:.2f} MP/s "
+          f"(best of 3, {best:.3f} s for {C2_FRAMES} frames, chunk "
+          f"{ht_chunk}) on {card}")
+    print(f"config-2 HT 9/7 encode peak device memory at chunk {ht_chunk}: "
+          f"{ht_peak / 1e9:.4f} GB measured above the {base / 1e9:.4f} GB "
+          f"held before, "
+          f"{ht_model(ht_plan, ht_chunk) / 1e9:.4f} GB predicted "
+          f"(ht_frame_bytes x {ht_chunk} + the stepsizes; {ht_peak} B "
+          f"against {ht_model(ht_plan, ht_chunk)} B) on {card}")
+    chunk4 = c2_chunk(0, C2_FRAMES)
+    c2_ht_encode_stages(ht_enc97, chunk4, c2_imgs, ht_params)
+    stages = c2_ht_encode_stages(ht_enc97, chunk4, c2_imgs, ht_params)
+    print(f"one {C2_FRAMES}-frame config-2 HT 9/7 encode chunk by stage "
+          "(host clock, synchronised): "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+    ((coeffs, mbs),) = list(ht_enc97.group_inputs(*chunk4))
+    del chunk4, stages
+    tables = ht_enc97.tables()
+    got = ht_enc.encode_segments(coeffs, mbs, tables)
+    for _ in range(3):
+        ht_enc.encode_segments(coeffs, mbs, tables)
+    ms = cuda_ms(lambda: ht_enc.encode_segments(coeffs, mbs, tables), 20)
+    dev_ms = device_ms(lambda: ht_enc.encode_segments(coeffs, mbs, tables),
+                       10, "ht_enc_kernel", lambda: ht_enc.LAUNCHES["enc"])
+    b_ms, b_by, b_terms = bound(
+        nbytes(coeffs, mbs, tables["enc_packed"], *got),
+        OPS["enc_sample"] * coeffs.numel()
+        + OPS["enc_sig"] * int((coeffs != 0).sum())
+        + OPS["enc_byte"] * got[0].numel())
+    print(f"kernel {ENC[0]} on the config-2 HT 9/7 group of {C2_FRAMES} "
+          f"frames (B={coeffs.shape[0]}, Mb up to {int(mbs.max())}, "
+          f"{got[0].numel()} segment bytes): {ms:.3f} ms a call, "
+          f"{fmt_ms(dev_ms)} in the kernel's launches (profiler); bound "
+          f"{b_ms:.4f} ms by {b_by} ({b_terms}) on {card}")
+    del coeffs, mbs, got
+
+    # 13. (b) their decode
+    torch.cuda.empty_cache()
+    ht_dec.LAUNCHES["dec"] = 0
+    dwt.LAUNCHES["dwt"] = 0
+    ht_prepass.CALLS["prepass"] = 0
+    dec = decoder.decode_batch(out, device="cuda")
+    torch.cuda.synchronize()
+    print(f"config-2 HT 9/7 decode launches: {dict(ht_dec.LAUNCHES)}, "
+          f"{dict(dwt.LAUNCHES)}; host prepass calls: "
+          f"{ht_prepass.CALLS['prepass']}")
+    if ht_dec.LAUNCHES["dec"] < 1 or dwt.LAUNCHES["dwt"] < 1 or \
+            ht_prepass.CALLS["prepass"]:
+        raise AssertionError("the HT decoder or the DWT kernel was not "
+                             "launched by the config-2 HT decode, or it "
+                             "called the host prepass")
+    if [frame_digest(d) for d in dec] != ht_digests["fixed"]["decoded"]:
+        raise AssertionError("config-2 HT 9/7 decode: pixels differ from "
+                             "the host decoder's")
+    print(f"config-2 HT 9/7 decode: {C2_FRAMES} frames equal the host "
+          f"decoder's pixels (digests); MSE against the sources "
+          + ", ".join(f"{frame_mse(d, im):.4f}"
+                      for d, im in zip(dec, c2_imgs)))
+    del dec
+    best = best_of(3, lambda: decoder.decode_batch(out, device="cuda"))
+    print(f"decode_batch (config 2, HT 9/7): {c2_mpix / best:.2f} MP/s "
+          f"(best of 3, {best:.3f} s for {C2_FRAMES} frames) on {card}")
+    c2_decode_stages(out, dev, "HT", "ht_dec_group")
+    stages = c2_decode_stages(out, dev, "HT", "ht_dec_group")
+    print(f"one {C2_FRAMES}-frame config-2 HT 9/7 decode chunk by stage "
+          "(host clock, synchronised): "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+    del out, stages
+
+    # 14. (c) the config-2 HT 9/7 encode at ratio 24 (1 bpp): the search
+    # of each frame's base step on the chunk's resident blocks
+    rc_params = dataclasses.replace(ht_params, rates=(24.0,))
+    rc = ht_digests["ratio24"]
+    torch.cuda.empty_cache()
+    ht_enc.LAUNCHES["enc"] = 0
+    dwt.LAUNCHES["dwt"] = 0
+    timers = {"transform + gather": Timed(encoder, "_HTRateSearch"),
+              "step plans": Timed(encoder._HTRateSearch, "lanes",
+                                  sync=False),
+              "probes": Timed(encoder, "_ht_rc_segment_bytes"),
+              "confirm encodes": Timed(encoder, "_ht_rc_segments"),
+              "host T2": Timed(encoder, "encode", sync=False)}
+    with contextlib.ExitStack() as counting:
+        for c in plain + list(timers.values()):
+            counting.enter_context(c)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = encoder.encode_batch(c2_imgs, rc_params, device="cuda")
+        torch.cuda.synchronize()
+        rc_s = time.perf_counter() - t0
+        rc_peak = torch.cuda.max_memory_allocated() - base
+    print(f"config-2 HT 9/7 ratio-24 encode launches: "
+          f"{dict(ht_enc.LAUNCHES)}, {dict(dwt.LAUNCHES)}; plain encoder "
+          f"calls, op stream builds, host splices: {[c.n for c in plain]}")
+    probes = timers["probes"].calls
+    if ht_enc.LAUNCHES["enc"] < 1 or dwt.LAUNCHES["dwt"] < 1 or \
+            any(c["launches"] < 1 for c in probes):
+        raise AssertionError("the HT encoder or the DWT kernel was not "
+                             "launched by the rate-controlled encode, or a "
+                             "probe launched no kernel")
+    if any(c.n for c in plain):
+        raise AssertionError("the CUDA HT rate control ran the plain "
+                             "encoder or its op streams")
+    if [hashlib.sha256(cs).hexdigest() for cs in out] != rc["streams"]:
+        raise AssertionError("config-2 HT 9/7 ratio-24 streams differ from "
+                             "the host encoder's")
+    if any(len(cs) > t for cs, t in zip(out, rc["targets"])):
+        raise AssertionError("a ratio-24 stream is above its target")
+    for f in range(C2_FRAMES):
+        mine = [c for c in probes if f in c["args"][1]]
+        confirms = sum(f in c["args"][1]
+                       for c in timers["confirm encodes"].calls)
+        print(f"config-2 HT 9/7 ratio 24, frame {f}: {len(out[f])} B (target "
+              f"{rc['targets'][f]}), {len(mine)} search calls ("
+              f"{sum(c['launches'] for c in mine)} probe launches, shared "
+              f"with the frames searching beside it), {confirms} confirm "
+              f"encodes; equal to the host encoder's stream")
+    split = {k: tm.total() for k, tm in timers.items()}
+    print(f"config-2 HT 9/7 ratio-24 encode of {C2_FRAMES} frames in one "
+          f"chunk: {rc_s:.3f} s; transform + gather "
+          f"{split['transform + gather'] * 1e3:.1f} ms, {len(probes)} probe "
+          f"rounds {split['probes'] * 1e3:.1f} ms (between CUDA events "
+          f"{timers['probes'].total('device_ms'):.1f} ms, one "
+          f"synchronisation each; of it the host's plans of "
+          f"{len(timers['step plans'].calls)} lane lookups, new steps "
+          f"planned once, {split['step plans'] * 1e3:.1f} ms), "
+          f"{len(timers['confirm encodes'].calls)} confirm rounds "
+          f"{split['confirm encodes'] * 1e3:.1f} ms (device encode and "
+          f"fetch), host T2 {timers['host T2'].span() * 1e3:.1f} ms from "
+          f"the first stream's start to the last's end "
+          f"({split['host T2'] * 1e3:.1f} ms summed over "
+          f"{len(timers['host T2'].calls)} streams on the 4-thread pool)")
+    print(f"config-2 HT 9/7 ratio-24 encode peak device memory at chunk "
+          f"{ht_chunk}: {rc_peak / 1e9:.4f} GB measured above the "
+          f"{base / 1e9:.4f} GB held before, "
+          f"{ht_model(ht_plan, ht_chunk, True) / 1e9:.4f} GB predicted "
+          f"(ht_frame_bytes(rate_control=True) x {ht_chunk} + the "
+          f"stepsizes; {rc_peak} B against "
+          f"{ht_model(ht_plan, ht_chunk, True)} B) on {card}")
+    best = best_of(3, lambda: encoder.encode_batch(c2_imgs, rc_params,
+                                                   device="cuda"))
+    print(f"encode_batch (config 2, HT 9/7, ratio 24): {c2_mpix / best:.2f} "
+          f"MP/s (best of 3, {best:.3f} s for {C2_FRAMES} frames) on {card}")
+    del out
+    # a probe round alone, its steps planned before: what the search costs
+    # without the host's plans
+    search = encoder._HTRateSearch(c2_imgs, c2_siz, ht_cod, None,
+                                   [ht_enc97])
+    frames = list(range(C2_FRAMES))
+    steps = [2.0 + f for f in frames]
+    for _ in range(2):
+        encoder._ht_rc_segment_bytes(search, frames, steps)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        encoder._ht_rc_segment_bytes(search, frames, steps)
+    host_ms = (time.perf_counter() - t0) * 100
+    lanes = [search.lanes(s)[0] for s in steps]
+    dev_ms = cuda_ms(lambda: ht_enc97.segment_totals(search.blocks[0], frames,
+                                                     lanes), 10)
+    print(f"a probe round of the {C2_FRAMES} frames, steps planned: "
+          f"{host_ms:.3f} ms (host clock, one synchronisation), "
+          f"{dev_ms:.3f} ms between CUDA events over 10 without "
+          f"synchronising (quantization, one HT-encoder launch, the sums) "
+          f"on {card}")
+    del search
+    torch.cuda.empty_cache()
+
 
 
 def best_of(n, fn):
@@ -2350,6 +2744,9 @@ def main() -> int:
     print("one config-2 frame's encode, peak device memory by stage above "
           "the stage's start: " + ", ".join(
               f"{k} {v / 1e9:.3f} GB" for k, v in mem.items()))
+
+    c2_ht_phases(c2_imgs, c2_digests["frames"], c2_siz, c2_tr, c2_chunk,
+                 dev, card)
 
     calls["mq_dense"] = launches["mq_dense"]
     print(f"launches in the kernels line, the calls of what each kernel's ms "

@@ -1,9 +1,11 @@
 """Batch encode entry point on a torch device.
 
 Port of `grokimagecompression_tpu/codestream/encoder.py` for the fused
-slices: the HT block coder on 5/3 (lossless), and the Part-1 MQ coder
-with the default code-block style on 5/3 or 9/7, with or without byte or
-PSNR targets (`rates`, `quality_psnr`: PCRD rate control over quality
+slices: the HT block coder on 5/3 (lossless) or 9/7, on 9/7 with or
+without one byte target (`rates=(r,)`: a search of the quantizer's base
+step, `_encode_ht_rate_controlled`), and the Part-1 MQ coder with the
+default code-block style on 5/3 or 9/7, with or without byte or PSNR
+targets (`rates`, `quality_psnr`: PCRD rate control over quality
 layers). The block
 coding runs on the device through `models/fused_encode.py`; the
 codestream parameters (`build_siz`, `build_cod`), tile extraction, the
@@ -28,7 +30,7 @@ import torch
 
 from ..core.geometry import ceil_div, tile_grid_size, tile_rect
 from ..core.image import Image
-from ..core.params import MCT, EncoderParams, Transform
+from ..core.params import MCT, EncoderParams, QuantStyle, Transform
 from ..models import fused_encode
 from ..ops import _build, ht_tables
 from ..utils.device import DeviceLike, resolve_device
@@ -160,8 +162,12 @@ def encode(image: Image, params: EncoderParams,
     out += markers.write_soc()
     out += markers.write_siz(siz)
     if is_ht:
-        max_mb = max(e + qcd.num_guard_bits - 1 for e in qcd.exponents)
-        out += markers.write_cap(True, max_mb)
+        reversible = cod.transform == Transform.DWT_53
+        if qcd.style == QuantStyle.NONE:
+            max_mb = max(e + qcd.num_guard_bits - 1 for e in qcd.exponents)
+        else:
+            max_mb = max(e + qcd.num_guard_bits - 1 for (e, m) in qcd.steps)
+        out += markers.write_cap(reversible, max_mb)
     out += markers.write_cod(cod)
     if cod_comp:
         for compno, cc in enumerate(cod_comp):
@@ -268,15 +274,11 @@ def _out_of_slice(images: List[Image], params: EncoderParams) -> Optional[str]:
                 f"the default style 0 is ported)")
     if params.ht_refinement:
         return "HT refinement passes"
-    if is_ht and params.transform != Transform.DWT_53:
-        return "the HT block coder on the irreversible (9/7) transform"
     if params.custom_mct is not None:
         return "a custom MCT"
     if params.roi_comp is not None and params.roi_shift > 0:
         return "ROI upshift"
-    if is_ht and _needs_rc(params):
-        return "rate / quality targets with the HT block coder"
-    if _needs_rc(params) and params.rate_alloc != "tile":
+    if _needs_rc(params) and not is_ht and params.rate_alloc != "tile":
         return f"the {params.rate_alloc!r} rate allocation"
     if any(_geom(im) != _geom(images[0]) for im in images):
         return "frames of different geometry"
@@ -291,35 +293,227 @@ def free_device_bytes(dev: torch.device) -> Optional[int]:
     return torch.cuda.mem_get_info(dev)[0]
 
 
-def _capped_chunk(chunk: int, encoders, dev: torch.device) -> int:
-    """`chunk`, lowered for each MQ plan to the frames whose encode fits
-    in half the device's free memory (`fused_encode.chunk_cap`); as it is
-    for HT plans and on the CPU."""
+def _capped_chunk(chunk: int, encoders, dev: torch.device,
+                  rate_control: bool = False) -> int:
+    """`chunk`, lowered for each plan to the frames whose encode (under
+    HT rate control: with the blocks resident through the search) fits in
+    half the device's free memory (`fused_encode.chunk_cap`); as it is
+    on the CPU."""
     free = free_device_bytes(dev)
     for plan in encoders:
-        if free is not None and plan.coder == "mq":
-            chunk = min(chunk, fused_encode.chunk_cap(plan, free))
+        if free is not None:
+            chunk = min(chunk, fused_encode.chunk_cap(plan, free,
+                                                      rate_control))
     return chunk
+
+
+def _ht_rc_check(params: EncoderParams) -> None:
+    """The reference's ValueErrors for an HT request with targets: PSNR
+    targets (its `encode`), and rates on 5/3, with more than one layer or
+    ratio, or at a ratio not above 0 (its `_encode_ht_rate_controlled`)."""
+    if params.quality_psnr:
+        raise ValueError("PSNR targets are not available with the HT "
+                         "block coder (single cleanup pass)")
+    if not params.rates:
+        return
+    if params.transform != Transform.DWT_97:
+        raise ValueError("HT rate control requires the 9/7 transform "
+                         "(reversible HT has no quantizer to adjust)")
+    if len(params.rates) != 1 or max(params.numlayers,
+                                     len(params.rates)) != 1:
+        raise ValueError("HT rate control supports a single layer/ratio")
+    if float(params.rates[0]) <= 0:
+        raise ValueError("HT rate control needs a positive ratio")
+
+
+def _encode_ht_rate_controlled(image: Image, params: EncoderParams):
+    """HT + byte-rate targeting, the reference's search and confirm loop,
+    as a generator so that `encode_batch` can drive a chunk's frames in
+    lockstep. HT has no truncation points, so rate control adjusts the
+    9/7 base quantization step: the step search reads exact segment byte
+    totals of the device HT coder on the resident bands (it yields
+    ("probe", step) and is sent the total), and full encodes at a chosen
+    step confirm it and calibrate the header and T2 overhead (it yields
+    ("encode", step) and is sent the stream). Returns the stream.
+    `params` passed `_ht_rc_check`."""
+    image_bytes = sum(
+        c.data.shape[0] * c.data.shape[1] * c.prec
+        for c in image.components) // 8
+    target = max(256, int(image_bytes / float(params.rates[0])))
+    seg_cache: dict = {}
+
+    def seg(step: float):
+        if step not in seg_cache:
+            seg_cache[step] = yield ("probe", step)
+        return seg_cache[step]
+
+    def search(ov: int):
+        """Smallest step whose simulated total fits the target."""
+        lo, hi = 0.25, 1.0
+        while (yield from seg(hi)) + ov > target and hi < 4096:
+            lo, hi = hi, hi * 4.0
+        if (yield from seg(hi)) + ov > target:
+            return hi           # floor: even huge steps overshoot
+        while (yield from seg(lo)) + ov <= target and lo > 1e-4:
+            hi, lo = lo, lo / 4.0
+        if (yield from seg(lo)) + ov <= target:
+            return lo
+        for _ in range(10):     # log bisection on the simulator
+            mid = (lo * hi) ** 0.5
+            if (yield from seg(mid)) + ov <= target:
+                hi = mid
+            else:
+                lo = mid
+            if lo / hi > 0.995:
+                break
+        return hi
+
+    # Initial overhead guess; calibrated exactly after the first confirm.
+    ov = max(200, target // 50)
+    best = None
+    for _ in range(4):
+        step = yield from search(ov)
+        cs = yield ("encode", step)
+        if len(cs) <= target:
+            best = cs
+            true_ov = len(cs) - (yield from seg(step))
+            if true_ov >= ov - max(32, target // 500):
+                return cs       # overhead was right: step is optimal
+            ov = max(0, true_ov)        # margin was too big: retry finer
+            refined = yield from search(ov)
+            if refined >= step * 0.995:
+                return cs
+            cs2 = yield ("encode", refined)
+            return cs2 if len(cs2) <= target else cs
+        ov = len(cs) - (yield from seg(step)) + max(32, target // 500)
+    return best if best is not None else cs
+
+
+class _HTRateSearch:
+    """The device side of one chunk's HT rate control: each tile's
+    code-blocks, transformed (DC shift, MCT, 9/7 DWT) and gathered once
+    and resident through the chunk's search, and each candidate base
+    step's lanes, made once a step: `FusedHTEncoder.lanes` of the tile
+    plans at `default_qcd(siz, cod, 1, step)`, which sets both the band
+    steps and Mb."""
+
+    def __init__(self, images: List[Image], siz: SizInfo, cod: CodInfo,
+                 cod_comp, tile_enc: List):
+        self.siz, self.cod, self.cod_comp = siz, cod, cod_comp
+        s = siz
+        self.trs = [tile_rect(t, s.xsiz, s.ysiz, s.xosiz, s.yosiz, s.xtsiz,
+                              s.ytsiz, s.xtosiz, s.ytosiz)
+                    for t in range(len(tile_enc))]
+        self.tile_enc = tile_enc
+        self.blocks = []
+        for t, enc in enumerate(tile_enc):
+            stacks = zip(*(extract_tile_comps(im, s, t) for im in images))
+            args = fused_encode.upload_tile([np.stack(c) for c in stacks],
+                                            enc)
+            self.blocks.append(enc.gather(enc.transform(*args)))
+        self._lanes: Dict[float, List] = {}
+
+    def lanes(self, step: float) -> List:
+        """Per tile, the lanes of the plan at base step `step`."""
+        if step not in self._lanes:
+            qcd = default_qcd(self.siz, self.cod, 1, step)
+            self._lanes[step] = [
+                enc.lanes(fused_encode.build_plan(
+                    self.siz, self.cod, qcd, tr, cod_comp=self.cod_comp))
+                for tr, enc in zip(self.trs, self.tile_enc)]
+        return self._lanes[step]
+
+
+def _ht_rc_segment_bytes(search: _HTRateSearch, frames: List[int],
+                         steps: List[float]) -> List[int]:
+    """Exact total HT segment bytes of the chunk's frames numbered
+    `frames`, each at its base step in `steps`, from the resident
+    blocks: the device's quantization and HT coder, nothing else (one
+    `FusedHTEncoder.segment_totals` a tile, one fetch of the totals)."""
+    total = None
+    for t, enc in enumerate(search.tile_enc):
+        n = enc.segment_totals(search.blocks[t], frames,
+                               [search.lanes(s)[t] for s in steps])
+        total = n if total is None else total + n
+    return total.tolist()
+
+
+def _ht_rc_segments(search: _HTRateSearch, frames: List[int],
+                    steps: List[float]) -> List[Dict[int, List]]:
+    """The fused encode of the chunk's frames numbered `frames`, each at
+    its base step, from the resident blocks: per frame its segments by
+    tile, for the host T2 of `encode`."""
+    out: List[Dict[int, List]] = [{} for _ in frames]
+    for t, enc in enumerate(search.tile_enc):
+        lens, data = enc.encode_blocks(search.blocks[t], frames,
+                                       [search.lanes(s)[t] for s in steps])
+        segs = fused_encode.assemble_collected_ht(
+            enc.plan, len(frames), lens.cpu().numpy(), data.cpu().numpy())
+        for i, sg in enumerate(segs):
+            out[i][t] = sg
+    return out
+
+
+def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
+                        search: _HTRateSearch, t2_pool) -> List[bytes]:
+    """The streams of a chunk's frames under HT rate control: every
+    frame's search (`_encode_ht_rate_controlled`) driven in lockstep, a
+    round being one probe for every frame that asks for a total, and one
+    fused encode for every frame that asks for a stream, whose host T2
+    runs on `t2_pool` (`encode` at the step, as the reference's confirm
+    encodes)."""
+    gens = [_encode_ht_rate_controlled(im, params) for im in images]
+    asks = {f: next(g) for f, g in enumerate(gens)}
+    done: Dict[int, bytes] = {}
+    while asks:
+        probes = [f for f in sorted(asks) if asks[f][0] == "probe"]
+        confirms = [f for f in sorted(asks) if asks[f][0] == "encode"]
+        futures = []
+        if confirms:
+            segs = _ht_rc_segments(search, confirms,
+                                   [asks[f][1] for f in confirms])
+            futures = [(f, t2_pool.submit(encode, images[f],
+                                          dataclasses.replace(
+                                              params, rates=(),
+                                              base_step=asks[f][1]), sg))
+                       for f, sg in zip(confirms, segs)]
+        answers = {}
+        if probes:
+            answers.update(zip(probes, _ht_rc_segment_bytes(
+                search, probes, [asks[f][1] for f in probes])))
+        answers.update((f, fut.result()) for f, fut in futures)
+        for f in sorted(answers):
+            try:
+                asks[f] = gens[f].send(answers[f])
+            except StopIteration as stop:
+                done[f] = stop.value
+                del asks[f]
+    return [done[f] for f in range(len(images))]
 
 
 def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
                  device: DeviceLike = "cuda", chunk: int = 32) -> List[bytes]:
     """Encode same-geometry frames with the HT block coder (`cblk_style`
-    0x40; 5/3, lossless) or the Part-1 MQ coder (`cblk_style` 0; 5/3 or
-    9/7, one layer or quality layers at the byte targets `rates` or the
-    PSNR targets `quality_psnr`).
+    0x40; 5/3, lossless, or 9/7, at the default or a given base step, or
+    at one byte target `rates=(r,)`) or the Part-1 MQ coder (`cblk_style`
+    0; 5/3 or 9/7, one layer or quality layers at the byte targets
+    `rates` or the PSNR targets `quality_psnr`).
 
     Frames are coded `chunk` at a time: each chunk is one upload and one
     fused device encode per tile, and the host T2 (with the rate
     allocation) of a chunk runs on a thread pool while the device codes
-    the next. On a CUDA device an MQ chunk is capped to the frames whose
-    encode fits in half the free device memory (`_capped_chunk`), at least
-    one. The streams are byte-identical to the reference host encoder's,
-    whatever the chunk."""
+    the next. HT with a byte target searches each frame's base step on
+    the chunk's resident code-blocks, the chunk's frames in lockstep
+    (`_encode_ht_rc_chunk`). On a CUDA device a chunk is capped to the
+    frames whose encode fits in half the free device memory
+    (`_capped_chunk`), at least one. The streams are byte-identical to
+    the reference host encoder's, whatever the chunk."""
     dev = resolve_device(device)
     params = params or EncoderParams()
     if not images:
         return []
+    if params.cblk_style & 0x40:
+        _ht_rc_check(params)
     why = _out_of_slice(images, params)
     if why is not None:
         raise NotImplementedError(
@@ -339,6 +533,7 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
     numtiles = ntx * nty
 
     coder = "ht" if p.cblk_style & 0x40 else "mq"
+    rate_control = coder == "ht" and bool(p.rates)
     encoders = {}        # plan -> encoder (interior tiles share one)
     tile_enc = []
     for t in range(numtiles):
@@ -357,13 +552,20 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
         tile_enc.append(encoders[plan])
 
     n = len(images)
-    chunk = max(1, min(_capped_chunk(chunk, encoders, dev), n))
+    chunk = max(1, min(_capped_chunk(chunk, encoders, dev, rate_control), n))
     results: List[Optional[bytes]] = [None] * n
     futures = []
     with concurrent.futures.ThreadPoolExecutor(
             max_workers=min(4, os.cpu_count() or 1)) as t2_pool:
         for lo in range(0, n, chunk):
             hi = min(lo + chunk, n)
+            if rate_control:
+                search = _HTRateSearch(images[lo:hi], siz, cod, cod_comp,
+                                       tile_enc)
+                results[lo:hi] = _encode_ht_rc_chunk(images[lo:hi], p,
+                                                     search, t2_pool)
+                del search
+                continue
             handles = []
             for t in range(numtiles):
                 stacks = list(zip(*(extract_tile_comps(images[f], siz, t)

@@ -57,14 +57,12 @@ def _cfg_from_reference(c) -> pipeline.TileTransformConfig:
 
 
 def plan_from_reference(ref_plan) -> FusedPlan:
-    """A reference `models.fused_encode.FusedPlan` (HT on 5/3, or MQ on
-    5/3 or 9/7, with or without R-D tables) -> the port's `FusedPlan`,
-    band steps and `want_rd` included."""
-    if ref_plan.coder not in ("ht", "mq") or (
-            ref_plan.coder == "ht" and not ref_plan.cfg.reversible):
+    """A reference `models.fused_encode.FusedPlan` (HT or MQ, on 5/3 or
+    9/7, MQ with or without R-D tables) -> the port's `FusedPlan`, band
+    steps, Mb and `want_rd` included."""
+    if ref_plan.coder not in ("ht", "mq"):
         raise NotImplementedError(
-            f"only HT on 5/3 and MQ plans are ported (got coder="
-            f"{ref_plan.coder!r}, reversible={ref_plan.cfg.reversible})")
+            f"unknown block coder {ref_plan.coder!r}")
     groups = tuple(
         (gh, gw, tuple(BlockSpec(comp=b.comp, key=tuple(b.key), y0=b.y0,
                                  x0=b.x0, h=b.h, w=b.w, kmax=b.kmax,

@@ -3,10 +3,16 @@
 Port of `grokimagecompression_tpu/models/fused_encode.py`. For a batch
 of same-geometry frames it runs DC shift -> MCT -> DWT (`ops/dwt.py`)
 -> code-block gather on the device, then
-- HT (`FusedHTEncoder`, reversible 5/3): the HT cleanup encoder
+- HT (`FusedHTEncoder`, 5/3 or 9/7): the 9/7 bands' deadzone
+  quantization in float64 to signed coefficients
+  (`ops/quant.signed_deadzone`), then the HT cleanup encoder
   (`ops/ht_enc.encode_segments`), which returns each shape group's
   finished segments packed lane after lane; the host only slices them
-  (`assemble_collected_ht`);
+  (`assemble_collected_ht`). For HT rate control the transform and the
+  gather run once a chunk (`transform`, `gather`) and the gathered
+  blocks stay on the device while the step search probes them
+  (`segment_totals`: the segment bytes at a candidate step, one launch
+  a shape group, nothing packed);
 - MQ (`FusedMQEncoder`, Part-1 default code-block style, 5/3 or 9/7):
   the 9/7 bands' deadzone quantization in float64 (the host encoder's
   rule, so the streams are the host's byte for byte) -> bit-plane count
@@ -23,9 +29,9 @@ group, then block order within the (group, frame), as in the reference;
 `FusedPlan.order` maps it back to the t1-desc order of
 `codestream/tile.py`.
 
-Not ported: the HT coder on 9/7 bands, and the reference's
-word-compaction caps, overflow flags, host re-encode and size-hinted
-fetch, which segments written in place on the device make unnecessary.
+Not ported: the reference's word-compaction caps, overflow flags, host
+re-encode and size-hinted fetch, which segments written in place on the
+device make unnecessary.
 """
 
 from __future__ import annotations
@@ -76,7 +82,7 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
                ) -> Optional[FusedPlan]:
     """The plan for one tile and block coder ("ht" or "mq"), or None
     when out of scope (components with different transforms, an MCT
-    other than none/RCT/ICT, the HT coder on 9/7 bands). `want_rd` (MQ
+    other than none/RCT/ICT). `want_rd` (MQ
     only) makes the encode also return per-pass R-D tables for PCRD.
 
     The block order (comp -> resolution -> band -> precinct -> cblk)
@@ -93,7 +99,7 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
     if any(cc.transform != cods[0].transform for cc in cods):
         return None
     reversible = cods[0].transform == Transform.DWT_53
-    if cod.mct not in (0, 1) or (coder == "ht" and not reversible):
+    if cod.mct not in (0, 1):
         return None
     groups: Dict[Tuple[int, int], List[Tuple[int, BlockSpec]]] = {}
     gi = 0
@@ -188,22 +194,123 @@ def mq_frame_bytes(plan: "FusedPlan") -> int:
     return bands + peak
 
 
-def chunk_cap(plan: "FusedPlan", free_bytes: int) -> int:
-    """The most frames of `plan` one chunk may hold so that its MQ encode
-    (`mq_frame_bytes` a frame, and the scan's counting temporaries once)
-    fits in MEMORY_SHARE of `free_bytes`, and at least 1."""
-    room = int(MEMORY_SHARE * free_bytes) - mq_scan.EMIT_BLOCK_BYTES
-    return max(1, room // mq_frame_bytes(plan))
+# Device bytes of the HT encode (`FusedHTEncoder.encode_blocks` and
+# `segment_totals` and what they call), per unit named:
+# - per tile sample: the uploaded sample (`_upload_dtype`), held through
+#   the encode;
+# - per tile sample, the transform at its peak: with the ICT
+#   (`mct_torch.ict_fwd`) each component's shifted int32 samples (4),
+#   their float64 copy (8), the float32 result (4) and, one component at
+#   a time, the fused multiply-add's float64 product, widened accumulator
+#   and sum (24 B a pixel, 8 a sample): 24 B; without the ICT the int32
+#   and shifted samples, then the DWT's input, output and scratch: at
+#   most 12 B;
+# - per tile sample: the transform's band planes, float32 or int32,
+#   alive while `gather` copies the blocks out (4 B);
+# - per padded sample of every group: the gathered blocks (4), held
+#   through the encode, and under rate control through the chunk's whole
+#   step search, when a probe also copies out the frames still searching
+#   (4);
+# - per padded sample of a group: 9/7's quantization at its peak
+#   (`quant.signed_deadzone`: the float64 copy beside the float32 absolute
+#   values, then the int32 magnitudes, their negation, the sign mask and
+#   the result: 13 B), then the int32 coefficients, held through the
+#   launch and the pack (4);
+# - per lane: the kernel's output region (`ht_enc.lane_bounds` at the
+#   group's largest Mb; under rate control at the most any step can
+#   give, m = 32), its offset (int64), length and Mb (int32), the packed
+#   segment (at most its region) and its end (int64);
+# - per lane, after its group: the packed segment, held until `torch.cat`
+#   copies every group's segments once more at the end;
+# - per block of the plan, once a chunk: the encoder's float64 stepsizes
+#   (`FusedHTEncoder.lanes`, 8 B).
+# Left out: under rate control the stepsizes of each step searched, 8 B a
+# block a step (at most ~100 steps a frame: 0.8 % of a config-2 frame's
+# model).
+HT_STEP_BYTES = 8
+HT_TRANSFORM_BYTES = {True: 24, False: 12}       # with the ICT, without
+HT_QUANT_BYTES = 13
+HT_LANE_BYTES = 8 + 4 + 4 + 8
+
+
+def ht_frame_bytes(plan: "FusedPlan", rate_control: bool = False) -> int:
+    """Peak device bytes one frame of an HT plan takes in its encode (the
+    terms above): the uploaded samples, and the largest of the
+    transform's peak, the band planes beside the gathered blocks, the
+    gathered blocks with the costliest group's quantization, launch and
+    pack and the segments packed before it, and the gathered blocks with
+    every group's segments twice at the concatenation. With
+    `rate_control` the blocks stay resident through the search, a probe
+    copies the searching frames' blocks, and a candidate step's Mb may
+    be up to 30."""
+    if plan.coder != "ht":
+        raise ValueError("ht_frame_bytes needs an HT plan")
+    cfg = plan.cfg
+    samples = [r.w * r.h for r in cfg.tc_rects]
+    ict = bool(cfg.mct) and len(samples) >= 3 and not cfg.reversible
+    upload = sum(n * _upload_dtype(p, s).itemsize
+                 for n, p, s in zip(samples, cfg.precs, cfg.signeds))
+    transform = HT_TRANSFORM_BYTES[ict] * sum(samples)
+    bands = 4 * sum(samples)
+    held = 4 * sum(len(blocks) * 4 * qh * qw
+                   for (qh, qw, blocks) in plan.groups)
+    quant_b = 0 if cfg.reversible else HT_QUANT_BYTES
+    peak, segs = 0, 0
+    for (qh, qw, blocks) in plan.groups:
+        mb = 30 if rate_control else max(b.kmax for b in blocks)
+        bound = int(ht_enc.lane_bounds(np.asarray([mb]), qh, qw)[0])
+        padded = 4 * qh * qw
+        select = 4 * padded if rate_control else 0
+        launch = 4 * padded + 2 * bound + HT_LANE_BYTES
+        peak = max(peak, segs + len(blocks) * (
+            select + max(quant_b * padded, launch)))
+        segs += len(blocks) * bound
+    return upload + max(transform, bands + held,
+                        held + max(peak, 2 * segs))
+
+
+def frame_bytes(plan: "FusedPlan", rate_control: bool = False) -> int:
+    """`mq_frame_bytes` or `ht_frame_bytes` of the plan's coder."""
+    if plan.coder == "mq":
+        return mq_frame_bytes(plan)
+    return ht_frame_bytes(plan, rate_control)
+
+
+def chunk_cap(plan: "FusedPlan", free_bytes: int,
+              rate_control: bool = False) -> int:
+    """The most frames of `plan` one chunk may hold so that its encode
+    (`frame_bytes` a frame, and once a chunk the MQ scan's counting
+    temporaries or the HT encoder's stepsizes) fits in MEMORY_SHARE of
+    `free_bytes`, and at least 1."""
+    fixed = mq_scan.EMIT_BLOCK_BYTES if plan.coder == "mq" \
+        else HT_STEP_BYTES * plan.nblocks
+    room = int(MEMORY_SHARE * free_bytes) - fixed
+    return max(1, room // frame_bytes(plan, rate_control))
+
+
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on `dev`; on a card without waiting for the device
+    (`ht_enc.to_device`)."""
+    if dev.type == "cuda":
+        return ht_enc.to_device(a, dev)
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 class FusedHTEncoder(nn.Module):
-    """The fused HT encode for one plan. Buffers: the tables of
+    """The fused HT encode for one plan (5/3, or 9/7 with its bands'
+    deadzone quantization in float64). Buffers: the tables of
     `ht_tables.device_tables`. `forward(*frames)` takes one integer
     (N, h_c, w_c) tensor per component, on the module's device, and
     returns (lens (B_total,) int32, data (sum(lens),) uint8): each block's
     HT cleanup segment, packed block after block, with B_total = N *
     plan.nblocks. On the card each shape group is one launch of the HT
-    encoder kernel; on the CPU its plain version."""
+    encoder kernel; on the CPU its plain version.
+
+    HT rate control takes the steps apart: `transform` and `gather` once
+    a chunk, `lanes` once a candidate base step (the band steps and Mb of
+    the plan at that step, a plan of this one's geometry), then the probe
+    `segment_totals` and the encode `encode_blocks` on the resident
+    blocks, each frame at its own step."""
 
     def __init__(self, plan: FusedPlan, tables: Dict[str, torch.Tensor]):
         super().__init__()
@@ -211,8 +318,7 @@ class FusedHTEncoder(nn.Module):
         self._table_keys = tuple(tables)
         for k, v in tables.items():
             self.register_buffer(k, v)
-        self._kmaxs = [np.asarray([b.kmax for b in blocks], np.int64)
-                       for (_, _, blocks) in plan.groups]
+        self._own = self.lanes(plan)
 
     @property
     def device(self) -> torch.device:
@@ -221,13 +327,28 @@ class FusedHTEncoder(nn.Module):
     def tables(self) -> Dict[str, torch.Tensor]:
         return {k: getattr(self, k) for k in self._table_keys}
 
-    def group_inputs(self, *frames):
-        """Yield (coeffs, mbs) per shape group: the gathered, padded
-        (N * nb, 2qh, 2qw) int32 code-blocks of the frames, frame-major,
-        and their (N * nb,) int32 Mb."""
-        nframes = frames[0].shape[0]
-        bands_list = pipeline._fwd_transform(self.plan.cfg, frames)
-        for (qh, qw, blocks), kmaxs in zip(self.plan.groups, self._kmaxs):
+    def lanes(self, plan: FusedPlan):
+        """Per shape group of `plan`, its blocks' stepsizes ((nb,) float64
+        on the device) and Mb ((nb,) int32 on the host). `plan` has this
+        encoder's geometry, at any base step."""
+        if [(qh, qw, len(b)) for (qh, qw, b) in plan.groups] != \
+                [(qh, qw, len(b)) for (qh, qw, b) in self.plan.groups]:
+            raise ValueError("a plan of another geometry")
+        return [(upload(np.asarray([b.step for b in blocks], np.float64),
+                        self.device),
+                 np.asarray([b.kmax for b in blocks], np.int32))
+                for (_, _, blocks) in plan.groups]
+
+    def transform(self, *frames) -> List[Dict]:
+        """The frames' band planes (`pipeline._fwd_transform`)."""
+        return pipeline._fwd_transform(self.plan.cfg, frames)
+
+    def gather(self, bands_list) -> List[torch.Tensor]:
+        """Per shape group, the frames' code-blocks (N, nb, 2qh, 2qw),
+        frame-major, zero-padded to the group's shape: float32 9/7
+        coefficients or int32 5/3 ones."""
+        out = []
+        for (qh, qw, blocks) in self.plan.groups:
             mats = []
             for b in blocks:
                 band = bands_list[b.comp][b.key]
@@ -236,19 +357,72 @@ class FusedHTEncoder(nn.Module):
                     blk = nn.functional.pad(
                         blk, (0, 2 * qw - b.w, 0, 2 * qh - b.h))
                 mats.append(blk)
-            v = torch.stack(mats, dim=1).reshape(-1, 2 * qh, 2 * qw)
-            mbs = torch.as_tensor(np.tile(kmaxs, nframes).astype(np.int32),
-                                  device=v.device)
-            yield v.to(torch.int32).contiguous(), mbs
+            out.append(torch.stack(mats, dim=1))
+        return out
 
-    def forward(self, *frames):
+    def _select(self, v: torch.Tensor, frames) -> torch.Tensor:
+        """The gathered blocks `v` of the frames numbered `frames` (all
+        of them for None)."""
+        if frames is None or list(frames) == list(range(v.shape[0])):
+            return v
+        return v.index_select(0, upload(np.asarray(frames, np.int64),
+                                        v.device))
+
+    def _inputs(self, g: int, v: torch.Tensor, lanes):
+        """(coeffs (F nb, 2qh, 2qw) int32, mbs (F nb,) int32 on the
+        device, the same Mb on the host) of shape group g's blocks `v`,
+        (F, nb, 2qh, 2qw), frame i coded with `lanes[i]` (`lanes`)."""
+        if self.plan.cfg.reversible:
+            coeffs = v
+        else:
+            steps = torch.stack([ln[g][0] for ln in lanes])
+            coeffs = quant.signed_deadzone(v, steps[:, :, None, None])
+        mbs = np.concatenate([ln[g][1] for ln in lanes])
+        return (coeffs.reshape(-1, *v.shape[2:]).to(torch.int32)
+                .contiguous(), upload(mbs, v.device), mbs)
+
+    def group_inputs(self, *frames):
+        """Yield (coeffs, mbs) per shape group: the gathered, padded
+        (N * nb, 2qh, 2qw) int32 code-blocks of the frames, frame-major
+        (9/7 quantized, with their signs), and their (N * nb,) int32 Mb."""
+        lanes = [self._own] * frames[0].shape[0]
+        for g, v in enumerate(self.gather(self.transform(*frames))):
+            yield self._inputs(g, v, lanes)[:2]
+
+    def encode_blocks(self, blocks, frames=None, lanes=None):
+        """`forward`'s (lens, data) from gathered blocks (`gather`): the
+        frames numbered `frames` (all for None), frame i coded with
+        `lanes[i]` (this plan's for None)."""
         tables = self.tables()
         lens, data = [], []
-        for coeffs, mbs in self.group_inputs(*frames):
-            d, n = ht_enc.encode_segments(coeffs, mbs, tables)
+        for g, v in enumerate(blocks):
+            v = self._select(v, frames)
+            coeffs, mbs, mbs_host = self._inputs(
+                g, v, lanes or [self._own] * v.shape[0])
+            d, n = ht_enc.encode_segments(coeffs, mbs, tables, mbs_host)
             data.append(d)
             lens.append(n)
         return torch.cat(lens), torch.cat(data)
+
+    def segment_totals(self, blocks, frames, lanes) -> torch.Tensor:
+        """The probe of HT rate control: for each frame numbered in
+        `frames` of the resident gathered `blocks`, coded with `lanes[i]`,
+        the sum of its code-blocks' segment bytes, (F,) int64 on the
+        module's device. On the card one kernel launch a shape group and
+        nothing packed; nothing waits for the device until the caller
+        reads the totals."""
+        tables = self.tables()
+        total = None
+        for g, v in enumerate(blocks):
+            v = self._select(v, frames)
+            coeffs, mbs, mbs_host = self._inputs(g, v, lanes)
+            n = ht_enc.segment_lengths(coeffs, mbs, tables, mbs_host)
+            n = n.view(v.shape[0], -1).sum(1, dtype=torch.int64)
+            total = n if total is None else total + n
+        return total
+
+    def forward(self, *frames):
+        return self.encode_blocks(self.gather(self.transform(*frames)))
 
 
 class FusedMQEncoder(nn.Module):
@@ -330,11 +504,9 @@ def _upload_dtype(prec: int, signed: bool) -> torch.dtype:
     return torch.int32
 
 
-def encode_tile_submit(comps_data: List[np.ndarray], encoder):
-    """Upload one tile's components for a batch of frames (each (N, h, w)
-    or (h, w)) and run the fused encode (a `FusedHTEncoder` or
-    `FusedMQEncoder`). Returns a handle for encode_tile_collect; the
-    outputs stay on the device until then."""
+def upload_tile(comps_data: List[np.ndarray], encoder) -> List[torch.Tensor]:
+    """One tile's components for a batch of frames (each (N, h, w) or (h,
+    w)) on the encoder's device, each in its narrowest dtype."""
     dev = encoder.device
     cfg = encoder.plan.cfg
     args = []
@@ -343,6 +515,15 @@ def encode_tile_submit(comps_data: List[np.ndarray], encoder):
         dt = _upload_dtype(cfg.precs[c], cfg.signeds[c])
         args.append(torch.from_numpy(np.ascontiguousarray(a)).to(dt)
                     .to(dev, non_blocking=True))
+    return args
+
+
+def encode_tile_submit(comps_data: List[np.ndarray], encoder):
+    """Upload one tile's components for a batch of frames (each (N, h, w)
+    or (h, w)) and run the fused encode (a `FusedHTEncoder` or
+    `FusedMQEncoder`). Returns a handle for encode_tile_collect; the
+    outputs stay on the device until then."""
+    args = upload_tile(comps_data, encoder)
     return encoder.plan, args[0].shape[0], encoder(*args)
 
 

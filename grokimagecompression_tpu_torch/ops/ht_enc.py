@@ -22,8 +22,9 @@ segment, lane after lane, and `lens` their lengths. `tables` is
 A CUDA tensor launches `csrc/ht_enc.cu` (counted in `LAUNCHES`) or
 raises: each lane writes its segment in place into a region of
 `lane_bounds` bytes (the bound is proved in the kernel's source), and a
-second small kernel packs the regions to their lengths (`pack`).
-A CPU tensor takes the plain version, `encode_segments_plain`: the
+second small kernel packs the regions to their lengths (`pack`);
+`segment_lengths`, the step search of HT rate control, stops before
+the pack. A CPU tensor takes the plain version, `encode_segments_plain`: the
 torch op streams (`ht_torch.op_streams`), the plain scans of
 `ops/ht_scan.py`, `ht_torch.group_metrics` and `place_words`, then
 `ht_tables.assemble_segments_host`. The plain version runs on either
@@ -33,7 +34,7 @@ the card calls it.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -119,12 +120,21 @@ def encode_segments_plain(coeffs: torch.Tensor, mbs: torch.Tensor,
     return torch.from_numpy(data).to(dev), torch.from_numpy(lens).to(dev)
 
 
+def to_device(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on the card `dev` without waiting for the device: a
+    pinned copy, sent asynchronously on the current stream."""
+    return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+        dev, non_blocking=True)
+
+
 def encode_into(coeffs: torch.Tensor, mbs: torch.Tensor,
-                tables: Dict[str, torch.Tensor]):
+                tables: Dict[str, torch.Tensor],
+                mbs_host: Optional[np.ndarray] = None):
     """Launch the kernel on CUDA tensors (checked by the caller): lane b
     writes its segment from `out[off[b]]` into a region of
-    `lane_bounds` bytes, laid out on the host from one copy of `mbs`
-    (the synchronisation). Returns (out (N,) uint8, off (B + 1,) int64,
+    `lane_bounds` bytes, laid out on the host from `mbs_host`, the lanes'
+    Mb as the caller holds them, or else from one copy of `mbs` (a
+    synchronisation). Returns (out (N,) uint8, off (B + 1,) int64,
     lens (B,) int32)."""
     dev = coeffs.device
     B, H, W = coeffs.shape
@@ -133,11 +143,13 @@ def encode_into(coeffs: torch.Tensor, mbs: torch.Tensor,
     if B == 0:
         return (torch.empty(0, dtype=torch.uint8, device=dev),
                 torch.zeros(1, dtype=torch.int64, device=dev), lens)
-    mb = mbs.cpu().numpy()
+    mb = mbs.cpu().numpy() if mbs_host is None else np.asarray(mbs_host)
+    if mb.shape != (B,):
+        raise ValueError(f"mbs_host: expected ({B},), got {mb.shape}")
     _check_mb(int(mb.min()))
     off_np = np.zeros(B + 1, np.int64)
     np.cumsum(lane_bounds(mb, qh, qw), out=off_np[1:])
-    off = torch.from_numpy(off_np).to(dev)
+    off = to_device(off_np, dev)
     out = torch.empty(int(off_np[-1]), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -174,11 +186,27 @@ def pack(out: torch.Tensor, off: torch.Tensor,
 
 
 def encode_segments(coeffs: torch.Tensor, mbs: torch.Tensor,
-                    tables: Dict[str, torch.Tensor]) -> Segments:
+                    tables: Dict[str, torch.Tensor],
+                    mbs_host: Optional[np.ndarray] = None) -> Segments:
     """Encode a shape group of code-blocks into HT cleanup segments (see
-    the module docstring for the contract)."""
+    the module docstring for the contract); `mbs_host`, the lanes' Mb on
+    the host where the caller holds them, spares the kernel's wrapper its
+    copy of `mbs`."""
     _check(coeffs, mbs, tables)
     if coeffs.device.type == "cpu":
         return encode_segments_plain(coeffs, mbs, tables)
-    out, off, lens = encode_into(coeffs, mbs, tables)
+    out, off, lens = encode_into(coeffs, mbs, tables, mbs_host)
     return pack(out, off, lens), lens
+
+
+def segment_lengths(coeffs: torch.Tensor, mbs: torch.Tensor,
+                    tables: Dict[str, torch.Tensor],
+                    mbs_host: Optional[np.ndarray] = None) -> torch.Tensor:
+    """The lanes' segment lengths, (B,) int32, alone: what HT rate
+    control's step search reads. On the card one launch of the kernel,
+    with nothing packed and nothing waited for (given `mbs_host`); on the
+    CPU the plain version's lengths."""
+    _check(coeffs, mbs, tables)
+    if coeffs.device.type == "cpu":
+        return encode_segments_plain(coeffs, mbs, tables)[1]
+    return encode_into(coeffs, mbs, tables, mbs_host)[2]

@@ -7,7 +7,9 @@ Copies of `grokimagecompression_tpu/ops/quant.py` (the basis norms,
 irreversible MCT norms of `ops/mct_np.py`;
 `tests/test_torch_host_copies.py` holds them equal to the originals.
 `deadzone` is the port's quantizer for the 9/7 bands: the host encoder's
-rule, floor(|v| / step) in float64. `reconstruct` is the 9/7 decode's
+rule, floor(|v| / step) in float64 (the MQ coder's magnitudes;
+`signed_deadzone`, the HT coder's signed coefficients). `reconstruct` is
+the 9/7 decode's
 dequantizer on torch tensors, the host's float32 `dequantize`.
 """
 
@@ -74,6 +76,18 @@ def deadzone(v: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
     (`grok_extract_blocks_f32`, `quant.quantize`); a float32 reciprocal
     would move coefficients on a step boundary to the next magnitude."""
     return torch.floor(v.abs().to(torch.float64) / step).to(torch.int64)
+
+
+def signed_deadzone(v: torch.Tensor, step: torch.Tensor) -> torch.Tensor:
+    """`deadzone`'s magnitudes with the sign of `v`, as int32: the signed
+    coefficients the HT encoder reads (`ops/ht_enc.py`), negative where
+    v < 0. The same float64 division and truncation, done in place so
+    that a block is held in float64 once."""
+    q = v.abs().to(torch.float64)
+    q.div_(step).floor_()
+    mag = q.to(torch.int32)
+    del q
+    return torch.where(v < 0, -mag, mag)
 
 
 def trunc_plane(numbps: int, numpasses: int) -> int:

@@ -105,3 +105,75 @@ def test_streams_do_not_depend_on_the_chunk(monkeypatch):
                         or submit(comps, enc))
     assert encoder.encode_batch(imgs, params, device="cpu") == want
     assert sizes == [1, 1, 1, 1]
+
+
+def _config2_ht_plan():
+    """BASELINE config 2 with the HT block coder at the default step
+    (one guard bit, as HT streams carry)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    img = chip_smoke.config2_frames(1)[0]
+    params = EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                           cblk_style=0x40)
+    siz = encoder.build_siz(img, params)
+    cod = encoder.build_cod(img, params)
+    tr = tile_rect(0, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz, siz.xtsiz,
+                   siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    return fused_encode.build_plan(siz, cod, default_qcd(siz, cod, 1, 0.0),
+                                   tr)
+
+
+def test_ht_chunk_cap_from_free_bytes():
+    """The HT model a config-2 frame: the ICT's float64 transform leads
+    (25 bytes a sample with the uploaded one), above the encode's terms
+    also under rate control (the resident blocks' probe copy, output
+    regions at Mb 30), which a small frame's model shows; `chunk_cap`
+    divides half the free bytes, less the encoder's stepsizes, by it."""
+    plan = _config2_ht_plan()
+    samples = 3 * 2048 * 2048
+    fixed = fused_encode.ht_frame_bytes(plan)
+    searched = fused_encode.ht_frame_bytes(plan, rate_control=True)
+    assert fixed == searched == 25 * samples
+    small = _plan(_frames(1, 64, 64)[0], EncoderParams(
+        numresolutions=3, transform=Transform.DWT_97, cblk_style=0x40),
+        coder="ht")
+    assert fused_encode.ht_frame_bytes(small) < \
+        fused_encode.ht_frame_bytes(small, rate_control=True)
+    assert fused_encode.frame_bytes(plan) == fixed
+    steps = fused_encode.HT_STEP_BYTES * plan.nblocks   # once a chunk
+    assert fused_encode.chunk_cap(plan, 2 * (9 * fixed + steps)) == 9
+    assert fused_encode.chunk_cap(plan, 2 * (9 * fixed + steps) - 2) == 8
+    assert fused_encode.chunk_cap(plan, 2 * (9 * searched + steps),
+                                  rate_control=True) == 9
+    assert fused_encode.chunk_cap(plan, 2 * (9 * searched + steps) - 2,
+                                  rate_control=True) == 8
+    assert fused_encode.chunk_cap(plan, 0) == 1
+    # the default chunk of 32 config-2 HT frames fits an 80 GB card
+    assert fused_encode.chunk_cap(plan, 80 * 10 ** 9,
+                                  rate_control=True) >= 32
+    with pytest.raises(ValueError):
+        fused_encode.ht_frame_bytes(_config2_plan())
+
+
+@pytest.mark.parametrize("rates", [(), (4.0,)], ids=["fixed", "rates"])
+def test_ht_streams_do_not_depend_on_the_capped_chunk(monkeypatch, rates):
+    """HT on 9/7, at the default step and with a byte target: a free byte
+    count that caps the chunk to 1 encodes the frames one a chunk, to the
+    streams of one chunk of all of them."""
+    imgs = _frames(3, 64, 64)
+    params = EncoderParams(numresolutions=3, transform=Transform.DWT_97,
+                           cblk_style=0x40, rates=rates, cblk_w_exp=4,
+                           cblk_h_exp=4)
+    want = encoder.encode_batch(imgs, params, device="cpu", chunk=3)
+    sizes = []
+    submit = fused_encode.encode_tile_submit
+    search = encoder._HTRateSearch
+    monkeypatch.setattr(encoder, "free_device_bytes", lambda dev: 1)
+    monkeypatch.setattr(fused_encode, "encode_tile_submit",
+                        lambda comps, enc: sizes.append(comps[0].shape[0])
+                        or submit(comps, enc))
+    monkeypatch.setattr(encoder, "_HTRateSearch",
+                        lambda ims, *a: sizes.append(len(ims))
+                        or search(ims, *a))
+    assert encoder.encode_batch(imgs, params, device="cpu") == want
+    assert sizes == [1, 1, 1]

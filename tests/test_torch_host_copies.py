@@ -65,6 +65,7 @@ DIGESTS = os.path.join(DATA, "config1_ht_lossless.json")
 MQ_DIGESTS = os.path.join(DATA, "config1_mq_lossless.json")
 C2_DIGESTS = os.path.join(DATA, "config2_pcrd_97.json")
 C2_DEC_DIGESTS = os.path.join(DATA, "config2_decode_97.json")
+C2_HT_DIGESTS = os.path.join(DATA, "config2_ht_97.json")
 
 CASES = [
     ("gray", [natural_image(64, 64, seed=0)],
@@ -425,6 +426,56 @@ def test_config2_decode_digest_file_is_current():
         assert json.load(f) == config2_decode_digests()
 
 
+def _c2_ht_params(rates=()):
+    from grokimagecompression_tpu.core.params import Transform
+    return EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                         cblk_style=HT, rates=rates)
+
+
+def config2_ht_digests():
+    """SHA-256 of the reference host encoder's HT streams of the 4
+    config-2 frames (ICT + 9/7, the HT block coder; at the default base
+    step and at ratio 24, one layer, by its quantizer-step search), each
+    stream's length and target, and of the host decoder's pixels of every
+    stream; numpy DWT throughout."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    imgs = _config2_streams()[0]
+    out = {
+        "what": "BASELINE config 2 with the HT block coder: the streams of "
+                "grokimagecompression_tpu encoder.encode(EncoderParams("
+                "numresolutions=6, transform=DWT_97, cblk_style=0x40[, "
+                "rates=(24,)]), device=False) of chip_smoke."
+                "config2_frames(4), and the pixels of decoder.decode("
+                "device=False) of each, numpy DWT (dwt_host._get_native "
+                "None, GROK_TPU_DWT=python); "
+                "tests/test_torch_host_copies.py writes it",
+        "frames": [chip_smoke.frame_digest(im) for im in imgs],
+    }
+    with _numpy_dwt():
+        for key, rates in (("fixed", ()), ("ratio24", (24.0,))):
+            streams = [ref_encoder.encode(_reference_image(im),
+                                          _c2_ht_params(rates),
+                                          device=False) for im in imgs]
+            out[key] = {
+                "rates": list(rates),
+                "streams": [hashlib.sha256(cs).hexdigest()
+                            for cs in streams],
+                "bytes": [len(cs) for cs in streams],
+                "decoded": [chip_smoke.frame_digest(ref_decoder.decode(
+                    cs, device=False)) for cs in streams],
+            }
+    out["ratio24"]["targets"] = [
+        max(256, int(sum(c.data.size * c.prec for c in im.components)
+                     // 8 / 24.0)) for im in imgs]
+    return out
+
+
+def test_config2_ht_digest_file_is_current():
+    with open(C2_HT_DIGESTS) as f:
+        assert json.load(f) == config2_ht_digests()
+
+
 def test_quant_helpers_equal_reference():
     from grokimagecompression_tpu.ops import mct_np
     from grokimagecompression_tpu.ops import quant as ref_quant
@@ -640,4 +691,7 @@ if __name__ == "__main__":
         f.write("\n")
     with open(C2_DEC_DIGESTS, "w") as f:
         json.dump(config2_decode_digests(), f, indent=1)
+        f.write("\n")
+    with open(C2_HT_DIGESTS, "w") as f:
+        json.dump(config2_ht_digests(), f, indent=1)
         f.write("\n")

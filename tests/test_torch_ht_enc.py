@@ -238,3 +238,63 @@ def test_cuda_encoder_matches_plain():
         assert torch.equal(got[0], want[0]), (B, h, w, mb, kind)
     empty = ht_enc.encode_segments(co_t[:0], mbs_t[:0], t)
     assert empty[0].numel() == 0 and empty[1].numel() == 0
+
+
+@pytest.mark.gpu
+def test_cuda_fused_ht97_encoder_matches_cpu():
+    """`FusedHTEncoder` on a small 9/7 RGB frame (ICT, 4 resolutions,
+    32 x 32 blocks): on the card, `forward` and the step search's probe
+    `segment_totals` (frames picked, each at its own base step) against
+    the same module on the CPU, which runs the plain encoder; the card's
+    calls launch the kernel once a shape group, the probe and the
+    encode alike."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.codestream.tile import default_qcd
+    from grokimagecompression_tpu_torch.core.geometry import tile_rect
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    from grokimagecompression_tpu_torch.models import fused_encode
+
+    rng = np.random.default_rng(12)
+    yy, xx = np.mgrid[0:72, 0:80]
+    frames = [np.stack([(128 + 60 * np.sin(yy / 9.0 + f + c)
+                         * np.cos(xx / 7.0) + rng.integers(0, 24, (72, 80)))
+                        .clip(0, 255).astype(np.uint8) for c in range(3)])
+              for f in range(2)]
+    img = Image(xsiz=80, ysiz=72, components=[Component(
+        data=frames[0][c].astype(np.int32), prec=8, signed=False, dx=1,
+        dy=1) for c in range(3)])
+    params = EncoderParams(numresolutions=4, transform=Transform.DWT_97,
+                           cblk_style=0x40, cblk_w_exp=5, cblk_h_exp=5)
+    siz, cod = encoder.build_siz(img, params), encoder.build_cod(img, params)
+    tr = tile_rect(0, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz, siz.xtsiz,
+                   siz.ytsiz, siz.xtosiz, siz.ytosiz)
+
+    def plan_at(step):
+        return fused_encode.build_plan(siz, cod,
+                                       default_qcd(siz, cod, 1, step), tr)
+
+    outs = []
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        enc = fused_encode.FusedHTEncoder(plan_at(0.0),
+                                          ht_tables.device_tables(dev))
+        comps = [torch.from_numpy(np.stack([f[c] for f in frames])).to(dev)
+                 for c in range(3)]
+        before = ht_enc.LAUNCHES["enc"]
+        lens, data = enc(*comps)
+        blocks = enc.gather(enc.transform(*comps))
+        lanes = [enc.lanes(plan_at(s)) for s in (0.37, 6.5)]
+        totals = enc.segment_totals(blocks, [1, 0], lanes)
+        one = enc.segment_totals(blocks, [1], lanes[:1])
+        launches = ht_enc.LAUNCHES["enc"] - before
+        outs.append((lens.cpu(), data.cpu(), totals.cpu(), one.cpu(),
+                     launches))
+    (cpu_lens, cpu_data, cpu_tot, cpu_one, _), \
+        (lens, data, tot, one, launches) = outs
+    assert torch.equal(lens, cpu_lens) and torch.equal(data, cpu_data)
+    assert torch.equal(tot, cpu_tot) and torch.equal(one, cpu_one)
+    assert one[0] == tot[0] and tot[0] > tot[1] > 0
+    assert launches == 3 * len(plan_at(0.0).groups)

@@ -116,9 +116,6 @@ def _plans(img, params):
     ref_plan = ref_fused.build_plan(rsiz, rcod, rqcd, rtr, coder="ht")
     plan = fused_encode.build_plan(
         siz, cod, default_qcd(siz, cod, 1, params.base_step), tr)
-    if cod.transform != Transform.DWT_53:
-        # the port's HT coder takes the reversible path only
-        assert plan is None
     return ref_plan, plan
 
 
@@ -132,11 +129,9 @@ def test_plan_from_reference_equals_build_plan(size, ncomp, numres,
     img = natural_image(size, size - 3, ncomp=ncomp)
     ref_plan, plan = _plans(img, EncoderParams(
         numresolutions=numres, cblk_style=HT, transform=transform))
-    if plan is None:
-        # 9/7: the port's HT coder takes the reversible path only
-        with pytest.raises(NotImplementedError):
-            convert.plan_from_reference(ref_plan)
-        return
+    # 9/7 too: its blocks carry their band stepsizes
+    assert plan is not None
+    assert plan.cfg.reversible == (transform == Transform.DWT_53)
     assert convert.plan_from_reference(ref_plan) == plan
     if size == 512:
         # config 1 (the frames are 512 x 509 here): three quad-shape groups
@@ -153,8 +148,6 @@ def test_out_of_slice_raises():
                    EncoderParams(cblk_style=0, rates=(20.0,),
                                  rate_alloc="global"),
                    EncoderParams(cblk_style=0, roi_comp=0, roi_shift=3),
-                   EncoderParams(cblk_style=HT, transform=Transform.DWT_97),
-                   EncoderParams(cblk_style=HT, rates=(20.0,)),
                    EncoderParams(cblk_style=HT, ht_refinement=True)):
         with pytest.raises(NotImplementedError):
             _port_batch(imgs, params, device="cpu")
