@@ -15,7 +15,10 @@ MQ encode through `encode_batch` (2-frame chunks, then the default
 chunk), its decode through `decode_batch`, and a layer-limited decode;
 and at config 2 with the HT block coder on 9/7 the encode at the default
 base step, its decode, and the encode at ratio 24 (1 bpp) by the search
-of each frame's quantizer step.
+of each frame's quantizer step; and the rest of the batch decode's gate
+through `decode_batch`: the config-2 HT 9/7 frames with COC, POC and PPM
+as JP2 files, the config-1 frames with a POC and PPT as JP2 (HT) and with
+COC and PPM (MQ), and the tests/corpus streams.
 It checks every CUDA kernel on those paths against its plain PyTorch
 version, and imports only the port, torch, numpy and the standard
 library.
@@ -124,7 +127,28 @@ Phases, each fatal on failure:
      probe launching the HT encoder, none of the plain versions called;
      per frame its search calls, probe launches and confirm encodes;
      MP/s (best of 3) and the time split into transform + gather, probes
-     (with their device span), confirm encodes and host T2.
+     (with their device span), confirm encodes and host T2;
+ 15. the 4 config-2 frames of phase 12 (HT 9/7, default base step)
+     encoded with 32x32 blocks in the chroma components (COC), a POC
+     (RLCP over resolutions 0-2, then CPRL) and PPM markers, wrapped as JP2
+     files, through decode_batch(device="cuda"): the pixels of the host
+     decoder's digests in config2_ht_97.json (one HT cleanup pass at a
+     fixed step codes every quantized coefficient whatever the blocks,
+     order, packed headers or container), the HT decoder launched on both
+     block shapes and the DWT, the plain decoders and the host prepass
+     called by none of it; MP/s (best of 3) and the stages (unwrap, T2,
+     which is the Python packed-header parse here, lane packing, kernel,
+     inverse DWT, fetch), beside the same for phase 13's streams;
+ 16. the 64 config-1 frames through decode_batch(device="cuda") as HT
+     streams with a POC and PPT markers wrapped as JP2, and as MQ streams
+     with 32x32 blocks by COC and PPM markers: every frame equal to its
+     source, the HT decoder, the MQ decoder and the DWT launched, no plain
+     decoder or host prepass called; MP/s (best of 3) each;
+ 17. every tests/corpus stream that decode_batch takes (47 of 60), on the
+     card alone and as a batch of two copies, against the host decoder's
+     planes in grokimagecompression_tpu_torch/data/corpus_decode.json; the
+     other 13 raise NotImplementedError; a 9/7 HT stream with a QCC for
+     component 1 decodes on the card as on the CPU.
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
@@ -188,6 +212,11 @@ C2_DEC_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                               "config2_decode_97.json")
 C2_HT_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                              "config2_ht_97.json")
+# the reference host decoder's planes of the tests/corpus streams that
+# decode_batch takes, and the names of those it refuses
+CORPUS = os.path.join("tests", "corpus")
+CORPUS_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                              "corpus_decode.json")
 # the plain MQ coder's decisions allowed in the config-2 byte-out check
 # (~1.5 ms a decision on the card), and in the dense scan's check (which
 # also packs words each step)
@@ -307,6 +336,17 @@ def frame_digest(img) -> str:
     h = hashlib.sha256()
     for c in img.components:
         h.update(np.ascontiguousarray(c.data, dtype="<i4").tobytes())
+    return h.hexdigest()
+
+
+def plane_md5(img) -> str:
+    """MD5 of an image's planes, component by component, in the dtype the
+    decoder returns (int32): the digest of the corpus goldens
+    (`tests/test_goldens._plane_md5`) and of `CORPUS_DIGESTS`."""
+    import numpy as np
+    h = hashlib.md5()
+    for c in img.components:
+        h.update(np.ascontiguousarray(c.data).tobytes())
     return h.hexdigest()
 
 
@@ -1841,17 +1881,22 @@ def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
 
 
 def c2_decode_stages(streams, dev, coder="MQ", kernel="mq_dec_group"):
-    """Time of one config-2 decode chunk (the 4 streams) by stage (host
-    clock, synchronised); `coder` and `kernel` name the lane packing and
-    the decode kernel stages."""
+    """Time of one config-2 decode chunk (the 4 streams or JP2 files) by
+    stage (host clock, synchronised); `coder` and `kernel` name the lane
+    packing and the decode kernel stages. T2 is the native parser, or the
+    Python one where the streams carry packed headers (PPM / PPT)."""
     import torch
 
-    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.codestream import decoder, jp2
     from grokimagecompression_tpu_torch.models import fused_decode
     from grokimagecompression_tpu_torch.ops import dwt, mct_torch
 
     stages = {}
     tt = time.perf_counter
+    t = tt()
+    streams = [jp2.extract_codestream(d) if jp2.is_jp2(d) else d
+               for d in streams]
+    stages["unwrap (JP2)"] = tt() - t
     t = tt()
     hdr, trs, parsed = decoder.parse_batch(streams)
     stages["T2 (host)"] = tt() - t
@@ -2060,7 +2105,8 @@ def ht_model(plan, chunk, rate_control=False):
 def c2_ht_phases(c2_imgs, frame_digests, c2_siz, c2_tr, c2_chunk, dev,
                  card):
     """Phases 12-14: BASELINE config 2 with the HT block coder on 9/7, at
-    the default base step (a), its decode (b), and at ratio 24 (c)."""
+    the default base step (a), its decode (b), and at ratio 24 (c).
+    Returns the streams of (a)."""
     import torch
 
     from grokimagecompression_tpu_torch.codestream import decoder, encoder
@@ -2187,6 +2233,7 @@ def c2_ht_phases(c2_imgs, frame_digests, c2_siz, c2_tr, c2_chunk, dev,
     print(f"one {C2_FRAMES}-frame config-2 HT 9/7 decode chunk by stage "
           "(host clock, synchronised): "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+    fixed = out
     del out, stages
 
     # 14. (c) the config-2 HT 9/7 encode at ratio 24 (1 bpp): the search
@@ -2287,7 +2334,257 @@ def c2_ht_phases(c2_imgs, frame_digests, c2_siz, c2_tr, c2_chunk, dev,
           f"on {card}")
     del search
     torch.cuda.empty_cache()
+    return fixed
 
+
+
+@contextlib.contextmanager
+def decode_counts(extra=()):
+    """Every decode kernel's launch count and the host prepass's calls set
+    to 0, the plain block decoders (the CPU routes of
+    `ht_dec.decode_segments` and `mq_dec.decode_group`) and the `Calls` of
+    `extra` counted, inside a `with` block; yields the plain decoders'
+    counters."""
+    from grokimagecompression_tpu_torch.native import ht_prepass
+    from grokimagecompression_tpu_torch.ops import dwt, ht_dec, mq_dec
+    ht_dec.LAUNCHES["dec"] = 0
+    mq_dec.LAUNCHES["mq_dec"] = 0
+    dwt.LAUNCHES["dwt"] = 0
+    ht_prepass.CALLS["prepass"] = 0
+    plain = [Calls(ht_dec, "decode_group_plain", lambda *a: True),
+             Calls(mq_dec, "decode_group_plain", lambda *a: True)]
+    with contextlib.ExitStack() as counting:
+        for c in plain + list(extra):
+            counting.enter_context(c)
+        yield plain
+
+
+def check_decode_counts(plain, what, want):
+    """Fail unless every kernel in `want` ("dec", "mq_dec", "dwt") was
+    launched, the host prepass was not called and the plain decoders
+    were not called; prints the counts."""
+    from grokimagecompression_tpu_torch.native import ht_prepass
+    from grokimagecompression_tpu_torch.ops import dwt, ht_dec, mq_dec
+    counts = {"dec": ht_dec.LAUNCHES["dec"],
+              "mq_dec": mq_dec.LAUNCHES["mq_dec"],
+              "dwt": dwt.LAUNCHES["dwt"]}
+    print(f"{what} launches: {counts}; host prepass calls: "
+          f"{ht_prepass.CALLS['prepass']}; plain HT / MQ decoder calls: "
+          f"{[c.n for c in plain]}")
+    if any(counts[k] < 1 for k in want):
+        raise AssertionError(f"{what}: a kernel of {want} was not launched")
+    if ht_prepass.CALLS["prepass"] or any(c.n for c in plain):
+        raise AssertionError(f"{what}: the CUDA route called the host "
+                             f"prepass or a plain decoder")
+
+
+def gate_c2_phase(c2_imgs, fixed, dev, card):
+    """Phase 15: the 4 config-2 frames with the HT block coder on 9/7 at
+    the default base step, coded with 32x32 blocks in the chroma
+    components (COC), a two-entry POC (RLCP over resolutions 0-2, then
+    CPRL), packed headers in the main header (PPM) and wrapped as JP2,
+    through decode_batch on the card: the pixels of the plain streams
+    (`fixed`, phase 12), whose host-decoder digests config2_ht_97.json
+    holds. At a fixed step one HT cleanup pass codes every quantized
+    coefficient whatever the block size, packet order, packed headers or
+    container, so the decoded pixels are the same."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import (decoder, encoder,
+                                                           jp2)
+    from grokimagecompression_tpu_torch.codestream.markers import PocEntry
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Progression,
+                                                            Transform)
+    from grokimagecompression_tpu_torch.ops import ht_dec
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, C2_HT_DIGESTS)) as f:
+        want = json.load(f)["fixed"]["decoded"]
+    c2_mpix = C2_FRAMES * C2_SIZE * C2_SIZE / 1e6
+    params = EncoderParams(
+        numresolutions=6, transform=Transform.DWT_97, cblk_style=0x40,
+        comp_cblk_exps={1: (5, 5), 2: (5, 5)},
+        pocs=(PocEntry(rs=0, cs=0, lye=1, re=3, ce=3, prog=Progression.RLCP),
+              PocEntry(rs=3, cs=0, lye=1, re=6, ce=3,
+                       prog=Progression.CPRL)),
+        ppm_markers=True)
+    t0 = time.perf_counter()
+    streams = encoder.encode_batch(c2_imgs, params, device="cuda")
+    enc_s = time.perf_counter() - t0
+    hdr = decoder.read_header(streams[0])
+    if not (hdr.cod_comp and hdr.pocs and hdr.ppm_sections is not None):
+        raise AssertionError("the phase-15 streams lack their COC, POC or "
+                             "PPM markers")
+    files = [jp2.wrap_codestream(cs, C2_SIZE, C2_SIZE, [(8, False)] * 3)
+             for cs in streams]
+    shapes = ((64, 64), (32, 32))
+    per_shape = [Calls(ht_dec, "decode_segments",
+                       lambda *a, s=s: (a[4], a[5]) == s) for s in shapes]
+    torch.cuda.empty_cache()
+    with decode_counts(per_shape) as plain:
+        dec = decoder.decode_batch(files, device="cuda")
+        torch.cuda.synchronize()
+    check_decode_counts(plain, "config-2 HT 9/7 COC + POC + PPM JP2 decode",
+                        ("dec", "dwt"))
+    print(f"HT decoder calls by block shape {shapes}: "
+          f"{[c.n for c in per_shape]}")
+    if any(c.n < 1 for c in per_shape):
+        raise AssertionError("ht_dec_group was not launched on both block "
+                             "shapes of the COC streams")
+    if [frame_digest(d) for d in dec] != want:
+        raise AssertionError("config-2 HT 9/7 COC + POC + PPM JP2 decode: "
+                             "pixels differ from the host decoder's")
+    hdr0, trs, parsed = decoder.parse_batch(files[:1])
+    (plan,) = decoder.tile_groups(hdr0, trs, parsed)
+    lanes = C2_FRAMES * sum(len(b) for _, _, b in plan.groups)
+    print(f"config-2 HT 9/7 with COC (32x32 chroma blocks), POC (RLCP r0-2, "
+          f"CPRL r3-5), PPM, as JP2: {C2_FRAMES} files "
+          f"({[len(f) for f in files]} B; encode_batch {enc_s:.3f} s) decode "
+          f"to the host decoder's pixels of the plain streams (digests), "
+          f"{lanes} HT lanes in groups "
+          f"{[(w, h, C2_FRAMES * len(b)) for w, h, b in plan.groups]}")
+    del dec
+    for name, batch in (("plain markers (phase 13)", fixed),
+                        ("COC + POC + PPM, JP2", files)):
+        best = best_of(3, lambda: decoder.decode_batch(batch, device="cuda"))
+        print(f"decode_batch (config 2, HT 9/7, {name}): "
+              f"{c2_mpix / best:.2f} MP/s (best of 3, {best:.3f} s for "
+              f"{C2_FRAMES} frames) on {card}")
+    for name, batch in (("plain markers (phase 13)", fixed),
+                        ("COC + POC + PPM, JP2", files)):
+        c2_decode_stages(batch, dev, "HT", "ht_dec_group")
+        stages = c2_decode_stages(batch, dev, "HT", "ht_dec_group")
+        print(f"one {C2_FRAMES}-frame config-2 HT 9/7 decode chunk, {name}, "
+              "by stage (host clock, synchronised): "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+    torch.cuda.empty_cache()
+
+
+def gate_c1_phase(imgs, dev, card):
+    """Phase 16: the 64 config-1 frames, lossless, through decode_batch on
+    the card: HT with a POC and PPT markers, wrapped as JP2, and MQ
+    (style 0) with 32x32 blocks by COC and PPM markers; each frame equal
+    to its source."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import (decoder, encoder,
+                                                           jp2)
+    from grokimagecompression_tpu_torch.codestream.markers import PocEntry
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Progression)
+    mpix = FRAMES * SIZE * SIZE / 1e6
+    runs = [
+        ("HT, POC + PPT, JP2", EncoderParams(
+            numresolutions=6, cblk_style=0x40, ppt_markers=True,
+            pocs=(PocEntry(rs=0, cs=0, lye=1, re=3, ce=1,
+                           prog=Progression.RLCP),
+                  PocEntry(rs=3, cs=0, lye=1, re=6, ce=1,
+                           prog=Progression.CPRL))), True, ("dec", "dwt")),
+        ("MQ, COC (32x32) + PPM", EncoderParams(
+            numresolutions=6, cblk_style=0, comp_cblk_exps={0: (5, 5)},
+            ppm_markers=True), False, ("mq_dec", "dwt")),
+    ]
+    for name, params, wrap, kernels in runs:
+        streams = encoder.encode_batch(imgs, params, device="cuda",
+                                       chunk=CHUNK)
+        if wrap:
+            streams = [jp2.wrap_codestream(cs, SIZE, SIZE, [(8, False)])
+                       for cs in streams]
+        torch.cuda.empty_cache()
+        with decode_counts() as plain:
+            dec = decoder.decode_batch(streams, device="cuda", chunk=CHUNK)
+            torch.cuda.synchronize()
+        check_decode_counts(plain, f"config-1 decode ({name})", kernels)
+        for i, (d, im) in enumerate(zip(dec, imgs)):
+            if not np.array_equal(d.components[0].data,
+                                  im.components[0].data):
+                raise AssertionError(f"config-1 {name}, frame {i}: the "
+                                     f"decode is not lossless")
+        best = best_of(3, lambda: decoder.decode_batch(
+            streams, device="cuda", chunk=CHUNK))
+        print(f"config-1 {name}: {FRAMES} frames "
+              f"({sum(len(cs) for cs in streams)} B) decode to their sources "
+              f"exactly; decode_batch {mpix / best:.2f} MP/s (best of 3, "
+              f"{best:.3f} s) on {card}")
+        del dec, streams
+
+
+def corpus_phase(c2_img, dev, card):
+    """Phase 17: every tests/corpus stream that decode_batch takes, on the
+    card alone and as a batch of two copies, against the host decoder's
+    planes in CORPUS_DIGESTS; each stream it refuses raises
+    NotImplementedError; and a 9/7 HT stream with a QCC spliced in
+    (component 1's mantissas changed) decodes on the card as on the
+    CPU."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import (decoder, encoder,
+                                                           markers)
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, CORPUS_DIGESTS)) as f:
+        want = json.load(f)
+    folder = os.path.join(root, CORPUS)
+    names = sorted(n for n in os.listdir(folder)
+                   if n.endswith((".j2k", ".jp2")))
+    if sorted(list(want["decoded"]) + want["refused"]) != names:
+        raise AssertionError("the corpus differs from the digest file's")
+
+    def read(name):
+        with open(os.path.join(folder, name), "rb") as f:
+            return f.read()
+
+    t0 = time.perf_counter()
+    with decode_counts() as plain:
+        for name, digest in want["decoded"].items():
+            data = read(name)
+            (one,) = decoder.decode_batch([data], device="cuda")
+            two = decoder.decode_batch([data, data], device="cuda")
+            got = [plane_md5(im) for im in [one] + two]
+            if got != [digest] * 3:
+                raise AssertionError(f"corpus {name}: planes differ from the "
+                                     f"host decoder's ({got})")
+        torch.cuda.synchronize()
+    check_decode_counts(plain, "corpus decode", ("dec", "mq_dec", "dwt"))
+    decode_s = time.perf_counter() - t0
+    for name in want["refused"]:
+        try:
+            decoder.decode_batch([read(name)], device="cuda")
+        except NotImplementedError:
+            continue
+        raise AssertionError(f"corpus {name}: decode_batch took a stream "
+                             f"outside its gate")
+    print(f"corpus: {len(want['decoded'])} of {len(names)} streams decode on "
+          f"the card to the host decoder's planes, alone and as a batch of "
+          f"two ({decode_s:.1f} s); {len(want['refused'])} raise "
+          f"NotImplementedError ({', '.join(want['refused'])})")
+    # a QCC of other mantissas for component 1 on a 9/7 stream
+    comps = [Component(data=np.ascontiguousarray(c.data[:128, :192]),
+                       prec=8, signed=False, dx=1, dy=1)
+             for c in c2_img.components]
+    img = Image(xsiz=comps[0].data.shape[1], ysiz=comps[0].data.shape[0],
+                components=comps)
+    (cs,) = encoder.encode_batch([img], EncoderParams(
+        numresolutions=4, transform=Transform.DWT_97, cblk_style=0x40,
+        cblk_w_exp=5, cblk_h_exp=5), device="cuda")
+    hdr = decoder.read_header(cs)
+    qcc = markers.write_qcc(1, dataclasses.replace(hdr.qcd, steps=tuple(
+        (e, (m + 517) % 2048) for e, m in hdr.qcd.steps)), 3)
+    cs = cs[:hdr.main_header_end] + qcc + cs[hdr.main_header_end:]
+    with decode_counts() as plain:
+        (gpu,) = decoder.decode_batch([cs], device="cuda")
+        torch.cuda.synchronize()
+    check_decode_counts(plain, "9/7 QCC decode", ("dec", "dwt"))
+    (cpu,) = decoder.decode_batch([cs], device="cpu")
+    if frame_digest(gpu) != frame_digest(cpu):
+        raise AssertionError("the 9/7 QCC stream decodes otherwise on the "
+                             "card than on the CPU")
+    print(f"9/7 HT stream with a QCC for component 1 ({img.xsiz}x{img.ysiz} "
+          f"RGB, {len(cs)} B): the card's decode equals the CPU's")
 
 
 def best_of(n, fn):
@@ -2745,8 +3042,12 @@ def main() -> int:
           "the stage's start: " + ", ".join(
               f"{k} {v / 1e9:.3f} GB" for k, v in mem.items()))
 
-    c2_ht_phases(c2_imgs, c2_digests["frames"], c2_siz, c2_tr, c2_chunk,
-                 dev, card)
+    fixed = c2_ht_phases(c2_imgs, c2_digests["frames"], c2_siz, c2_tr,
+                         c2_chunk, dev, card)
+    gate_c2_phase(c2_imgs, fixed, dev, card)
+    del fixed
+    gate_c1_phase(imgs, dev, card)
+    corpus_phase(c2_imgs[0], dev, card)
 
     calls["mq_dense"] = launches["mq_dense"]
     print(f"launches in the kernels line, the calls of what each kernel's ms "

@@ -6,11 +6,18 @@ limit on the quality layers decoded. The
 main-header and tile-part walk (`CodestreamHeader`, `TilePart`,
 `_validate_siz`, `read_header`, `iter_tile_parts`) is copied from the
 reference; `decode_batch` is the port of the reference's fused
-`decode_batch`: host T2 through the port's native T2, then the fused
-device decode of `models/fused_decode.py`.
+`decode_batch`: host T2 (the port's native T2, or its Python T2 where
+packed packet headers are), then the fused device decode of
+`models/fused_decode.py`. It takes what the reference's batch decode
+sends to its device: raw codestreams and JP2 files, single- or
+multi-tile, with COC overrides that keep the COD's transform, resolution
+count and code-block style, QCC, POC, and packed packet headers (PPM,
+PPT).
 
-Requests outside the slice raise NotImplementedError instead of falling
-back to a host decode.
+Requests outside the slice (tile-part header overrides, ROI, a custom
+MCT, non-default MQ styles, HT refinement, window / reduce / single-tile
+decodes) raise NotImplementedError instead of falling back to a host
+decode.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ from ..core.image import Component, Image
 from ..core.params import DecoderParams
 from ..models import fused_decode
 from ..utils.device import DeviceLike, resolve_device
-from . import markers
+from . import jp2, markers
 from .markers import CodInfo, QcdInfo, SizInfo
 from .tile import decode_tile
 
@@ -248,7 +255,8 @@ def iter_tile_parts(data: bytes, start: int, want=None):
 def _out_of_slice(hdrs: List[CodestreamHeader],
                   params: DecoderParams) -> Optional[str]:
     """Why a batch of parsed headers is outside the ported slice, or
-    None."""
+    None: the reference's `decode_batch` gate, which sends the same
+    streams to its device decode."""
     if params.window is not None or params.reduce \
             or params.tile_index is not None:
         return "a window, reduce or single-tile decode"
@@ -256,24 +264,30 @@ def _out_of_slice(hdrs: List[CodestreamHeader],
     if any((h.siz, h.cod, h.qcd) != (h0.siz, h0.cod, h0.qcd)
            for h in hdrs[1:]):
         return "streams of different coding parameters"
-    siz, cod, qcd = h0.siz, h0.cod, h0.qcd
+    siz, cod = h0.siz, h0.cod
     if not cod.cblk_style & 0x40 and cod.cblk_style != 0:
         return ("an MQ code-block style other than the default (bypass, "
                 "RESET, TERMALL, VSC, PTERM or SEGMARK)")
     if cod.mct not in (0, 1) or any(h.custom_mct is not None for h in hdrs):
         return "a custom MCT"
-    if any(h.cod_comp or h.qcd_comp for h in hdrs):
-        return "COC / QCC overrides"
-    if any(h.pocs for h in hdrs):
-        return "progression order changes (POC)"
-    if any(h.ppm_sections is not None for h in hdrs):
-        return "packed packet headers (PPM)"
     if any(h.roishifts and any(h.roishifts) for h in hdrs):
         return "ROI shifts"
     if cod.mct and len(siz.comps) >= 3 and any(
             (c.dx, c.dy) != (siz.comps[0].dx, siz.comps[0].dy)
             for c in siz.comps[:3]):
         return "an MCT over differently sampled components"
+    if any((h.cod_comp, h.qcd_comp, h.pocs, h.ppm_sections is not None)
+           != (h0.cod_comp, h0.qcd_comp, h0.pocs,
+               h0.ppm_sections is not None) for h in hdrs[1:]):
+        return ("streams of different COC / QCC overrides, POCs or packed "
+                "headers (PPM)")
+    if h0.cod_comp and any(
+            cc and (cc.transform != cod.transform
+                    or cc.numresolutions != cod.numresolutions
+                    or cc.cblk_style != cod.cblk_style)
+            for cc in h0.cod_comp):
+        return ("a COC that changes the transform, the resolution count or "
+                "the code-block style")
     return None
 
 
@@ -281,22 +295,35 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
                  layers: int):
     """T2 of every tile of one stream, keeping the passes of the first
     `layers` quality layers (all when 0): (per tile (t1_jobs,
-    t1_job_slots, plans, cods), set of tiles that have a tile-part)."""
+    t1_job_slots, plans, cods), set of tiles that have a tile-part).
+
+    Packed packet headers go to their tile as the reference's
+    `decode_batch` hands them over: a PPM section to each tile-part in
+    stream order, or a tile-part's PPT segments merged
+    (`markers.merge_ppx`); a tile's sections are joined in the order of
+    its tile-parts."""
     tile_bodies: Dict[int, List[bytes]] = {}
+    tile_hdrs: Dict[int, List[bytes]] = {}
+    ppm_iter = iter(hdr.ppm_sections or [])
     for tp in iter_tile_parts(data, hdr.main_header_end):
         if tp.cod or tp.qcd or tp.coc_raw or tp.qcc_raw or tp.poc_raw:
             raise NotImplementedError(
                 "decode_batch on a torch device does not cover tile-part "
                 "header overrides yet")
-        if tp.ppt_raw:
-            raise NotImplementedError(
-                "decode_batch on a torch device does not cover packed "
-                "packet headers (PPT) yet")
         tile_bodies.setdefault(tp.tile_index, []).append(tp.body)
+        if hdr.ppm_sections is not None:
+            tile_hdrs.setdefault(tp.tile_index, []).append(
+                next(ppm_iter, b""))
+        elif tp.ppt_raw:
+            tile_hdrs.setdefault(tp.tile_index, []).append(
+                markers.merge_ppx([(pl[0], pl[1:]) for pl in tp.ppt_raw]))
     out = []
     for t, tr in enumerate(trs):
+        packed = b"".join(tile_hdrs[t]) if t in tile_hdrs else None
         r = decode_tile(b"".join(tile_bodies.get(t, [])), hdr.siz, hdr.cod,
-                        hdr.qcd, tr, max_layers=layers)
+                        hdr.qcd, tr, max_layers=layers,
+                        cod_comp=hdr.cod_comp, qcd_comp=hdr.qcd_comp,
+                        pocs=hdr.pocs, packed_headers=packed)
         if hdr.cod.cblk_style & 0x40 and any(job[6] > 1 for job in r[0]):
             raise NotImplementedError(
                 "decode_batch on a torch device does not cover HT "
@@ -313,6 +340,8 @@ def parse_batch(datas: List[bytes], params: Optional[DecoderParams] = None):
     (header of stream 0, tile rects, per stream the `_parse_frame`
     result). Raises NotImplementedError outside the slice."""
     params = params or DecoderParams()
+    datas = [jp2.extract_codestream(d) if jp2.is_jp2(d) else d
+             for d in datas]
     hdrs = [read_header(d) for d in datas]
     why = _out_of_slice(hdrs, params)
     if why is not None:
@@ -357,10 +386,12 @@ def decode_batch(datas: List[bytes],
                  params: Optional[DecoderParams] = None,
                  device: DeviceLike = "cuda",
                  chunk: int = 32) -> List[Image]:
-    """Decode many same-geometry codestreams (a serving batch), coded
-    with the HT block coder or the Part-1 MQ coder in the default
-    code-block style, on the reversible 5/3 or the irreversible 9/7 path,
-    all quality layers or the first `params.layers`.
+    """Decode many same-geometry codestreams or JP2 files (a serving
+    batch), coded with the HT block coder or the Part-1 MQ coder in the
+    default code-block style, on the reversible 5/3 or the irreversible
+    9/7 path, all quality layers or the first `params.layers`; with COC /
+    QCC overrides, a POC or packed packet headers where every stream has
+    the same (`_out_of_slice`).
 
     T2 of every stream runs on a host thread pool; then the tiles of one
     decode plan are decoded `chunk` at a time, each chunk one host pass

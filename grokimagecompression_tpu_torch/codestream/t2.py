@@ -9,8 +9,9 @@ A copy of `grokimagecompression_tpu/codestream/t2.py`, with `PassInfo`
 and the code-block style bits it needs from that package's
 `t1/t1_np.py`. The port parses and writes packets through the native T2
 (`native/t2_native.py`); the Python coder here runs where the reference
-runs it too (packed headers, packet lengths) and holds the native one to
-its semantics in the tests.
+runs it too (packed headers: `decode_packet_split` parses a tile whose
+packet headers come from PPM or PPT markers; packet lengths) and holds
+the native one to its semantics in the tests.
 
 A packet = (layer, component, resolution, precinct). Its header codes, per
 band and code-block: inclusion (tag tree on first inclusion, 1 bit after),
@@ -277,6 +278,26 @@ def decode_packet(
                                  precincts, kmax_per_band, cblk_style,
                                  eph, discard)
     return pos
+
+
+def decode_packet_split(
+    hdr: bytes,
+    hpos: int,
+    body: bytes,
+    bpos: int,
+    layer: int,
+    precincts: List[PrecDec],
+    kmax_per_band: List[int],
+    cblk_style: int,
+    eph: bool = False,
+    discard: bool = False,
+) -> Tuple[int, int]:
+    """Packed-header variant (PPM/PPT): the packet header is read from
+    `hdr` and the packet body (with any SOP marker) from `body`.
+    Returns (new body pos, new hdr pos)."""
+    return _decode_packet_impl(hdr, hpos, body, bpos, True, layer,
+                               precincts, kmax_per_band, cblk_style,
+                               eph, discard)
 
 
 def _decode_packet_impl(hdr, hpos, body, bpos, split, layer, precincts,

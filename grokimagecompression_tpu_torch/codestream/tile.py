@@ -7,10 +7,11 @@ transforms), T2 of a tile whose code-block segments were coded on the
 device (the `t1_segments` branch of `encode_tile`, HT or MQ, with the
 PCRD distortion weighting and the `layer_alloc` rate control for MQ
 segments that carry their pass tables), and the packet parse of
-`decode_tile` up to its `_return_jobs` return. Packets go through the
-native T2 (`native/t2_native.py`): the tile encoder, and the tile
-simulator of the rate control; the Python packet coder runs only where
-the reference runs it too (packed headers, packet lengths).
+`decode_tile` up to its `_return_jobs` return, with COC / QCC, POC and
+packed headers. Packets go through the native T2
+(`native/t2_native.py`): the tile encoder, the tile simulator of the
+rate control and the tile parser; the Python packet coder runs only
+where the reference runs it too (packed headers, packet lengths).
 
 Not copied: the host transforms and T1, windowed and reduced decode and
 ROI shifts.
@@ -36,7 +37,8 @@ from ..ops import quant
 from .markers import CodInfo, QcdInfo, SizInfo
 from .packetiter import CompIterInfo, packet_order, packet_order_poc
 from .pcrd import RateControlCtx
-from .t2 import CblkDec, CblkEnc, PassInfo, PrecDec, PrecEnc, encode_packet
+from .t2 import (CblkDec, CblkEnc, PassInfo, PrecDec, PrecEnc,
+                 decode_packet_split, encode_packet)
 
 
 @dataclasses.dataclass
@@ -395,21 +397,36 @@ def encode_tile(
 # --------------------------------------------------------------------------
 
 def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
-                tile: Rect, max_layers: int = 0):
+                tile: Rect, max_layers: int = 0,
+                cod_comp: Optional[List[Optional[CodInfo]]] = None,
+                qcd_comp: Optional[List[Optional[QcdInfo]]] = None,
+                pocs=None, packed_headers: Optional[bytes] = None):
     """Parse one tile's packet body into its entropy-decode jobs: the
-    reference's `decode_tile(..., _return_jobs=True)`, through the
-    native T2 only, for streams without packed headers, COC/QCC, POC or
-    ROI. With `max_layers` > 0 only the passes of the first `max_layers`
-    quality layers are kept: the native parser parses the later layers'
-    packets and drops their passes, where the reference parses the whole
-    tile in Python with `decode_packet(..., discard=True)`.
+    reference's `decode_tile(..., _return_jobs=True)` without ROI, window
+    or reduce. `cod_comp` / `qcd_comp` hold the COC / QCC overrides of
+    each component (None where the main COD / QCD holds), `pocs` the POC
+    entries, which give the packet order in place of the COD's
+    progression, and `packed_headers` the tile's packet headers from its
+    PPM or PPT markers. With `max_layers` > 0 only the passes of the
+    first `max_layers` quality layers are kept.
+
+    Without packed headers the native T2 parses every packet (it parses
+    the later layers' packets and drops their passes, where the
+    reference parses the whole tile in Python with `decode_packet(...,
+    discard=True)`); with them the Python T2 parses one
+    `decode_packet_split` a packet, headers from `packed_headers` and
+    bodies from `body`, as the reference does.
 
     Returns (t1_jobs, t1_job_slots, plans, cods): per included
     code-block a job (data, seg_lengths, w, h, orient, numbps,
     numpasses, kmax) and its slot (comp, (r, orient), CblkDec)."""
     ncomps = len(siz.comps)
-    cods = [cod] * ncomps
-    plans = [build_comp_plan(siz, cod, qcd, tile, c) for c in range(ncomps)]
+    cods = [cod_comp[c] if cod_comp and cod_comp[c] else cod
+            for c in range(ncomps)]
+    qcds = [qcd_comp[c] if qcd_comp and qcd_comp[c] else qcd
+            for c in range(ncomps)]
+    plans = [build_comp_plan(siz, cods[c], qcds[c], tile, c)
+             for c in range(ncomps)]
 
     # Build decode structures.
     prec_dec: List[Dict[Tuple[int, int], List[PrecDec]]] = []
@@ -431,27 +448,49 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
         prec_dec.append(per_res)
         cblk_index.append(cb_per_band)
 
-    pkt_list = list(packet_order(cod.progression, cod.numlayers,
-                                 _comps_iter(siz, cods, plans), tile))
-    groups = []
-    group_idx: Dict[Tuple[int, int, int], int] = {}
-    packets = []
-    for (l, r, c, p) in pkt_list:
-        key = (r, c, p)
-        if key not in group_idx:
-            group_idx[key] = len(groups)
+    comps_iter = _comps_iter(siz, cods, plans)
+    if pocs:
+        piter = packet_order_poc(pocs, cod.numlayers, comps_iter, tile)
+    else:
+        piter = packet_order(cod.progression, cod.numlayers, comps_iter,
+                             tile)
+    pkt_list = list(piter)
+    if packed_headers is not None:
+        numlayers = cod.numlayers if max_layers == 0 else min(
+            cod.numlayers, max_layers)
+        pos = 0
+        hpos = 0
+        for (l, r, c, p) in pkt_list:
             orients = (0,) if r == 0 else (1, 2, 3)
-            groups.append([
-                (prec_dec[c][(r, o)][p],
-                 plans[c].bands[(r, o)].kmax,
-                 cods[c].cblk_style)
-                for o in orients if (r, o) in prec_dec[c]
-            ])
-        packets.append((group_idx[key], l))
-    rc = t2_native.decode_tile_packets(body, packets, groups, None, None,
-                                       cod.sop, cod.eph, max_layers)
-    if rc is None:
-        raise ValueError("the native T2 parser rejected the tile's packets")
+            precs = [prec_dec[c][(r, o)][p] for o in orients
+                     if (r, o) in prec_dec[c]]
+            kmaxs = [plans[c].bands[(r, o)].kmax for o in orients
+                     if (r, o) in plans[c].bands]
+            pos, hpos = decode_packet_split(
+                packed_headers, hpos, body, pos, l, precs, kmaxs,
+                cods[c].cblk_style, eph=cod.eph, discard=(l >= numlayers))
+    else:
+        groups = []
+        group_idx: Dict[Tuple[int, int, int], int] = {}
+        packets = []
+        for (l, r, c, p) in pkt_list:
+            key = (r, c, p)
+            if key not in group_idx:
+                group_idx[key] = len(groups)
+                orients = (0,) if r == 0 else (1, 2, 3)
+                groups.append([
+                    (prec_dec[c][(r, o)][p],
+                     plans[c].bands[(r, o)].kmax,
+                     cods[c].cblk_style)
+                    for o in orients if (r, o) in prec_dec[c]
+                ])
+            packets.append((group_idx[key], l))
+        rc = t2_native.decode_tile_packets(body, packets, groups, None,
+                                           None, cod.sop, cod.eph,
+                                           max_layers)
+        if rc is None:
+            raise ValueError(
+                "the native T2 parser rejected the tile's packets")
 
     t1_jobs = []
     t1_job_slots = []

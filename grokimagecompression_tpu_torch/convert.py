@@ -22,6 +22,7 @@ from typing import Dict
 
 import torch
 
+from .codestream.markers import PocEntry
 from .core.geometry import Rect
 from .core.image import Component, Image
 from .core.params import MCT, EncoderParams, Progression, Transform
@@ -109,11 +110,15 @@ def image_from_reference(img) -> Image:
 def params_from_reference(params) -> EncoderParams:
     """A reference `EncoderParams` -> the port's, every field carried over
     (`rates`, `numlayers` and the other rate-control fields included; the
-    enum fields become the port's enums of the same values)."""
+    enum fields become the port's enums of the same values, and the POC
+    entries the port's `markers.PocEntry`)."""
     fields = {f.name: getattr(params, f.name)
               for f in dataclasses.fields(EncoderParams)}
     fields["transform"] = Transform(fields["transform"])
     fields["progression"] = Progression(fields["progression"])
     if fields["mct"] is not None:
         fields["mct"] = MCT(fields["mct"])
+    fields["pocs"] = tuple(
+        PocEntry(rs=e.rs, cs=e.cs, lye=e.lye, re=e.re, ce=e.ce,
+                 prog=Progression(e.prog)) for e in fields["pocs"])
     return EncoderParams(**fields)

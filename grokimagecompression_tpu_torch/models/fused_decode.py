@@ -25,7 +25,10 @@ band-plane assembly and the inverse DWT, inverse MCT and DC unshift
 The plan gives every code-block of the tile's geometry a lane, whether a
 frame includes it or not, and each frame's jobs go to their lanes by
 code-block position. Lanes are frame-major: frame f's blocks of a group
-sit at lanes f*B .. f*B+B-1, so one plan serves any content.
+sit at lanes f*B .. f*B+B-1, so one plan serves any content. The plan is
+built from each component's own plan, so components whose code-blocks
+differ in size (COC) put their blocks in lane groups of their own shapes,
+and each band keeps its own component's stepsize (QCC).
 
 Band assembly is one `index_copy_` per shape group into a flat per-frame
 buffer holding every band of every component, with plan-static
@@ -95,10 +98,13 @@ class FusedDecPlan:
 def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
                ) -> FusedDecPlan:
     """The decode plan of one tile from its components' plans
-    (`codestream/tile.build_comp_plan`) for the block coder `coder`
-    ("ht" or "mq"): a lane for every code-block of the geometry, grouped
-    by block (w, h), in the order of the tile's code-blocks within each
-    group, and each band's stepsize (1.0 on the reversible path). Raises
+    (`codestream/tile.build_comp_plan`, each with its component's COC
+    and QCC) for the block coder `coder` ("ht" or "mq"): a lane for every
+    code-block of the geometry, grouped by block (w, h), in the order of
+    the tile's code-blocks within each group, and each band's stepsize
+    (1.0 on the reversible path). The transform config comes from the
+    main COD: the decode gate admits COCs that keep its transform and
+    resolution count. Raises
     NotImplementedError when a band's Mb exceeds the decoder's word:
     Mb + 3 > 32 for HT, Mb > 30 for MQ (the sign rides in bit 31)."""
     if coder not in ("ht", "mq"):

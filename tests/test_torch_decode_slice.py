@@ -8,7 +8,8 @@ stream that lost a tile, two tiles with equal band shapes but opposite
 origin parity (which must not share a decode plan), and frames that
 leave out different code-blocks of one tile. One case also equals the
 reference's fused `decode_batch(device=True)`. Streams
-outside the slice raise NotImplementedError; a CUDA request without CUDA
+outside the slice (`tests/test_torch_decode_gate.py` holds the gate to
+the reference's) raise NotImplementedError; a CUDA request without CUDA
 raises RuntimeError.
 """
 
@@ -211,11 +212,15 @@ def test_out_of_slice_raises():
     img = _frames(1, 24, 24)
     for params in (EncoderParams(cblk_style=0x01),   # MQ with bypass
                    EncoderParams(cblk_style=HT, ht_refinement=True),
-                   EncoderParams(cblk_style=HT, ppt_markers=True),
-                   EncoderParams(cblk_style=HT, ppm_markers=True),
-                   EncoderParams(cblk_style=HT, comp_cblk_exps={0: (4, 4)})):
+                   EncoderParams(roi_comp=0, roi_shift=3)):
         with pytest.raises(NotImplementedError):
             decoder.decode_batch(_encode(img, params), device="cpu")
+    # packed headers and COC are inside the gate now
+    # (tests/test_torch_decode_gate.py decodes them)
+    for params in (EncoderParams(cblk_style=HT, ppt_markers=True),
+                   EncoderParams(cblk_style=HT, ppm_markers=True),
+                   EncoderParams(cblk_style=HT, comp_cblk_exps={0: (4, 4)})):
+        decoder.parse_batch(_encode(img, params))
     cs = _encode(img, EncoderParams(cblk_style=HT, numresolutions=3))
     for dparams in (DecoderParams(reduce=1),
                     DecoderParams(window=(0, 0, 8, 8)),

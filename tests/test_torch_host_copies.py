@@ -7,7 +7,9 @@ tile packet parse (jobs and slots), `build_comp_plan` and `default_qcd`
 must equal the reference's; its native T2 must agree with its Python
 T2; the digest files that `chip_smoke.py` checks the card's streams
 against (config 1 HT and MQ, config 2 rate-controlled 9/7) must equal
-digests made afresh with the reference host encoder; and the port's MQ
+digests made afresh with the reference host encoder, and the corpus
+decode digests (`corpus_decode.json`) its host decoder's; and the port's
+MQ
 tables, quantization helpers, irreversible plans and QCDs, PCRD hull and
 allocator, T2 tile simulator and `PassInfo` must equal the reference's.
 
@@ -66,6 +68,8 @@ MQ_DIGESTS = os.path.join(DATA, "config1_mq_lossless.json")
 C2_DIGESTS = os.path.join(DATA, "config2_pcrd_97.json")
 C2_DEC_DIGESTS = os.path.join(DATA, "config2_decode_97.json")
 C2_HT_DIGESTS = os.path.join(DATA, "config2_ht_97.json")
+CORPUS_DIGESTS = os.path.join(DATA, "corpus_decode.json")
+CORPUS = os.path.join(REPO, "tests", "corpus")
 
 CASES = [
     ("gray", [natural_image(64, 64, seed=0)],
@@ -476,6 +480,49 @@ def test_config2_ht_digest_file_is_current():
         assert json.load(f) == config2_ht_digests()
 
 
+def corpus_decode_digests():
+    """The MD5 of the reference host decoder's planes (`test_goldens.
+    _plane_md5`, numpy DWT) of every `tests/corpus/` stream that the
+    port's decode_batch takes, and the names of those it refuses."""
+    from test_goldens import _plane_md5
+    decoded, refused = {}, []
+    for name in sorted(os.listdir(CORPUS)):
+        if not name.endswith((".j2k", ".jp2")):
+            continue
+        with open(os.path.join(CORPUS, name), "rb") as f:
+            data = f.read()
+        try:
+            decoder.parse_batch([data])
+        except NotImplementedError:
+            refused.append(name)
+            continue
+        with _numpy_dwt():
+            decoded[name] = _plane_md5(ref_decoder.decode(data, device=False))
+    return {
+        "what": "the MD5 of the planes (tests/test_goldens._plane_md5) of "
+                "grokimagecompression_tpu decoder.decode(device=False), "
+                "numpy DWT (dwt_host._get_native None, GROK_TPU_DWT="
+                "python), of each tests/corpus stream that the port's "
+                "decode_batch takes, and the streams it refuses; "
+                "tests/test_torch_host_copies.py writes it",
+        "decoded": decoded,
+        "refused": refused,
+    }
+
+
+def test_corpus_decode_digest_file_is_current():
+    with open(CORPUS_DIGESTS) as f:
+        assert json.load(f) == corpus_decode_digests()
+
+
+def test_chip_smoke_plane_md5_is_the_goldens():
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from test_goldens import _plane_md5
+    img = natural_image(24, 16, ncomp=3, seed=5)
+    assert chip_smoke.plane_md5(img) == _plane_md5(img)
+
+
 def test_quant_helpers_equal_reference():
     from grokimagecompression_tpu.ops import mct_np
     from grokimagecompression_tpu.ops import quant as ref_quant
@@ -694,4 +741,7 @@ if __name__ == "__main__":
         f.write("\n")
     with open(C2_HT_DIGESTS, "w") as f:
         json.dump(config2_ht_digests(), f, indent=1)
+        f.write("\n")
+    with open(CORPUS_DIGESTS, "w") as f:
+        json.dump(corpus_decode_digests(), f, indent=1)
         f.write("\n")

@@ -173,7 +173,10 @@ def test_port_runs_without_jax(monkeypatch):
     A 9/7 stream with two quality layers, encoded there too, decodes at
     its first layer to the reference host decoder's pixels (both with the
     numpy DWT), and the dense MQ scan runs. The MQ modules, the DWT
-    kernel's wrapper and the rate control are imported there too."""
+    kernel's wrapper and the rate control are imported there too, and
+    `jp2`: a JP2 file of an HT stream with packed headers (PPM), wrapped
+    there as the reference wraps it, decodes to the reference host
+    decoder's pixels."""
     from grokimagecompression_tpu.core.params import DecoderParams
     from grokimagecompression_tpu.ops import dwt_host
     monkeypatch.setattr(dwt_host, "_get_native", lambda: None)
@@ -192,6 +195,12 @@ def test_port_runs_without_jax(monkeypatch):
         transform=Transform.DWT_97, **p97), device=False)
     want_97_l1 = decoder.decode(want_97, DecoderParams(layers=1),
                                 device=False).components[0].data
+    from grokimagecompression_tpu.codestream import jp2 as ref_jp2
+    ppm = ref_encoder.encode(convert_image(data[:32, :40]), EncoderParams(
+        numresolutions=3, cblk_style=HT, cblk_w_exp=4, cblk_h_exp=4,
+        ppm_markers=True), device=False)
+    want_jp2 = ref_jp2.wrap_codestream(ppm, 40, 32, [(8, False)])
+    want_ppm = decoder.decode(want_jp2, device=False).components[0].data
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -234,6 +243,13 @@ def test_port_runs_without_jax(monkeypatch):
                                       device="cpu")
         assert out.components[0].data.astype("<i4").tobytes().hex() == \
             "{want_97_l1.astype('<i4').tobytes().hex()}"
+        from grokimagecompression_tpu_torch.codestream import jp2
+        wrapped = jp2.wrap_codestream(bytes.fromhex("{ppm.hex()}"), 40, 32,
+                                      [(8, False)])
+        assert wrapped.hex() == "{want_jp2.hex()}"
+        (out,) = decoder.decode_batch([wrapped], device="cpu")
+        assert out.components[0].data.astype("<i4").tobytes().hex() == \
+            "{want_ppm.astype('<i4').tobytes().hex()}"
         import torch
         words, mask, nbo, state = mq_scan.run_mq_scans(
             torch.ones((300, 4), dtype=torch.int8))
