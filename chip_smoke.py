@@ -18,7 +18,11 @@ base step, its decode, and the encode at ratio 24 (1 bpp) by the search
 of each frame's quantizer step; and the rest of the batch decode's gate
 through `decode_batch`: the config-2 HT 9/7 frames with COC, POC and PPM
 as JP2 files, the config-1 frames with a POC and PPT as JP2 (HT) and with
-COC and PPM (MQ), and the tests/corpus streams.
+COC and PPM (MQ), and the tests/corpus streams; and the profile encodes
+(digital cinema 2K and 4K at 12 bits with their frame and per-component
+byte caps, broadcast, IMF) through `codestream.profiles` and
+`encode_batch(..., rsiz=, layer_alloc=)`, and the decode of the cinema
+streams.
 It checks every CUDA kernel on those paths against its plain PyTorch
 version, and imports only the port, torch, numpy and the standard
 library.
@@ -148,14 +152,40 @@ Phases, each fatal on failure:
      card alone and as a batch of two copies, against the host decoder's
      planes in grokimagecompression_tpu_torch/data/corpus_decode.json; the
      other 13 raise NotImplementedError; a 9/7 HT stream with a QCC for
-     component 1 decodes on the card as on the CPU.
+     component 1 decodes on the card as on the CPU;
+ 18. the profile encodes at full size, frames made as the reference's
+     bench_chip_cinema makes them (12-bit RGB ramps plus texture): cinema
+     2K (2048x1080) at 24 and 48 fps, 4 frames through encode_batch(
+     device="cuda", rsiz=, layer_alloc=) with the profile's allocator
+     (`profiles.profile_allocator`; frame 0 also through
+     `profiles.encode_with_profile`), cinema 4K (4096x2160, two POC
+     volumes) at 24 fps, 2 frames, and one frame each of broadcast single
+     (1920x1080) and IMF 2K and 2K_R through encode_with_profile: every
+     stream against grokimagecompression_tpu_torch/data/
+     cinema_profiles.json (the reference host encoder's
+     encode_with_profile, numpy DWT), within the profile's frame cap and
+     every component's packet bytes (the port's `tile.index_tile_packets`)
+     within its component cap, with the profile's rsiz and, for cinema, a
+     TLM marker; the MQ coder and the DWT launched by each encode and no
+     plain version called; the cinema streams through decode_batch(
+     device="cuda") to the host decoder's pixel digests in the same file,
+     the MQ decoder and the DWT launched, no plain decoder called; MP/s
+     (best of 3) of each cinema encode and decode beside the 53.08 MP/s of
+     2K at 24 fps, one 2K chunk's encode and decode stages (with the rate
+     control's simulator calls, total and per-component), the peak device
+     memory beside `mq_frame_bytes`, and the MQ coder (every shape group,
+     64 lanes at their leading planes), the MQ decoder (every lane group of
+     frame 0, the first 3 passes) and the DWT (2K and 4K frames, 5/3 and
+     9/7) against their plain versions at the cinema shapes, with the
+     whole 32x32 group's and the frames' call ms beside their bounds.
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
 object with one entry per kernel,
 whose `launches` counts the calls of what its `ms` times on the kernel's
-path (a whole DWT; a group kernel on the timed 64x64 group); the last
-line is {"ok": true, "device": {...}}.
+path (a whole DWT; a group kernel on the timed 64x64 group) plus, for the
+MQ coder, the MQ decoder and the DWT, their launches in phase 18's
+encodes and decodes; the last line is {"ok": true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py (needs one CUDA card;
 exits non-zero without one).
@@ -212,6 +242,31 @@ C2_DEC_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                               "config2_decode_97.json")
 C2_HT_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                              "config2_ht_97.json")
+# the profile encodes (ROADMAP Queue A 4): digital-cinema 2K frames
+# (2048x1080 12-bit RGB, as the reference's bench_chip_cinema makes them)
+# at 24 and 48 fps, 4K frames (4096x2160) at 24 fps, and one frame each for
+# the broadcast and IMF profiles at the settings of tests/test_profiles.py;
+# per case (name, frame set, profile function, EncoderParams arguments,
+# profile arguments). Frame set "2k0" is frame 0 of "2k".
+CIN_FRAMES = {"2k": (4, 2048, 1080), "4k": (2, 4096, 2160),
+              "bc": (1, 1920, 1080)}
+CIN_CASES = (
+    ("cinema2k_24", "2k", "apply_cinema", {}, {"fps": 24}),
+    ("cinema2k_48", "2k", "apply_cinema", {}, {"fps": 48}),
+    ("cinema4k_24", "4k", "apply_cinema", {"numresolutions": 7},
+     {"four_k": True}),
+    ("broadcast", "bc", "apply_broadcast", {"numresolutions": 7},
+     {"level": 3}),
+    ("imf2k", "2k0", "apply_imf", {"numresolutions": 9},
+     {"variant": "2k", "mainlevel": 2, "sublevel": 1}),
+    ("imf2k_r", "2k0", "apply_imf", {"numresolutions": 9},
+     {"variant": "2k_r", "mainlevel": 2, "sublevel": 1}),
+)
+CIN_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                           "cinema_profiles.json")
+# the real-time rate of 2K digital cinema at 24 fps (2048 x 1080 x 24
+# samples a second a component): a property of the format
+CIN_REALTIME_MPS = 2048 * 1080 * 24 / 1e6
 # the reference host decoder's planes of the tests/corpus streams that
 # decode_batch takes, and the names of those it refuses
 CORPUS = os.path.join("tests", "corpus")
@@ -222,6 +277,9 @@ CORPUS_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
 # also packs words each step)
 PLAIN_MQ_DECISIONS = 20000
 PLAIN_DENSE_DECISIONS = 8000
+# the plain MQ coder's decisions allowed in the deepest lane of each cinema
+# shape group's check (phase 18)
+CIN_PLAIN_MQ_DECISIONS = 2000
 # the plain MQ decoder's longest run allowed at full depth on the 64x64
 # group (seconds, estimated from the 32x32 group's run)
 PLAIN_MQ_DEC_S = 90
@@ -327,6 +385,46 @@ def config2_frames(n, size=C2_SIZE):
                 signed=False, dx=1, dy=1))
         frames.append(Image(xsiz=size, ysiz=size, components=comps))
     return frames
+
+
+def cinema_frames(n, w=2048, h=1080):
+    """Digital-cinema frames as the reference's bench makes them
+    (`bench_chip_cinema`): 12-bit unsigned RGB, per component c the ramp
+    ((x (c + 2) + 3 y + 17 shift) // 2) mod 3000 plus uniform texture in
+    [0, 300), frames shift = 0, 1, ... drawn from one generator seeded 3.
+    The ramp is evaluated on broadcast row and column vectors: the same
+    integer operations on each sample as the bench's coordinate grids."""
+    import numpy as np
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+
+    rng = np.random.default_rng(3)
+    y = np.arange(h, dtype=np.int64)[:, None]
+    x = np.arange(w, dtype=np.int64)[None, :]
+    frames = []
+    for shift in range(n):
+        comps = []
+        for c in range(3):
+            base = ((x * (c + 2) + y * 3 + shift * 17) // 2) % 3000
+            tex = rng.integers(0, 300, (h, w))
+            comps.append(Component(data=(base + tex).astype(np.int32),
+                                   prec=12, signed=False, dx=1, dy=1))
+        frames.append(Image(xsiz=w, ysiz=h, components=comps))
+    return frames
+
+
+def cinema_sets():
+    """The frame sets of CIN_CASES by name."""
+    sets = {k: cinema_frames(*v) for k, v in CIN_FRAMES.items()}
+    sets["2k0"] = sets["2k"][:1]
+    return sets
+
+
+def cinema_profile(profiles, params_cls, case, img):
+    """The ProfiledParams of a CIN_CASES entry for `img`, made with the
+    given profiles module and EncoderParams class (the port's, or in the
+    tests the reference's)."""
+    _, _, fn, params_kw, profile_kw = case
+    return getattr(profiles, fn)(params_cls(**params_kw), img, **profile_kw)
 
 
 def frame_digest(img) -> str:
@@ -1632,31 +1730,34 @@ def dwt_device_ms(shape, rect, nres):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def check_dwt(dev, results):
+def check_dwt(dev, results, cases=None, key="times"):
     """Phase 3, DWT: forward and inverse, 5/3 and 9/7, at the config-1
     chunk, the config-2 frame, an odd-origin rect, a rect with
     single-sample levels and a rect one sample wider and higher than the
-    kernel's tile there, each bit-exact with the plain version and each
-    transform at most one launch per level (none for a level of no
-    samples); the two main shapes timed, forward and inverse, beside
-    their bounds."""
+    kernel's tile there (or at `cases`: (label, shape, rect, resolutions,
+    which filter is timed: True 5/3, False 9/7, None neither)), each
+    bit-exact with the plain version and each transform at most one
+    launch per level (none for a level of no samples); the main shapes
+    timed, forward and inverse, beside their bounds, into
+    `results["dwt"][key]`."""
     import torch
 
     from grokimagecompression_tpu_torch.core.geometry import Rect
     from grokimagecompression_tpu_torch.ops import dwt, dwt_torch
     over = dwt.TILES[0] + 1
-    cases = (("config-1 chunk", (CHUNK, SIZE, SIZE), Rect(0, 0, SIZE, SIZE),
-              6, True),
-             ("config-2 frame", (3, C2_SIZE, C2_SIZE),
-              Rect(0, 0, C2_SIZE, C2_SIZE), 6, False),
-             ("odd origin", (2, 67, 93), Rect(1, 3, 94, 70), 4, None),
-             ("single-sample levels", (2, 17, 1), Rect(5, 2, 6, 19), 3,
-              None),
-             ("a tile + 1", (40, over, over), Rect(1, 1, over + 1, over + 1),
-              3, None))
-    if dwt.tile_for(40, over, over) != dwt.TILES[0]:
-        raise AssertionError("the tile + 1 case does not take the largest "
-                             "tile")
+    if cases is None:
+        cases = (("config-1 chunk", (CHUNK, SIZE, SIZE),
+                  Rect(0, 0, SIZE, SIZE), 6, True),
+                 ("config-2 frame", (3, C2_SIZE, C2_SIZE),
+                  Rect(0, 0, C2_SIZE, C2_SIZE), 6, False),
+                 ("odd origin", (2, 67, 93), Rect(1, 3, 94, 70), 4, None),
+                 ("single-sample levels", (2, 17, 1), Rect(5, 2, 6, 19), 3,
+                  None),
+                 ("a tile + 1", (40, over, over),
+                  Rect(1, 1, over + 1, over + 1), 3, None))
+        if dwt.tile_for(40, over, over) != dwt.TILES[0]:
+            raise AssertionError("the tile + 1 case does not take the "
+                                 "largest tile")
     gen = torch.Generator().manual_seed(0)
     times = {}
     for label, shape, rect, nres, timed in cases:
@@ -1727,7 +1828,7 @@ def check_dwt(dev, results):
                                               max_abs_err=err, bound_ms=b_ms,
                                               bound_by=b_by)
             print(line)
-    results["dwt"]["times"] = times
+    results.setdefault("dwt", {})[key] = times
 
 
 def check_mq_cumbo(enc, chunk):
@@ -1818,10 +1919,16 @@ def c2_scan_trial(enc, chunk, results, trial_libs, dense_libs):
     torch.cuda.empty_cache()
 
 
-def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
+def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr,
+                     layer_alloc=None):
     """Time of one config-2 chunk by stage (host clock, synchronised; the
     host stages serial, one frame after another) and each frame's bytes
-    by layer."""
+    by layer. `chunk` is the chunk's frames on the device, or per
+    component their host stacks (then the upload is a stage of its own);
+    with `layer_alloc` (a profile's allocator) every frame's PCRD runs it
+    instead of the allocator of the parameters' targets, and the stages
+    also count the rate control's simulator calls, total and
+    per-component."""
     import torch
 
     from grokimagecompression_tpu_torch.codestream import pcrd, tile
@@ -1830,6 +1937,11 @@ def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
     stages = {}
     tt = time.perf_counter
     torch.cuda.synchronize()
+    if not isinstance(chunk[0], torch.Tensor):
+        t = tt()
+        chunk = fused_encode.upload_tile(chunk, enc)
+        torch.cuda.synchronize()
+        stages["upload"] = tt() - t
     t = tt()
     pipeline._fwd_transform(enc.plan.cfg, chunk)
     torch.cuda.synchronize()
@@ -1860,9 +1972,19 @@ def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
     stages["R-D tables (host)"] = tt() - t
     pcrd_s = [0.0]
     layers = []
+    sims = {"simulate_upto": 0, "simulate_comp_upto": 0}
+
+    def counted(fn, key):
+        def run(max_layer):
+            sims[key] += 1
+            return fn(max_layer)
+        return run
 
     def timed(alloc):
         def run(ctx):
+            for key in sims:
+                if getattr(ctx, key) is not None:
+                    setattr(ctx, key, counted(getattr(ctx, key), key))
             t0 = tt()
             alloc(ctx)
             pcrd_s[0] += tt() - t0
@@ -1872,11 +1994,13 @@ def c2_encode_stages(enc, chunk, imgs, params, siz, cod, qcd, tr):
 
     t = tt()
     for f in range(chunk[0].shape[0]):
-        tile.encode_tile(segs[f], siz, cod, qcd, tr,
-                         layer_alloc=timed(pcrd.make_layer_alloc(imgs[f],
-                                                                 params)))
+        alloc = layer_alloc or pcrd.make_layer_alloc(imgs[f], params)
+        tile.encode_tile(segs[f], siz, cod, qcd, tr, layer_alloc=timed(alloc),
+                         pocs=params.pocs or None, tile_index=0)
     stages["host PCRD"] = pcrd_s[0]
     stages["host T2"] = tt() - t - pcrd_s[0]
+    if layer_alloc is not None:
+        stages["simulator calls"] = sims
     return stages, layers
 
 
@@ -2587,6 +2711,372 @@ def corpus_phase(c2_img, dev, card):
           f"RGB, {len(cs)} B): the card's decode equals the CPU's")
 
 
+def cinema_streams_check(name, streams, want, prof):
+    """Phase 18: a profile case's streams against CIN_DIGESTS (SHA-256,
+    length, per-component packet bytes by the port's packet index), each
+    within the profile's frame cap and every component's packet bytes
+    within its component cap, with the profile's rsiz, and a TLM marker
+    where the profile asks for one."""
+    from grokimagecompression_tpu_torch.codestream import decoder, tile
+    if [hashlib.sha256(cs).hexdigest() for cs in streams] != \
+            want["streams"]:
+        raise AssertionError(f"{name}: streams differ from the host "
+                             f"encoder's ({[len(cs) for cs in streams]} B)")
+    comp_bytes = []
+    for cs in streams:
+        hdr = decoder.read_header(cs)
+        bodies = {}
+        for tp in decoder.iter_tile_parts(cs, hdr.main_header_end):
+            bodies[tp.tile_index] = bodies.get(tp.tile_index, b"") + tp.body
+        comp = [0] * len(hdr.siz.comps)
+        for t, body in bodies.items():
+            for (*_, c, _p, _o, ln) in tile.index_tile_packets(body, hdr, t):
+                comp[c] += ln
+        comp_bytes.append(comp)
+        if prof.max_cs_bytes and len(cs) > prof.max_cs_bytes:
+            raise AssertionError(f"{name}: {len(cs)} B above the frame cap "
+                                 f"{prof.max_cs_bytes}")
+        if prof.max_comp_bytes and max(comp) > prof.max_comp_bytes:
+            raise AssertionError(f"{name}: component packet bytes {comp} "
+                                 f"above the cap {prof.max_comp_bytes}")
+        if hdr.siz.rsiz != prof.rsiz or hdr.siz.rsiz != want["rsiz"]:
+            raise AssertionError(f"{name}: rsiz {hdr.siz.rsiz:#06x}, the "
+                                 f"profile's {prof.rsiz:#06x}")
+        if prof.params.tlm_markers and hdr.tlm is None:
+            raise AssertionError(f"{name}: no TLM marker")
+    if comp_bytes != want["comp_bytes"]:
+        raise AssertionError(f"{name}: per-component packet bytes "
+                             f"{comp_bytes} differ from the host's")
+    caps = (f"frame cap {prof.max_cs_bytes} B, component cap "
+            f"{prof.max_comp_bytes} B" if prof.max_cs_bytes else "no cap")
+    print(f"{name}: {len(streams)} streams equal the host encoder's "
+          f"(digests), {[len(cs) for cs in streams]} B, component packet "
+          f"bytes {comp_bytes} ({caps}), rsiz {prof.rsiz:#06x}"
+          + (", TLM" if prof.params.tlm_markers else ""))
+
+
+def cinema_plan(img, prof):
+    """The MQ plan encode_batch builds for a profile's frames (R-D tables
+    on: the profile's allocator needs them)."""
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.codestream.tile import default_qcd
+    from grokimagecompression_tpu_torch.core.geometry import tile_rect
+    from grokimagecompression_tpu_torch.models import fused_encode
+    p = prof.params
+    siz = encoder.build_siz(img, p)
+    cod = encoder.build_cod(img, p)
+    qcd = default_qcd(siz, cod, encoder._guard_bits(p), p.base_step)
+    tr = tile_rect(0, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz, siz.xtsiz,
+                   siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    plan = fused_encode.build_plan(siz, cod, qcd, tr, coder="mq",
+                                   want_rd=True)
+    return plan, siz, cod, qcd, tr
+
+
+def cinema_mq_scan_check(enc, chunk):
+    """Phase 18, the MQ coder at the cinema shapes: on each shape group of
+    one chunk, 64 lanes spread over it, cut to the leading planes in which
+    no lane codes more than CIN_PLAIN_MQ_DECISIONS decisions, against the
+    plain version (segments, lengths, state, pass-end byte-outs); then the
+    whole 32x32 group's scan timed (call ms, 20 after 3 warm-up) beside
+    its bound. Returns (largest difference, ms, plain ms, bound ms, bound
+    by)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+    res = None
+    for (h, w, _), gin in zip(enc.plan.groups, enc.group_inputs(*chunk)):
+        _, slots, _ = enc.group_slots(*gin)
+        spans = mq_torch.pass_spans_padded(h, w)
+        tp = sum(spans)
+        npl = slots.shape[0] // tp
+        B = slots.shape[1]
+        lanes = torch.linspace(0, B - 1, min(64, B),
+                               device=slots.device).round().long()
+        sub = slots[:, lanes]
+        coded = (sub.view(npl, tp, -1) & 1).sum(dim=1).cumsum(0).amax(dim=1)
+        keep = max(1, int((coded <= CIN_PLAIN_MQ_DECISIONS).sum()))
+        sub = sub[:keep * tp].contiguous()
+        got = mq_scan.mq_scan(sub, spans)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mq_torch.mq_scan_plain(sub, spans)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        for part, wv, g in zip(("segments", "lengths", "state",
+                                "byte-outs"), want, got):
+            if not torch.equal(wv, g):
+                raise AssertionError(f"mq_scan {part} differ from the plain "
+                                     f"version (cinema {h}x{w} lanes, "
+                                     f"{keep} planes)")
+        err = max(int((wv.to(torch.int64) - g.to(torch.int64)).abs().max())
+                  if wv.numel() else 0 for wv, g in zip(want, got))
+        line = (f"kernel mq_scan at the cinema shapes: {h}x{w} group, "
+                f"{lanes.numel()} of {B} lanes, {keep} of {npl} planes "
+                f"(T={sub.shape[0]}), {int(coded[keep - 1])} decisions in the "
+                f"deepest lane: bit-exact with plain, pass-end byte-outs "
+                f"included (plain {plain_ms:.1f} ms)")
+        if (h, w) == (32, 32):
+            full = mq_scan.mq_scan(slots, spans)
+            for _ in range(3):
+                mq_scan.mq_scan(slots, spans)
+            ms = cuda_ms(lambda: mq_scan.mq_scan(slots, spans), 20)
+            emits = int((slots & 1).sum())
+            b_ms, b_by, b_terms = bound(
+                nbytes(slots, *full),
+                OPS["mq_decision"] * emits + OPS["mq_byte"] * full[0].numel())
+            res = (err, ms, plain_ms, b_ms, b_by)
+            line += (f"; the whole group, slots ({slots.shape[0]}, {B}), "
+                     f"{emits} coding: {ms:.3f} ms a call (bound {b_ms:.4f} "
+                     f"ms by {b_by}: {b_terms})")
+            del full
+        print(line)
+        del slots, sub, got, want
+    torch.cuda.empty_cache()
+    return res
+
+
+def cinema_mq_dec_check(streams, dev):
+    """Phase 18, the MQ decoder at the cinema shapes: every lane group of
+    the first stream's decode, every lane cut to its first 3 passes,
+    against the plain version; then the whole 32x32 group of the streams'
+    decode chunk at full depth timed (call ms, 20 after 3 warm-up) beside
+    its bound. Returns (largest difference, ms, plain ms, bound ms, bound
+    by)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.models import fused_decode
+    from grokimagecompression_tpu_torch.ops import mq_dec, mq_dec_torch
+
+    def lane_groups(batch):
+        hdr, trs, parsed = decoder.parse_batch(batch)
+        (plan,) = decoder.tile_groups(hdr, trs, parsed)
+        return plan, fused_decode.upload(fused_decode.prepare_chunk(
+            plan, [fused_decode.jobs_by_block(*p[0][0][:3])
+                   for p in parsed]), dev)
+
+    plan, arrays = lane_groups(streams[:1])
+    err, plain_total = 0, 0.0
+    for (w, h, _), group in zip(plan.groups, arrays):
+        data, off, nbps, npas_full, ori = group[:5]
+        args = (data, off, nbps, torch.clamp(npas_full, max=3), ori, w, h)
+        got = mq_dec.decode_group(*args, with_stats=True)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = mq_dec_torch.decode_group_plain(*args, with_stats=True)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(stop)
+        for part, wv, g in zip(("samples", "statistics"), want, got):
+            if not torch.equal(wv, g):
+                raise AssertionError(f"mq_dec_group {part} differ from the "
+                                     f"plain version (cinema {w}x{h} "
+                                     f"blocks)")
+        err = max([err] + [int((wv.to(torch.int64) - g.to(torch.int64))
+                               .abs().max()) for wv, g in zip(want, got)])
+        if (w, h) == (32, 32):
+            plain_total = plain_ms
+        print(f"kernel mq_dec_group at the cinema shapes: {w}x{h} blocks of "
+              f"frame 0, B={nbps.shape[0]}, {data.numel()} segment bytes, "
+              f"every lane cut to its first 3 passes (of up to "
+              f"{int(npas_full.max())}): bit-exact with plain (plain "
+              f"{plain_ms:.1f} ms)")
+    plan, arrays = lane_groups(streams)
+    ((w, h, _), group), = [(g, a) for g, a in zip(plan.groups, arrays)
+                           if g[:2] == (32, 32)]
+    full = tuple(group[:5]) + (w, h)
+    data, off, nbps, npas_full, ori = group[:5]
+    for _ in range(3):
+        mq_dec.decode_group(*full)
+    ms = cuda_ms(lambda: mq_dec.decode_group(*full), 20)
+    packed, stats = mq_dec.decode_group(*full, with_stats=True)
+    nb = nbps.to(torch.int64)
+    passes = torch.minimum(npas_full.to(torch.int64),
+                           (3 * nb - 2).clamp(min=0))
+    visits = w * h * int(passes.sum())
+    ndec, nbyte = (int(v) for v in stats.to(torch.int64).sum(1))
+    b_ms, b_by, b_terms = bound(
+        nbytes(data, off, nbps, npas_full, ori, packed, stats),
+        OPS["mqd_decision"] * ndec + OPS["mqd_byte"] * nbyte
+        + OPS["mqd_visit"] * visits)
+    print(f"kernel mq_dec_group on the {len(streams)}-stream decode chunk's "
+          f"32x32 group at full depth (B={nbps.shape[0]}, {data.numel()} "
+          f"segment bytes, up to {int(npas_full.max())} passes): {ms:.3f} ms "
+          f"a call, {ndec} decisions, {nbyte} BYTEINs, {visits} sample "
+          f"visits (bound {b_ms:.4f} ms by {b_by}: {b_terms})")
+    del arrays, packed, stats
+    torch.cuda.empty_cache()
+    return err, ms, plain_total, b_ms, b_by
+
+
+def cinema_phase(dev, card, results):
+    """Phase 18: the profile encodes (CIN_CASES) at full size through the
+    profile entry points, and the decode of the cinema streams: cinema 2K
+    at 24 and 48 fps (4 frames through encode_batch with the profile's
+    rsiz and allocator; frame 0 also through encode_with_profile), 4K at
+    24 fps (2 frames), broadcast and IMF 2K / 2K_R (one frame each through
+    encode_with_profile), every stream against CIN_DIGESTS and its
+    profile's caps; the MQ coder and the DWT launched by the encodes, the
+    MQ decoder and the DWT by the decodes, no plain version called; the
+    decoded pixels against the host decoder's digests. Prints MP/s (best
+    of 3) beside the real-time rate, the stages of one 2K chunk, the peak
+    device memory beside `mq_frame_bytes`, and the kernels held against
+    their plain versions at the cinema shapes with their call ms and
+    bounds (into `results`, keys "cinema mq_scan", "cinema
+    mq_dec_group", and results["dwt"]["cinema"]). Returns each kernel's
+    launches in the phase's runs by LAUNCHES key."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import (decoder, encoder,
+                                                           profiles)
+    from grokimagecompression_tpu_torch.core.geometry import Rect
+    from grokimagecompression_tpu_torch.core.params import EncoderParams
+    from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.ops import (dwt, dwt_torch, mq_dec,
+                                                    mq_scan, mq_torch)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, CIN_DIGESTS)) as f:
+        want = json.load(f)
+    sets = cinema_sets()
+    for k, digests in want["frames"].items():
+        if [frame_digest(im) for im in sets[k]] != digests:
+            raise AssertionError(f"cinema frames {k} differ from the digest "
+                                 f"file: numpy makes other frames here")
+    launches = {"mq": 0, "dwt": 0, "mq_dec": 0}
+    streams = {}
+    for case in CIN_CASES:
+        name, fset = case[:2]
+        imgs = sets[fset]
+        prof = cinema_profile(profiles, EncoderParams, case, imgs[0])
+        alloc = profiles.profile_allocator(prof)
+        cinema = case[2] == "apply_cinema"
+
+        def run(imgs=imgs, prof=prof, alloc=alloc, cinema=cinema):
+            if not cinema:
+                return [profiles.encode_with_profile(imgs[0], prof)]
+            return encoder.encode_batch(imgs, prof.params, device="cuda",
+                                        rsiz=prof.rsiz, layer_alloc=alloc)
+
+        torch.cuda.empty_cache()
+        if cinema:
+            plan, siz, cod, qcd, tr = cinema_plan(imgs[0], prof)
+            per_frame = fused_encode.mq_frame_bytes(plan)
+            chunk = max(1, min(32, fused_encode.chunk_cap(
+                plan, encoder.free_device_bytes(dev)), len(imgs)))
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        mq_scan.LAUNCHES["mq"] = 0
+        dwt.LAUNCHES["dwt"] = 0
+        plain = [Calls(mq_torch, "mq_scan_plain", lambda *a: True),
+                 Calls(dwt_torch, "fwd_dwt_2d", lambda *a: True)]
+        with contextlib.ExitStack() as counting:
+            for c in plain:
+                counting.enter_context(c)
+            out = run()
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        made = {"mq": mq_scan.LAUNCHES["mq"], "dwt": dwt.LAUNCHES["dwt"]}
+        print(f"{name} encode launches: {made}; plain coder / DWT calls: "
+              f"{[c.n for c in plain]}")
+        if min(made.values()) < 1 or any(c.n for c in plain):
+            raise AssertionError(f"{name}: mq_scan or the DWT was not "
+                                 f"launched, or a plain version ran")
+        for k, v in made.items():
+            launches[k] += v
+        cinema_streams_check(name, out, want["cases"][name], prof)
+        streams[name] = out
+        if not cinema:
+            continue
+        n = len(imgs)
+        print(f"{name}: plan of {plan.nblocks} code-blocks a frame in "
+              f"{len(plan.groups)} shape groups "
+              f"{[(h, w, len(b)) for (h, w, b) in plan.groups]}; peak "
+              f"device memory {peak / 1e9:.3f} GB above the "
+              f"{base / 1e9:.3f} GB held before, "
+              f"{(chunk * per_frame + mq_scan.EMIT_BLOCK_BYTES) / 1e9:.3f} "
+              f"GB predicted (mq_frame_bytes {per_frame / 1e9:.3f} GB x "
+              f"chunk {chunk} + the counting temporaries) on {card}")
+        if name == "cinema2k_24":
+            if profiles.encode_with_profile(imgs[0], prof) != out[0]:
+                raise AssertionError("encode_with_profile differs from "
+                                     "encode_batch on frame 0")
+            print(f"{name}: encode_with_profile of frame 0 equals its "
+                  f"encode_batch stream")
+            enc = fused_encode.FusedMQEncoder(plan, dev)
+            host = [np.stack([im.components[c].data for im in imgs])
+                    for c in range(3)]
+            c2_encode_stages(enc, host, imgs, prof.params, siz, cod, qcd, tr,
+                             layer_alloc=alloc)
+            stages, _ = c2_encode_stages(enc, host, imgs, prof.params, siz,
+                                         cod, qcd, tr, layer_alloc=alloc)
+            sims = stages.pop("simulator calls")
+            print(f"one {n}-frame {name} encode chunk by stage (host clock, "
+                  f"synchronised; PCRD and T2 serial, frame after frame): "
+                  + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                              for k, v in stages.items())
+                  + f"; the rate control's simulator calls: {sims}")
+            res = cinema_mq_scan_check(enc, fused_encode.upload_tile(host,
+                                                                     enc))
+            results["cinema mq_scan"] = res
+            del enc, host
+            torch.cuda.empty_cache()
+        mpix = n * imgs[0].xsiz * imgs[0].ysiz / 1e6
+        best = best_of(3, run)
+        print(f"encode {name}: {mpix / best:.2f} MP/s (best of 3, "
+              f"{best:.3f} s for {n} frames of {imgs[0].xsiz}x"
+              f"{imgs[0].ysiz}; real time at 24 fps: "
+              f"{CIN_REALTIME_MPS:.2f} MP/s for 2K) on {card}")
+    # (e) the decode of the cinema streams
+    for case in CIN_CASES:
+        name = case[0]
+        if case[2] != "apply_cinema":
+            continue
+        out = streams[name]
+        n = len(out)
+        img0 = sets[case[1]][0]
+        with decode_counts(extra=[Calls(dwt_torch, "inv_dwt_2d",
+                                        lambda *a, **k: True)]) as plain:
+            dec = decoder.decode_batch(out, device="cuda")
+            torch.cuda.synchronize()
+        check_decode_counts(plain, f"{name} decode", ("mq_dec", "dwt"))
+        launches["mq_dec"] += mq_dec.LAUNCHES["mq_dec"]
+        launches["dwt"] += dwt.LAUNCHES["dwt"]
+        got = [frame_digest(d) for d in dec]
+        if got != want["cases"][name]["decoded"]:
+            raise AssertionError(f"{name} decode: pixels differ from the "
+                                 f"host decoder's")
+        mse = [frame_mse(d, im) for d, im in zip(dec, sets[case[1]])]
+        del dec
+        mpix = n * img0.xsiz * img0.ysiz / 1e6
+        best = best_of(3, lambda: decoder.decode_batch(out, device="cuda"))
+        print(f"decode {name}: {n} frames equal the host decoder's pixels "
+              f"(MSE against the sources "
+              + ", ".join(f"{m:.2f}" for m in mse)
+              + f"); {mpix / best:.2f} MP/s (best of 3, {best:.3f} s) on "
+              f"{card}")
+        if name == "cinema2k_24":
+            c2_decode_stages(out, dev)
+            stages = c2_decode_stages(out, dev)
+            print(f"one {n}-frame {name} decode chunk by stage (host clock, "
+                  f"synchronised): " + ", ".join(
+                      f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
+            results["cinema mq_dec_group"] = cinema_mq_dec_check(out, dev)
+    check_dwt(dev, results, cases=(
+        ("cinema 2K frame", (3, 1080, 2048), Rect(0, 0, 2048, 1080), 6,
+         False),
+        ("cinema 4K frame", (3, 2160, 4096), Rect(0, 0, 4096, 2160), 7,
+         False)), key="cinema")
+    print(f"cinema phase launches (encodes and decodes): {launches}")
+    return launches
+
+
 def best_of(n, fn):
     import torch
     best = float("inf")
@@ -3048,12 +3538,16 @@ def main() -> int:
     del fixed
     gate_c1_phase(imgs, dev, card)
     corpus_phase(c2_imgs[0], dev, card)
+    cinema = cinema_phase(dev, card, results)
 
     calls["mq_dense"] = launches["mq_dense"]
+    for key, n in cinema.items():
+        calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
-          f"whole config-2 forward transforms): {calls}; all launches of "
-          f"those runs: {launches}")
+          f"whole config-2 forward transforms) plus the launches of phase "
+          f"18's cinema encodes and decodes ({cinema}): {calls}; all "
+          f"launches of the config-1 and config-2 runs: {launches}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=calls[key],

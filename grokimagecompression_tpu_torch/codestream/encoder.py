@@ -6,7 +6,8 @@ without one byte target (`rates=(r,)`: a search of the quantizer's base
 step, `_encode_ht_rate_controlled`), and the Part-1 MQ coder with the
 default code-block style on 5/3 or 9/7, with or without byte or PSNR
 targets (`rates`, `quality_psnr`: PCRD rate control over quality
-layers). The block
+layers) or an explicit rate allocator (a profile's byte caps,
+`profiles.encode_with_profile`). The block
 coding runs on the device through `models/fused_encode.py`; the
 codestream parameters (`build_siz`, `build_cod`), tile extraction, the
 rate allocator's construction and the main-header and tile-part writing
@@ -130,15 +131,18 @@ def _needs_rc(params: EncoderParams) -> bool:
 
 
 def encode(image: Image, params: EncoderParams,
-           t1_segments_by_tile: Dict[int, List]) -> bytes:
+           t1_segments_by_tile: Dict[int, List], rsiz: int = 0,
+           layer_alloc=None) -> bytes:
     """Write the codestream of one image whose code-block segments were
     coded on the device: `t1_segments_by_tile[t]` in t1-desc order (HT
     segment bytes, MQ (data, numbps, numpasses) tuples, or under rate
     control MQ (data, numbps, numpasses, passes) tuples).
 
     The reference's host `encode(..., device=False,
-    _t1_segments_by_tile=...)`: main header (SIZ, with the Part-15 flag
-    and a CAP for HT, COD, COC, QCD, POC, COM, PPM, TLM), the per-tile
+    _t1_segments_by_tile=...)`: main header (SIZ, with `rsiz` ORed in
+    (a profile's) and the Part-15 flag and a CAP for HT, COD, COC, QCD,
+    POC, COM, PPM, TLM), the rate allocator `layer_alloc` where given (a
+    profile's byte caps, `profiles.profile_allocator`), else the per-tile
     PCRD allocator when the parameters set byte or PSNR targets
     (`pcrd.make_layer_alloc`), then each tile's T2 as one tile-part, or
     split at progression changes (`tp_flag`), with PPT/PLT where asked.
@@ -151,6 +155,8 @@ def encode(image: Image, params: EncoderParams,
         params = dataclasses.replace(params, numlayers=_nl)
     is_ht = bool(params.cblk_style & 0x40)
     siz = build_siz(image, params)
+    if rsiz:
+        siz = dataclasses.replace(siz, rsiz=siz.rsiz | rsiz)
     cod = build_cod(image, params)
     qcd = default_qcd(siz, cod, _guard_bits(params), params.base_step)
     if is_ht:
@@ -186,8 +192,8 @@ def encode(image: Image, params: EncoderParams,
     ppm_sections: list = []
     numtiles = ntx * nty
     split = params.ppt_markers or params.ppm_markers
-    layer_alloc = make_layer_alloc(image, params) if _needs_rc(params) \
-        else None
+    if layer_alloc is None and _needs_rc(params):
+        layer_alloc = make_layer_alloc(image, params)
 
     results = []
     for t in range(numtiles):
@@ -198,7 +204,7 @@ def encode(image: Image, params: EncoderParams,
             layer_alloc=layer_alloc, cod_comp=cod_comp,
             pocs=params.pocs or None, split_headers=split,
             want_packet_lengths=params.plt_markers
-            or params.tp_flag is not None))
+            or params.tp_flag is not None, tile_index=t))
 
     axis_idx = {"L": 0, "R": 1, "C": 2}
     for t in range(numtiles):
@@ -266,9 +272,12 @@ def _geom(img: Image):
                  for c in img.components) + (img.xsiz, img.ysiz)
 
 
-def _out_of_slice(images: List[Image], params: EncoderParams) -> Optional[str]:
+def _out_of_slice(images: List[Image], params: EncoderParams,
+                  layer_alloc=None) -> Optional[str]:
     """Why a request is outside the ported slices, or None."""
     is_ht = bool(params.cblk_style & 0x40)
+    if is_ht and layer_alloc is not None:
+        return "a rate allocator with the HT block coder"
     if params.cblk_style and not is_ht:
         return (f"the MQ code-block style {params.cblk_style:#x} (only "
                 f"the default style 0 is ported)")
@@ -278,7 +287,8 @@ def _out_of_slice(images: List[Image], params: EncoderParams) -> Optional[str]:
         return "a custom MCT"
     if params.roi_comp is not None and params.roi_shift > 0:
         return "ROI upshift"
-    if _needs_rc(params) and not is_ht and params.rate_alloc != "tile":
+    if _needs_rc(params) and not is_ht and layer_alloc is None \
+            and params.rate_alloc != "tile":
         return f"the {params.rate_alloc!r} rate allocation"
     if any(_geom(im) != _geom(images[0]) for im in images):
         return "frames of different geometry"
@@ -455,7 +465,8 @@ def _ht_rc_segments(search: _HTRateSearch, frames: List[int],
 
 
 def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
-                        search: _HTRateSearch, t2_pool) -> List[bytes]:
+                        search: _HTRateSearch, t2_pool,
+                        rsiz: int = 0) -> List[bytes]:
     """The streams of a chunk's frames under HT rate control: every
     frame's search (`_encode_ht_rate_controlled`) driven in lockstep, a
     round being one probe for every frame that asks for a total, and one
@@ -475,7 +486,8 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
             futures = [(f, t2_pool.submit(encode, images[f],
                                           dataclasses.replace(
                                               params, rates=(),
-                                              base_step=asks[f][1]), sg))
+                                              base_step=asks[f][1]), sg,
+                                          rsiz))
                        for f, sg in zip(confirms, segs)]
         answers = {}
         if probes:
@@ -492,7 +504,8 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
 
 
 def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
-                 device: DeviceLike = "cuda", chunk: int = 32) -> List[bytes]:
+                 device: DeviceLike = "cuda", chunk: int = 32, rsiz: int = 0,
+                 layer_alloc=None) -> List[bytes]:
     """Encode same-geometry frames with the HT block coder (`cblk_style`
     0x40; 5/3, lossless, or 9/7, at the default or a given base step, or
     at one byte target `rates=(r,)`) or the Part-1 MQ coder (`cblk_style`
@@ -507,14 +520,21 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
     (`_encode_ht_rc_chunk`). On a CUDA device a chunk is capped to the
     frames whose encode fits in half the free device memory
     (`_capped_chunk`), at least one. The streams are byte-identical to
-    the reference host encoder's, whatever the chunk."""
+    the reference host encoder's, whatever the chunk.
+
+    `rsiz` is ORed into each stream's SIZ (a profile's code), and
+    `layer_alloc` (MQ only; a `pcrd.PCRDAllocator`, which keeps no state
+    between tiles, so one serves every frame) replaces the allocator the
+    parameters' targets would make: with it the encode also returns the
+    per-pass R-D tables the allocator needs, as with targets. A profile's
+    encode (`profiles.encode_with_profile`) passes both."""
     dev = resolve_device(device)
     params = params or EncoderParams()
     if not images:
         return []
     if params.cblk_style & 0x40:
         _ht_rc_check(params)
-    why = _out_of_slice(images, params)
+    why = _out_of_slice(images, params, layer_alloc)
     if why is not None:
         raise NotImplementedError(
             f"encode_batch on a torch device does not cover {why} yet")
@@ -534,13 +554,14 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
 
     coder = "ht" if p.cblk_style & 0x40 else "mq"
     rate_control = coder == "ht" and bool(p.rates)
+    want_rd = coder == "mq" and (layer_alloc is not None or _needs_rc(p))
     encoders = {}        # plan -> encoder (interior tiles share one)
     tile_enc = []
     for t in range(numtiles):
         tr = tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                        siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
         plan = fused_encode.build_plan(siz, cod, qcd, tr, cod_comp=cod_comp,
-                                       coder=coder, want_rd=_needs_rc(p))
+                                       coder=coder, want_rd=want_rd)
         if plan is None:
             raise NotImplementedError(
                 f"tile {t} is outside the fused plan's scope")
@@ -563,7 +584,7 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
                 search = _HTRateSearch(images[lo:hi], siz, cod, cod_comp,
                                        tile_enc)
                 results[lo:hi] = _encode_ht_rc_chunk(images[lo:hi], p,
-                                                     search, t2_pool)
+                                                     search, t2_pool, rsiz)
                 del search
                 continue
             handles = []
@@ -577,7 +598,7 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
             for f in range(lo, hi):
                 by_tile = {t: segs[t][f - lo] for t in range(numtiles)}
                 futures.append((f, t2_pool.submit(
-                    encode, images[f], params, by_tile)))
+                    encode, images[f], params, by_tile, rsiz, layer_alloc)))
         for f, fut in futures:
             results[f] = fut.result()
     return results  # type: ignore[return-value]

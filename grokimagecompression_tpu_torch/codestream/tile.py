@@ -8,10 +8,12 @@ device (the `t1_segments` branch of `encode_tile`, HT or MQ, with the
 PCRD distortion weighting and the `layer_alloc` rate control for MQ
 segments that carry their pass tables), and the packet parse of
 `decode_tile` up to its `_return_jobs` return, with COC / QCC, POC and
-packed headers. Packets go through the native T2
-(`native/t2_native.py`): the tile encoder, the tile simulator of the
-rate control and the tile parser; the Python packet coder runs only
-where the reference runs it too (packed headers, packet lengths).
+packed headers, and the packet index `index_tile_packets`. Packets go
+through the native T2 (`native/t2_native.py`): the tile encoder, the
+tile simulator of the rate control (with its per-component totals for a
+profile's caps) and the tile parser; the Python packet coder runs only
+where the reference runs it too (packed headers, packet lengths, the
+packet index).
 
 Not copied: the host transforms and T1, windowed and reduced decode and
 ROI shifts.
@@ -38,7 +40,7 @@ from .markers import CodInfo, QcdInfo, SizInfo
 from .packetiter import CompIterInfo, packet_order, packet_order_poc
 from .pcrd import RateControlCtx
 from .t2 import (CblkDec, CblkEnc, PassInfo, PrecDec, PrecEnc,
-                 decode_packet_split, encode_packet)
+                 decode_packet, decode_packet_split, encode_packet)
 
 
 @dataclasses.dataclass
@@ -173,6 +175,7 @@ def encode_tile(
     pocs=None,
     split_headers: bool = False,
     want_packet_lengths: bool = False,
+    tile_index: int = -1,
 ) -> TileEncResult:
     """Encode one tile to its packet body bytes from its code-block
     segments coded on the device (models/fused_encode.py), `t1_segments`,
@@ -183,8 +186,9 @@ def encode_tile(
     per-pass R-D table (`PassInfo` list) for rate control.
 
     `layer_alloc(ctx: pcrd.RateControlCtx) -> None` assigns
-    `layer_npasses` on each CblkEnc (e.g. pcrd.PCRDAllocator); without
-    it every pass goes into layer 0.
+    `layer_npasses` on each CblkEnc (e.g. pcrd.PCRDAllocator, whose
+    per-component caps read `ctx.simulate_comp_upto`); without it every
+    pass goes into layer 0. `tile_index` is handed to it in the context.
 
     `split_headers=True` routes packet headers to a separate packed
     stream (for PPM/PPT signalling); the body then carries only SOP
@@ -340,6 +344,19 @@ def encode_tile(
                                  if l <= max_layer)
             return total
 
+        def _simulate_comps(max_layer: int) -> Dict[int, int]:
+            """Per-component packet byte totals for layers 0..max_layer
+            (cinema per-component caps, reference T2.cpp:135-186)."""
+            totals: Dict[int, int] = {}
+            _, per_group = tile_sim.simulate(max_layer)
+            for g, c in enumerate(tile_sim.comps):
+                totals[c] = totals.get(c, 0) + int(per_group[g])
+            if cod.sop:
+                for (l, r, c, p) in _packet_iter():
+                    if l <= max_layer:
+                        totals[c] = totals.get(c, 0) + 6
+            return totals
+
         ctx = RateControlCtx(
             cblks=all_cblks,
             numlayers=numlayers,
@@ -347,7 +364,9 @@ def encode_tile(
             image_samples=img_samples,
             max_prec=max(c.prec for c in siz.comps),
             simulate_upto=_simulate,
+            simulate_comp_upto=_simulate_comps,
             write_layer=tile_sim.write_rows,
+            tile_index=tile_index,
         )
         layer_alloc(ctx)
 
@@ -508,3 +527,60 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
                                     cb.numpasses, bp_d.kmax))
                     t1_job_slots.append((c, (res.r, band.orient), cb))
     return t1_jobs, t1_job_slots, plans, cods
+
+
+def index_tile_packets(body: bytes, hdr, tile_index: int):
+    """Packet index of one tile: (layer, res, comp, prec, offset, bytes)
+    per packet in progression order — the grk_dump codestream-index
+    analog (reference: j2k_dump.cpp:176). Parses headers only, with the
+    Python T2. `hdr` is a `decoder.read_header` result; the per-component
+    byte caps of a profile are checked on it."""
+    from ..core.geometry import tile_rect as _tile_rect
+    siz, cod, qcd = hdr.siz, hdr.cod, hdr.qcd
+    tile = _tile_rect(tile_index, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                      siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    ncomps = len(siz.comps)
+    cod_comp = hdr.cod_comp
+    qcd_comp = hdr.qcd_comp
+    cods = [cod_comp[c] if cod_comp and cod_comp[c] else cod
+            for c in range(ncomps)]
+    qcds = [qcd_comp[c] if qcd_comp and qcd_comp[c] else qcd
+            for c in range(ncomps)]
+    plans = [build_comp_plan(siz, cods[c], qcds[c], tile, c)
+             for c in range(ncomps)]
+    prec_dec = []
+    for c in range(ncomps):
+        per_res = {}
+        for res in plans[c].layout.resolutions:
+            for band in res.bands:
+                plist = []
+                for prc in band.precincts:
+                    pd = PrecDec(geom=prc,
+                                 cblks=[CblkDec(geom=cb)
+                                        for cb in prc.cblks])
+                    pd.init_trees()
+                    plist.append(pd)
+                per_res[(res.r, band.orient)] = plist
+        prec_dec.append(per_res)
+    comps_iter = _comps_iter(siz, cods, plans)
+    if hdr.pocs:
+        piter = packet_order_poc(hdr.pocs, cod.numlayers, comps_iter, tile)
+    else:
+        piter = packet_order(cod.progression, cod.numlayers, comps_iter,
+                             tile)
+    out = []
+    pos = 0
+    for (l, r, c, p) in piter:
+        if pos >= len(body):
+            break
+        orients = (0,) if r == 0 else (1, 2, 3)
+        precs = [prec_dec[c][(r, o)][p] for o in orients
+                 if (r, o) in prec_dec[c]]
+        kmaxs = [plans[c].bands[(r, o)].kmax for o in orients
+                 if (r, o) in plans[c].bands]
+        start = pos
+        pos = decode_packet(body, pos, l, precs, kmaxs,
+                            cods[c].cblk_style, sop=cod.sop, eph=cod.eph,
+                            discard=True)
+        out.append((l, r, c, p, start, pos - start))
+    return out

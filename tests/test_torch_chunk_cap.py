@@ -5,9 +5,11 @@ in the MQ encode, and `fused_encode.chunk_cap` the frames that fit in
 half of a given free byte count, at least one; `encoder.encode_batch`
 caps its chunk with them on a CUDA device (`free_device_bytes`). On the
 CPU the free byte count is given by the test. The streams must not
-depend on the chunk.
+depend on the chunk. A profile's explicit allocator plans the R-D
+tables, and the model counts them.
 """
 
+import dataclasses
 import os
 import sys
 
@@ -177,3 +179,50 @@ def test_ht_streams_do_not_depend_on_the_capped_chunk(monkeypatch, rates):
                         or search(ims, *a))
     assert encoder.encode_batch(imgs, params, device="cpu") == want
     assert sizes == [1, 1, 1]
+
+
+# Peak device memory of the cinema 2K encode at 24 fps, 4 frames of
+# 2048x1080 12-bit RGB in one chunk with the profile's allocator, above
+# what was held before: 8.288 GB on an NVIDIA H100 80GB HBM3 at 700 W
+# (`chip_smoke.py` phase 18).
+CINEMA_2K_PEAK_4 = 8.288e9
+
+
+class _Planned(Exception):
+    pass
+
+
+def test_cinema_model_counts_the_rd_tables_of_an_allocator(monkeypatch):
+    """A profile's allocator makes `encode_batch` plan the MQ encode with
+    R-D tables though the parameters set no target, and the model of that
+    12-bit cinema 2K plan, 4 frames a chunk, holds the peak measured on
+    the card; without the R-D buffers the model falls below it (the
+    chunk cap would overrun)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    from grokimagecompression_tpu_torch.codestream import profiles
+    img = chip_smoke.cinema_frames(1)[0]
+    prof = profiles.apply_cinema(EncoderParams(), img)
+    assert not prof.params.rates and not prof.params.quality_psnr
+    plans = []
+
+    def capture(plan, free, rate_control=False):
+        plans.append(plan)
+        raise _Planned
+
+    monkeypatch.setattr(encoder, "free_device_bytes", lambda dev: 80e9)
+    monkeypatch.setattr(fused_encode, "chunk_cap", capture)
+    with pytest.raises(_Planned):
+        encoder.encode_batch([img], prof.params, device="cpu",
+                             rsiz=prof.rsiz,
+                             layer_alloc=profiles.profile_allocator(prof))
+    (plan,) = plans
+    assert plan.coder == "mq" and plan.want_rd
+    assert plan.nblocks == 6708
+    assert max(b.kmax for (_, _, blocks) in plan.groups
+               for b in blocks) == 19
+    fixed = mq_scan.EMIT_BLOCK_BYTES
+    model = 4 * fused_encode.mq_frame_bytes(plan) + fixed
+    assert CINEMA_2K_PEAK_4 <= model <= 1.25 * CINEMA_2K_PEAK_4
+    no_rd = dataclasses.replace(plan, want_rd=False)
+    assert 4 * fused_encode.mq_frame_bytes(no_rd) + fixed < CINEMA_2K_PEAK_4

@@ -68,6 +68,7 @@ MQ_DIGESTS = os.path.join(DATA, "config1_mq_lossless.json")
 C2_DIGESTS = os.path.join(DATA, "config2_pcrd_97.json")
 C2_DEC_DIGESTS = os.path.join(DATA, "config2_decode_97.json")
 C2_HT_DIGESTS = os.path.join(DATA, "config2_ht_97.json")
+CIN_DIGESTS = os.path.join(DATA, "cinema_profiles.json")
 CORPUS_DIGESTS = os.path.join(DATA, "corpus_decode.json")
 CORPUS = os.path.join(REPO, "tests", "corpus")
 
@@ -480,6 +481,66 @@ def test_config2_ht_digest_file_is_current():
         assert json.load(f) == config2_ht_digests()
 
 
+def cinema_profiles_digests():
+    """SHA-256 of the profile frames (`chip_smoke.cinema_sets`), of the
+    reference host encoder's streams of each `chip_smoke.CIN_CASES` case
+    (`profiles.encode_with_profile(..., device=False)`, numpy DWT), each
+    stream's length, rsiz and per-component packet bytes (the reference's
+    `index_tile_packets`) beside the profile's caps, and for the cinema
+    cases the host decoder's pixels of every stream."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from grokimagecompression_tpu.codestream import profiles as ref_profiles
+    sets = chip_smoke.cinema_sets()
+    out = {
+        "what": "the profile encodes of chip_smoke.CIN_CASES: the streams "
+                "of grokimagecompression_tpu profiles.encode_with_profile("
+                "frame, profiles.apply_*(EncoderParams(...), frame, ...), "
+                "device=False) of chip_smoke.cinema_sets(), their bytes, "
+                "rsiz and per-component packet bytes (tile."
+                "index_tile_packets), and for the cinema cases the pixels "
+                "of decoder.decode(device=False) of each, numpy DWT "
+                "(dwt_host._get_native None, GROK_TPU_DWT=python); "
+                "tests/test_torch_host_copies.py writes it",
+        "frames": {k: [chip_smoke.frame_digest(im) for im in v]
+                   for k, v in sets.items() if k != "2k0"},
+        "cases": {},
+    }
+    with _numpy_dwt():
+        for case in chip_smoke.CIN_CASES:
+            imgs = [_reference_image(im) for im in sets[case[1]]]
+            entry = {"streams": [], "bytes": [], "comp_bytes": []}
+            for img in imgs:
+                prof = chip_smoke.cinema_profile(ref_profiles, EncoderParams,
+                                                 case, img)
+                cs = ref_profiles.encode_with_profile(img, prof,
+                                                      device=False)
+                hdr = ref_decoder.read_header(cs)
+                bodies: dict = {}
+                for tp in ref_decoder.iter_tile_parts(cs,
+                                                      hdr.main_header_end):
+                    bodies[tp.tile_index] = bodies.get(tp.tile_index,
+                                                       b"") + tp.body
+                comp = [0] * len(img.components)
+                for t, body in bodies.items():
+                    for (*_, c, _p, _o, ln) in ref_tile.index_tile_packets(
+                            body, hdr, t):
+                        comp[c] += ln
+                entry["streams"].append(hashlib.sha256(cs).hexdigest())
+                entry["bytes"].append(len(cs))
+                entry["comp_bytes"].append(comp)
+                entry.update(rsiz=hdr.siz.rsiz, tlm=hdr.tlm is not None,
+                             max_cs_bytes=prof.max_cs_bytes,
+                             max_comp_bytes=prof.max_comp_bytes)
+                if case[2] == "apply_cinema":
+                    entry.setdefault("decoded", []).append(
+                        chip_smoke.frame_digest(ref_decoder.decode(
+                            cs, device=False)))
+            out["cases"][case[0]] = entry
+    return out
+
+
 def corpus_decode_digests():
     """The MD5 of the reference host decoder's planes (`test_goldens.
     _plane_md5`, numpy DWT) of every `tests/corpus/` stream that the
@@ -513,6 +574,11 @@ def corpus_decode_digests():
 def test_corpus_decode_digest_file_is_current():
     with open(CORPUS_DIGESTS) as f:
         assert json.load(f) == corpus_decode_digests()
+
+
+def test_cinema_profiles_digest_file_is_current():
+    with open(CIN_DIGESTS) as f:
+        assert json.load(f) == cinema_profiles_digests()
 
 
 def test_chip_smoke_plane_md5_is_the_goldens():
@@ -744,4 +810,7 @@ if __name__ == "__main__":
         f.write("\n")
     with open(CORPUS_DIGESTS, "w") as f:
         json.dump(corpus_decode_digests(), f, indent=1)
+        f.write("\n")
+    with open(CIN_DIGESTS, "w") as f:
+        json.dump(cinema_profiles_digests(), f, indent=1)
         f.write("\n")

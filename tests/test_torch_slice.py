@@ -176,7 +176,8 @@ def test_port_runs_without_jax(monkeypatch):
     kernel's wrapper and the rate control are imported there too, and
     `jp2`: a JP2 file of an HT stream with packed headers (PPM), wrapped
     there as the reference wraps it, decodes to the reference host
-    decoder's pixels."""
+    decoder's pixels. So is `profiles`: a 12-bit cinema 2K encode with a
+    frame cap equals the reference host encoder's `encode_with_profile`."""
     from grokimagecompression_tpu.core.params import DecoderParams
     from grokimagecompression_tpu.ops import dwt_host
     monkeypatch.setattr(dwt_host, "_get_native", lambda: None)
@@ -201,6 +202,14 @@ def test_port_runs_without_jax(monkeypatch):
         ppm_markers=True), device=False)
     want_jp2 = ref_jp2.wrap_codestream(ppm, 40, 32, [(8, False)])
     want_ppm = decoder.decode(want_jp2, device=False).components[0].data
+    from grokimagecompression_tpu.codestream import profiles as ref_profiles
+    from grokimagecompression_tpu.core.image import Component, Image
+    cin = Image(xsiz=40, ysiz=24, components=[Component(
+        data=(data[:24, :40] * 16 + c).astype(np.int32), prec=12,
+        signed=False, dx=1, dy=1) for c in range(3)])
+    cin_prof = ref_profiles.apply_cinema(EncoderParams(), cin)
+    cin_prof.max_cs_bytes = 2000
+    want_cin = ref_profiles.encode_with_profile(cin, cin_prof, device=False)
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -250,6 +259,14 @@ def test_port_runs_without_jax(monkeypatch):
         (out,) = decoder.decode_batch([wrapped], device="cpu")
         assert out.components[0].data.astype("<i4").tobytes().hex() == \
             "{want_ppm.astype('<i4').tobytes().hex()}"
+        from grokimagecompression_tpu_torch.codestream import profiles
+        cin = Image(xsiz=40, ysiz=24, components=[Component(
+            data=(data[:24, :40] * 16 + c).astype(np.int32), prec=12,
+            signed=False, dx=1, dy=1) for c in range(3)])
+        prof = profiles.apply_cinema(EncoderParams(), cin)
+        prof.max_cs_bytes = 2000
+        cs = profiles.encode_with_profile(cin, prof, device="cpu")
+        assert cs.hex() == "{want_cin.hex()}"
         import torch
         words, mask, nbo, state = mq_scan.run_mq_scans(
             torch.ones((300, 4), dtype=torch.int8))
