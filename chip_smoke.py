@@ -22,7 +22,10 @@ COC and PPM (MQ), and the tests/corpus streams; and the profile encodes
 (digital cinema 2K and 4K at 12 bits with their frame and per-component
 byte caps, broadcast, IMF) through `codestream.profiles` and
 `encode_batch(..., rsiz=, layer_alloc=)`, and the decode of the cinema
-streams.
+streams; and the per-image decode of windows, reduced resolutions,
+single tiles and layer limits through `codestream.decoder.decode` and
+`codec.decompress` on a 10980^2 12-bit HT mosaic and a 4096^2 RGB MQ
+image.
 It checks every CUDA kernel on those paths against its plain PyTorch
 version, and imports only the port, torch, numpy and the standard
 library.
@@ -177,7 +180,27 @@ Phases, each fatal on failure:
      64 lanes at their leading planes), the MQ decoder (every lane group of
      frame 0, the first 3 passes) and the DWT (2K and 4K frames, 5/3 and
      9/7) against their plain versions at the cinema shapes, with the
-     whole 32x32 group's and the frames' call ms beside their bounds.
+     whole 32x32 group's and the frames' call ms beside their bounds;
+ 19. the per-image decode (`decoder.decode`, `codec.decompress`): at
+     small size (WIN_CODINGS: 300x260 RGB in 96x96 tiles at an odd image
+     offset, 5/3 HT and 9/7 MQ in three layers, encoded on the card to
+     the host encoder's streams) every request of `window_requests`
+     through decode and decode_batch against the reference host
+     decoder's pixel digests in grokimagecompression_tpu_torch/data/
+     window_decode.json; the CUDA inverse DWT at every max_res of S1's
+     and S2's tile shapes against its plain version; then at full size S1
+     (10980^2 gray 12-bit, 1024^2 tiles, HT 5/3, lossless) and S2 (4096^2
+     RGB, 512^2 tiles, config 2's 9/7 MQ coding) encoded through
+     encode_batch (peak device memory beside the plans' model), and the
+     whole image, a 600^2 window across four tiles, a 2048^2 window at
+     reduce 2, a window clipped by the corner, reduce 1, 3 and 5 (on S2
+     also the first layer at reduce 5), an interior and the corner tile
+     through decoder.decode, each with its launches (the HT or MQ
+     decoder, and the DWT where whole tiles are inverted), best of 3 ms,
+     output MP/s and stages, and 16 seeded 600^2 windows through
+     codec.decompress: S1's whole decode equals the source, every window
+     and tile the crop of the whole decode at its reduction, S1's
+     reductions the LL of each tile's forward DWT.
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
@@ -185,7 +208,9 @@ object with one entry per kernel,
 whose `launches` counts the calls of what its `ms` times on the kernel's
 path (a whole DWT; a group kernel on the timed 64x64 group) plus, for the
 MQ coder, the MQ decoder and the DWT, their launches in phase 18's
-encodes and decodes; the last line is {"ok": true, "device": {...}}.
+encodes and decodes, and for both decoders and the DWT their launches in
+phase 19's full-size requests; the last line is {"ok": true, "device":
+{...}}.
 
 Run from the repository root: python3 chip_smoke.py (needs one CUDA card;
 exits non-zero without one).
@@ -272,6 +297,38 @@ CIN_REALTIME_MPS = 2048 * 1080 * 24 / 1e6
 CORPUS = os.path.join("tests", "corpus")
 CORPUS_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                               "corpus_decode.json")
+# the per-image decode's requests at small size (phase 19, and
+# tests/test_torch_window_decode.py on the CPU): two 300x260 RGB 8-bit
+# frames (`window_frames`) at an odd image offset in 96x96 tiles (12
+# tiles, of 12 geometries), coded 5/3 HT on 4 resolutions and 9/7 MQ on 3
+# with three layers, 8x8 code-blocks (the CPU test's plain decoders take
+# one torch step a quad pair or decision of a lane group's deepest lane);
+# each request decoded to the reference host decoder's pixel digests in
+# WIN_DIGESTS
+WIN_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                           "window_decode.json")
+WIN_SIZE = (300, 260)
+WIN_CODINGS = {
+    "ht53": dict(numresolutions=4, cblk_style=0x40, tile_size=(96, 96),
+                 image_offset=(5, 3), cblk_w_exp=3, cblk_h_exp=3),
+    "mq97": dict(numresolutions=3, transform="DWT_97", numlayers=3,
+                 rates=(192.0, 96.0, 48.0), tile_size=(96, 96),
+                 image_offset=(5, 3), cblk_w_exp=3, cblk_h_exp=3),
+}
+# DecoderParams arguments: the whole image, each reduction (5: more than
+# the levels), windows across four tiles alone, reduced and
+# layer-limited, one clipped by the image's bottom-right corner, an
+# interior and the corner tile, layer limits (MQ only: HT has one layer)
+WIN_REQUESTS = (
+    {}, {"reduce": 1}, {"reduce": 2}, {"reduce": 3}, {"reduce": 5},
+    {"window": (40, 30, 170, 150)},
+    {"window": (40, 30, 170, 150), "reduce": 1},
+    {"window": (101, 97, 190, 200), "reduce": 2},
+    {"window": (250, 200, 400, 400)},
+    {"window": (40, 30, 170, 150), "layers": 1},
+    {"tile_index": 5}, {"tile_index": 11}, {"tile_index": 11, "reduce": 1},
+    {"layers": 1}, {"layers": 2, "reduce": 2},
+)
 # the plain MQ coder's decisions allowed in the config-2 byte-out check
 # (~1.5 ms a decision on the card), and in the dense scan's check (which
 # also packs words each step)
@@ -410,6 +467,55 @@ def cinema_frames(n, w=2048, h=1080):
                                    prec=12, signed=False, dx=1, dy=1))
         frames.append(Image(xsiz=w, ysiz=h, components=comps))
     return frames
+
+
+def window_frames(n=2, w=WIN_SIZE[0], h=WIN_SIZE[1]):
+    """The small window-decode frames: RGB 8-bit, per component c a smooth
+    wave 128 + 64 sin(y / (13 + 3c)) cos(x / 11) plus normal noise of
+    sigma 8, clipped; frame i from a generator seeded 40 + i."""
+    import numpy as np
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+
+    y = np.arange(h)[:, None]
+    x = np.arange(w)[None, :]
+    frames = []
+    for i in range(n):
+        rng = np.random.default_rng(40 + i)
+        comps = [Component(data=(128 + 64 * np.sin(y / (13.0 + 3 * c))
+                                 * np.cos(x / 11.0)
+                                 + rng.normal(0, 8.0, (h, w))).clip(
+                                     0, 255).astype(np.int32),
+                           prec=8, signed=False, dx=1, dy=1)
+                 for c in range(3)]
+        frames.append(Image(xsiz=w, ysiz=h, components=comps))
+    return frames
+
+
+def window_params(params_cls, transform_cls, coding):
+    """The EncoderParams of a WIN_CODINGS entry, made with the given
+    EncoderParams and Transform classes (the port's, or in the tests the
+    reference's)."""
+    kw = dict(WIN_CODINGS[coding])
+    if "transform" in kw:
+        kw["transform"] = getattr(transform_cls, kw["transform"])
+    return params_cls(**kw)
+
+
+def window_requests(coding):
+    """The WIN_REQUESTS that apply to a WIN_CODINGS entry: a layer limit
+    only where there are layers, and of the reductions past the levels
+    only 5."""
+    layered = WIN_CODINGS[coding].get("numlayers", 1) > 1
+    levels = WIN_CODINGS[coding]["numresolutions"] - 1
+    return tuple(kw for kw in WIN_REQUESTS
+                 if (layered or "layers" not in kw)
+                 and not levels < kw.get("reduce", 0) < 5)
+
+
+def request_name(kw) -> str:
+    """A WIN_REQUESTS entry as text, e.g. "window=(40, 30, 170, 150),
+    reduce=1"; "full" for the whole image."""
+    return ", ".join(f"{k}={v}" for k, v in kw.items()) or "full"
 
 
 def cinema_sets():
@@ -1325,7 +1431,8 @@ def decode_stages(streams, dev, host_stage):
     torch.cuda.synchronize()
     stages["decode kernel"] = tt() - t
     t = tt()
-    bands = dec.assemble(grids, [g[-1] for g in groups], len(streams))
+    bands = dec.split_bands(dec.assemble(
+        grids, [g[-1] for g in groups], len(streams)))
     torch.cuda.synchronize()
     stages["band assembly"] = tt() - t
     t = tt()
@@ -2040,7 +2147,8 @@ def c2_decode_stages(streams, dev, coder="MQ", kernel="mq_dec_group"):
     torch.cuda.synchronize()
     stages[kernel] = tt() - t
     t = tt()
-    bands = dec.assemble(packed, [g[-1] for g in groups], len(streams))
+    bands = dec.split_bands(dec.assemble(
+        packed, [g[-1] for g in groups], len(streams)))
     torch.cuda.synchronize()
     stages["dequantization + band placement"] = tt() - t
     cfg = dec.plan.cfg
@@ -3077,6 +3185,406 @@ def cinema_phase(dev, card, results):
     return launches
 
 
+def window_small_check(dev):
+    """Phase 19 (a): the small window-decode frames encoded on the card
+    with each WIN_CODINGS entry, the streams against WIN_DIGESTS (the
+    reference host encoder's), and every request of the coding decoded
+    on the card, frame by frame through `decoder.decode` and both frames
+    through `decode_batch`, against the reference host decoder's pixel
+    digests there."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.core.params import (DecoderParams,
+                                                            EncoderParams,
+                                                            Transform)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, WIN_DIGESTS)) as f:
+        want = json.load(f)
+    frames = window_frames()
+    if [frame_digest(im) for im in frames] != want["frames"]:
+        raise AssertionError("the window-decode frames differ from the "
+                             "digest file's: numpy makes other frames here")
+    n = 0
+    with decode_counts() as plain:
+        for coding, entry in want["codings"].items():
+            streams = encoder.encode_batch(frames, window_params(
+                EncoderParams, Transform, coding), device="cuda")
+            if [hashlib.sha256(cs).hexdigest() for cs in streams] != \
+                    entry["streams"]:
+                raise AssertionError(f"window-decode {coding}: streams "
+                                     f"differ from the host encoder's")
+            for kw in window_requests(coding):
+                digests = entry["requests"][request_name(kw)]
+                params = DecoderParams(**kw)
+                one = [decoder.decode(cs, params, device="cuda")
+                       for cs in streams]
+                both = decoder.decode_batch(streams, params, device="cuda")
+                if [frame_digest(im) for im in one + both] != digests * 2:
+                    raise AssertionError(
+                        f"window-decode {coding}, {request_name(kw)}: "
+                        f"pixels differ from the host decoder's")
+                n += 1
+        torch.cuda.synchronize()
+    check_decode_counts(plain, "small window-decode requests",
+                        ("dec", "mq_dec", "dwt"))
+    print(f"window-decode requests at small size ({WIN_SIZE[0]}x"
+          f"{WIN_SIZE[1]} RGB, 96x96 tiles at an odd image offset; "
+          f"{', '.join(want['codings'])}): both streams of each coding equal "
+          f"the host encoder's, and {n} requests decode on the card, "
+          f"through decode and decode_batch, to the host decoder's pixels")
+
+
+# the per-image decode at full size (phase 19): S1, a lossless 12-bit gray
+# mosaic the size of a Sentinel-2 10 m granule in 1024^2 tiles (HT, 5/3);
+# S2, an 8-bit RGB orthophoto or slide pyramid base in 512^2 tiles at
+# config 2's coding (9/7, ICT, three layers at ratios 24 / 48 / 96, MQ)
+S1_SIZE, S1_TILE = 10980, 1024
+S2_SIZE, S2_TILE = 4096, 512
+# (name, width, tile, 600 x 600 window W1 across four tiles, 2048 x 2048
+# window W2 decoded at reduce 2, window W3 clipped by the image's
+# bottom-right corner, an interior tile, the corner tile)
+FULL_CASES = (
+    ("S1", S1_SIZE, S1_TILE, (4820, 4820, 5420, 5420),
+     (2501, 3103, 4549, 5151), (10600, 10700, 11200, 11300), 60, 120),
+    ("S2", S2_SIZE, S2_TILE, (1748, 1748, 2348, 2348),
+     (1001, 1003, 3049, 3051), (3900, 3800, 4400, 4400), 27, 63),
+)
+# W1-sized windows (W1_SIDE^2) through codec.decompress, at positions from
+# a seeded generator: the traffic of a tile server
+TILE_SERVER_WINDOWS = 16
+W1_SIDE = 600
+
+
+def s1_frame():
+    """S1: 10980 x 10980 gray 12-bit: 2048 plus separable waves of
+    amplitude 600 and 500 and uniform texture in [0, 64), from a generator
+    seeded 5; made in int32 on broadcast row and column vectors."""
+    import numpy as np
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+
+    rng = np.random.default_rng(5)
+    n = S1_SIZE
+    rows = (600 * np.sin(np.arange(n) / 151.0)).astype(np.int32)[:, None]
+    cols = (500 * np.cos(np.arange(n) / 97.0)).astype(np.int32)[None, :]
+    data = rng.integers(0, 64, (n, n), dtype=np.int32)
+    data += rows
+    data += cols + 2048
+    return Image(xsiz=n, ysiz=n, components=[Component(
+        data=data, prec=12, signed=False, dx=1, dy=1)])
+
+
+def s2_frame():
+    """S2: 4096 x 4096 RGB 8-bit as `config2_frames` makes a frame (smooth
+    waves plus uniform texture in [0, 24), seeded 3) at 4096."""
+    return config2_frames(1, size=S2_SIZE)[0]
+
+
+def full_requests(case):
+    """(label, DecoderParams arguments) of a FULL_CASES entry: the whole
+    image, W1, W2 at reduce 2, W3, reduce 1, 3 and 5, on S2 also the
+    first layer at reduce 5 (a thumbnail), an interior and the corner
+    tile."""
+    name, _, _, w1, w2, w3, inner, corner = case
+    reqs = [("full", {}), ("W1", {"window": w1}),
+            ("W2 at reduce 2", {"window": w2, "reduce": 2}),
+            ("W3 (clipped)", {"window": w3})]
+    reqs += [(f"reduce {r}", {"reduce": r}) for r in (1, 3, 5)]
+    if name == "S2":
+        reqs.append(("thumbnail: layers 1, reduce 5",
+                     {"layers": 1, "reduce": 5}))
+    reqs += [(f"tile {inner} (interior)", {"tile_index": inner}),
+             (f"tile {corner} (corner)", {"tile_index": corner})]
+    return reqs
+
+
+def request_stages(data, kw, dev):
+    """One decode of `data` at request `kw` through `decoder.decode`, by
+    stage (host clock, each device stage synchronised): T2 (host), lane
+    packing (host), upload, device decode (the block decoders and
+    dequantization, and for whole tiles the inverse DWT, MCT and DC
+    shift), fetch, the windowed inverse DWT (host numpy, windows only),
+    and the rest (host: plans, canvas, a window's inverse MCT and DC
+    shift, paste)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.core.params import DecoderParams
+    from grokimagecompression_tpu_torch.models import fused_decode
+    from grokimagecompression_tpu_torch.ops import dwt_window
+    timers = {"T2 (host)": Timed(decoder, "_parse_frame", sync=False),
+              "lane packing (host)": Timed(fused_decode, "prepare_chunk",
+                                           sync=False),
+              "upload": Timed(fused_decode, "upload"),
+              "device decode": Timed(fused_decode._FusedDecoder, "forward"),
+              "fetch": Timed(fused_decode, "decode_tiles_collect",
+                             sync=False),
+              "windowed inverse DWT (host)": Timed(
+                  dwt_window, "inv_dwt_2d_window", sync=False)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for t in timers.values():
+            stack.enter_context(t)
+        decoder.decode(data, DecoderParams(**kw), device=dev)
+    wall = time.perf_counter() - t0
+    stages = {k: t.total() for k, t in timers.items()
+              if t.calls or "windowed" not in k}
+    stages["rest (host)"] = wall - sum(stages.values())
+    return stages
+
+
+def full_case(case, img, params, dev, card):
+    """Phase 19 (b): one FULL_CASES image encoded through encode_batch
+    (its peak device memory beside the plan's model), then each of
+    `full_requests` through `decoder.decode`: launches, best of 3 warm,
+    output MP/s and stages; the tile-server windows through
+    `codec.decompress`. Checks: every window equals the crop of the whole
+    image's decode at the same reduction, every tile the tile's crop, and
+    on S1 the whole decode equals the source and each reduced decode the
+    LL of the port's forward DWT of each tile. Returns the launches of
+    the requests' first runs by LAUNCHES key."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch import codec
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.core.geometry import ceil_div
+    from grokimagecompression_tpu_torch.core.params import DecoderParams
+    from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.ops import (dwt, ht_dec, mct_torch,
+                                                    mq_dec)
+    name, size, tile = case[:3]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (cs,) = encoder.encode_batch([img], params, device="cuda")
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    siz = encoder.build_siz(img, params)
+    cod = encoder.build_cod(img, params)
+    hdr = decoder.read_header(cs)
+    trs = decoder._tile_rects(hdr.siz)
+    coder = "ht" if params.cblk_style & 0x40 else "mq"
+    plans = {}
+    for tr in trs:
+        plan = fused_encode.build_plan(
+            siz, cod, hdr.qcd, tr, coder=coder,
+            want_rd=coder == "mq" and bool(params.rates))
+        plans[plan] = plans.get(plan, 0) + 1
+    model = fused_encode.ht_frame_bytes if coder == "ht" else \
+        fused_encode.mq_frame_bytes
+    per_tile = {p: model(p) for p in plans}
+    kind = "gray 12-bit" if coder == "ht" else "RGB 8-bit"
+    print(f"{name}: {size}x{size} {kind}, {len(trs)} tiles of {tile}^2 in "
+          f"{len(plans)} plans, "
+          f"{coder.upper()}: encode_batch {enc_s:.3f} s (one frame), "
+          f"{len(cs)} B; peak device memory {peak / 1e9:.3f} GB above the "
+          f"{base / 1e9:.3f} GB held before, the plans' model "
+          f"({'ht' if coder == 'ht' else 'mq'}_frame_bytes) "
+          f"{max(per_tile.values()) / 1e9:.3f} GB for the largest tile, "
+          f"{sum(n * per_tile[p] for p, n in plans.items()) / 1e9:.3f} GB for "
+          f"every tile of the frame (encode_batch submits every tile of a "
+          f"chunk before it collects any) on {card}")
+
+    out = {}
+    launches = {"dec": 0, "mq_dec": 0, "dwt": 0}
+    for label, kw in full_requests(case):
+        with decode_counts() as plain:
+            img_out = decoder.decode(cs, DecoderParams(**kw), device="cuda")
+            torch.cuda.synchronize()
+        counts = {"dec": ht_dec.LAUNCHES["dec"],
+                  "mq_dec": mq_dec.LAUNCHES["mq_dec"],
+                  "dwt": dwt.LAUNCHES["dwt"]}
+        # the inverse DWT runs on the card for whole tiles with a level
+        # left to invert; a window's inverse is host numpy
+        inverts = "window" not in kw and kw.get("reduce", 0) < 5
+        check_decode_counts(plain, f"{name} {label}",
+                            ("dec" if coder == "ht" else "mq_dec",)
+                            + (("dwt",) if inverts else ()))
+        for k, v in counts.items():
+            launches[k] += v
+        out[label] = img_out
+        best = best_of(3, lambda: decoder.decode(cs, DecoderParams(**kw),
+                                                 device="cuda"))
+        c0 = img_out.components[0].data
+        stages = request_stages(cs, kw, dev)
+        print(f"{name} {label}: {c0.shape[1]}x{c0.shape[0]} out, "
+              f"{1e3 * best:.1f} ms a request (best of 3), "
+              f"{c0.size / 1e6 / best:.2f} MP/s out, launches {counts}; "
+              f"stages " + ", ".join(f"{k} {1e3 * v:.1f} ms"
+                                     for k, v in stages.items())
+              + f" on {card}")
+
+    def plane(im):
+        return [c.data for c in im.components]
+
+    whole = {0: plane(out["full"])}
+    whole[2] = plane(decoder.decode(cs, DecoderParams(reduce=2),
+                                    device="cuda"))
+    for r in (1, 3, 5):
+        whole[r] = plane(out[f"reduce {r}"])
+
+    def crop(im, r):
+        """`im` against the crop of the whole decode at reduce r."""
+        for c, (a, w) in enumerate(zip(plane(im), whole[r])):
+            y0 = ceil_div(im.y0, 1 << r) - ceil_div(hdr.siz.yosiz, 1 << r)
+            x0 = ceil_div(im.x0, 1 << r) - ceil_div(hdr.siz.xosiz, 1 << r)
+            if not a.size or not np.array_equal(
+                    a, w[y0:y0 + a.shape[0], x0:x0 + a.shape[1]]):
+                return False
+        return True
+
+    for label, kw in full_requests(case):
+        if ("window" in kw or "tile_index" in kw) and \
+                not crop(out[label], kw.get("reduce", 0)):
+            raise AssertionError(f"{name} {label}: differs from the crop of "
+                                 f"the whole image's decode")
+        if "tile_index" in kw:
+            tr = trs[kw["tile_index"]]
+            if (out[label].x0, out[label].y0, out[label].xsiz,
+                    out[label].ysiz) != (tr.x0, tr.y0, tr.x1, tr.y1):
+                raise AssertionError(f"{name} {label}: not the tile's area")
+    if name == "S1":
+        if not np.array_equal(whole[0][0], img.components[0].data):
+            raise AssertionError("S1: the whole decode is not lossless")
+        src = img.components[0].data
+        for r in (1, 3, 5):
+            want = np.zeros_like(whole[r][0])
+            for tr in trs:
+                a = torch.from_numpy(np.ascontiguousarray(
+                    src[tr.y0:tr.y1, tr.x0:tr.x1])).to(dev)
+                ll = dwt.fwd_dwt_2d(mct_torch.dc_shift_fwd(a, 12, False), tr,
+                                    r + 1, True)[(0, 0)]
+                ll = mct_torch.dc_shift_inv(ll, 12, False).cpu().numpy()
+                y, x = ceil_div(tr.y0, 1 << r), ceil_div(tr.x0, 1 << r)
+                want[y:y + ll.shape[0], x:x + ll.shape[1]] = ll
+            if not np.array_equal(whole[r][0], want):
+                raise AssertionError(f"S1 reduce {r}: differs from the LL "
+                                     f"of the tiles' forward DWT")
+        print("S1: the whole decode equals the source; reduce 1, 3 and 5 "
+              "equal the LL of each tile's forward 5/3 DWT (port, on the "
+              "card) at 1, 3 and 5 levels, DC-shifted back")
+    print(f"{name}: every window equals the crop of the whole image's "
+          f"decode at its reduction, every tile the tile's crop")
+
+    side = W1_SIDE
+    rng = np.random.default_rng(7)
+    wins = [(int(x), int(y), int(x) + side, int(y) + side)
+            for x, y in rng.integers(0, size - side, (TILE_SERVER_WINDOWS, 2))]
+    with decode_counts() as plain:
+        arrays = [codec.decompress(cs, window=w, device="cuda")
+                  for w in wins]
+        torch.cuda.synchronize()
+    check_decode_counts(plain, f"{name} tile-server windows",
+                        ("dec" if coder == "ht" else "mq_dec",))
+    for w, a in zip(wins, arrays):
+        ox, oy = w[0] - hdr.siz.xosiz, w[1] - hdr.siz.yosiz
+        want = [p[oy:oy + side, ox:ox + side] for p in whole[0]]
+        want = np.stack(want, axis=-1) if len(want) > 1 else want[0]
+        if not np.array_equal(a, want):
+            raise AssertionError(f"{name} tile-server window {w}: differs "
+                                 f"from the crop of the whole decode")
+    best = best_of(3, lambda: [codec.decompress(cs, window=w, device="cuda")
+                               for w in wins])
+    print(f"{name}: {TILE_SERVER_WINDOWS} {side}x{side} windows at seeded "
+          f"positions through codec.decompress equal the crops of the "
+          f"whole decode; {1e3 * best / len(wins):.1f} ms a request (best "
+          f"of 3 of the set), {len(wins) * side * side / 1e6 / best:.2f} "
+          f"MP/s out on {card}")
+    return launches
+
+
+def reduced_dwt_check(dev, results):
+    """Phase 19 (c): the CUDA inverse DWT at every max_res of S1's interior
+    and corner tiles (5/3, 6 resolutions) and of an S2 tile (3 x 512^2,
+    9/7), bit-exact with `dwt_torch` on the same bands on the card; the
+    inverse of S1's reduce-1 decode chunk (32 interior tiles to max_res
+    4) timed beside its bound."""
+    import torch
+
+    from grokimagecompression_tpu_torch.core.geometry import (Rect,
+                                                              resolution_rect)
+    from grokimagecompression_tpu_torch.ops import dwt, dwt_torch
+    gen = torch.Generator().manual_seed(1)
+    last = (S1_SIZE // S1_TILE) * S1_TILE
+    cases = (("S1 interior tile", (1, S1_TILE, S1_TILE),
+              Rect(5 * S1_TILE, 5 * S1_TILE, 6 * S1_TILE, 6 * S1_TILE),
+              True),
+             ("S1 corner tile", (1, S1_SIZE - last, S1_SIZE - last),
+              Rect(last, last, S1_SIZE, S1_SIZE), True),
+             ("S2 tile", (3, S2_TILE, S2_TILE),
+              Rect(3 * S2_TILE, 3 * S2_TILE, 4 * S2_TILE, 4 * S2_TILE),
+              False))
+    for label, shape, rect, rev in cases:
+        x = torch.randint(-2048, 2048, shape, generator=gen,
+                          dtype=torch.int32)
+        if not rev:
+            x = x + torch.rand(shape, generator=gen)
+        bands = dwt_torch.fwd_dwt_2d(x.to(dev), rect, 6, rev)
+        for max_res in range(6):
+            before = dwt.LAUNCHES["dwt"]
+            got = dwt.inv_dwt_2d(bands, rect, 6, rev, max_res)
+            made = dwt.LAUNCHES["dwt"] - before
+            want = dwt_torch.inv_dwt_2d(bands, rect, 6, rev, max_res)
+            torch.cuda.synchronize()
+            if made != max_res or not torch.equal(got, want):
+                raise AssertionError(f"dwt inverse to max_res {max_res} "
+                                     f"({label}): {made} launches, or it "
+                                     f"differs from the plain version")
+        print(f"kernel dwt: {label} {shape} at ({rect.x0}, {rect.y0}), "
+              f"{'5/3' if rev else '9/7'}: the inverse to every max_res "
+              f"0-5 bit-exact with plain, one launch a level")
+    # timed: S1's reduce-1 decode chunk, 32 interior tiles inverted to
+    # max_res 4
+    _, (_, h, w), rect, rev = cases[0]
+    shape, max_res = (32, h, w), 4
+    x = torch.randint(-2048, 2048, shape, generator=gen,
+                      dtype=torch.int32).to(dev)
+    kept = {k: v for k, v in dwt.fwd_dwt_2d(x, rect, 6, rev).items()
+            if k[0] <= max_res}
+    out = dwt.inv_dwt_2d(kept, rect, 6, rev, max_res)
+    # each kept band read and the output written once; two passes of 3.5
+    # integer operations a sample of each level's region
+    nb = 4 * (sum(v.numel() for v in kept.values()) + out.numel())
+    ops = shape[0] * sum(resolution_rect(rect, 6, r).h
+                         * resolution_rect(rect, 6, r).w
+                         for r in range(1, max_res + 1)) * 2 * 3.5
+    b_ms, b_by, b_terms = bound(nb, ops)
+    ms, plain_ms = time_kernel(
+        lambda b: dwt.inv_dwt_2d(b, rect, 6, rev, max_res),
+        lambda b: dwt_torch.inv_dwt_2d(b, rect, 6, rev, max_res), (kept,))
+    results.setdefault("dwt", {})["reduced"] = dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"kernel dwt: S1's reduce-1 decode chunk {shape} inverted to "
+          f"max_res {max_res} ({tuple(out.shape)} out, {max_res} launches):"
+          f" {ms:.4f} ms (plain {plain_ms:.3f} ms, bound {b_ms:.4f} ms by "
+          f"{b_by}: {b_terms})")
+
+
+def window_phase(dev, card, results):
+    """Phase 19: the per-image decode (`decoder.decode`, `codec.decompress`)
+    of windows, reduced resolutions, single tiles and layer limits: the
+    small-size requests against WIN_DIGESTS, S1 and S2 at full size, and
+    the reduced inverse DWT against its plain version. Returns the
+    launches of the full-size requests' first runs by LAUNCHES key."""
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    window_small_check(dev)
+    s1, s2 = s1_frame(), s2_frame()
+    reduced_dwt_check(dev, results)
+    launches = full_case(FULL_CASES[0], s1, EncoderParams(
+        numresolutions=6, cblk_style=0x40, tile_size=(S1_TILE, S1_TILE)),
+        dev, card)
+    del s1
+    more = full_case(FULL_CASES[1], s2, EncoderParams(
+        numresolutions=6, transform=Transform.DWT_97, numlayers=3,
+        rates=(24.0, 48.0, 96.0), tile_size=(S2_TILE, S2_TILE)), dev, card)
+    return {k: launches[k] + more[k] for k in launches}
+
+
 def best_of(n, fn):
     import torch
     best = float("inf")
@@ -3539,15 +4047,17 @@ def main() -> int:
     gate_c1_phase(imgs, dev, card)
     corpus_phase(c2_imgs[0], dev, card)
     cinema = cinema_phase(dev, card, results)
+    windows = window_phase(dev, card, results)
 
     calls["mq_dense"] = launches["mq_dense"]
-    for key, n in cinema.items():
+    for key, n in list(cinema.items()) + list(windows.items()):
         calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
           f"whole config-2 forward transforms) plus the launches of phase "
-          f"18's cinema encodes and decodes ({cinema}): {calls}; all "
-          f"launches of the config-1 and config-2 runs: {launches}")
+          f"18's cinema encodes and decodes ({cinema}) and of phase 19's "
+          f"full-size requests ({windows}): {calls}; all launches of the "
+          f"config-1 and config-2 runs: {launches}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=calls[key],

@@ -15,4 +15,9 @@ Slices ported so far, HT lossless (5/3), BASELINE config 1 and alike:
 - decode, `codestream.decoder.decode_batch`: host T2 and stream prepass
   -> the HT group-decoder kernel -> band assembly -> inverse DWT, MCT and
   DC shift.
+
+Later slices add the MQ coder, 9/7, rate control, the decode gate and
+the profile encodes to those entry points, and the per-image decode
+`codestream.decoder.decode` and `codec.decompress` / `decompress_batch`
+(windows, reduced resolutions, single tiles, layer limits).
 """

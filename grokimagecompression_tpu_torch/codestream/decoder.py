@@ -1,23 +1,26 @@
-"""Batch decode entry point on a torch device.
+"""Decode entry points on a torch device.
 
 Port of `grokimagecompression_tpu/codestream/decoder.py` for the HT and
-Part-1 MQ (default code-block style) slices, 5/3 or 9/7, with an optional
-limit on the quality layers decoded. The
+Part-1 MQ (default code-block style) slices, 5/3 or 9/7. The
 main-header and tile-part walk (`CodestreamHeader`, `TilePart`,
 `_validate_siz`, `read_header`, `iter_tile_parts`) is copied from the
-reference; `decode_batch` is the port of the reference's fused
-`decode_batch`: host T2 (the port's native T2, or its Python T2 where
-packed packet headers are), then the fused device decode of
-`models/fused_decode.py`. It takes what the reference's batch decode
-sends to its device: raw codestreams and JP2 files, single- or
-multi-tile, with COC overrides that keep the COD's transform, resolution
-count and code-block style, QCC, POC, and packed packet headers (PPM,
-PPT).
+reference. `decode_batch` is the port of the reference's fused
+`decode_batch` and `decode` of its per-image `decode`: host T2 (the
+port's native T2, or its Python T2 where packed packet headers are),
+then the fused device decode of `models/fused_decode.py`, whose block
+decoders and inverse transforms run on the device. Both take raw
+codestreams and JP2 files, single- or multi-tile, with COC overrides
+that keep the COD's transform, resolution count and code-block style,
+QCC, POC, and packed packet headers (PPM, PPT), and the reference's
+requests: a layer limit, a reduced resolution, a single tile and a
+window, alone or combined. A window's code-blocks are decoded and
+dequantized on the device and inverted on the host by the copy of the
+reference's windowed inverse (`ops/dwt_window.py`), as the reference
+does.
 
-Requests outside the slice (tile-part header overrides, ROI, a custom
-MCT, non-default MQ styles, HT refinement, window / reduce / single-tile
-decodes) raise NotImplementedError instead of falling back to a host
-decode.
+Requests that the reference sends to its host decode (tile-part header
+overrides, ROI, a custom MCT, non-default MQ styles, HT refinement)
+raise NotImplementedError instead of falling back to a host decode.
 """
 
 from __future__ import annotations
@@ -30,10 +33,14 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..core.geometry import ceil_div, tile_grid_size, tile_rect
+import torch
+
+from ..core.geometry import (Rect, ceil_div, component_rect,
+                             tile_grid_size, tile_rect)
 from ..core.image import Component, Image
-from ..core.params import DecoderParams
-from ..models import fused_decode
+from ..core.params import DecoderParams, Transform
+from ..models import fused_decode, pipeline
+from ..ops import dwt_window
 from ..utils.device import DeviceLike, resolve_device
 from . import jp2, markers
 from .markers import CodInfo, QcdInfo, SizInfo
@@ -252,14 +259,10 @@ def iter_tile_parts(data: bytes, start: int, want=None):
         pos = pos + psot if sot.psot else tp_end
 
 
-def _out_of_slice(hdrs: List[CodestreamHeader],
-                  params: DecoderParams) -> Optional[str]:
+def _out_of_slice(hdrs: List[CodestreamHeader]) -> Optional[str]:
     """Why a batch of parsed headers is outside the ported slice, or
     None: the reference's `decode_batch` gate, which sends the same
     streams to its device decode."""
-    if params.window is not None or params.reduce \
-            or params.tile_index is not None:
-        return "a window, reduce or single-tile decode"
     h0 = hdrs[0]
     if any((h.siz, h.cod, h.qcd) != (h0.siz, h0.cod, h0.qcd)
            for h in hdrs[1:]):
@@ -291,25 +294,82 @@ def _out_of_slice(hdrs: List[CodestreamHeader],
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class _Request:
+    """What a `DecoderParams` asks of one geometry, as the reference's
+    `decode` derives it."""
+    reduce: int                       # clamped to the resolution levels
+    window: Optional[Rect]            # clipped to the image area
+    area: Rect                        # the output's canvas area
+    tiles: Optional[frozenset]        # the tiles to decode; None: all
+
+
+def _tile_rects(siz: SizInfo) -> List[Rect]:
+    ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                              siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    return [tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                      siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+            for t in range(ntx * nty)]
+
+
+def _request(siz: SizInfo, cod: CodInfo, trs: List[Rect],
+             params: DecoderParams) -> _Request:
+    """The reference's derivation: `reduce` clamped to the COD's levels;
+    the window clipped to the image (ValueError when nothing is left);
+    the output area of a single tile cropped to the tile; the tiles a
+    window or single-tile decode needs, known before T2."""
+    reduce = min(params.reduce, cod.numresolutions - 1)
+    image = Rect(siz.xosiz, siz.yosiz, siz.xsiz, siz.ysiz)
+    win = None
+    if params.window is not None:
+        win = Rect(*params.window).clip(image)
+        if win.is_empty():
+            raise ValueError(f"decode window {params.window} is empty "
+                             f"after clipping to the image area")
+    tiles = None
+    area = image if win is None else win
+    if params.tile_index is not None:
+        if not 0 <= params.tile_index < len(trs):
+            raise ValueError(f"tile index {params.tile_index} outside the "
+                             f"{len(trs)} tiles")
+        tiles = frozenset((params.tile_index,))
+        if win is None:
+            area = trs[params.tile_index]
+    elif win is not None:
+        tiles = frozenset(t for t, tr in enumerate(trs)
+                          if not tr.clip(win).is_empty())
+    return _Request(reduce=reduce, window=win, area=area, tiles=tiles)
+
+
 def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
-                 layers: int):
-    """T2 of every tile of one stream, keeping the passes of the first
-    `layers` quality layers (all when 0): (per tile (t1_jobs,
-    t1_job_slots, plans, cods), set of tiles that have a tile-part).
+                 layers: int, tiles: Optional[frozenset] = None,
+                 window: Optional[Rect] = None):
+    """T2 of the tiles `tiles` (all when None) of one stream, keeping the
+    passes of the first `layers` quality layers (all when 0) and, with a
+    `window`, the jobs of its code-blocks only: (per tile (t1_jobs,
+    t1_job_slots, plans, cods), None for a tile not asked for; set of the
+    asked tiles that have a tile-part). The other tiles' tile-parts are
+    skipped unread (`iter_tile_parts(want=)`).
 
     Packed packet headers go to their tile as the reference's
     `decode_batch` hands them over: a PPM section to each tile-part in
-    stream order, or a tile-part's PPT segments merged
-    (`markers.merge_ppx`); a tile's sections are joined in the order of
-    its tile-parts."""
+    stream order (a skipped tile-part's section too), or a tile-part's
+    PPT segments merged (`markers.merge_ppx`); a tile's sections are
+    joined in the order of its tile-parts."""
     tile_bodies: Dict[int, List[bytes]] = {}
     tile_hdrs: Dict[int, List[bytes]] = {}
     ppm_iter = iter(hdr.ppm_sections or [])
-    for tp in iter_tile_parts(data, hdr.main_header_end):
+    for tp in iter_tile_parts(data, hdr.main_header_end,
+                              want=None if tiles is None
+                              else tiles.__contains__):
+        if tp.skipped:
+            if hdr.ppm_sections is not None:
+                next(ppm_iter, b"")
+            continue
         if tp.cod or tp.qcd or tp.coc_raw or tp.qcc_raw or tp.poc_raw:
             raise NotImplementedError(
-                "decode_batch on a torch device does not cover tile-part "
-                "header overrides yet")
+                "the torch decode does not cover tile-part header "
+                "overrides yet")
         tile_bodies.setdefault(tp.tile_index, []).append(tp.body)
         if hdr.ppm_sections is not None:
             tile_hdrs.setdefault(tp.tile_index, []).append(
@@ -319,15 +379,17 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
                 markers.merge_ppx([(pl[0], pl[1:]) for pl in tp.ppt_raw]))
     out = []
     for t, tr in enumerate(trs):
+        if tiles is not None and t not in tiles:
+            out.append(None)
+            continue
         packed = b"".join(tile_hdrs[t]) if t in tile_hdrs else None
         r = decode_tile(b"".join(tile_bodies.get(t, [])), hdr.siz, hdr.cod,
-                        hdr.qcd, tr, max_layers=layers,
+                        hdr.qcd, tr, max_layers=layers, window=window,
                         cod_comp=hdr.cod_comp, qcd_comp=hdr.qcd_comp,
                         pocs=hdr.pocs, packed_headers=packed)
         if hdr.cod.cblk_style & 0x40 and any(job[6] > 1 for job in r[0]):
             raise NotImplementedError(
-                "decode_batch on a torch device does not cover HT "
-                "refinement passes yet")
+                "the torch decode does not cover HT refinement passes yet")
         out.append(r)
     # tiles with NO tile-parts at all stay zero in the canvas, like the
     # single-stream decode (a truncated stream can lose whole tiles; an
@@ -335,35 +397,42 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
     return out, frozenset(tile_bodies)
 
 
-def parse_batch(datas: List[bytes], params: Optional[DecoderParams] = None):
-    """Headers and T2 of a batch of streams, on a thread pool. Returns
-    (header of stream 0, tile rects, per stream the `_parse_frame`
-    result). Raises NotImplementedError outside the slice."""
-    params = params or DecoderParams()
+def _headers(datas: List[bytes]):
+    """JP2 unwrap and main headers of a batch of streams; raises
+    NotImplementedError outside the slice (`_out_of_slice`)."""
     datas = [jp2.extract_codestream(d) if jp2.is_jp2(d) else d
              for d in datas]
     hdrs = [read_header(d) for d in datas]
-    why = _out_of_slice(hdrs, params)
+    why = _out_of_slice(hdrs)
     if why is not None:
         raise NotImplementedError(
-            f"decode_batch on a torch device does not cover {why} yet")
-    siz = hdrs[0].siz
-    ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
-                              siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
-    trs = [tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
-                     siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
-           for t in range(ntx * nty)]
+            f"the torch decode does not cover {why} yet")
+    return datas, hdrs
+
+
+def parse_batch(datas: List[bytes], params: Optional[DecoderParams] = None):
+    """Headers and T2 of a batch of streams, on a thread pool, for the
+    tiles and window that `params` asks for (`_request`). Returns
+    (header of stream 0, tile rects, per stream the `_parse_frame`
+    result). Raises NotImplementedError outside the slice."""
+    params = params or DecoderParams()
+    datas, hdrs = _headers(datas)
+    trs = _tile_rects(hdrs[0].siz)
+    req = _request(hdrs[0].siz, hdrs[0].cod, trs, params)
     nw = max(1, min(len(datas), 2 * (os.cpu_count() or 1)))
     with concurrent.futures.ThreadPoolExecutor(max_workers=nw) as ex:
         parsed = list(ex.map(lambda i: _parse_frame(
-            datas[i], hdrs[i], trs, params.layers), range(len(datas))))
+            datas[i], hdrs[i], trs, params.layers, req.tiles, req.window),
+            range(len(datas))))
     return hdrs[0], trs, parsed
 
 
-def tile_groups(hdr: CodestreamHeader, trs, parsed
+def tile_groups(hdr: CodestreamHeader, trs, parsed,
+                max_res: Optional[int] = None
                 ) -> Dict[fused_decode.FusedDecPlan, List[int]]:
     """Group the tiles that share one decode plan: {plan: [tile, ...]},
-    over the tiles that some stream has a tile-part for.
+    over the tiles that some stream has a tile-part for, each plan
+    decoding resolutions 0..`max_res` (all when None).
 
     A plan (`fused_decode.build_plan`) is the tile's geometry: its
     transform config (`pipeline.config_for_tile`, which carries each
@@ -377,9 +446,41 @@ def tile_groups(hdr: CodestreamHeader, trs, parsed
         if not any(t in tiles for _, tiles in parsed):
             continue
         plan = fused_decode.build_plan(parsed[0][0][t][2], hdr.siz,
-                                       hdr.cod, tr, coder=coder)
+                                       hdr.cod, tr, coder=coder,
+                                       max_res=max_res)
         groups.setdefault(plan, []).append(t)
     return groups
+
+
+def _canvas(siz: SizInfo, area: Rect, reduce: int) -> List[np.ndarray]:
+    """Zero int32 output planes of `area` at resolution reduction
+    `reduce`, one per component."""
+    return [np.zeros((ceil_div(area.y1, cs.dy << reduce)
+                      - ceil_div(area.y0, cs.dy << reduce),
+                      ceil_div(area.x1, cs.dx << reduce)
+                      - ceil_div(area.x0, cs.dx << reduce)), np.int32)
+            for cs in siz.comps]
+
+
+def _paste(dst: np.ndarray, arr: np.ndarray, ox: int, oy: int, tx0: int,
+           ty0: int) -> None:
+    """Write the part of `arr` (origin (tx0, ty0) on the output grid)
+    that falls inside `dst` (origin (ox, oy))."""
+    y_lo = max(0, oy - ty0)
+    x_lo = max(0, ox - tx0)
+    y_hi = min(arr.shape[0], oy + dst.shape[0] - ty0)
+    x_hi = min(arr.shape[1], ox + dst.shape[1] - tx0)
+    if y_hi <= y_lo or x_hi <= x_lo:
+        return
+    dst[ty0 + y_lo - oy:ty0 + y_hi - oy,
+        tx0 + x_lo - ox:tx0 + x_hi - ox] = arr[y_lo:y_hi, x_lo:x_hi]
+
+
+def _image(siz: SizInfo, planes: List[np.ndarray], area: Rect) -> Image:
+    return Image(components=[
+        Component(data=planes[c], dx=cs.dx, dy=cs.dy, prec=cs.prec,
+                  signed=cs.signed) for c, cs in enumerate(siz.comps)],
+        x0=area.x0, y0=area.y0, xsiz=area.x1, ysiz=area.y1)
 
 
 def decode_batch(datas: List[bytes],
@@ -389,69 +490,140 @@ def decode_batch(datas: List[bytes],
     """Decode many same-geometry codestreams or JP2 files (a serving
     batch), coded with the HT block coder or the Part-1 MQ coder in the
     default code-block style, on the reversible 5/3 or the irreversible
-    9/7 path, all quality layers or the first `params.layers`; with COC /
-    QCC overrides, a POC or packed packet headers where every stream has
-    the same (`_out_of_slice`).
+    9/7 path, all quality layers or the first `params.layers`, at a
+    resolution reduction `params.reduce`, of one tile
+    (`params.tile_index`) or all; with COC / QCC overrides, a POC or
+    packed packet headers where every stream has the same
+    (`_out_of_slice`). A window (`params.window`) decodes stream by
+    stream through `decode`, as the reference's `decode_batch` does.
 
     T2 of every stream runs on a host thread pool; then the tiles of one
     decode plan are decoded `chunk` at a time, each chunk one host pass
     (the HT prepass or the MQ lane packing), one upload and one fused
-    device decode (`models/fused_decode.py`). Every chunk is submitted
-    before any is collected. Frames may include different code-blocks of
-    a tile: each job goes to its code-block's lane. Decode mirror of
+    device decode (`models/fused_decode.py`), which decodes and inverts
+    only the resolutions kept. Every chunk is submitted before any is
+    collected. Frames may include different code-blocks of a tile: each
+    job goes to its code-block's lane. Decode mirror of
     `encoder.encode_batch`."""
     dev = resolve_device(device)
+    params = params or DecoderParams()
     if not datas:
         return []
+    if params.window is not None:
+        return [decode(d, params, dev) for d in datas]
     hdr, trs, parsed = parse_batch(datas, params)
     siz = hdr.siz
+    req = _request(siz, hdr.cod, trs, params)
+    max_res = hdr.cod.numresolutions - 1 - req.reduce
 
     submits = []  # (handle, [(frame, tile), ...])
-    for plan, tlist in tile_groups(hdr, trs, parsed).items():
+    for plan, tlist in tile_groups(hdr, trs, parsed, max_res).items():
         decoder = fused_decode.decoder_for(plan, dev)
         instances = [(f, t) for t in tlist for f in range(len(datas))
                      if t in parsed[f][1]]
         for k in range(0, len(instances), max(1, chunk)):
             part = instances[k:k + max(1, chunk)]
             submits.append((fused_decode.decode_tiles_submit(decoder, [
-                fused_decode.jobs_by_block(*parsed[f][0][t][:3])
+                fused_decode.jobs_by_block(*parsed[f][0][t][:3],
+                                           max_res=plan.max_res)
                 for (f, t) in part]), part))
 
-    # canvas planes per frame
-    ax0, ay0 = siz.xosiz, siz.yosiz
-    comps_out = [
-        [np.zeros((ceil_div(siz.ysiz, cs.dy) - ceil_div(ay0, cs.dy),
-                   ceil_div(siz.xsiz, cs.dx) - ceil_div(ax0, cs.dx)),
-                  np.int32) for cs in siz.comps]
-        for _ in datas]
+    r = req.reduce
+    comps_out = [_canvas(siz, req.area, r) for _ in datas]
     for handle, part in submits:
         outs = fused_decode.decode_tiles_collect(handle)
         for (f, t), comps in zip(part, outs):
             for c, arr in enumerate(comps):
                 cs = siz.comps[c]
                 tc = parsed[f][0][t][2][c].layout.tc_rect
-                ox = ceil_div(ax0, cs.dx)
-                oy = ceil_div(ay0, cs.dy)
-                dst = comps_out[f][c]
-                ty0, tx0 = tc.y0, tc.x0
-                y_lo = max(0, oy - ty0)
-                x_lo = max(0, ox - tx0)
-                y_hi = min(arr.shape[0], oy + dst.shape[0] - ty0)
-                x_hi = min(arr.shape[1], ox + dst.shape[1] - tx0)
-                if y_hi <= y_lo or x_hi <= x_lo:
-                    continue
-                dst[ty0 + y_lo - oy:ty0 + y_hi - oy,
-                    tx0 + x_lo - ox:tx0 + x_hi - ox] = \
-                    arr[y_lo:y_hi, x_lo:x_hi]
+                _paste(comps_out[f][c], arr,
+                       ceil_div(req.area.x0, cs.dx << r),
+                       ceil_div(req.area.y0, cs.dy << r),
+                       ceil_div(tc.x0, 1 << r), ceil_div(tc.y0, 1 << r))
+    return [_image(siz, planes, req.area) for planes in comps_out]
 
-    out: List[Image] = []
-    for f in range(len(datas)):
-        comp_objs = [
-            Component(data=comps_out[f][c], dx=siz.comps[c].dx,
-                      dy=siz.comps[c].dy, prec=siz.comps[c].prec,
-                      signed=siz.comps[c].signed)
-            for c in range(len(siz.comps))
-        ]
-        out.append(Image(components=comp_objs, x0=ax0, y0=ay0,
-                         xsiz=siz.xsiz, ysiz=siz.ysiz))
-    return out
+
+def decode(data: bytes, params: Optional[DecoderParams] = None,
+           device: DeviceLike = "cuda") -> Image:
+    """Decode one codestream or JP2 file: the whole image, a window
+    (`params.window`, canvas coords), a reduced resolution
+    (`params.reduce`), one tile (`params.tile_index`, the output cropped
+    to the tile) and the first `params.layers` quality layers, in any
+    combination; pixel-identical to the reference's `decode` with the
+    same parameters. The slice is `decode_batch`'s.
+
+    Without a window this is `decode_batch` of one stream. With one,
+    only the tiles that meet the window are parsed (the others'
+    tile-parts are skipped unread), each tile gets a window plan of the
+    code-blocks that can influence the window (`tile.decode_tile(
+    window=)`, `fused_decode.build_plan(window_slots=)`), whose decoder
+    returns their dequantized per-band bounding boxes; the host fetches
+    them and runs the windowed inverse DWT (`ops/dwt_window.py`), then
+    the inverse MCT and the DC shift, as the reference does."""
+    dev = resolve_device(device)
+    params = params or DecoderParams()
+    if params.window is None:
+        return decode_batch([data], params, dev)[0]
+    (data,), (hdr,) = _headers([data])
+    siz, cod = hdr.siz, hdr.cod
+    trs = _tile_rects(siz)
+    req = _request(siz, cod, trs, params)
+    parsed, have = _parse_frame(data, hdr, trs, params.layers, req.tiles,
+                                req.window)
+    max_res = cod.numresolutions - 1 - req.reduce
+    coder = "ht" if cod.cblk_style & 0x40 else "mq"
+    submits = []  # (tile, plan, handle)
+    for t in sorted(have):
+        if trs[t].clip(req.window).is_empty():
+            continue
+        jobs, slots, plans, _ = parsed[t]
+        plan = fused_decode.build_plan(plans, siz, cod, trs[t], coder=coder,
+                                       max_res=max_res, window_slots=slots)
+        submits.append((t, plan, fused_decode.decode_tiles_submit(
+            fused_decode.decoder_for(plan, dev),
+            [fused_decode.jobs_by_block(jobs, slots, plans,
+                                        max_res=plan.max_res)])))
+
+    r = req.reduce
+    reversible = cod.transform == Transform.DWT_53
+    dtype = np.int32 if reversible else np.float32
+    planes = _canvas(siz, req.area, r)
+    for t, plan, handle in submits:
+        [[flat]] = fused_decode.decode_tiles_collect(handle)
+        boxes = fused_decode.window_boxes(plan, flat)
+        comps, origins = [], []
+        for c, cs in enumerate(siz.comps):
+            a, wx0, wy0 = dwt_window.inv_dwt_2d_window(
+                _box_fetch(boxes[c], dtype), parsed[t][2][c].layout.tc_rect,
+                cod.numresolutions,
+                component_rect(req.window, cs.dx, cs.dy),
+                reversible=reversible, max_res=max_res)
+            comps.append(torch.from_numpy(a))
+            origins.append((wx0, wy0))
+        samples = pipeline.inv_mct_dc(plan.cfg, comps)
+        for c, cs in enumerate(siz.comps):
+            _paste(planes[c], samples[c].numpy(),
+                   ceil_div(req.area.x0, cs.dx << r),
+                   ceil_div(req.area.y0, cs.dy << r), *origins[c])
+    return _image(siz, planes, req.area)
+
+
+def _box_fetch(boxes, dtype):
+    """The reference's `fetch` over a banded bounding-box store
+    (reference `codestream/tile.py`, windowed decode): band-local
+    rectangle [bx0, bx1) x [by0, by1) of band (r, o), zero outside the
+    band's box of decoded coefficients."""
+    def fetch(r, o, bx0, by0, bx1, by1):
+        oy, ox, arr = boxes[(r, o)]
+        out_a = np.zeros((by1 - by0, bx1 - bx0), dtype=dtype)
+        if arr.size == 0:
+            return out_a
+        sx0 = max(bx0, ox)
+        sy0 = max(by0, oy)
+        sx1 = min(bx1, ox + arr.shape[1])
+        sy1 = min(by1, oy + arr.shape[0])
+        if sx1 > sx0 and sy1 > sy0:
+            out_a[sy0 - by0:sy1 - by0, sx0 - bx0:sx1 - bx0] = \
+                arr[sy0 - oy:sy1 - oy, sx0 - ox:sx1 - ox]
+        return out_a
+    return fetch

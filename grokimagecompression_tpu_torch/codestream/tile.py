@@ -7,16 +7,17 @@ transforms), T2 of a tile whose code-block segments were coded on the
 device (the `t1_segments` branch of `encode_tile`, HT or MQ, with the
 PCRD distortion weighting and the `layer_alloc` rate control for MQ
 segments that carry their pass tables), and the packet parse of
-`decode_tile` up to its `_return_jobs` return, with COC / QCC, POC and
-packed headers, and the packet index `index_tile_packets`. Packets go
+`decode_tile` up to its `_return_jobs` return, with COC / QCC, POC,
+packed headers and the window's code-block filter (`_band_window`), and
+the packet index `index_tile_packets`. Packets go
 through the native T2 (`native/t2_native.py`): the tile encoder, the
 tile simulator of the rate control (with its per-component totals for a
 profile's caps) and the tile parser; the Python packet coder runs only
 where the reference runs it too (packed headers, packet lengths, the
 packet index).
 
-Not copied: the host transforms and T1, windowed and reduced decode and
-ROI shifts.
+Not copied: the host transforms and T1 (a window's inverse DWT is
+`ops/dwt_window.py`) and ROI shifts.
 """
 
 from __future__ import annotations
@@ -415,19 +416,46 @@ def encode_tile(
 # Decode
 # --------------------------------------------------------------------------
 
+def _band_window(win: Rect, r: int, orient: int, numresolutions: int,
+                 reversible: bool) -> Rect:
+    """Conservative band-coordinate region needed to reconstruct `win`
+    (full-resolution component canvas coords), grown by the synthesis filter
+    margin per level (reference: src/lib/jp2/transform/dwt.cpp
+    get_band_coordinates:1131, segment_grow:1172)."""
+    margin = 2 if reversible else 4
+    nl = numresolutions - 1
+    x0, y0, x1, y1 = win.x0, win.y0, win.x1, win.y1
+    # Walk down from full resolution to resolution r's band split.
+    levels = nl - r + 1 if r > 0 else nl
+    for _ in range(levels):
+        x0 = (x0 >> 1) - margin
+        y0 = (y0 >> 1) - margin
+        x1 = ((x1 + 1) >> 1) + margin
+        y1 = ((y1 + 1) >> 1) + margin
+    # Band offset: HL shifts x by floor at odd grid; conservative region
+    # already includes the +-margin growth, so the same rect works for all
+    # orientations at this level.
+    return Rect(x0, y0, x1, y1)
+
+
 def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
                 tile: Rect, max_layers: int = 0,
+                window: Optional[Rect] = None,
                 cod_comp: Optional[List[Optional[CodInfo]]] = None,
                 qcd_comp: Optional[List[Optional[QcdInfo]]] = None,
                 pocs=None, packed_headers: Optional[bytes] = None):
     """Parse one tile's packet body into its entropy-decode jobs: the
-    reference's `decode_tile(..., _return_jobs=True)` without ROI, window
-    or reduce. `cod_comp` / `qcd_comp` hold the COC / QCC overrides of
+    reference's `decode_tile(..., _return_jobs=True)` without ROI or
+    reduce (a reduced decode drops the higher resolutions' jobs itself).
+    `cod_comp` / `qcd_comp` hold the COC / QCC overrides of
     each component (None where the main COD / QCD holds), `pocs` the POC
     entries, which give the packet order in place of the COD's
     progression, and `packed_headers` the tile's packet headers from its
     PPM or PPT markers. With `max_layers` > 0 only the passes of the
-    first `max_layers` quality layers are kept.
+    first `max_layers` quality layers are kept. With `window` (canvas
+    coords at full resolution) only the code-blocks that can influence
+    it get a job (the reference's filter, `_band_window`); every packet
+    is still parsed, as packet order requires.
 
     Without packed headers the native T2 parses every packet (it parses
     the later layers' packets and drops their passes, where the
@@ -511,15 +539,29 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
             raise ValueError(
                 "the native T2 parser rejected the tile's packets")
 
+    reversible = cod.transform == Transform.DWT_53
     t1_jobs = []
     t1_job_slots = []
     for c in range(ncomps):
         plan = plans[c]
+        comp_win = None
+        if window is not None:
+            comp_win = component_rect(window, siz.comps[c].dx,
+                                      siz.comps[c].dy)
         for res in plan.layout.resolutions:
             for band in res.bands:
+                bwin = None
+                if comp_win is not None:
+                    bwin = _band_window(comp_win, res.r, band.orient,
+                                        cod.numresolutions, reversible)
                 for cb in cblk_index[c][(res.r, band.orient)]:
                     if cb.numpasses == 0:
                         continue
+                    if bwin is not None:
+                        r_ = cb.geom.rect
+                        if (r_.x1 <= bwin.x0 or r_.x0 >= bwin.x1
+                                or r_.y1 <= bwin.y0 or r_.y0 >= bwin.y1):
+                            continue
                     data, seg_lengths = cb.data_and_seg_lengths()
                     bp_d = plan.bands[(res.r, band.orient)]
                     t1_jobs.append((data, seg_lengths, cb.geom.rect.w,

@@ -43,17 +43,29 @@ in the host dequantizer's order (`quant.reconstruct`); the inverse 9/7
 DWT, inverse ICT and rounding follow in `pipeline._inv_transform`. Bands
 in which no block is coded stay zero.
 
+Two plan variants serve the per-image decode (`codestream/decoder.
+decode`):
+- reduced (`build_plan(..., max_res=)`): only the lanes and bands of
+  resolutions up to `max_res`, inverted to that resolution. The
+  reference decodes every block and then leaves the higher bands unread;
+  the samples are the same, and the device does the reduced work only.
+- windowed (`build_plan(..., window_slots=)`): lanes for the window's
+  code-blocks only (`tile.decode_tile(window=)`), scattered into
+  per-band bounding boxes over those blocks, zero elsewhere, as the
+  reference's banded window store (its `_band_bb`). The decoder returns
+  the dequantized boxes, not samples: the host fetches them and runs the
+  windowed inverse (`ops/dwt_window.py`), as the reference does.
+
 Scope: the HT decoder needs every band's Mb + 3 <= 32
 (`ht_dec_pallas.supports`); the MQ decoder keeps the sign in bit 31, so
-Mb <= 30, and one codeword segment per block. Not ported: the
-single-tile `decode_tile_device`.
+Mb <= 30, and one codeword segment per block.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -93,9 +105,16 @@ class FusedDecPlan:
     # per band (band_shapes order): its stepsize, 1.0 when reversible
     stepsizes: Tuple[float, ...]
     coder: str = "ht"           # the block coder: "ht" or "mq"
+    # the highest resolution decoded; None: all
+    max_res: Optional[int] = None
+    # a window plan: per band (band_shapes order) the (y0, x0) of its
+    # bounding box in the band plane, band_shapes holding the box's
+    # (h, w); the decoder returns the boxes. None: whole bands, inverted
+    boxes: Optional[Tuple[Tuple[int, int], ...]] = None
 
 
-def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
+def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
+               max_res: Optional[int] = None, window_slots=None
                ) -> FusedDecPlan:
     """The decode plan of one tile from its components' plans
     (`codestream/tile.build_comp_plan`, each with its component's COC
@@ -104,11 +123,20 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
     the tile's code-blocks within each group, and each band's stepsize
     (1.0 on the reversible path). The transform config comes from the
     main COD: the decode gate admits COCs that keep its transform and
-    resolution count. Raises
+    resolution count.
+
+    `max_res` keeps only the bands of resolutions 0..max_res (a reduced
+    decode). `window_slots`, the job slots of a windowed
+    `tile.decode_tile`, keeps only their code-blocks and makes each band
+    the bounding box of its kept blocks (a window plan; an empty box at
+    the band's origin where none is kept). Raises
     NotImplementedError when a band's Mb exceeds the decoder's word:
     Mb + 3 > 32 for HT, Mb > 30 for MQ (the sign rides in bit 31)."""
     if coder not in ("ht", "mq"):
         raise ValueError(f"unknown block coder {coder!r}")
+    if max_res is not None and max_res >= cod.numresolutions - 1:
+        max_res = None
+    top = cod.numresolutions - 1 if max_res is None else max_res
     cfg = pipeline.config_for_tile(siz, cod, tile)
     kmax = max(p.bands[k].kmax for p in plans for k in p.bands)
     if coder == "ht" and kmax + 3 > 32:
@@ -117,19 +145,17 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
     if coder == "mq" and kmax > mq_dec.MAX_PLANES:
         raise NotImplementedError(
             f"band Mb {kmax}: the MQ decoder needs Mb <= {mq_dec.MAX_PLANES}")
-    keys = pipeline._band_keys(cfg.numresolutions)
-    band_shapes = []
-    stepsizes = []
-    for c, p in enumerate(plans):
-        rects = {(res.r, band.orient): band.rect
-                 for res in p.layout.resolutions for band in res.bands}
-        for k in keys:
-            band_shapes.append((c, k[0], k[1], rects[k].h, rects[k].w))
-            stepsizes.append(1.0 if cfg.reversible
-                             else float(p.bands[k].stepsize))
+    keys = [k for k in pipeline._band_keys(cfg.numresolutions)
+            if k[0] <= top]
+    keep = None
+    if window_slots is not None:
+        keep = {_slot(plans, c, key, cb) for (c, key, cb) in window_slots}
     groups: Dict[Tuple[int, int], List[DecBlock]] = {}
+    kept: Dict[Tuple[int, Tuple[int, int]], List[DecBlock]] = {}
     for c, p in enumerate(plans):
         for res in p.layout.resolutions:
+            if res.r > top:
+                continue
             for band in res.bands:
                 for prc in band.precincts:
                     for cb in prc.cblks:
@@ -137,24 +163,54 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht"
                                        y0=cb.rect.y0 - band.rect.y0,
                                        x0=cb.rect.x0 - band.rect.x0,
                                        h=cb.rect.h, w=cb.rect.w)
+                        if keep is not None:
+                            if blk.slot not in keep:
+                                continue
+                            kept.setdefault((c, blk.key), []).append(blk)
                         groups.setdefault((blk.w, blk.h), []).append(blk)
+    band_shapes = []
+    stepsizes = []
+    boxes = []
+    for c, p in enumerate(plans):
+        rects = {(res.r, band.orient): band.rect
+                 for res in p.layout.resolutions for band in res.bands}
+        for k in keys:
+            if keep is None:
+                band_shapes.append((c, k[0], k[1], rects[k].h, rects[k].w))
+            else:
+                blks = kept.get((c, k), [])
+                y0 = min((b.y0 for b in blks), default=0)
+                x0 = min((b.x0 for b in blks), default=0)
+                band_shapes.append((
+                    c, k[0], k[1],
+                    max((b.y0 + b.h for b in blks), default=0) - y0,
+                    max((b.x0 + b.w for b in blks), default=0) - x0))
+                boxes.append((y0, x0))
+            stepsizes.append(1.0 if cfg.reversible
+                             else float(p.bands[k].stepsize))
     return FusedDecPlan(
         cfg=cfg,
         groups=tuple((w, h, tuple(groups[(w, h)]))
                      for (w, h) in sorted(groups)),
         band_shapes=tuple(band_shapes), coder=coder,
-        stepsizes=tuple(stepsizes))
+        stepsizes=tuple(stepsizes), max_res=max_res,
+        boxes=None if keep is None else tuple(boxes))
 
 
-def jobs_by_block(t1_jobs, t1_job_slots, plans) -> Dict[tuple, tuple]:
+def _slot(plans, c: int, key, cb) -> tuple:
+    """The `DecBlock.slot` of a parsed code-block (`t2.CblkDec`)."""
+    brect = plans[c].bands[key].rect
+    return (c, key, cb.geom.rect.y0 - brect.y0, cb.geom.rect.x0 - brect.x0)
+
+
+def jobs_by_block(t1_jobs, t1_job_slots, plans,
+                  max_res: Optional[int] = None) -> Dict[tuple, tuple]:
     """One frame's parsed jobs of a tile (`codestream/tile.decode_tile`)
-    keyed by their code-block's `DecBlock.slot`."""
-    out = {}
-    for job, (c, key, cb) in zip(t1_jobs, t1_job_slots, strict=True):
-        brect = plans[c].bands[key].rect
-        out[(c, key, cb.geom.rect.y0 - brect.y0,
-             cb.geom.rect.x0 - brect.x0)] = job
-    return out
+    keyed by their code-block's `DecBlock.slot`; with `max_res`, only
+    those of resolutions 0..max_res (a reduced plan's lanes)."""
+    return {_slot(plans, c, key, cb): job
+            for job, (c, key, cb) in zip(t1_jobs, t1_job_slots, strict=True)
+            if max_res is None or key[0] <= max_res}
 
 
 def _scup(seg: bytes) -> int:
@@ -240,6 +296,30 @@ def upload(arrays, device: torch.device):
                   for a in group) for group in arrays]
 
 
+def band_offsets(plan: FusedDecPlan
+                 ) -> Dict[Tuple[int, Tuple[int, int]], Tuple[int, int, int]]:
+    """{(c, (r, orient)): (offset, h, w)} of each band (or a window
+    plan's box) in the decoder's flat per-frame coefficient buffer."""
+    out = {}
+    off = 0
+    for (c, r, o, bh, bw) in plan.band_shapes:
+        out[(c, (r, o))] = (off, bh, bw)
+        off += bh * bw
+    return out
+
+
+def window_boxes(plan: FusedDecPlan, flat: np.ndarray
+                 ) -> List[Dict[Tuple[int, int], Tuple[int, int, np.ndarray]]]:
+    """A window plan's fetched flat buffer of one frame -> per component
+    {(r, orient): (y0, x0, box)}: each band's bounding box of dequantized
+    coefficients and its origin in the band plane."""
+    out: List[Dict] = [{} for _ in plan.cfg.tc_rects]
+    for ((c, key), (off, bh, bw)), (y0, x0) in zip(
+            band_offsets(plan).items(), plan.boxes, strict=True):
+        out[c][key] = (y0, x0, flat[off:off + bh * bw].reshape(bh, bw))
+    return out
+
+
 class _FusedDecoder(nn.Module):
     """What the two fused decoders share: the plan's static band
     assembly indices (buffers) and the forward pass. A subclass gives
@@ -254,12 +334,10 @@ class _FusedDecoder(nn.Module):
         super().__init__()
         self.plan = plan
         self.device = device
-        self._bands = {}    # (c, key) -> (offset, h, w) in the flat buffer
-        off = 0
-        for (c, r, o, bh, bw) in plan.band_shapes:
-            self._bands[(c, (r, o))] = (off, bh, bw)
-            off += bh * bw
-        self._total = off
+        # (c, key) -> (offset, h, w) in the flat buffer
+        self._bands = band_offsets(plan)
+        self._total = sum(bh * bw for (_, bh, bw) in self._bands.values())
+        origin = dict(zip(self._bands, plan.boxes or ()))
         steps = {(c, (r, o)): st for (c, r, o, _, _), st in zip(
             plan.band_shapes, plan.stepsizes, strict=True)}
         for gi, (w, h, lanes) in enumerate(plan.groups):
@@ -271,8 +349,9 @@ class _FusedDecoder(nn.Module):
             src, dst = [], []
             for li, b in enumerate(lanes):
                 boff, _, bw = self._bands[(b.comp, b.key)]
+                by0, bx0 = origin.get((b.comp, b.key), (0, 0))
                 src.append(li * gh * gw + yy * gw + xx)
-                dst.append(boff + (b.y0 + yy) * bw + b.x0 + xx)
+                dst.append(boff + (b.y0 - by0 + yy) * bw + b.x0 - bx0 + xx)
             self.register_buffer(f"src{gi}", torch.as_tensor(
                 np.concatenate([s.ravel() for s in src]), device=device))
             self.register_buffer(f"dst{gi}", torch.as_tensor(
@@ -282,12 +361,11 @@ class _FusedDecoder(nn.Module):
         """(F*B,) float32 stepsizes of group gi's lanes, frame-major."""
         return getattr(self, f"step{gi}").repeat(nframes)
 
-    def _scatter(self, coeffs, nframes: int
-                 ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
+    def _scatter(self, coeffs, nframes: int) -> torch.Tensor:
         """Per group (F*B, rows, columns) coefficients (int32, or float32
-        on the irreversible path) scattered into the band planes, zero
-        where no block is coded: one {(r, orient): (F, bh, bw)} dict per
-        component."""
+        on the irreversible path) scattered into the band planes (or a
+        window plan's boxes), zero where no block is coded: the (F,
+        total) flat buffer that `band_offsets` lays out."""
         dtype = (torch.int32 if self.plan.cfg.reversible
                  else torch.float32)
         flat = torch.zeros((nframes, self._total), dtype=dtype,
@@ -296,19 +374,30 @@ class _FusedDecoder(nn.Module):
             vals = coeff.reshape(nframes, -1).index_select(
                 1, getattr(self, f"src{gi}"))
             flat.index_copy_(1, getattr(self, f"dst{gi}"), vals)
-        ncomps = len(self.plan.cfg.tc_rects)
+        return flat
+
+    def split_bands(self, flat: torch.Tensor
+                    ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
+        """The flat buffer as one {(r, orient): (F, bh, bw)} dict of band
+        views per component."""
         out: List[Dict[Tuple[int, int], torch.Tensor]] = [
-            {} for _ in range(ncomps)]
+            {} for _ in self.plan.cfg.tc_rects]
         for (c, key), (off, bh, bw) in self._bands.items():
-            out[c][key] = flat[:, off:off + bh * bw].reshape(nframes, bh, bw)
+            out[c][key] = flat[:, off:off + bh * bw].reshape(
+                flat.shape[0], bh, bw)
         return out
 
     def forward(self, nframes: int, *groups) -> Tuple[torch.Tensor, ...]:
         """Per shape group the tensors of `upload` for F = nframes frames
-        -> one (F, h_c, w_c) int32 sample tensor per component."""
+        -> one (F, h_c, w_c) int32 sample tensor per component, at the
+        plan's `max_res`; for a window plan, the (F, total) flat buffer
+        of its dequantized boxes (`window_boxes` splits it)."""
         decoded = self.decode(groups)
-        bands = self.assemble(decoded, [g[-1] for g in groups], nframes)
-        return pipeline._inv_transform(self.plan.cfg, bands)
+        flat = self.assemble(decoded, [g[-1] for g in groups], nframes)
+        if self.plan.boxes is not None:
+            return (flat,)
+        return pipeline._inv_transform(self.plan.cfg, self.split_bands(flat),
+                                       self.plan.max_res)
 
 
 class FusedHTDecoder(_FusedDecoder):
@@ -331,10 +420,9 @@ class FusedHTDecoder(_FusedDecoder):
         return [ht_dec.decode_segments(*g[:4], w, h, self.tables())
                 for (w, h, _), g in zip(self.plan.groups, groups)]
 
-    def assemble(self, grids, valids, nframes: int
-                 ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
+    def assemble(self, grids, valids, nframes: int) -> torch.Tensor:
         """Signed, validity-masked coefficients scattered into the band
-        planes: one {(r, orient): (F, bh, bw)} dict per component. On the
+        planes (`_scatter`). On the
         irreversible path nonzero magnitudes take the mid-point 0.5 and
         the band's stepsize (`quant.reconstruct`), as the reference's
         fused HT decode does."""
@@ -364,9 +452,9 @@ class FusedMQDecoder(_FusedDecoder):
         return [mq_dec.decode_group(*g[:5], w, h)
                 for (w, h, _), g in zip(self.plan.groups, groups)]
 
-    def assemble(self, packed, halves, nframes: int
-                 ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
-        """Signed coefficients scattered into the band planes: reversible,
+    def assemble(self, packed, halves, nframes: int) -> torch.Tensor:
+        """Signed coefficients scattered into the band planes
+        (`_scatter`): reversible,
         nonzero magnitudes plus their lane's mid-point addend;
         irreversible, (magnitude + the lane's mid-point factor) times the
         band's stepsize in float32 (`quant.reconstruct`)."""
@@ -383,14 +471,25 @@ class FusedMQDecoder(_FusedDecoder):
         return self._scatter(coeffs, nframes)
 
 
-@functools.lru_cache(maxsize=64)
-def decoder_for(plan: FusedDecPlan, device: torch.device) -> _FusedDecoder:
-    """The fused decoder of a plan (`FusedHTDecoder` or `FusedMQDecoder`,
-    by its coder) on a device, built once and kept for later batches of
-    the same geometry."""
+def _new_decoder(plan: FusedDecPlan, device: torch.device) -> _FusedDecoder:
     if plan.coder == "mq":
         return FusedMQDecoder(plan, device)
     return FusedHTDecoder(plan, ht_tables.device_dec_tables(device))
+
+
+_tile_decoders = functools.lru_cache(maxsize=64)(_new_decoder)
+_window_decoders = functools.lru_cache(maxsize=16)(_new_decoder)
+
+
+def decoder_for(plan: FusedDecPlan, device: torch.device) -> _FusedDecoder:
+    """The fused decoder of a plan (`FusedHTDecoder` or `FusedMQDecoder`,
+    by its coder) on a device, built once and kept for later batches of
+    the same geometry. Window plans differ from request to request, so
+    they are kept in a cache of their own and never evict the whole-tile
+    decoders."""
+    if plan.boxes is not None:
+        return _window_decoders(plan, device)
+    return _tile_decoders(plan, device)
 
 
 def decode_tiles_submit(decoder: _FusedDecoder,

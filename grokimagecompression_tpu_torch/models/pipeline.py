@@ -10,7 +10,7 @@ DWT route, `GROK_TPU_PALLAS=1`), `dwt_torch` for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -52,14 +52,25 @@ def _fwd_transform(cfg: TileTransformConfig, comps) -> List[Dict[BandKey, torch.
             for c in range(ncomps)]
 
 
-def _inv_transform(cfg: TileTransformConfig, bands_list) -> Tuple[torch.Tensor, ...]:
-    """Inverse of _fwd_transform: list of band dicts -> tuple of comps."""
-    ncomps = len(bands_list)
+def _inv_transform(cfg: TileTransformConfig, bands_list,
+                   max_res: Optional[int] = None) -> Tuple[torch.Tensor, ...]:
+    """Inverse of _fwd_transform: list of band dicts -> tuple of comps, at
+    resolution `max_res` (default: full) as the reference's host decode
+    reduces: the inverse DWT stops at `max_res`, then the inverse MCT and
+    the DC shift run on the reduced planes."""
     comps = [
         dwt.inv_dwt_2d(bands_list[c], cfg.tc_rects[c], cfg.numresolutions,
-                       cfg.reversible)
-        for c in range(ncomps)
+                       cfg.reversible, max_res)
+        for c in range(len(bands_list))
     ]
+    return inv_mct_dc(cfg, comps)
+
+
+def inv_mct_dc(cfg: TileTransformConfig, comps) -> Tuple[torch.Tensor, ...]:
+    """Inverse MCT, rounding (9/7) and DC unshift of inverse-transformed
+    planes (int32 on 5/3, float32 on 9/7) -> int32 samples."""
+    comps = list(comps)
+    ncomps = len(comps)
     if cfg.mct and ncomps >= 3:
         inv = mct_torch.rct_inv if cfg.reversible else mct_torch.ict_inv
         comps[0], comps[1], comps[2] = inv(comps[0], comps[1], comps[2])

@@ -9,8 +9,9 @@ origin parity (which must not share a decode plan), and frames that
 leave out different code-blocks of one tile. One case also equals the
 reference's fused `decode_batch(device=True)`. Streams
 outside the slice (`tests/test_torch_decode_gate.py` holds the gate to
-the reference's) raise NotImplementedError; a CUDA request without CUDA
-raises RuntimeError.
+the reference's) raise NotImplementedError, and a reduced, windowed or
+single-tile request equals the reference's decode; a CUDA request
+without CUDA raises RuntimeError.
 """
 
 import struct
@@ -22,6 +23,8 @@ import torch
 from grokimagecompression_tpu.codestream import decoder as ref_decoder
 from grokimagecompression_tpu.codestream import encoder as ref_encoder
 from grokimagecompression_tpu.core.image import Component, Image
+from grokimagecompression_tpu.core.params import (DecoderParams as
+                                                  RefDecoderParams)
 from grokimagecompression_tpu.core.params import EncoderParams
 from grokimagecompression_tpu_torch.codestream import decoder
 from grokimagecompression_tpu_torch.core.params import DecoderParams
@@ -221,12 +224,15 @@ def test_out_of_slice_raises():
                    EncoderParams(cblk_style=HT, ppm_markers=True),
                    EncoderParams(cblk_style=HT, comp_cblk_exps={0: (4, 4)})):
         decoder.parse_batch(_encode(img, params))
+    # reduce, window and single-tile requests are inside the slice now
+    # (tests/test_torch_window_decode.py holds them to the reference)
     cs = _encode(img, EncoderParams(cblk_style=HT, numresolutions=3))
-    for dparams in (DecoderParams(reduce=1),
-                    DecoderParams(window=(0, 0, 8, 8)),
-                    DecoderParams(tile_index=0)):
-        with pytest.raises(NotImplementedError):
-            decoder.decode_batch(cs, dparams, device="cpu")
+    for kw in ({"reduce": 1}, {"window": (0, 0, 8, 8)}, {"tile_index": 0}):
+        (got,) = decoder.decode_batch(cs, DecoderParams(**kw), device="cpu")
+        want = ref_decoder.decode(cs[0], RefDecoderParams(**kw),
+                                  device=False)
+        np.testing.assert_array_equal(got.components[0].data,
+                                      want.components[0].data)
     other = _encode(_frames(1, 24, 16), EncoderParams(cblk_style=HT,
                                                       numresolutions=3))
     with pytest.raises(NotImplementedError):

@@ -135,6 +135,36 @@ def test_inverse_matches_numpy_and_pallas(geom, reversible):
         _pallas_close(pal, got, reversible, nres - 1)
 
 
+# reduced inverses (max_res below the levels): odd tile origins, and edge
+# tiles whose sides are not powers of two (a 740-wide last column of a
+# 10980-wide image in 1024 tiles, a tile cut by an odd image offset)
+REDUCED_GEOMS = [(1, 3, 67, 50, 4), (10240, 10240, 10980, 10980, 6),
+                 (5, 3, 96, 96, 4), (289, 194, 300, 260, 4),
+                 (10241, 7, 10980, 300, 5)]
+REDUCED_IDS = [f"{g[2] - g[0]}x{g[3] - g[1]}@{g[0]},{g[1]}_r{g[4]}"
+               for g in REDUCED_GEOMS]
+
+
+@pytest.mark.parametrize("reversible", [True, False], ids=["53", "97"])
+@pytest.mark.parametrize("geom", REDUCED_GEOMS[::2],
+                         ids=REDUCED_IDS[::2])
+def test_reduced_inverse_matches_numpy(geom, reversible):
+    """The inverse to every max_res below the levels equals `dwt_np`'s,
+    the reference host decoder's reduced inverse."""
+    RefRect, dwt_np, _ = _reference()
+    *corners, nres = geom
+    rect, ref_rect = Rect(*corners), RefRect(*corners)
+    x = _input(rect, reversible, seed=11)[:1]
+    want_bands = dwt_np.fwd_dwt_2d(x[0], ref_rect, nres,
+                                   reversible=reversible)
+    bands = {k: torch.from_numpy(v[None]) for k, v in want_bands.items()}
+    for max_res in range(nres - 1):
+        got = dwt.inv_dwt_2d(bands, rect, nres, reversible, max_res)
+        want = dwt_np.inv_dwt_2d(want_bands, ref_rect, nres,
+                                 reversible=reversible, max_res=max_res)
+        np.testing.assert_array_equal(got[0].numpy(), want)
+
+
 def test_band_shapes_match_numpy():
     """Batched band shapes equal the oracle's at a config-1-like geometry
     (6 resolutions)."""
@@ -190,3 +220,30 @@ def test_cuda_kernel_matches_plain(monkeypatch):
             assert torch.equal(got[k].cpu(), want[k]), (corners, k, min_ctas)
         assert torch.equal(back.cpu(), dwt_torch.inv_dwt_2d(
             want, rect, nres, reversible)), (corners, min_ctas)
+
+
+@pytest.mark.gpu
+def test_cuda_reduced_inverse_matches_plain(monkeypatch):
+    """The CUDA inverse to every max_res from 0 to the levels, on odd
+    origins and edge-tile shapes, equals `dwt_torch`'s bit for bit, at
+    every tile side; one launch a level inverted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    for (*corners, nres), reversible, min_ctas in [
+            (g, r, m) for g in REDUCED_GEOMS for r in (True, False)
+            for m in (1, dwt.MIN_CTAS, 1 << 30)]:
+        monkeypatch.setattr(dwt, "MIN_CTAS", min_ctas)
+        rect = Rect(*corners)
+        x = torch.from_numpy(_input(rect, reversible, seed=3))
+        bands = dwt_torch.fwd_dwt_2d(x, rect, nres, reversible)
+        on_card = {k: v.to(dev) for k, v in bands.items()}
+        for max_res in range(nres):
+            before = dwt.LAUNCHES["dwt"]
+            got = dwt.inv_dwt_2d(on_card, rect, nres, reversible, max_res)
+            torch.cuda.synchronize()
+            assert dwt.LAUNCHES["dwt"] - before == max_res
+            want = dwt_torch.inv_dwt_2d(bands, rect, nres, reversible,
+                                        max_res)
+            assert torch.equal(got.cpu(), want), (corners, max_res,
+                                                  min_ctas)

@@ -8,7 +8,8 @@ must equal the reference's; its native T2 must agree with its Python
 T2; the digest files that `chip_smoke.py` checks the card's streams
 against (config 1 HT and MQ, config 2 rate-controlled 9/7) must equal
 digests made afresh with the reference host encoder, and the corpus
-decode digests (`corpus_decode.json`) its host decoder's; and the port's
+decode digests (`corpus_decode.json`) and the per-image decode's
+(`window_decode.json`) its host decoder's; and the port's
 MQ
 tables, quantization helpers, irreversible plans and QCDs, PCRD hull and
 allocator, T2 tile simulator and `PassInfo` must equal the reference's.
@@ -71,6 +72,7 @@ C2_HT_DIGESTS = os.path.join(DATA, "config2_ht_97.json")
 CIN_DIGESTS = os.path.join(DATA, "cinema_profiles.json")
 CORPUS_DIGESTS = os.path.join(DATA, "corpus_decode.json")
 CORPUS = os.path.join(REPO, "tests", "corpus")
+WIN_DIGESTS = os.path.join(DATA, "window_decode.json")
 
 CASES = [
     ("gray", [natural_image(64, 64, seed=0)],
@@ -318,18 +320,22 @@ def test_port_frames_digest_like_reference_frames():
 @contextlib.contextmanager
 def _numpy_dwt():
     """The reference host codec with its numpy DWT only: `dwt_host`'s
-    dispatch and the decoder's packed native inverse
-    (`codestream/tile.py`), which only GROK_TPU_DWT=python turns off.
+    dispatch, and the decoder's packed native inverse
+    (`codestream/tile.py`) and windowed one (`dwt_window._native()`,
+    whose choice is cached), which only GROK_TPU_DWT=python turns off.
     The native 9/7 DWT rounds differently from the numpy oracle, which
     the port's DWT equals bit for bit."""
-    from grokimagecompression_tpu.ops import dwt_host
+    from grokimagecompression_tpu.ops import dwt_host, dwt_window
     native, env = dwt_host._get_native, os.environ.get("GROK_TPU_DWT")
+    checked = (dwt_window._NAT, dwt_window._NAT_CHECKED)
     dwt_host._get_native = lambda: None
     os.environ["GROK_TPU_DWT"] = "python"
+    dwt_window._NAT, dwt_window._NAT_CHECKED = None, False
     try:
         yield
     finally:
         dwt_host._get_native = native
+        dwt_window._NAT, dwt_window._NAT_CHECKED = checked
         if env is None:
             del os.environ["GROK_TPU_DWT"]
         else:
@@ -576,6 +582,53 @@ def test_corpus_decode_digest_file_is_current():
         assert json.load(f) == corpus_decode_digests()
 
 
+def window_decode_digests():
+    """SHA-256 of the small window-decode frames
+    (`chip_smoke.window_frames`), of the reference host encoder's streams
+    of them at each `chip_smoke.WIN_CODINGS` entry (numpy DWT), and of
+    its host decoder's pixels of each stream at each of the coding's
+    `chip_smoke.window_requests` (numpy DWT, windowed inverse included)."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from grokimagecompression_tpu.core.params import (DecoderParams as
+                                                      RefDecoderParams)
+    from grokimagecompression_tpu.core.params import Transform
+    frames = chip_smoke.window_frames()
+    codings = {}
+    with _numpy_dwt():
+        for coding in chip_smoke.WIN_CODINGS:
+            params = chip_smoke.window_params(EncoderParams, Transform,
+                                              coding)
+            streams = [ref_encoder.encode(_reference_image(im), params,
+                                          device=False) for im in frames]
+            codings[coding] = {
+                "streams": [hashlib.sha256(cs).hexdigest()
+                            for cs in streams],
+                "requests": {
+                    chip_smoke.request_name(kw): [
+                        chip_smoke.frame_digest(ref_decoder.decode(
+                            cs, RefDecoderParams(**kw), device=False))
+                        for cs in streams]
+                    for kw in chip_smoke.window_requests(coding)}}
+    return {
+        "what": "grokimagecompression_tpu encoder.encode(device=False) of "
+                "chip_smoke.window_frames() at each chip_smoke.WIN_CODINGS "
+                "entry, and decoder.decode(DecoderParams(**request), "
+                "device=False) of each stream at each of the coding's "
+                "chip_smoke.window_requests, numpy DWT (dwt_host."
+                "_get_native None, GROK_TPU_DWT=python); "
+                "tests/test_torch_host_copies.py writes it",
+        "frames": [chip_smoke.frame_digest(im) for im in frames],
+        "codings": codings,
+    }
+
+
+def test_window_decode_digest_file_is_current():
+    with open(WIN_DIGESTS) as f:
+        assert json.load(f) == window_decode_digests()
+
+
 def test_cinema_profiles_digest_file_is_current():
     with open(CIN_DIGESTS) as f:
         assert json.load(f) == cinema_profiles_digests()
@@ -813,4 +866,7 @@ if __name__ == "__main__":
         f.write("\n")
     with open(CIN_DIGESTS, "w") as f:
         json.dump(cinema_profiles_digests(), f, indent=1)
+        f.write("\n")
+    with open(WIN_DIGESTS, "w") as f:
+        json.dump(window_decode_digests(), f, indent=1)
         f.write("\n")
