@@ -25,7 +25,10 @@ byte caps, broadcast, IMF) through `codestream.profiles` and
 streams; and the per-image decode of windows, reduced resolutions,
 single tiles and layer limits through `codestream.decoder.decode` and
 `codec.decompress` on a 10980^2 12-bit HT mosaic and a 4096^2 RGB MQ
-image.
+image; and the per-image encode through `codestream.encoder.encode`
+(same-plan tiles coded together), image-wide PCRD (`rate_alloc=
+"global"`) and the codec's encode API (`codec.compress`,
+`compress_batch`, `Codec`) on the same images and at BASELINE widths.
 It checks every CUDA kernel on those paths against its plain PyTorch
 version, and imports only the port, torch, numpy and the standard
 library.
@@ -200,7 +203,32 @@ Phases, each fatal on failure:
      output MP/s and stages, and 16 seeded 600^2 windows through
      codec.decompress: S1's whole decode equals the source, every window
      and tile the crop of the whole decode at its reduction, S1's
-     reductions the LL of each tile's forward DWT.
+     reductions the LL of each tile's forward DWT;
+ 20. the per-image encode, image-wide PCRD and the codec's encode API:
+     (a) at small size (IMG_ENC_CASES: 72x56 gray and RGB at an odd
+     image offset in 32^2 or 16^2 tiles, HT and MQ, 5/3 and 9/7, POC,
+     byte and PSNR targets with per-tile and global allocation, HT at
+     ratio 24, tile-parts with PLT and TLM, PPT, PPM, COC) every case
+     through encoder.encode and Codec(params=), every IMG_COMPRESS route
+     through codec.compress and every preset in both containers through
+     Codec(preset=, container=) against the reference host encoder's
+     digests in grokimagecompression_tpu_torch/data/image_encode.json,
+     and codec.decompress_batch of phase 15's COC + POC + PPM JP2 files
+     between plain streams, each equal to its lone decode; (b) S1 and (c)
+     S2 through encoder.encode, each stream equal to phase 19's
+     encode_batch([img]), the coder launched at most (shape groups x
+     chunks) a plan, seconds and MP/s (best of 2), stages, peak device
+     memory beside the plans' model x tiles a chunk; the MQ coder on
+     S2's stacked 64-tile group timed beside its bound; S2 with
+     rate_alloc="global": every layer within its target plus 600 B or
+     empty, its decode's MSE at most 1.001 x the per-tile allocation's,
+     the allocator's time and simulator calls; (d) codec.compress and
+     compress_batch of the config-2 frames at ratios 24 / 48 / 96 and
+     compress_batch of the config-1 frames with and without ht against
+     their digest files, MP/s (best of 3) beside encode_batch's, and
+     every preset's JP2 of config-2 frame 0 decoded on the card through
+     Codec.decompress_image. No plain version runs in any of its encodes
+     or decodes.
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
@@ -208,9 +236,10 @@ object with one entry per kernel,
 whose `launches` counts the calls of what its `ms` times on the kernel's
 path (a whole DWT; a group kernel on the timed 64x64 group) plus, for the
 MQ coder, the MQ decoder and the DWT, their launches in phase 18's
-encodes and decodes, and for both decoders and the DWT their launches in
-phase 19's full-size requests; the last line is {"ok": true, "device":
-{...}}.
+encodes and decodes, for both decoders and the DWT their launches in
+phase 19's full-size requests, and for every kernel but the dense scan
+its launches in phase 20's encodes and decodes; the last line is {"ok":
+true, "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py (needs one CUDA card;
 exits non-zero without one).
@@ -329,6 +358,53 @@ WIN_REQUESTS = (
     {"tile_index": 5}, {"tile_index": 11}, {"tile_index": 11, "reduce": 1},
     {"layers": 1}, {"layers": 2, "reduce": 2},
 )
+# the per-image encode and the codec's encode API at small size (phase 20
+# (a), and tests/test_torch_image_encode.py on the CPU): a gray and an RGB
+# 8-bit frame (`image_encode_frames`) at an odd image offset in 32x32 or
+# 16x16 tiles (several plans, interior tiles sharing one), 3
+# resolutions, 8x8 code-blocks; each IMG_ENC_CASES entry (frame, then
+# EncoderParams arguments over IMG_ENC_BASE) through `encoder.encode`,
+# each IMG_COMPRESS entry (`codec.compress` options) on a crop of the RGB
+# frame, and each `codec.PRESETS` entry in both containers through
+# `codec.Codec(...).compress_image` of a gray crop, against the
+# reference host encoder's stream digests in IMG_ENC_DIGESTS
+IMG_ENC_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                               "image_encode.json")
+IMG_ENC_SIZE = (72, 56)
+IMG_ENC_BASE = dict(numresolutions=3, tile_size=(32, 32),
+                    image_offset=(5, 3), cblk_w_exp=3, cblk_h_exp=3)
+# POC volumes (rs, cs, lye, re, ce, progression)
+IMG_ENC_POCS = ((0, 0, 1, 2, 3, "RLCP"), (2, 0, 1, 3, 3, "CPRL"))
+IMG_ENC_CASES = {
+    "ht53": ("rgb", dict(cblk_style=0x40, tile_size=(16, 16))),
+    "mq53_poc": ("rgb", dict(pocs=IMG_ENC_POCS)),
+    "mq97_layers": ("gray", dict(transform="DWT_97", numlayers=3,
+                                 rates=(12.0, 6.0, 3.0))),
+    "mq97_layers_global": ("gray", dict(transform="DWT_97", numlayers=3,
+                                        rates=(12.0, 6.0, 3.0),
+                                        rate_alloc="global")),
+    "mq97_psnr_global": ("gray", dict(transform="DWT_97",
+                                      quality_psnr=(30.0, 36.0),
+                                      tile_size=(16, 16),
+                                      rate_alloc="global")),
+    # HT's search of the quantizer step reaches ratio 24 at this size only
+    # on a smooth frame in one tile with 16x16 blocks: the tiles' and
+    # blocks' overhead of the others outgrows the target, and the
+    # reference's QCD fails on the steps past it
+    "ht97_rate": ("c2", dict(cblk_style=0x40, transform="DWT_97",
+                             rates=(24.0,), tile_size=(64, 64),
+                             cblk_w_exp=4, cblk_h_exp=4)),
+    "tp_r_plt_tlm": ("rgb", dict(cblk_style=0x40, tp_flag="R",
+                                 plt_markers=True, tlm_markers=True)),
+    "ppt": ("gray", dict(cblk_style=0x40, ppt_markers=True)),
+    "ppm": ("rgb", dict(cblk_style=0x40, ppm_markers=True)),
+    "coc": ("rgb", dict(cblk_style=0x40, comp_cblk_exps={1: (4, 4)})),
+}
+IMG_COMPRESS = {
+    "lossless": {}, "ht": {"ht": True}, "ratio": {"ratio": [16.0, 8.0]},
+    "psnr": {"psnr": 34.0}, "prec12": {"prec": 12},
+    "tile_size": {"tile_size": (32, 32)},
+}
 # the plain MQ coder's decisions allowed in the config-2 byte-out check
 # (~1.5 ms a decision on the card), and in the dense scan's check (which
 # also packs words each step)
@@ -516,6 +592,61 @@ def request_name(kw) -> str:
     """A WIN_REQUESTS entry as text, e.g. "window=(40, 30, 170, 150),
     reduce=1"; "full" for the whole image."""
     return ", ".join(f"{k}={v}" for k, v in kw.items()) or "full"
+
+
+def image_encode_frames():
+    """The small per-image encode frames ("gray", "rgb"): 8-bit, per
+    component c a smooth wave 128 + 64 sin(y / (13 + 3c)) cos(x / 11)
+    plus normal noise of sigma 8, clipped; from generators seeded 60 and
+    61; "small", the gray frame's top-left 40 x 32 samples; and "c2", a
+    64 x 64 RGB frame as `config2_frames` makes them."""
+    import numpy as np
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+
+    w, h = IMG_ENC_SIZE
+    y = np.arange(h)[:, None]
+    x = np.arange(w)[None, :]
+    frames = {}
+    for i, (name, nc) in enumerate((("gray", 1), ("rgb", 3))):
+        rng = np.random.default_rng(60 + i)
+        frames[name] = Image(xsiz=w, ysiz=h, components=[
+            Component(data=(128 + 64 * np.sin(y / (13.0 + 3 * c))
+                            * np.cos(x / 11.0)
+                            + rng.normal(0, 8.0, (h, w))).clip(
+                                0, 255).astype(np.int32),
+                      prec=8, signed=False, dx=1, dy=1)
+            for c in range(nc)])
+    frames["small"] = Image(xsiz=40, ysiz=32, components=[dataclasses.replace(
+        frames["gray"].components[0],
+        data=frames["gray"].components[0].data[:32, :40].copy())])
+    frames["c2"] = config2_frames(1, size=64)[0]
+    return frames
+
+
+def image_encode_params(params_mod, poc_cls, case):
+    """The EncoderParams of an IMG_ENC_CASES entry, made with the
+    EncoderParams, Transform and Progression of `params_mod` and the POC
+    entries of `poc_cls` (the port's, or in the tests the reference's)."""
+    kw = dict(IMG_ENC_BASE)
+    kw.update(IMG_ENC_CASES[case][1])
+    if "transform" in kw:
+        kw["transform"] = getattr(params_mod.Transform, kw["transform"])
+    if "pocs" in kw:
+        kw["pocs"] = tuple(
+            poc_cls(rs=rs, cs=cs, lye=lye, re=re, ce=ce,
+                    prog=getattr(params_mod.Progression, prog))
+            for rs, cs, lye, re, ce, prog in kw["pocs"])
+    return params_mod.EncoderParams(**kw)
+
+
+def compress_array(frames, route):
+    """The array `codec.compress` codes at an IMG_COMPRESS route: the RGB
+    frame's top-left 40 x 32 (W x H) samples, (32, 40, 3), shifted up 4
+    bits at 12-bit precision."""
+    import numpy as np
+    a = np.stack([c.data[:32, :40] for c in frames["rgb"].components],
+                 axis=-1)
+    return a << 4 if IMG_COMPRESS[route].get("prec") == 12 else a
 
 
 def cinema_sets():
@@ -2231,8 +2362,8 @@ def c2_ht_encode_stages(enc, chunk, imgs, params):
     stages["host slice"] = tt() - t
     t = tt()
     with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
-        list(pool.map(lambda f: encoder.encode(imgs[f], params,
-                                               {0: segs[f]}),
+        list(pool.map(lambda f: encoder.write_codestream(
+            imgs[f], params, {0: segs[f]}),
                       range(len(segs))))
     stages["host T2"] = tt() - t
     return stages
@@ -2319,8 +2450,8 @@ def mq_encode_stages(mq_enc, chunk, imgs, params):
     stages["placement+fetch"] = tt() - t
     t = tt()
     with concurrent.futures.ThreadPoolExecutor(max_workers=4) as pool:
-        list(pool.map(lambda f: encoder.encode(imgs[f], params,
-                                               {0: segs[f]}),
+        list(pool.map(lambda f: encoder.write_codestream(
+            imgs[f], params, {0: segs[f]}),
                       range(chunk.shape[0])))
     stages["host T2"] = tt() - t
     return stages
@@ -2690,6 +2821,7 @@ def gate_c2_phase(c2_imgs, fixed, dev, card):
               "by stage (host clock, synchronised): "
               + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items()))
     torch.cuda.empty_cache()
+    return files
 
 
 def gate_c1_phase(imgs, dev, card):
@@ -3343,7 +3475,7 @@ def full_case(case, img, params, dev, card):
     image's decode at the same reduction, every tile the tile's crop, and
     on S1 the whole decode equals the source and each reduced decode the
     LL of the port's forward DWT of each tile. Returns the launches of
-    the requests' first runs by LAUNCHES key."""
+    the requests' first runs by LAUNCHES key, and the stream."""
     import numpy as np
     import torch
 
@@ -3494,7 +3626,7 @@ def full_case(case, img, params, dev, card):
           f"whole decode; {1e3 * best / len(wins):.1f} ms a request (best "
           f"of 3 of the set), {len(wins) * side * side / 1e6 / best:.2f} "
           f"MP/s out on {card}")
-    return launches
+    return launches, cs
 
 
 def reduced_dwt_check(dev, results):
@@ -3569,20 +3701,502 @@ def window_phase(dev, card, results):
     of windows, reduced resolutions, single tiles and layer limits: the
     small-size requests against WIN_DIGESTS, S1 and S2 at full size, and
     the reduced inverse DWT against its plain version. Returns the
-    launches of the full-size requests' first runs by LAUNCHES key."""
-    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
-                                                            Transform)
+    launches of the full-size requests' first runs by LAUNCHES key, and
+    S1's and S2's `encode_batch([img])` streams by name."""
     window_small_check(dev)
     s1, s2 = s1_frame(), s2_frame()
     reduced_dwt_check(dev, results)
-    launches = full_case(FULL_CASES[0], s1, EncoderParams(
-        numresolutions=6, cblk_style=0x40, tile_size=(S1_TILE, S1_TILE)),
-        dev, card)
+    launches, s1_cs = full_case(FULL_CASES[0], s1, full_params("S1"), dev,
+                                card)
     del s1
-    more = full_case(FULL_CASES[1], s2, EncoderParams(
-        numresolutions=6, transform=Transform.DWT_97, numlayers=3,
-        rates=(24.0, 48.0, 96.0), tile_size=(S2_TILE, S2_TILE)), dev, card)
-    return {k: launches[k] + more[k] for k in launches}
+    more, s2_cs = full_case(FULL_CASES[1], s2, full_params("S2"), dev, card)
+    return ({k: launches[k] + more[k] for k in launches},
+            {"S1": s1_cs, "S2": s2_cs})
+
+
+@contextlib.contextmanager
+def encode_counts(extra=()):
+    """Every encode kernel's launch count set to 0, the plain versions on
+    the encode routes (the HT cleanup encoder, its torch op streams and
+    host splice, the MQ coder, the forward DWT) and the `Calls` of
+    `extra` counted, inside a `with` block; yields the plain versions'
+    counters."""
+    from grokimagecompression_tpu_torch.ops import (dwt, dwt_torch, ht_enc,
+                                                    ht_tables, ht_torch,
+                                                    mq_scan, mq_torch)
+    ht_enc.LAUNCHES["enc"] = 0
+    mq_scan.LAUNCHES["mq"] = 0
+    dwt.LAUNCHES["dwt"] = 0
+    plain = [Calls(ht_enc, "encode_segments_plain", lambda *a: True),
+             Calls(ht_torch, "op_streams", lambda *a: True),
+             Calls(ht_tables, "assemble_segments_host", lambda *a: True),
+             Calls(mq_torch, "mq_scan_plain", lambda *a: True),
+             Calls(dwt_torch, "fwd_dwt_2d", lambda *a: True)]
+    with contextlib.ExitStack() as counting:
+        for c in plain + list(extra):
+            counting.enter_context(c)
+        yield plain
+
+
+def check_encode_counts(plain, what, want):
+    """Fail unless every kernel in `want` ("enc", "mq", "dwt") was
+    launched and no plain version ran; returns the launches by key."""
+    from grokimagecompression_tpu_torch.ops import dwt, ht_enc, mq_scan
+    counts = {"enc": ht_enc.LAUNCHES["enc"], "mq": mq_scan.LAUNCHES["mq"],
+              "dwt": dwt.LAUNCHES["dwt"]}
+    if any(counts[k] < 1 for k in want):
+        raise AssertionError(f"{what}: a kernel of {want} was not launched "
+                             f"({counts})")
+    if any(c.n for c in plain):
+        raise AssertionError(f"{what}: a plain version ran "
+                             f"({[c.n for c in plain]})")
+    return counts
+
+
+def image_encode_small_check(mixed, dev):
+    """Phase 20 (a): each IMG_ENC_CASES entry through `encoder.encode` and
+    `codec.Codec(params=).compress_image`, each IMG_COMPRESS route through
+    `codec.compress` and each preset in both containers through
+    `codec.Codec(preset=, container=).compress_image`, on the card,
+    against the reference host encoder's digests in IMG_ENC_DIGESTS; the
+    encode kernels launched and no plain version run. Then
+    `codec.decompress_batch` of `mixed` (phase 15's COC + POC + PPM JP2
+    files between plain streams, which `decode_batch` cannot take
+    together): each output equal to the stream's lone
+    `codec.decompress`. Returns the launches by LAUNCHES key."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch import codec
+    from grokimagecompression_tpu_torch.codestream import encoder, markers
+    from grokimagecompression_tpu_torch.core import params as params_mod
+    from grokimagecompression_tpu_torch.ops import dwt, ht_dec
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, IMG_ENC_DIGESTS)) as f:
+        want = json.load(f)
+    frames = image_encode_frames()
+    if {k: frame_digest(im) for k, im in frames.items()} != want["frames"]:
+        raise AssertionError("the image-encode frames differ from the "
+                             "digest file's: numpy makes other frames here")
+
+    def sha(cs):
+        return hashlib.sha256(cs).hexdigest()
+
+    bad = []
+    with encode_counts() as plain:
+        for case, (frame, _) in IMG_ENC_CASES.items():
+            p = image_encode_params(params_mod, markers.PocEntry, case)
+            one = encoder.encode(frames[frame], p, device="cuda")
+            via = codec.Codec(params=p).compress_image(frames[frame])
+            if {sha(one), sha(via)} != {want["encode"][case]}:
+                bad.append(f"encode {case}")
+        for route, opts in IMG_COMPRESS.items():
+            cs = codec.compress(compress_array(frames, route), **opts)
+            if sha(cs) != want["compress"][route]:
+                bad.append(f"compress {route}")
+        for key, digest in want["presets"].items():
+            preset, container = key.split("/")
+            cs = codec.Codec(preset=preset, container=container
+                             ).compress_image(frames["small"])
+            if sha(cs) != digest:
+                bad.append(f"Codec {key}")
+        torch.cuda.synchronize()
+    counts = check_encode_counts(plain, "small image encodes",
+                                 ("enc", "mq", "dwt"))
+    if bad:
+        raise AssertionError(f"streams differ from the host encoder's: "
+                             f"{bad}")
+    print(f"image encode at small size ({IMG_ENC_SIZE[0]}x{IMG_ENC_SIZE[1]} "
+          f"gray and RGB at image offset (5, 3) in 32^2 / 16^2 tiles, a "
+          f"64^2 RGB frame for HT rate control): {len(IMG_ENC_CASES)} cases "
+          f"through encoder.encode and Codec(params=), "
+          f"{len(IMG_COMPRESS)} codec.compress routes and "
+          f"{len(want['presets'])} Codec presets x containers equal the "
+          f"host encoder's streams; launches {counts}")
+    with decode_counts() as dplain:
+        got = codec.decompress_batch(mixed)
+        alone = [codec.decompress(d) for d in mixed]
+        torch.cuda.synchronize()
+    check_decode_counts(dplain, "mixed decompress_batch", ("dec", "dwt"))
+    counts["dec"] = ht_dec.LAUNCHES["dec"]
+    counts["dwt"] += dwt.LAUNCHES["dwt"]
+    if not all(np.array_equal(a, b) for a, b in zip(got, alone)):
+        raise AssertionError("decompress_batch of the mixed batch differs "
+                             "from the streams' lone decodes")
+    print(f"codec.decompress_batch of {len(mixed)} config-2 HT 9/7 streams, "
+          f"COC + POC + PPM JP2 files between plain ones: each equals its "
+          f"lone codec.decompress")
+    return counts
+
+
+def layer_bytes(cs):
+    """Each layer's cumulative packet bytes (layers 0..l, every tile), by
+    the port's packet index: what the PCRD allocators hold to the
+    targets; and whether each layer's packets are all empty (1 B)."""
+    from grokimagecompression_tpu_torch.codestream import decoder, tile
+    hdr = decoder.read_header(cs)
+    bodies = {}
+    for tp in decoder.iter_tile_parts(cs, hdr.main_header_end):
+        bodies[tp.tile_index] = bodies.get(tp.tile_index, b"") + tp.body
+    nl = hdr.cod.numlayers
+    per, empty = [0] * nl, [True] * nl
+    for t, body in bodies.items():
+        for (layer, *_, ln) in tile.index_tile_packets(body, hdr, t):
+            per[layer] += ln
+            empty[layer] &= ln <= 1
+    cum = [sum(per[:layer + 1]) for layer in range(nl)]
+    return cum, empty
+
+
+def image_encode_stages(img, params, dev):
+    """One `encoder.encode` by stage (host clock; each plan group's
+    submit synchronised): per plan its stacked tiles' upload, transform
+    and coding, the fetch and slice of the segments, the T2 pool (the
+    span from the first tile's T2 to the last's), the main header and
+    tile-part writing, and the rest (plans, encoders, tile extraction)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.models import fused_encode
+    timers = {"submit": Timed(fused_encode, "encode_tile_submit"),
+              "fetch": Timed(fused_encode, "encode_tile_collect",
+                             sync=False),
+              "T2": Timed(encoder, "encode_tile", sync=False),
+              "write": Timed(encoder, "write_codestream", sync=False)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for t in timers.values():
+            stack.enter_context(t)
+        encoder.encode(img, params, device=dev)
+    wall = time.perf_counter() - t0
+    stages = {}
+    for i, c in enumerate(timers["submit"].calls):
+        comps, enc = c["args"]
+        stages[f"plan {i} ({comps[0].shape[0]} x "
+               f"{'x'.join(map(str, comps[0].shape[1:]))}: upload, "
+               f"transform, coding)"] = c["s"]
+    stages["fetch + slice (host)"] = timers["fetch"].total()
+    stages["T2 pool (host, span)"] = timers["T2"].span()
+    stages["header and tile-parts (host)"] = \
+        timers["write"].total() - timers["T2"].span()
+    stages["rest (host)"] = wall - sum(stages.values())
+    return wall, stages
+
+
+def image_encode_case(name, img, params, batch_cs, dev, card, kernel):
+    """Phase 20 (b), (c): a FULL_CASES image through `encoder.encode` on
+    the card: its stream equal to `batch_cs` (phase 19's `encode_batch
+    ([img])`), the coder launched at most (shape groups x chunks) a plan
+    and not a tile a time, no plain version run; seconds and MP/s (best
+    of 2), launches, stages, peak device memory beside the plans' model x
+    tiles a chunk. Returns (launches by key, the stream)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.models import fused_encode
+    p, siz, cod, qcd, cod_comp, trs = encoder._coding(img, params)
+    want_rd = not p.cblk_style & 0x40 and encoder._needs_rc(p)
+    plans = {}
+    for tr in trs:
+        plan = fused_encode.build_plan(siz, cod, qcd, tr, cod_comp=cod_comp,
+                                       coder="ht" if p.cblk_style & 0x40
+                                       else "mq", want_rd=want_rd)
+        plans[plan] = plans.get(plan, 0) + 1
+    torch.cuda.empty_cache()
+    free = encoder.free_device_bytes(dev)
+    chunks = {pl: max(1, min(fused_encode.chunk_cap(pl, free), n))
+              for pl, n in plans.items()}
+    most = sum(len(pl.groups) * -(-n // chunks[pl])
+               for pl, n in plans.items())
+    per_tile = sum(len(pl.groups) * n for pl, n in plans.items())
+    model = max(chunks[pl] * fused_encode.frame_bytes(pl) for pl in plans)
+    foot = [min(chunks[pl], n - lo) * fused_encode.frame_bytes(pl)
+            for pl, n in plans.items() for lo in range(0, n, chunks[pl])]
+    pair = max([a + b for a, b in zip(foot, foot[1:])] or foot)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with encode_counts() as plain:
+        t0 = time.perf_counter()
+        cs = encoder.encode(img, params, device="cuda")
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = check_encode_counts(plain, f"{name} encode", (kernel, "dwt"))
+    if cs != batch_cs:
+        raise AssertionError(f"{name}: encode's stream differs from "
+                             f"encode_batch([img])'s ({len(cs)} B, "
+                             f"{len(batch_cs)} B)")
+    if counts[kernel] > most:
+        raise AssertionError(f"{name}: {counts[kernel]} coder launches, "
+                             f"above {most} (shape groups x chunks a plan)")
+    best = best_of(2, lambda: encoder.encode(img, params, device="cuda"))
+    mpix = img.xsiz * img.ysiz / 1e6
+    wall, stages = image_encode_stages(img, params, dev)
+    print(f"{name} through encoder.encode: {len(trs)} tiles in "
+          f"{len(plans)} plans (tiles a plan {sorted(plans.values())}, "
+          f"chunks {[-(-n // chunks[pl]) for pl, n in plans.items()]}); "
+          f"stream equal to encode_batch([img])'s ({len(cs)} B); "
+          f"launches {counts} ({kernel}: at most {most} by shape groups x "
+          f"chunks, {per_tile} at a launch a tile and group); first "
+          f"{first:.3f} s, best of 2 {best:.3f} s, {mpix / best:.2f} MP/s "
+          f"on {card}")
+    print(f"{name} encode stages (one more run, {wall:.3f} s): "
+          + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in stages.items()))
+    print(f"{name} encode peak device memory {peak / 1e9:.3f} GB above the "
+          f"{base / 1e9:.3f} GB held before; the model x tiles a chunk "
+          f"{model / 1e9:.3f} GB for the largest plan chunk, "
+          f"{pair / 1e9:.3f} GB for the largest two chunks in a row (a "
+          f"chunk is collected once the next is submitted) on {card}")
+    return counts, cs
+
+
+def stacked_scan_check(img, params, dev, card):
+    """Phase 20 (c): the MQ coder on the largest shape group of S2's
+    stacked plan (every tile of the image in one call, the group larger
+    than any earlier phase gives it): the kernel's call (`scan_into` with
+    the pass-end byte-outs, as the rate-controlled path launches it) in
+    ms, CUDA events, mean of 5 after 1 warm-up, beside its bound; the
+    segments equal those of the same lanes coded one tile at a time.
+    Returns (slots' shape, ms, bound ms, what bounds it)."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.ops import mq_scan, mq_torch
+    p, siz, cod, qcd, cod_comp, trs = encoder._coding(img, params)
+    enc = encoder._tile_encoders(p, siz, cod, qcd, cod_comp, trs[:1], dev,
+                                 True)[0]
+    tiles = [t for t, tr in enumerate(trs)
+             if fused_encode.build_plan(siz, cod, qcd, tr, coder="mq",
+                                        want_rd=True) == enc.plan]
+    stacks = zip(*(encoder.extract_tile_comps(img, siz, t) for t in tiles))
+    args = fused_encode.upload_tile([np.stack(a) for a in stacks], enc)
+    g = max(range(len(enc.plan.groups)),
+            key=lambda i: len(enc.plan.groups[i][2]))
+    h, w, blocks = enc.plan.groups[g]
+    mag, neg, orient = list(enc.group_inputs(*args))[g]
+    del args
+    _, slots, _ = enc.group_slots(mag, neg, orient)
+    spans = mq_torch.pass_spans_padded(h, w)
+    off, total = mq_scan.segment_offsets(slots)
+    got = mq_scan.scan_into(slots, off, total, spans)
+    torch.cuda.synchronize()
+    ms = cuda_ms(lambda: mq_scan.scan_into(slots, off, total, spans), 5)
+    # the first tile's lanes, coded alone, against the stacked call's
+    nb = len(blocks)
+    one = mq_scan.mq_scan(slots[:, :nb].contiguous(), spans)
+    lens = got[1][:nb]
+    ends = off[:nb] + lens.to(off.dtype)
+    seg = torch.cat([got[0][int(a):int(b)] for a, b in
+                     zip(off[:nb].tolist(), ends.tolist())])
+    if not (torch.equal(one[1], lens) and torch.equal(one[0], seg)
+            and torch.equal(one[3], got[3][:, :nb])):
+        raise AssertionError("mq_scan on the stacked S2 group differs from "
+                             "the first tile's lanes coded alone")
+    emits = int((slots & 1).sum())
+    nbytes_out = int(got[1].sum())
+    b_ms, b_by, b_terms = bound(
+        nbytes(slots, got[1], got[2], got[3]) + nbytes_out,
+        OPS["mq_decision"] * emits + OPS["mq_byte"] * nbytes_out)
+    print(f"kernel mq_scan on S2's stacked {h}x{w} group ({len(tiles)} tiles "
+          f"x {nb} blocks; slots {tuple(slots.shape)}, {emits} coding, "
+          f"{nbytes_out} segment bytes, pass-end byte-outs): {ms:.3f} ms a "
+          f"call (CUDA events, mean of 5), bound {b_ms:.4f} ms by {b_by} "
+          f"({b_terms}); the first tile's lanes alone equal the stacked "
+          f"call's, on {card}")
+    return tuple(slots.shape), ms, b_ms, b_by
+
+
+def s2_global_check(img, params, tile_cs, dev, card):
+    """Phase 20 (c): S2 with `rate_alloc="global"` through
+    `encoder.encode`: every layer's cumulative packet bytes within its
+    target plus 600 B of header slack (tests/test_pcrd.py's) or, where
+    an earlier layer already holds more than the target, empty; the
+    decode on the card no further from the source (MSE) than 1.001 x the
+    per-tile allocation's; the simulator calls and the allocator's time.
+    Returns the launches by key."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.codestream import pcrd
+    from grokimagecompression_tpu_torch.native import t2_native
+    from grokimagecompression_tpu_torch.ops import dwt, mq_dec
+    gparams = dataclasses.replace(params, rate_alloc="global")
+    alloc = Timed(pcrd.GlobalPCRDAllocator, "_allocate", sync=False)
+    sims = Calls(t2_native.TileSim, "simulate", lambda *a: True)
+    with encode_counts([alloc, sims]) as plain:
+        t0 = time.perf_counter()
+        cs = encoder.encode(img, gparams, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = check_encode_counts(plain, "S2 global encode", ("mq", "dwt"))
+    image_bytes = sum(c.data.size * c.prec for c in img.components) // 8
+    targets = [int(image_bytes / r) for r in params.rates]
+    res = {}
+    for label, stream in (("tile", tile_cs), ("global", cs)):
+        cum, empty = layer_bytes(stream)
+        for layer, (b, t, e) in enumerate(zip(cum, targets, empty)):
+            if b > t + 600 and not (layer and e):
+                raise AssertionError(f"S2 {label}: layer {layer} holds {b} "
+                                     f"B against its target {t}")
+        with decode_counts() as dplain:
+            out = decoder.decode(stream, device="cuda")
+            torch.cuda.synchronize()
+        check_decode_counts(dplain, f"S2 {label} decode", ("mq_dec", "dwt"))
+        counts["mq_dec"] = counts.get("mq_dec", 0) + mq_dec.LAUNCHES["mq_dec"]
+        counts["dwt"] += dwt.LAUNCHES["dwt"]
+        res[label] = (len(stream), cum, empty, frame_mse(out, img))
+    if res["global"][3] > 1.001 * res["tile"][3]:
+        raise AssertionError(f"S2: the global allocation's MSE "
+                             f"{res['global'][3]:.4f} is above 1.001 x the "
+                             f"per-tile one's {res['tile'][3]:.4f}")
+    print(f"S2 at ratios {params.rates} (targets {targets} B of packets), "
+          + "; ".join(f"rate_alloc={k!r}: {n} B, cumulative packet bytes by "
+                      f"layer {cum} (empty layers {e}), MSE {mse:.4f}"
+                      for k, (n, cum, e, mse) in res.items())
+          + f"; the global allocation {wall:.3f} s (encode), its "
+          f"allocation {alloc.total():.3f} s on one thread, "
+          f"{sims.n} simulator calls, on {card}")
+    return counts
+
+
+def codec_baseline_check(c1_imgs, c2_imgs, dev, card):
+    """Phase 20 (d): the codec at BASELINE widths on the card:
+    `codec.compress` of each config-2 frame and `compress_batch` of the
+    four at `ratio=(24, 48, 96)` against config2_pcrd_97.json (the
+    defaults give its 6 resolutions and 64x64 blocks), `compress_batch`
+    of the 64 config-1 frames with `ht=True` and without against
+    config1_ht_lossless.json and config1_mq_lossless.json; MP/s (best of
+    3) of `compress_batch` beside `encode_batch`'s; each preset's
+    `Codec(preset=, container="jp2")` on config-2 frame 0 decoded through
+    `decompress_image` on the card (the lossless presets to the source).
+    Returns the launches by key."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch import codec
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    from grokimagecompression_tpu_torch.ops import dwt, ht_dec, mq_dec
+    root = os.path.dirname(os.path.abspath(__file__))
+    want = {}
+    for key, path in (("c2", C2_DIGESTS), ("ht", DIGESTS),
+                      ("mq", MQ_DIGESTS)):
+        with open(os.path.join(root, path)) as f:
+            want[key] = json.load(f)["streams"]
+    ratio = (24.0, 48.0, 96.0)
+    a2 = [codec.from_image(im) for im in c2_imgs]
+    a1 = [codec.from_image(im) for im in c1_imgs]
+
+    def sha(streams):
+        return [hashlib.sha256(cs).hexdigest() for cs in streams]
+
+    with encode_counts() as plain:
+        got = {"compress (config 2)": ([codec.compress(a, ratio=ratio)
+                                        for a in a2], "c2"),
+               "compress_batch (config 2)": (codec.compress_batch(
+                   a2, ratio=ratio), "c2"),
+               "compress_batch (config 1, ht=True)": (codec.compress_batch(
+                   a1, ht=True), "ht"),
+               "compress_batch (config 1)": (codec.compress_batch(a1), "mq")}
+        torch.cuda.synchronize()
+    counts = check_encode_counts(plain, "codec at BASELINE widths",
+                                 ("enc", "mq", "dwt"))
+    for label, (streams, key) in got.items():
+        if sha(streams) != want[key]:
+            raise AssertionError(f"{label}: streams differ from the host "
+                                 f"encoder's")
+    print(f"codec at BASELINE widths: {', '.join(got)} equal the host "
+          f"encoder's streams; launches {counts}")
+    runs = (("config 2, ratios 24 / 48 / 96", c2_imgs,
+             lambda: codec.compress_batch(a2, ratio=ratio),
+             lambda: encoder.encode_batch(c2_imgs, EncoderParams(
+                 numresolutions=6, transform=Transform.DWT_97, numlayers=3,
+                 rates=ratio), device="cuda")),
+            ("config 1, HT", c1_imgs,
+             lambda: codec.compress_batch(a1, ht=True),
+             lambda: encoder.encode_batch(c1_imgs, EncoderParams(
+                 numresolutions=6, cblk_style=0x40), device="cuda")))
+    for label, imgs, api, batch in runs:
+        mpix = len(imgs) * imgs[0].xsiz * imgs[0].ysiz / 1e6
+        t_api = best_of(3, api)
+        t_batch = best_of(3, batch)
+        print(f"{label}: codec.compress_batch {mpix / t_api:.2f} MP/s, "
+              f"encoder.encode_batch {mpix / t_batch:.2f} MP/s (best of 3 "
+              f"each, {len(imgs)} frames) on {card}")
+    img = c2_imgs[0]
+    src = codec.from_image(img)
+    with decode_counts() as dplain:
+        notes = []
+        for preset in codec.PRESETS:
+            c = codec.Codec(preset=preset, container="jp2")
+            data = c.compress_image(img)
+            out = codec.from_image(c.decompress_image(data))
+            if out.shape != src.shape or (preset.startswith("lossless")
+                                          and not np.array_equal(out, src)):
+                raise AssertionError(f"preset {preset}: the JP2 file does "
+                                     f"not decode to the source's shape, "
+                                     f"or a lossless one not to the source")
+            notes.append(f"{preset} {len(data)} B, MSE "
+                         f"{float(((out - src) ** 2.0).mean()):.4f}")
+        torch.cuda.synchronize()
+    check_decode_counts(dplain, "preset JP2 decodes",
+                        ("dec", "mq_dec", "dwt"))
+    counts["dec"] = ht_dec.LAUNCHES["dec"]
+    counts["mq_dec"] = mq_dec.LAUNCHES["mq_dec"]
+    counts["dwt"] += dwt.LAUNCHES["dwt"]
+    print("Codec(preset=, container='jp2') on config-2 frame 0, decoded "
+          "through decompress_image on the card: " + "; ".join(notes))
+    return counts
+
+
+def full_params(name):
+    """The EncoderParams of a FULL_CASES image: S1 5/3 HT lossless in
+    1024^2 tiles, S2 config 2's MQ 9/7 coding in 512^2 tiles."""
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    if name == "S1":
+        return EncoderParams(numresolutions=6, cblk_style=0x40,
+                             tile_size=(S1_TILE, S1_TILE))
+    return EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                         numlayers=3, rates=(24.0, 48.0, 96.0),
+                         tile_size=(S2_TILE, S2_TILE))
+
+
+def image_encode_phase(mixed, batch_streams, c1_imgs, c2_imgs, dev, card):
+    """Phase 20: the per-image encode (`encoder.encode`, same-plan tiles
+    coded together), image-wide PCRD and the codec's encode API: (a) the
+    small cases and the mixed `decompress_batch`, (b) S1 and (c) S2
+    against phase 19's `encode_batch([img])` streams (`batch_streams`),
+    S2 with `rate_alloc="global"`, (d) the codec at BASELINE widths.
+    Returns the launches of its encodes and decodes by LAUNCHES key."""
+    t0 = time.perf_counter()
+    launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    add(image_encode_small_check(mixed, dev))
+    s1 = s1_frame()
+    counts, _ = image_encode_case("S1", s1, full_params("S1"),
+                                  batch_streams["S1"], dev, card, "enc")
+    add(counts)
+    del s1
+    s2 = s2_frame()
+    counts, s2_cs = image_encode_case("S2", s2, full_params("S2"),
+                                      batch_streams["S2"], dev, card, "mq")
+    add(counts)
+    stacked_scan_check(s2, full_params("S2"), dev, card)
+    add(s2_global_check(s2, full_params("S2"), s2_cs, dev, card))
+    del s2
+    add(codec_baseline_check(c1_imgs, c2_imgs, dev, card))
+    print(f"phase 20 (per-image encode, global PCRD, codec): "
+          f"{time.perf_counter() - t0:.1f} s on {card}; launches {launches}")
+    return launches
 
 
 def best_of(n, fn):
@@ -4042,22 +4656,30 @@ def main() -> int:
 
     fixed = c2_ht_phases(c2_imgs, c2_digests["frames"], c2_siz, c2_tr,
                          c2_chunk, dev, card)
-    gate_c2_phase(c2_imgs, fixed, dev, card)
-    del fixed
+    files = gate_c2_phase(c2_imgs, fixed, dev, card)
+    # phase 15's COC + POC + PPM JP2 files between plain streams, for
+    # phase 20's decompress_batch
+    mixed = [files[0], fixed[0], files[1], fixed[1]]
+    del fixed, files
     gate_c1_phase(imgs, dev, card)
     corpus_phase(c2_imgs[0], dev, card)
     cinema = cinema_phase(dev, card, results)
-    windows = window_phase(dev, card, results)
+    windows, full_streams = window_phase(dev, card, results)
+    image_enc = image_encode_phase(mixed, full_streams, imgs, c2_imgs, dev,
+                                   card)
+    del mixed, full_streams
 
     calls["mq_dense"] = launches["mq_dense"]
-    for key, n in list(cinema.items()) + list(windows.items()):
+    for key, n in (list(cinema.items()) + list(windows.items())
+                   + list(image_enc.items())):
         calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
           f"whole config-2 forward transforms) plus the launches of phase "
-          f"18's cinema encodes and decodes ({cinema}) and of phase 19's "
-          f"full-size requests ({windows}): {calls}; all launches of the "
-          f"config-1 and config-2 runs: {launches}")
+          f"18's cinema encodes and decodes ({cinema}), of phase 19's "
+          f"full-size requests ({windows}) and of phase 20's encodes and "
+          f"decodes ({image_enc}): {calls}; all launches of the config-1 "
+          f"and config-2 runs: {launches}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=calls[key],

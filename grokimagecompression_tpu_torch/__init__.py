@@ -16,8 +16,13 @@ Slices ported so far, HT lossless (5/3), BASELINE config 1 and alike:
   -> the HT group-decoder kernel -> band assembly -> inverse DWT, MCT and
   DC shift.
 
-Later slices add the MQ coder, 9/7, rate control, the decode gate and
-the profile encodes to those entry points, and the per-image decode
-`codestream.decoder.decode` and `codec.decompress` / `decompress_batch`
-(windows, reduced resolutions, single tiles, layer limits).
+Later slices add the MQ coder, 9/7, rate control (per tile and
+image-wide), the decode gate and the profile encodes to those entry
+points, the per-image decode `codestream.decoder.decode` (windows,
+reduced resolutions, single tiles, layer limits), the per-image encode
+`codestream.encoder.encode` (the tiles of one plan coded together), and
+the codec API `codec` (`compress`, `compress_batch`, `Codec`, `PRESETS`,
+`decompress`, `decompress_batch`).
 """
+
+__all__ = ["codec"]

@@ -1,27 +1,55 @@
-"""High-level decode API of the port: the decode half of the reference's
-`grokimagecompression_tpu/codec.py` (`to_image`, `from_image`,
-`decompress`, `decompress_batch`), over the port's decoder on a torch
+"""High-level codec API of the port: the reference's
+`grokimagecompression_tpu/codec.py` (`PRESETS`, `Codec`, `to_image`,
+`from_image`, `compress`, `compress_batch`, `decompress`,
+`decompress_batch`) over the port's encoder and decoder on a torch
 device (CUDA unless the caller names the CPU).
 
     from grokimagecompression_tpu_torch import codec
 
+    data = codec.compress(image_array, lossless=True)
+    out = codec.decompress(data)
     thumb = codec.decompress(data, reduce=2, layers=1)
     region = codec.decompress(data, window=(x0, y0, x1, y1))
 
-`compress`, `compress_batch` and `Codec` are not ported yet.
+    # or with full control:
+    c = codec.Codec(preset="visually_lossless", container="jp2")
+    data = c.compress_image(img)                 # core Image object
+    img2 = c.decompress_image(data)
+
+Every stream equals the reference's `compress` / `Codec` output byte for
+byte. What the port's encoder and decoder do not cover raises
+NotImplementedError: MQ code-block styles other than 0, HT refinement
+passes, a custom MCT and ROI (`codestream/encoder.py`,
+`codestream/decoder.py`).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+import dataclasses
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from .codestream import decoder as _decoder
+from .codestream import encoder as _encoder
 from .codestream import jp2 as _jp2
 from .core.image import Component, Image
-from .core.params import DecoderParams
+from .core.params import (CBLKSTY_HT, DecoderParams, EncoderParams,
+                          Progression, Transform)
 from .utils.device import DeviceLike
+
+PRESETS = {
+    # name: EncoderParams factory
+    "lossless": lambda: EncoderParams(),
+    "lossless_fast": lambda: EncoderParams(cblk_style=CBLKSTY_HT),
+    "visually_lossless": lambda: EncoderParams(
+        transform=Transform.DWT_97, quality_psnr=(45.0,)),
+    "web": lambda: EncoderParams(
+        transform=Transform.DWT_97, rates=(20.0,),
+        progression=Progression.RPCL),
+    "archival": lambda: EncoderParams(
+        numlayers=3, rates=(40.0, 10.0, 0.0)),
+}
 
 
 def to_image(array: np.ndarray, prec: int = 8, signed: bool = False) -> Image:
@@ -46,6 +74,110 @@ def from_image(image: Image) -> np.ndarray:
     return np.stack(planes, axis=-1)
 
 
+def _wrap(cs: bytes, image: Image, container: str) -> bytes:
+    """The codestream, or with `container="jp2"` a JP2 file of it."""
+    if container == "jp2":
+        return _jp2.wrap_codestream(
+            cs, image.xsiz, image.ysiz,
+            [(c.prec, c.signed) for c in image.components])
+    return cs
+
+
+@dataclasses.dataclass
+class Codec:
+    """Reusable encoder/decoder configuration."""
+
+    params: Optional[EncoderParams] = None
+    preset: Optional[str] = None
+    container: str = "j2k"          # "j2k" raw codestream | "jp2" boxed
+    device: DeviceLike = "cuda"
+
+    def _params(self) -> EncoderParams:
+        if self.params is not None:
+            return self.params
+        if self.preset is not None:
+            return PRESETS[self.preset]()
+        return EncoderParams()
+
+    def compress_image(self, image: Image) -> bytes:
+        cs = _encoder.encode(image, self._params(), device=self.device)
+        return _wrap(cs, image, self.container)
+
+    def decompress_image(self, data: bytes,
+                         params: Optional[DecoderParams] = None) -> Image:
+        return _decoder.decode(data, params, self.device)
+
+
+def _compress_params(lossless: bool = True, psnr: Optional[float] = None,
+                     ratio: Optional[Union[float, Sequence[float]]] = None,
+                     ht: bool = False,
+                     tile_size: Optional[Tuple[int, int]] = None
+                     ) -> EncoderParams:
+    """The parameters of `compress`'s options, as the reference derives
+    them."""
+    kw = {}
+    if tile_size:
+        kw["tile_size"] = tile_size
+    if ht:
+        kw["cblk_style"] = CBLKSTY_HT
+    if psnr is not None:
+        return EncoderParams(transform=Transform.DWT_97,
+                             quality_psnr=(psnr,), **kw)
+    if ratio is not None:
+        rates = tuple(ratio) if isinstance(ratio, (tuple, list)) \
+            else (float(ratio),)
+        return EncoderParams(transform=Transform.DWT_97, rates=rates,
+                             numlayers=len(rates), **kw)
+    if lossless:
+        return EncoderParams(**kw)
+    return EncoderParams(transform=Transform.DWT_97, **kw)
+
+
+def compress(array: np.ndarray, *, lossless: bool = True,
+             psnr: Optional[float] = None,
+             ratio: Optional[Union[float, Sequence[float]]] = None,
+             ht: bool = False,
+             prec: int = 8,
+             tile_size: Optional[Tuple[int, int]] = None,
+             container: str = "j2k",
+             device: DeviceLike = "cuda") -> bytes:
+    """One-call compression of a numpy array: lossless 5/3 by default, a
+    9/7 PSNR target (`psnr`), 9/7 byte targets (`ratio`, one compression
+    ratio or one a layer), lossy 9/7 at the default step
+    (`lossless=False`), the HT block coder (`ht`), tiles (`tile_size`),
+    a JP2 file (`container="jp2"`)."""
+    params = _compress_params(lossless, psnr, ratio, ht, tile_size)
+    c = Codec(params=params, container=container, device=device)
+    return c.compress_image(to_image(array, prec=prec))
+
+
+def compress_batch(arrays: Sequence[np.ndarray], *, prec: int = 8,
+                   container: str = "j2k", device: DeviceLike = "cuda",
+                   **kwargs) -> List[bytes]:
+    """Compress a batch of arrays, in order, with `compress`'s options;
+    each stream equals `compress` of its array alone. Untiled arrays of
+    one shape encode together through `encoder.encode_batch` (stacked on
+    the device a chunk at a time); an array alone or in more than one
+    tile goes through `encoder.encode`, which stacks the image's
+    same-plan tiles (`encode_batch` would launch once a tile position)."""
+    arrays = list(arrays)
+    params = _compress_params(**kwargs)
+    groups: dict = {}
+    for i, a in enumerate(arrays):
+        groups.setdefault(np.shape(a), []).append(i)
+    out: List[Optional[bytes]] = [None] * len(arrays)
+    for idx in groups.values():
+        imgs = [to_image(arrays[i], prec=prec) for i in idx]
+        if len(imgs) > 1 and _encoder.tile_count(imgs[0], params) == 1:
+            streams = _encoder.encode_batch(imgs, params, device=device)
+        else:
+            streams = [_encoder.encode(im, params, device=device)
+                       for im in imgs]
+        for i, img, cs in zip(idx, imgs, streams):
+            out[i] = _wrap(cs, img, container)
+    return out  # type: ignore[return-value]
+
+
 def decompress(data: bytes, *, reduce: int = 0, layers: int = 0,
                window: Optional[Tuple[int, int, int, int]] = None,
                device: DeviceLike = "cuda") -> np.ndarray:
@@ -62,16 +194,17 @@ def decompress_batch(streams: Sequence[bytes], *, reduce: int = 0,
                      layers: int = 0,
                      window: Optional[Tuple[int, int, int, int]] = None,
                      device: DeviceLike = "cuda") -> List[np.ndarray]:
-    """Decompress a batch of streams, in order. Streams that share their
-    coding parameters (SIZ, COD, QCD) decode together through
-    `decoder.decode_batch`, the others apart."""
+    """Decompress a batch of streams, in order; each output equals
+    `decompress` of its stream alone. Streams that `decoder.decode_batch`
+    can take together (equal SIZ, COD and QCD, the same COC / QCC
+    overrides and POC, and packed headers in all or none:
+    `decoder.batch_key`) decode together, the others apart."""
     streams = list(streams)
     params = DecoderParams(reduce=reduce, layers=layers, window=window)
     groups: List[Tuple[tuple, List[int]]] = []
     for i, d in enumerate(streams):
-        h = _decoder.read_header(
-            _jp2.extract_codestream(d) if _jp2.is_jp2(d) else d)
-        key = (h.siz, h.cod, h.qcd)
+        key = _decoder.batch_key(_decoder.read_header(
+            _jp2.extract_codestream(d) if _jp2.is_jp2(d) else d))
         same = [idx for k, idx in groups if k == key]
         if same:
             same[0].append(i)

@@ -259,13 +259,20 @@ def iter_tile_parts(data: bytes, start: int, want=None):
         pos = pos + psot if sot.psot else tp_end
 
 
+def batch_key(h: CodestreamHeader) -> tuple:
+    """What `decode_batch` requires to be equal in every stream of a
+    batch (`_out_of_slice`): SIZ, COD and QCD, then the COC / QCC
+    overrides, the POC and whether the stream has packed headers (PPM)."""
+    return (h.siz, h.cod, h.qcd, h.cod_comp, h.qcd_comp, h.pocs,
+            h.ppm_sections is not None)
+
+
 def _out_of_slice(hdrs: List[CodestreamHeader]) -> Optional[str]:
     """Why a batch of parsed headers is outside the ported slice, or
     None: the reference's `decode_batch` gate, which sends the same
     streams to its device decode."""
     h0 = hdrs[0]
-    if any((h.siz, h.cod, h.qcd) != (h0.siz, h0.cod, h0.qcd)
-           for h in hdrs[1:]):
+    if any(batch_key(h)[:3] != batch_key(h0)[:3] for h in hdrs[1:]):
         return "streams of different coding parameters"
     siz, cod = h0.siz, h0.cod
     if not cod.cblk_style & 0x40 and cod.cblk_style != 0:
@@ -279,9 +286,7 @@ def _out_of_slice(hdrs: List[CodestreamHeader]) -> Optional[str]:
             (c.dx, c.dy) != (siz.comps[0].dx, siz.comps[0].dy)
             for c in siz.comps[:3]):
         return "an MCT over differently sampled components"
-    if any((h.cod_comp, h.qcd_comp, h.pocs, h.ppm_sections is not None)
-           != (h0.cod_comp, h0.qcd_comp, h0.pocs,
-               h0.ppm_sections is not None) for h in hdrs[1:]):
+    if any(batch_key(h)[3:] != batch_key(h0)[3:] for h in hdrs[1:]):
         return ("streams of different COC / QCC overrides, POCs or packed "
                 "headers (PPM)")
     if h0.cod_comp and any(

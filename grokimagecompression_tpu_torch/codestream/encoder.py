@@ -1,4 +1,4 @@
-"""Batch encode entry point on a torch device.
+"""Encode entry points on a torch device.
 
 Port of `grokimagecompression_tpu/codestream/encoder.py` for the fused
 slices: the HT block coder on 5/3 (lossless) or 9/7, on 9/7 with or
@@ -6,17 +6,32 @@ without one byte target (`rates=(r,)`: a search of the quantizer's base
 step, `_encode_ht_rate_controlled`), and the Part-1 MQ coder with the
 default code-block style on 5/3 or 9/7, with or without byte or PSNR
 targets (`rates`, `quality_psnr`: PCRD rate control over quality
-layers) or an explicit rate allocator (a profile's byte caps,
-`profiles.encode_with_profile`). The block
-coding runs on the device through `models/fused_encode.py`; the
-codestream parameters (`build_siz`, `build_cod`), tile extraction, the
-rate allocator's construction and the main-header and tile-part writing
-of the reference's host `encode` are copied here, fed the device's
-segments (with their R-D pass tables under rate control), and
-packetize through the port's native T2.
+layers, per tile or image-wide with `rate_alloc="global"`) or an
+explicit rate allocator (a profile's byte caps,
+`profiles.encode_with_profile`).
 
-Requests outside the slice raise NotImplementedError instead of falling
-back to the host.
+- `encode(image, params)`: one image; its tiles are grouped by their
+  fused plan and each group's tiles are stacked and coded together on
+  the device (`models/fused_encode.py`), then every tile's T2 runs on a
+  host pool (`write_codestream`).
+- `encode_batch(images, params)`: same-geometry frames stacked and coded
+  a chunk at a time; frames of different geometries go to `encode` one
+  by one.
+- `write_codestream`: the codestream of one image whose code-block
+  segments were coded on the device (the reference host `encode`'s
+  header and tile-part writing, with its rate allocator).
+
+The codestream parameters (`build_siz`, `build_cod`), tile extraction,
+the rate allocators' construction and the main-header and tile-part
+writing of the reference's host `encode` are copied here, fed the
+device's segments (with their R-D pass tables under rate control), and
+packetize through the port's native T2. Every stream is byte-identical
+to the reference host encoder's.
+
+Requests the reference codes with its host T1 raise NotImplementedError
+instead of falling back to the host: MQ code-block styles other than 0,
+HT refinement passes, a custom MCT, ROI upshift, and an explicit rate
+allocator with the HT block coder.
 """
 
 from __future__ import annotations
@@ -37,7 +52,7 @@ from ..ops import _build, ht_tables
 from ..utils.device import DeviceLike, resolve_device
 from . import markers
 from .markers import CodInfo, ComponentSiz, SizInfo, SotInfo
-from .pcrd import make_layer_alloc
+from .pcrd import GlobalPCRDAllocator, make_layer_alloc
 from .tile import default_qcd, encode_tile
 
 
@@ -130,9 +145,14 @@ def _needs_rc(params: EncoderParams) -> bool:
         or bool(params.quality_psnr)
 
 
-def encode(image: Image, params: EncoderParams,
-           t1_segments_by_tile: Dict[int, List], rsiz: int = 0,
-           layer_alloc=None) -> bytes:
+def _image_bytes(image: Image) -> int:
+    return sum(c.data.shape[0] * c.data.shape[1] * c.prec
+               for c in image.components) // 8
+
+
+def write_codestream(image: Image, params: EncoderParams,
+                     t1_segments_by_tile: Dict[int, List], rsiz: int = 0,
+                     layer_alloc=None) -> bytes:
     """Write the codestream of one image whose code-block segments were
     coded on the device: `t1_segments_by_tile[t]` in t1-desc order (HT
     segment bytes, MQ (data, numbps, numpasses) tuples, or under rate
@@ -142,12 +162,15 @@ def encode(image: Image, params: EncoderParams,
     _t1_segments_by_tile=...)`: main header (SIZ, with `rsiz` ORed in
     (a profile's) and the Part-15 flag and a CAP for HT, COD, COC, QCD,
     POC, COM, PPM, TLM), the rate allocator `layer_alloc` where given (a
-    profile's byte caps, `profiles.profile_allocator`), else the per-tile
-    PCRD allocator when the parameters set byte or PSNR targets
-    (`pcrd.make_layer_alloc`), then each tile's T2 as one tile-part, or
-    split at progression changes (`tp_flag`), with PPT/PLT where asked.
-    Tiles are coded one after another: `encode_batch` runs frames on a
-    thread pool."""
+    profile's byte caps, `profiles.profile_allocator`), else, when the
+    parameters set byte or PSNR targets, the image-wide allocator
+    (`pcrd.GlobalPCRDAllocator`) with `rate_alloc="global"` and more
+    than one tile, or the per-tile one (`pcrd.make_layer_alloc`), then
+    each tile's T2 (`tile.encode_tile`) on a host thread pool, as one
+    tile-part, or split at progression changes (`tp_flag`), with PPT/PLT
+    where asked. Under the image-wide allocator the pool holds every
+    tile at once: each tile waits at the allocator's barrier for all the
+    others."""
     # Layer count follows the rate/quality vectors when they are longer
     _nl = max(params.numlayers, len(params.rates),
               len(params.quality_psnr))
@@ -192,19 +215,38 @@ def encode(image: Image, params: EncoderParams,
     ppm_sections: list = []
     numtiles = ntx * nty
     split = params.ppt_markers or params.ppm_markers
+    global_alloc = None
     if layer_alloc is None and _needs_rc(params):
-        layer_alloc = make_layer_alloc(image, params)
+        if params.rate_alloc == "global" and numtiles > 1:
+            layer_alloc = global_alloc = GlobalPCRDAllocator(
+                rates=params.rates, quality_psnr=params.quality_psnr,
+                image_bytes=_image_bytes(image), numtiles=numtiles)
+        else:
+            layer_alloc = make_layer_alloc(image, params)
 
-    results = []
-    for t in range(numtiles):
+    def tile_t2(t: int):
         tr = tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                        siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
-        results.append(encode_tile(
-            t1_segments_by_tile[t], siz, cod, qcd, tr,
-            layer_alloc=layer_alloc, cod_comp=cod_comp,
-            pocs=params.pocs or None, split_headers=split,
-            want_packet_lengths=params.plt_markers
-            or params.tp_flag is not None, tile_index=t))
+        try:
+            return encode_tile(
+                t1_segments_by_tile[t], siz, cod, qcd, tr,
+                layer_alloc=layer_alloc, cod_comp=cod_comp,
+                pocs=params.pocs or None, split_headers=split,
+                want_packet_lengths=params.plt_markers
+                or params.tp_flag is not None, tile_index=t)
+        except BaseException as e:
+            if global_alloc is not None:
+                global_alloc.fail(e)
+            raise
+
+    workers = numtiles if global_alloc is not None else \
+        min(numtiles, os.cpu_count() or 1)
+    if workers > 1:
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=workers) as pool:
+            results = list(pool.map(tile_t2, range(numtiles)))
+    else:
+        results = [tile_t2(t) for t in range(numtiles)]
 
     axis_idx = {"L": 0, "R": 1, "C": 2}
     for t in range(numtiles):
@@ -272,9 +314,17 @@ def _geom(img: Image):
                  for c in img.components) + (img.xsiz, img.ysiz)
 
 
-def _out_of_slice(images: List[Image], params: EncoderParams,
-                  layer_alloc=None) -> Optional[str]:
-    """Why a request is outside the ported slices, or None."""
+def tile_count(image: Image, params: EncoderParams) -> int:
+    """The number of tiles `params` cut `image` into."""
+    s = build_siz(image, params)
+    ntx, nty = tile_grid_size(s.xsiz, s.ysiz, s.xosiz, s.yosiz, s.xtsiz,
+                              s.ytsiz, s.xtosiz, s.ytosiz)
+    return ntx * nty
+
+
+def _out_of_slice(params: EncoderParams, layer_alloc=None) -> Optional[str]:
+    """Why a request is outside the ported slices, or None: what the
+    reference codes with its host T1."""
     is_ht = bool(params.cblk_style & 0x40)
     if is_ht and layer_alloc is not None:
         return "a rate allocator with the HT block coder"
@@ -287,11 +337,6 @@ def _out_of_slice(images: List[Image], params: EncoderParams,
         return "a custom MCT"
     if params.roi_comp is not None and params.roi_shift > 0:
         return "ROI upshift"
-    if _needs_rc(params) and not is_ht and layer_alloc is None \
-            and params.rate_alloc != "tile":
-        return f"the {params.rate_alloc!r} rate allocation"
-    if any(_geom(im) != _geom(images[0]) for im in images):
-        return "frames of different geometry"
     return None
 
 
@@ -346,10 +391,7 @@ def _encode_ht_rate_controlled(image: Image, params: EncoderParams):
     step confirm it and calibrate the header and T2 overhead (it yields
     ("encode", step) and is sent the stream). Returns the stream.
     `params` passed `_ht_rc_check`."""
-    image_bytes = sum(
-        c.data.shape[0] * c.data.shape[1] * c.prec
-        for c in image.components) // 8
-    target = max(256, int(image_bytes / float(params.rates[0])))
+    target = max(256, int(_image_bytes(image) / float(params.rates[0])))
     seg_cache: dict = {}
 
     def seg(step: float):
@@ -483,7 +525,7 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
         if confirms:
             segs = _ht_rc_segments(search, confirms,
                                    [asks[f][1] for f in confirms])
-            futures = [(f, t2_pool.submit(encode, images[f],
+            futures = [(f, t2_pool.submit(write_codestream, images[f],
                                           dataclasses.replace(
                                               params, rates=(),
                                               base_step=asks[f][1]), sg,
@@ -503,63 +545,44 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
     return [done[f] for f in range(len(images))]
 
 
-def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
-                 device: DeviceLike = "cuda", chunk: int = 32, rsiz: int = 0,
-                 layer_alloc=None) -> List[bytes]:
-    """Encode same-geometry frames with the HT block coder (`cblk_style`
-    0x40; 5/3, lossless, or 9/7, at the default or a given base step, or
-    at one byte target `rates=(r,)`) or the Part-1 MQ coder (`cblk_style`
-    0; 5/3 or 9/7, one layer or quality layers at the byte targets
-    `rates` or the PSNR targets `quality_psnr`).
-
-    Frames are coded `chunk` at a time: each chunk is one upload and one
-    fused device encode per tile, and the host T2 (with the rate
-    allocation) of a chunk runs on a thread pool while the device codes
-    the next. HT with a byte target searches each frame's base step on
-    the chunk's resident code-blocks, the chunk's frames in lockstep
-    (`_encode_ht_rc_chunk`). On a CUDA device a chunk is capped to the
-    frames whose encode fits in half the free device memory
-    (`_capped_chunk`), at least one. The streams are byte-identical to
-    the reference host encoder's, whatever the chunk.
-
-    `rsiz` is ORed into each stream's SIZ (a profile's code), and
-    `layer_alloc` (MQ only; a `pcrd.PCRDAllocator`, which keeps no state
-    between tiles, so one serves every frame) replaces the allocator the
-    parameters' targets would make: with it the encode also returns the
-    per-pass R-D tables the allocator needs, as with targets. A profile's
-    encode (`profiles.encode_with_profile`) passes both."""
-    dev = resolve_device(device)
-    params = params or EncoderParams()
-    if not images:
-        return []
+def _check(params: EncoderParams, layer_alloc, what: str) -> None:
+    """The reference's ValueErrors of an HT request with targets, then
+    NotImplementedError for a request outside the ported slices."""
     if params.cblk_style & 0x40:
         _ht_rc_check(params)
-    why = _out_of_slice(images, params, layer_alloc)
+    why = _out_of_slice(params, layer_alloc)
     if why is not None:
         raise NotImplementedError(
-            f"encode_batch on a torch device does not cover {why} yet")
-    _build.host_library()
+            f"{what} on a torch device does not cover {why} yet")
 
-    # the reference's parameter derivation (encoder.encode_batch)
+
+def _coding(image: Image, params: EncoderParams):
+    """The reference's parameter derivation of `encode` / `encode_batch`:
+    (params with the layer count of its targets, SIZ, COD, QCD, COC
+    overrides, the tile rects)."""
     nl = max(params.numlayers, len(params.rates), len(params.quality_psnr))
     p = params if nl == params.numlayers else dataclasses.replace(
         params, numlayers=nl)
-    siz = build_siz(images[0], p)
-    cod = build_cod(images[0], p)
+    siz = build_siz(image, p)
+    cod = build_cod(image, p)
     qcd = default_qcd(siz, cod, _guard_bits(p), p.base_step)
     cod_comp = _cod_comp(siz, cod, p)
     ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                               siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
-    numtiles = ntx * nty
+    trs = [tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
+                     siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+           for t in range(ntx * nty)]
+    return p, siz, cod, qcd, cod_comp, trs
 
+
+def _tile_encoders(p: EncoderParams, siz: SizInfo, cod: CodInfo, qcd,
+                   cod_comp, trs, dev: torch.device, want_rd: bool) -> List:
+    """Each tile's fused encoder (`fused_encode.FusedHTEncoder` or
+    `FusedMQEncoder`), one shared by every tile of one plan."""
     coder = "ht" if p.cblk_style & 0x40 else "mq"
-    rate_control = coder == "ht" and bool(p.rates)
-    want_rd = coder == "mq" and (layer_alloc is not None or _needs_rc(p))
-    encoders = {}        # plan -> encoder (interior tiles share one)
+    encoders = {}
     tile_enc = []
-    for t in range(numtiles):
-        tr = tile_rect(t, siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
-                       siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
+    for t, tr in enumerate(trs):
         plan = fused_encode.build_plan(siz, cod, qcd, tr, cod_comp=cod_comp,
                                        coder=coder, want_rd=want_rd)
         if plan is None:
@@ -571,6 +594,106 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
                                             ht_tables.device_tables(dev))
                 if coder == "ht" else fused_encode.FusedMQEncoder(plan, dev))
         tile_enc.append(encoders[plan])
+    return tile_enc
+
+
+def encode(image: Image, params: Optional[EncoderParams] = None,
+           layer_alloc=None, device: DeviceLike = "cuda",
+           rsiz: int = 0) -> bytes:
+    """Encode one image to a raw J2K codestream on a torch device: the
+    slices of `encode_batch`, byte-identical to the reference's host
+    `encode(image, params, layer_alloc, device=False, rsiz=rsiz)`.
+
+    The image's tiles are grouped by their fused plan (the interior
+    tiles of a grid share one; edge tiles have their own), and each
+    group's tiles are stacked on the leading axis and coded together on
+    the device (`fused_encode.encode_tile_submit` on the plan's encoder),
+    as many a call as fit in half the device memory free at the start
+    (`_capped_chunk`: a tile costs what a frame of its plan costs). Each
+    chunk is collected once the next is submitted, so the device codes
+    one while the host fetches the other and at most two chunks' outputs
+    are on the device; then each tile's T2, with the rate allocation,
+    runs on a host thread pool (`write_codestream`). HT with a byte target runs the reference's
+    search of the quantizer step on the device coder
+    (`encode_batch` of the one image)."""
+    dev = resolve_device(device)
+    params = params or EncoderParams()
+    _check(params, layer_alloc, "encode")
+    if params.cblk_style & 0x40 and params.rates:
+        return encode_batch([image], params, dev, rsiz=rsiz)[0]
+    _build.host_library()
+    p, siz, cod, qcd, cod_comp, trs = _coding(image, params)
+    want_rd = not p.cblk_style & 0x40 and (layer_alloc is not None
+                                           or _needs_rc(p))
+    tile_enc = _tile_encoders(p, siz, cod, qcd, cod_comp, trs, dev, want_rd)
+    by_plan: Dict[object, List[int]] = {}
+    for t, enc in enumerate(tile_enc):
+        by_plan.setdefault(enc, []).append(t)
+    chunks = []
+    for enc, tiles in by_plan.items():
+        n = max(1, min(_capped_chunk(len(tiles), [enc.plan], dev),
+                       len(tiles)))
+        chunks += [(enc, tiles[lo:lo + n]) for lo in range(0, len(tiles), n)]
+    segs: Dict[int, List] = {}
+    prev = None
+    for enc, part in chunks:
+        stacks = zip(*(extract_tile_comps(image, siz, t) for t in part))
+        handle = fused_encode.encode_tile_submit(
+            [np.stack(c) for c in stacks], enc)
+        if prev is not None:
+            segs.update(zip(prev[0], fused_encode.encode_tile_collect(
+                prev[1])))
+        prev = (part, handle)
+    segs.update(zip(prev[0], fused_encode.encode_tile_collect(prev[1])))
+    return write_codestream(image, params, segs, rsiz, layer_alloc)
+
+
+def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
+                 device: DeviceLike = "cuda", chunk: int = 32, rsiz: int = 0,
+                 layer_alloc=None) -> List[bytes]:
+    """Encode same-geometry frames with the HT block coder (`cblk_style`
+    0x40; 5/3, lossless, or 9/7, at the default or a given base step, or
+    at one byte target `rates=(r,)`) or the Part-1 MQ coder (`cblk_style`
+    0; 5/3 or 9/7, one layer or quality layers at the byte targets
+    `rates` or the PSNR targets `quality_psnr`, per tile or image-wide
+    with `rate_alloc="global"`).
+
+    Frames of different geometries go to `encode` one at a time, as the
+    reference routes them. Same-geometry frames are coded `chunk` at a
+    time: each chunk is one upload and one
+    fused device encode per tile, and the host T2 (with the rate
+    allocation) of a chunk runs on a thread pool while the device codes
+    the next. HT with a byte target searches each frame's base step on
+    the chunk's resident code-blocks, the chunk's frames in lockstep
+    (`_encode_ht_rc_chunk`). On a CUDA device a chunk is capped to the
+    frames whose encode fits in half the free device memory
+    (`_capped_chunk`), at least one. The streams are byte-identical to
+    the reference host encoder's, whatever the chunk; with
+    `rate_alloc="global"` each frame's T2 runs one image-wide allocator
+    (`write_codestream`).
+
+    `rsiz` is ORed into each stream's SIZ (a profile's code), and
+    `layer_alloc` (MQ only; a `pcrd.PCRDAllocator`, which keeps no state
+    between tiles, so one serves every frame) replaces the allocator the
+    parameters' targets would make: with it the encode also returns the
+    per-pass R-D tables the allocator needs, as with targets. A profile's
+    encode (`profiles.encode_with_profile`) passes both."""
+    dev = resolve_device(device)
+    params = params or EncoderParams()
+    if not images:
+        return []
+    _check(params, layer_alloc, "encode_batch")
+    if any(_geom(im) != _geom(images[0]) for im in images):
+        return [encode(im, params, layer_alloc, dev, rsiz) for im in images]
+    _build.host_library()
+
+    p, siz, cod, qcd, cod_comp, trs = _coding(images[0], params)
+    numtiles = len(trs)
+    rate_control = bool(p.cblk_style & 0x40 and p.rates)
+    want_rd = not p.cblk_style & 0x40 and (layer_alloc is not None
+                                           or _needs_rc(p))
+    tile_enc = _tile_encoders(p, siz, cod, qcd, cod_comp, trs, dev, want_rd)
+    encoders = {enc.plan: enc for enc in tile_enc}
 
     n = len(images)
     chunk = max(1, min(_capped_chunk(chunk, encoders, dev, rate_control), n))
@@ -598,7 +721,8 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
             for f in range(lo, hi):
                 by_tile = {t: segs[t][f - lo] for t in range(numtiles)}
                 futures.append((f, t2_pool.submit(
-                    encode, images[f], params, by_tile, rsiz, layer_alloc)))
+                    write_codestream, images[f], params, by_tile, rsiz,
+                    layer_alloc)))
         for f, fut in futures:
             results[f] = fut.result()
     return results  # type: ignore[return-value]

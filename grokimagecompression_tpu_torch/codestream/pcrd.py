@@ -1,14 +1,17 @@
 """PCRD-opt rate control: convex-hull pass pruning + slope-threshold
 search with full Tier-2 packet simulation.
 
-A copy of `grokimagecompression_tpu/codestream/pcrd.py` for one tile at a
-time: `HullPoint`, `convex_hull`, `_npasses_at`, `RateControlCtx`,
-`_TileTables`, `PCRDAllocator` and `make_layer_alloc`, as they are, but
-for `_TileTables`, which always builds its hull tables with the Python
-`convex_hull` (the reference's oracle for its native batch hull, which
-computes the same tables). The image-wide multi-device allocator
-(`GlobalPCRDAllocator`) is not copied. `tests/test_torch_host_copies.py`
-holds the copy to the original.
+A copy of `grokimagecompression_tpu/codestream/pcrd.py`: `HullPoint`,
+`convex_hull`, `_npasses_at`, `RateControlCtx`, `_TileTables`,
+`PCRDAllocator`, the image-wide `GlobalPCRDAllocator` on one device and
+`make_layer_alloc`, as they are, but for `_TileTables`, which always
+builds its hull tables with the Python `convex_hull` (the reference's
+oracle for its native batch hull, which computes the same tables), and
+`GlobalPCRDAllocator`, which has no device mesh and no cross-process
+reduction (those wait for the multi-device port), no last-layer byte cap
+(`max_abs_bytes`, which no caller of the image-wide allocator sets) and
+takes a `fail(exc)` that wakes every waiting tile. `tests/test_torch_host_copies.py`
+and `tests/test_torch_image_encode.py` hold the copy to the original.
 
 Algorithmic analog of the reference's feasible-slope bisection
 (reference: src/lib/jp2/TileProcessor.cpp pcrd_bisect_feasible:371,
@@ -22,6 +25,7 @@ mode (`native/t2_native.TileSim`).
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -306,6 +310,158 @@ class PCRDAllocator:
                     # failure path.
                     tt.apply_zero(layer)
             tt.commit_layer()
+
+
+class GlobalPCRDAllocator:
+    """Image-wide PCRD: ONE slope threshold per layer across ALL tiles.
+
+    The reference (and PCRDAllocator) splits the byte budget
+    proportionally per tile (`tile_frac`,
+    reference: src/lib/jp2/TileProcessor.cpp pcrd_bisect_feasible:371
+    runs per tile) — simple, communication-free, but suboptimal when
+    content complexity varies across tiles. Global allocation spends the
+    budget where the R-D slopes are steepest image-wide, the textbook
+    PCRD-opt formulation.
+
+    Concurrency: encode_tile calls this object once per tile from the
+    tile thread pool, which must admit every tile at once; callers block
+    at a barrier until every tile has registered, then the last one
+    bisects the shared threshold — each iteration applies the threshold
+    to every tile and sums the simulated packet bytes, tiles in
+    `tile_index` order, so the float sums and the bytes do not depend on
+    which thread registered first. An error in the allocation is raised
+    in every waiting tile; `fail` does the same for a tile that failed
+    before it registered, which would otherwise leave the others waiting.
+    """
+
+    def __init__(self, rates: Sequence[float] = (),
+                 quality_psnr: Sequence[float] = (),
+                 image_bytes: int = 0, numtiles: int = 1):
+        self.rates = tuple(rates)
+        self.quality_psnr = tuple(quality_psnr)
+        self.image_bytes = image_bytes
+        self.numtiles = numtiles
+        self._lock = threading.Lock()
+        self._done = threading.Event()
+        self._ctxs: List[RateControlCtx] = []
+        self._error: Optional[BaseException] = None
+
+    def fail(self, exc: BaseException) -> None:
+        """Release every tile waiting at the barrier with `exc` (a tile
+        that raised before it registered)."""
+        with self._lock:
+            if self._error is None:
+                self._error = exc
+        self._done.set()
+
+    @staticmethod
+    def _sum(values: List[float]) -> float:
+        """The reference's local reduction (`_shard_partials` into one
+        shard, then `_mesh_sum` without a mesh), in its float order."""
+        parts = np.zeros(1)
+        for v in values:
+            parts[0] += v
+        return float(parts.sum())
+
+    def _sum_live(self, live, fn) -> float:
+        return self._sum([float(fn(tt)) for tt in live])
+
+    def __call__(self, ctx: RateControlCtx) -> None:
+        with self._lock:
+            self._ctxs.append(ctx)
+            is_last = len(self._ctxs) == self.numtiles
+        if is_last:
+            try:
+                self._allocate()
+            except BaseException as e:  # propagate to every waiter
+                self._error = e
+                raise
+            finally:
+                self._done.set()
+        else:
+            self._done.wait()
+            if self._error is not None:
+                raise RuntimeError(
+                    "global PCRD allocation failed") from self._error
+
+    def _allocate(self) -> None:
+        # Deterministic reduction order: sort by global tile index
+        # (stable, so callers that never set tile_index keep their
+        # registration order).
+        ctxs = sorted(self._ctxs, key=lambda c: c.tile_index)
+        tables = [_TileTables(c) for c in ctxs]
+        live = [tt for tt in tables if tt.slopes]
+        for tt in tables:
+            if not tt.slopes and tt.ctx.cblks:
+                for cb in tt.ctx.cblks:
+                    cb.layer_npasses[-1] = cb.numpasses
+        if not live:
+            return
+        numlayers = ctxs[0].numlayers
+        smin = min(min(tt.slopes) for tt in live)
+        smax = max(max(tt.slopes) for tt in live)
+        max_se = self._sum_live(
+            live, lambda tt: float((1 << tt.ctx.max_prec) - 1) ** 2
+            * tt.ctx.tile_samples)
+        distotal = self._sum_live(live, lambda tt: tt.distotile)
+
+        def apply_all(thresh: Optional[float], layer: int) -> None:
+            for tt in live:
+                tt.apply(thresh, layer)
+
+        def total_bytes(layer: int) -> float:
+            return self._sum_live(
+                live, lambda tt: float(tt.ctx.simulate_upto(layer)))
+
+        def total_included(thresh: float) -> float:
+            return self._sum_live(live, lambda tt: tt.included_dist(thresh))
+
+        for layer in range(numlayers):
+            rate = self.rates[layer] if layer < len(self.rates) else 0.0
+            q = (self.quality_psnr[layer]
+                 if layer < len(self.quality_psnr) else 0.0)
+            target_bytes = 0
+            if rate > 0:
+                target_bytes = int(self.image_bytes / rate)
+            if target_bytes <= 0 and q <= 0:
+                for tt in live:
+                    tt.apply(None, layer)
+                    tt.store_objects(layer)
+                    tt.prev_n = tt.numpasses_vec.copy()
+                continue
+
+            if q > 0:
+                limit = max_se / (10.0 ** (q / 10.0))
+                lo, hi = smin, smax
+                if (distotal - total_included(smin)) <= limit:
+                    for _ in range(60):
+                        mid = 0.5 * (lo + hi)
+                        if (distotal - total_included(mid)) <= limit:
+                            lo = mid
+                        else:
+                            hi = mid
+                    thresh = lo
+                else:
+                    thresh = smin
+                apply_all(thresh, layer)
+            else:
+                lo, hi = smin, smax
+                apply_all(hi, layer)
+                if total_bytes(layer) <= target_bytes:
+                    for _ in range(60):
+                        mid = 0.5 * (lo + hi)
+                        apply_all(mid, layer)
+                        if total_bytes(layer) <= target_bytes:
+                            hi = mid
+                        else:
+                            lo = mid
+                    apply_all(hi, layer)
+                else:
+                    for tt in live:
+                        tt.apply_zero(layer)
+            for tt in live:
+                tt.store_objects(layer)
+                tt.commit_layer()
 
 
 def make_layer_alloc(image, params) -> PCRDAllocator:

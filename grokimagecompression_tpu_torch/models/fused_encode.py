@@ -1,7 +1,10 @@
 """Fused tile encode on the device: frames in, code-block segments out.
 
-Port of `grokimagecompression_tpu/models/fused_encode.py`. For a batch
-of same-geometry frames it runs DC shift -> MCT -> DWT (`ops/dwt.py`)
+Port of `grokimagecompression_tpu/models/fused_encode.py`. For a stack
+of tiles of one plan (one tile position of same-geometry frames, as
+`encoder.encode_batch` stacks them, or the tiles of one image that share
+a plan, as `encoder.encode` stacks them; "frame" below means one entry
+of the stack) it runs DC shift -> MCT -> DWT (`ops/dwt.py`)
 -> code-block gather on the device, then
 - HT (`FusedHTEncoder`, 5/3 or 9/7): the 9/7 bands' deadzone
   quantization in float64 to signed coefficients
@@ -519,18 +522,22 @@ def upload_tile(comps_data: List[np.ndarray], encoder) -> List[torch.Tensor]:
 
 
 def encode_tile_submit(comps_data: List[np.ndarray], encoder):
-    """Upload one tile's components for a batch of frames (each (N, h, w)
-    or (h, w)) and run the fused encode (a `FusedHTEncoder` or
-    `FusedMQEncoder`). Returns a handle for encode_tile_collect; the
-    outputs stay on the device until then."""
+    """Upload the components of a stack of N tiles of the encoder's plan
+    (each (N, h, w), or (h, w) for one) and run the fused encode (a
+    `FusedHTEncoder` or `FusedMQEncoder`). The stack holds one tile
+    position of N frames or N tiles of one image: a plan fixes every
+    shape and band step, so its tiles are interchangeable. Returns a
+    handle for encode_tile_collect; the outputs stay on the device until
+    then."""
     args = upload_tile(comps_data, encoder)
     return encoder.plan, args[0].shape[0], encoder(*args)
 
 
 def encode_tile_collect(handle) -> List[List]:
-    """Copy a submitted result to the host; returns per-frame segment
-    lists in t1-desc order (frames x nblocks): HT segment bytes, or MQ
-    (data, numbps, numpasses) tuples."""
+    """Copy a submitted result to the host; returns a segment list in
+    t1-desc order for each stacked tile, in stack order (N x nblocks): HT
+    segment bytes, or MQ (data, numbps, numpasses) tuples, under rate
+    control with each tile's own R-D pass tables."""
     plan, nframes, outs = handle
     outs = [t.cpu().numpy() for t in outs]
     if plan.coder == "mq":

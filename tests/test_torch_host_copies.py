@@ -9,7 +9,8 @@ T2; the digest files that `chip_smoke.py` checks the card's streams
 against (config 1 HT and MQ, config 2 rate-controlled 9/7) must equal
 digests made afresh with the reference host encoder, and the corpus
 decode digests (`corpus_decode.json`) and the per-image decode's
-(`window_decode.json`) its host decoder's; and the port's
+(`window_decode.json`) its host decoder's, and the per-image encode's
+(`image_encode.json`) its host encoder and codec's; and the port's
 MQ
 tables, quantization helpers, irreversible plans and QCDs, PCRD hull and
 allocator, T2 tile simulator and `PassInfo` must equal the reference's.
@@ -73,6 +74,7 @@ CIN_DIGESTS = os.path.join(DATA, "cinema_profiles.json")
 CORPUS_DIGESTS = os.path.join(DATA, "corpus_decode.json")
 CORPUS = os.path.join(REPO, "tests", "corpus")
 WIN_DIGESTS = os.path.join(DATA, "window_decode.json")
+IMG_ENC_DIGESTS = os.path.join(DATA, "image_encode.json")
 
 CASES = [
     ("gray", [natural_image(64, 64, seed=0)],
@@ -629,6 +631,59 @@ def test_window_decode_digest_file_is_current():
         assert json.load(f) == window_decode_digests()
 
 
+def image_encode_digests():
+    """SHA-256 of the small per-image encode frames
+    (`chip_smoke.image_encode_frames`) and of the reference host
+    encoder's streams of them (numpy DWT): `encoder.encode` at each
+    `chip_smoke.IMG_ENC_CASES` entry, `codec.compress` at each
+    `chip_smoke.IMG_COMPRESS` route, and `codec.Codec(preset=,
+    container=).compress_image` of the small gray frame at each preset
+    and container."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from grokimagecompression_tpu import codec as ref_codec
+    from grokimagecompression_tpu.codestream import markers as ref_markers
+    from grokimagecompression_tpu.core import params as ref_params
+
+    def sha(cs):
+        return hashlib.sha256(cs).hexdigest()
+
+    frames = chip_smoke.image_encode_frames()
+    ref = {k: _reference_image(im) for k, im in frames.items()}
+    with _numpy_dwt():
+        encode = {case: sha(ref_encoder.encode(
+            ref[frame], chip_smoke.image_encode_params(
+                ref_params, ref_markers.PocEntry, case), device=False))
+            for case, (frame, _) in chip_smoke.IMG_ENC_CASES.items()}
+        compress = {route: sha(ref_codec.compress(
+            chip_smoke.compress_array(frames, route), device=False, **opts))
+            for route, opts in chip_smoke.IMG_COMPRESS.items()}
+        presets = {f"{p}/{c}": sha(ref_codec.Codec(
+            preset=p, container=c, device=False).compress_image(
+                ref["small"]))
+            for p in ref_codec.PRESETS for c in ("j2k", "jp2")}
+    return {
+        "what": "grokimagecompression_tpu encoder.encode(device=False) of "
+                "chip_smoke.image_encode_frames() at each chip_smoke."
+                "IMG_ENC_CASES entry, codec.compress(device=False) of "
+                "chip_smoke.compress_array at each chip_smoke.IMG_COMPRESS "
+                "route, and codec.Codec(preset=, container=, device=False)"
+                ".compress_image of the small gray frame, numpy DWT "
+                "(dwt_host._get_native None, GROK_TPU_DWT=python); "
+                "tests/test_torch_host_copies.py writes it",
+        "frames": {k: chip_smoke.frame_digest(im) for k, im in frames.items()},
+        "encode": encode,
+        "compress": compress,
+        "presets": presets,
+    }
+
+
+def test_image_encode_digest_file_is_current():
+    with open(IMG_ENC_DIGESTS) as f:
+        assert json.load(f) == image_encode_digests()
+
+
 def test_cinema_profiles_digest_file_is_current():
     with open(CIN_DIGESTS) as f:
         assert json.load(f) == cinema_profiles_digests()
@@ -869,4 +924,7 @@ if __name__ == "__main__":
         f.write("\n")
     with open(WIN_DIGESTS, "w") as f:
         json.dump(window_decode_digests(), f, indent=1)
+        f.write("\n")
+    with open(IMG_ENC_DIGESTS, "w") as f:
+        json.dump(image_encode_digests(), f, indent=1)
         f.write("\n")

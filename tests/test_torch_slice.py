@@ -145,15 +145,10 @@ def test_out_of_slice_raises():
     for params in tuple(EncoderParams(cblk_style=s) for s in mq_styles) + (
                    EncoderParams(cblk_style=0, transform=Transform.DWT_97,
                                  custom_mct=np.eye(3).tolist()),
-                   EncoderParams(cblk_style=0, rates=(20.0,),
-                                 rate_alloc="global"),
                    EncoderParams(cblk_style=0, roi_comp=0, roi_shift=3),
                    EncoderParams(cblk_style=HT, ht_refinement=True)):
         with pytest.raises(NotImplementedError):
             _port_batch(imgs, params, device="cpu")
-    mixed = imgs + _frames(1, 16, 8)
-    with pytest.raises(NotImplementedError):
-        _port_batch(mixed, EncoderParams(cblk_style=HT), device="cpu")
 
 
 def test_cuda_request_without_cuda_raises():
