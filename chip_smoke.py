@@ -405,6 +405,124 @@ IMG_COMPRESS = {
     "psnr": {"psnr": 34.0}, "prec12": {"prec": 12},
     "tile_size": {"tile_size": (32, 32)},
 }
+# the command-line tools at small size (phase 21 (a)): the seeded inputs
+# of `cli_inputs` in every format the tools read (64 x 48; "@name" is a
+# path in the cases' directory), and the tool runs on them in order, each
+# (name, tool, arguments): grk_compress, grk_decompress and grk_dump, and
+# the files made between runs ("palette", "icc", "cielab": a JP2 file of
+# the stream named around a pclr / cmap box, an ICC colr box or the
+# CIELab colour space; "plt": the
+# library's stream of gray.pgm with PLT and TLM markers). Their outputs'
+# SHA-256, as the reference's tools write them, are in CLI_DIGESTS.
+CLI_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                           "cli.json")
+CLI_SIZE = (64, 48)
+CLI_RAW = {"g12.raw": "64,48,1,12,u", "sub.rawl": "64,48,3,8,u@1x1:2x2:2x2"}
+CLI_CASES = (
+    # grk_compress: the flag lines
+    ("lossless MQ", "compress", ["-i", "@gray.pgm", "-o", "@gray.j2k",
+                                 "-n", "4"]),
+    ("HT", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_ht.j2k", "-n", "4",
+                        "-M", "64"]),
+    ("9/7 rates", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_r.j2k", "-n",
+                               "4", "-I", "-r", "20,10"]),
+    ("PSNR layers", "compress", ["-i", "@gray.pgm", "-o", "@gray_q.j2k",
+                                 "-n", "4", "-I", "-q", "30,40"]),
+    ("tiles and offsets", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_t.j2k",
+                                       "-n", "3", "-t", "32,32", "-d", "5,3",
+                                       "-T", "2,1"]),
+    ("RPCL", "compress", ["-i", "@gray.pgm", "-o", "@gray_rpcl.j2k", "-n",
+                          "4", "-p", "RPCL"]),
+    ("SOP EPH", "compress", ["-i", "@gray.pgm", "-o", "@gray_se.j2k", "-n",
+                             "4", "-S", "-E"]),
+    ("tile-parts R", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_tp.j2k",
+                                  "-n", "3", "-t", "32,32", "-u", "R"]),
+    ("POC", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_poc.j2k", "-n", "4",
+                         "-P", "T0=0,0,1,3,3,CPRL/T0=3,0,1,4,3,LRCP"]),
+    ("precincts", "compress", ["-i", "@gray.pgm", "-o", "@gray_c.j2k", "-n",
+                               "4", "-c", "[32,32][16,16]"]),
+    ("blocks 32", "compress", ["-i", "@gray.pgm", "-o", "@gray_b.j2k", "-n",
+                               "4", "-b", "32,32"]),
+    ("global PCRD", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_g.j2k", "-n",
+                                 "3", "-I", "-r", "20", "-t", "32,32",
+                                 "--rate-alloc", "global"]),
+    ("JP2 resolutions", "compress", ["-i", "@rgb.ppm", "-o", "@rgb.jp2",
+                                     "-n", "4", "-Q", "2835,2835",
+                                     "--display-res", "3780,3780"]),
+    ("directory", "compress", ["-y", "@dir", "-O", "J2K", "-a", "@dir_j2k",
+                               "-n", "4", "-M", "64"]),
+    # grk_compress: every input format
+    ("in PGM 12-bit", "compress", ["-i", "@g12.pgm", "-o", "@g12.j2k", "-n",
+                                   "4", "-M", "64"]),
+    ("in PGX signed", "compress", ["-i", "@s12.pgx", "-o", "@s12.j2k", "-n",
+                                   "4"]),
+    ("in BMP", "compress", ["-i", "@rgb.bmp", "-o", "@bmp.j2k", "-n", "4"]),
+    ("in TGA", "compress", ["-i", "@rgb.tga", "-o", "@tga.j2k", "-n", "4",
+                            "-M", "64"]),
+    ("in PNG RGBA", "compress", ["-i", "@rgba.png", "-o", "@rgba.jp2", "-n",
+                                 "4"]),
+    ("in PNG 16", "compress", ["-i", "@rgb16.png", "-o", "@rgb16.j2k", "-n",
+                               "4", "-M", "64"]),
+    ("in TIFF LZW", "compress", ["-i", "@rgb_lzw.tif", "-o", "@lzw.j2k",
+                                 "-n", "4"]),
+    ("in TIFF LZW 16", "compress", ["-i", "@g16_lzw.tif", "-o",
+                                    "@lzw16.j2k", "-n", "4", "-M", "64"]),
+    ("in TIFF deflate", "compress", ["-i", "@rgb_zip.tif", "-o", "@zip.j2k",
+                                     "-n", "4", "-M", "64"]),
+    ("in TIFF deflate 16", "compress", ["-i", "@g16_zip.tif", "-o",
+                                        "@zip16.j2k", "-n", "4"]),
+    ("in raw", "compress", ["-i", "@g12.raw", "-o", "@raw.j2k", "-n", "4",
+                            "-F", CLI_RAW["g12.raw"]]),
+    ("in raw subsampled", "compress", ["-i", "@sub.rawl", "-o", "@sub.j2k",
+                                       "-n", "3", "-F", CLI_RAW["sub.rawl"]]),
+    ("in palette indices", "compress", ["-i", "@idx.pgm", "-o", "@idx.j2k",
+                                        "-n", "3"]),
+    ("palette JP2", "palette", ["@idx.j2k", "@pal.jp2"]),
+    ("ICC JP2", "icc", ["@rgb_ht.j2k", "@icc.jp2"]),
+    ("CIELab JP2", "cielab", ["@rgb_ht.j2k", "@lab.jp2"]),
+    ("PLT TLM stream", "plt", ["@gray.pgm", "@plt.j2k"]),
+    # grk_decompress: every output format, then the options
+    ("out PGM", "decompress", ["-i", "@gray.j2k", "-o", "@gray_o.pgm"]),
+    ("out PPM", "decompress", ["-i", "@rgb_ht.j2k", "-o", "@rgb_o.ppm"]),
+    ("out PGX", "decompress", ["-i", "@s12.j2k", "-o", "@s12_o.pgx"]),
+    ("out BMP", "decompress", ["-i", "@rgb_ht.j2k", "-o", "@rgb_o.bmp"]),
+    ("out TGA", "decompress", ["-i", "@rgb_ht.j2k", "-o", "@rgb_o.tga"]),
+    ("out PNG", "decompress", ["-i", "@rgb16.j2k", "-o", "@rgb16_o.png"]),
+    ("out TIFF", "decompress", ["-i", "@rgb_ht.j2k", "-o", "@rgb_o.tif"]),
+    ("out TIFF deflate", "decompress", ["-i", "@lzw16.j2k", "-o",
+                                        "@g16_o.tif", "-c", "8"]),
+    ("out raw", "decompress", ["-i", "@raw.j2k", "-o", "@g12_o.raw"]),
+    ("out raw subsampled", "decompress", ["-i", "@sub.j2k", "-o",
+                                          "@sub_o.rawl"]),
+    ("reduce", "decompress", ["-i", "@gray.j2k", "-o", "@r1.pgm", "-r",
+                              "1"]),
+    ("layers", "decompress", ["-i", "@rgb_r.j2k", "-o", "@l1.ppm", "-l",
+                              "1"]),
+    ("window", "decompress", ["-i", "@rgb_t.j2k", "-o", "@win.ppm", "-d",
+                              "10,8,50,40"]),
+    ("tile", "decompress", ["-i", "@rgb_t.j2k", "-o", "@t1.ppm", "-t",
+                            "1"]),
+    ("force RGB", "decompress", ["-i", "@gray.j2k", "-o", "@frgb.ppm",
+                                 "--force-rgb"]),
+    ("split PNM", "decompress", ["-i", "@rgb_poc.j2k", "-o", "@split.ppm",
+                                 "--split-pnm"]),
+    ("precision scale", "decompress", ["-i", "@gray_rpcl.j2k", "-o",
+                                       "@p10.pgm", "-p", "10S"]),
+    ("precision clip", "decompress", ["-i", "@gray_se.j2k", "-o",
+                                      "@p6.pgm", "-p", "6C"]),
+    ("upsample", "decompress", ["-i", "@sub.j2k", "-o", "@up.ppm",
+                                "--upsample"]),
+    ("palette", "decompress", ["-i", "@pal.jp2", "-o", "@pal_o.ppm"]),
+    ("cdef alpha", "decompress", ["-i", "@rgba.jp2", "-o", "@rgba_o.png"]),
+    ("ICC", "decompress", ["-i", "@icc.jp2", "-o", "@icc_o.ppm"]),
+    ("CIELab", "decompress", ["-i", "@lab.jp2", "-o", "@lab_o.ppm"]),
+    ("9/7 tiles", "decompress", ["-i", "@rgb_g.j2k", "-o", "@g_o.ppm"]),
+    ("directory decode", "decompress", ["-y", "@dir_j2k", "-a", "@dir_dec",
+                                        "-O", "pgm"]),
+    # grk_dump
+    ("dump", "dump", ["-i", "@plt.j2k", "-o", "@plt_dump.txt", "-m", "-p"]),
+    ("dump JP2", "dump", ["-i", "@rgb.jp2", "-o", "@jp2_dump.txt"]),
+)
 # the plain MQ coder's decisions allowed in the config-2 byte-out check
 # (~1.5 ms a decision on the card), and in the dense scan's check (which
 # also packs words each step)
@@ -647,6 +765,299 @@ def compress_array(frames, route):
     a = np.stack([c.data[:32, :40] for c in frames["rgb"].components],
                  axis=-1)
     return a << 4 if IMG_COMPRESS[route].get("prec") == 12 else a
+
+
+def cli_inputs(d):
+    """Write the seeded inputs of CLI_CASES into directory `d` with the
+    port's writers: 64 x 48 images, per component c a smooth wave (0.5 +
+    0.25 sin(y / (7 + 2c)) cos(x / 9)) x (2^prec - 1) plus normal noise
+    of sigma (2^prec - 1) / 64, clipped, from generators seeded 70-77:
+    gray.pgm, rgb.ppm, g12.pgm (12-bit), s12.pgx (signed 12-bit),
+    rgb.bmp, rgb.tga, rgba.png, rgb16.png, TIFF RGB 8-bit and gray 16-bit
+    in LZW (rgb_lzw.tif with the horizontal predictor) and deflate,
+    g12.raw (big endian), sub.rawl (4:2:0, little endian), idx.pgm
+    (palette indices 0-3) and dir/a.pgm, dir/b.pgm."""
+    import numpy as np
+
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+    from grokimagecompression_tpu_torch.io import (bmp, pgx, png, pnm, raw,
+                                                   tga, tiff)
+    w, h = CLI_SIZE
+    y = np.arange(h)[:, None]
+    x = np.arange(w)[None, :]
+
+    def image(seed, ncomps, prec=8, signed=False, alpha=False, sub=()):
+        rng = np.random.default_rng(seed)
+        top = (1 << prec) - 1
+        comps = []
+        for c in range(ncomps):
+            d = 2 if c in sub else 1
+            a = top * (0.5 + 0.25 * np.sin(y[::d] / (7.0 + 2 * c))
+                       * np.cos(x[:, ::d] / 9.0)) \
+                + rng.normal(0, top / 64.0, (-(-h // d), -(-w // d)))
+            a = a.clip(0, top).astype(np.int32)
+            comps.append(Component(
+                data=a - (1 << (prec - 1)) if signed else a, prec=prec,
+                signed=signed, dx=d, dy=d,
+                alpha=alpha and c == ncomps - 1))
+        return Image(xsiz=w, ysiz=h, components=comps)
+
+    def path(name):
+        return os.path.join(d, name)
+
+    os.makedirs(path("dir"), exist_ok=True)
+    gray, rgb = image(70, 1), image(71, 3)
+    pnm.write_pnm(path("gray.pgm"), gray)
+    pnm.write_pnm(path("rgb.ppm"), rgb)
+    pnm.write_pnm(path("g12.pgm"), image(72, 1, 12))
+    pgx.write_pgx(path("s12.pgx"), image(73, 1, 12, signed=True))
+    bmp.write_bmp(path("rgb.bmp"), rgb)
+    tga.write_tga(path("rgb.tga"), image(74, 3))
+    png.write_png(path("rgba.png"), image(75, 4, alpha=True))
+    png.write_png(path("rgb16.png"), image(76, 3, 16))
+    g16 = image(77, 1, 16)
+    tiff_file(path("rgb_lzw.tif"), [c.data for c in rgb.components], 8, 5,
+              predictor=2, rows_per_strip=16)
+    tiff_file(path("g16_lzw.tif"), [g16.components[0].data], 16, 5)
+    tiff.write_tiff(path("rgb_zip.tif"), rgb, compression=8)
+    tiff.write_tiff(path("g16_zip.tif"), g16, compression=8)
+    raw.write_raw(path("g12.raw"), image(72, 1, 12), big_endian=True)
+    raw.write_raw(path("sub.rawl"), image(78, 3, sub=(1, 2)),
+                  big_endian=False)
+    idx = np.random.default_rng(79).integers(0, 4, (h, w)).astype(np.int32)
+    pnm.write_pnm(path("idx.pgm"), Image(xsiz=w, ysiz=h, components=[
+        Component(data=idx, prec=8, signed=False, dx=1, dy=1)]))
+    pnm.write_pnm(path("dir/a.pgm"), gray)
+    pnm.write_pnm(path("dir/b.pgm"), Image(xsiz=w, ysiz=h, components=[
+        dataclasses.replace(gray.components[0],
+                            data=gray.components[0].data[::-1].copy())]))
+
+
+def lzw_encode(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes from 9 to 12 bits, the early code-width
+    change): CLEAR, the codes, a CLEAR each time the table fills, EOI."""
+    out = bytearray()
+    acc = nacc = 0
+
+    def emit(code, width):
+        nonlocal acc, nacc
+        acc = (acc << width) | code
+        nacc += width
+        while nacc >= 8:
+            nacc -= 8
+            out.append((acc >> nacc) & 0xFF)
+        acc &= (1 << nacc) - 1
+
+    def reset():
+        return {bytes([i]): i for i in range(256)}, 258, 9
+
+    # after the k-th code since a CLEAR the reader's table holds 257 + k
+    # entries (it adds one from its second code on), which is `nxt` before
+    # the writer adds the k-th entry; it widens its codes once its table
+    # holds 2^width - 1
+    table, nxt, width = reset()
+    emit(256, 9)
+    w = b""
+    for c in data:
+        wc = w + bytes([c])
+        if wc in table:
+            w = wc
+            continue
+        emit(table[w], width)
+        if nxt >= (1 << width) - 1 and width < 12:
+            width += 1
+        table[wc] = nxt
+        nxt += 1
+        w = bytes([c])
+        if nxt >= 4093:
+            emit(256, width)
+            table, nxt, width = reset()
+    if w:
+        emit(table[w], width)
+        if nxt >= (1 << width) - 1 and width < 12:
+            width += 1
+    emit(257, width)
+    if nacc:
+        out.append((acc << (8 - nacc)) & 0xFF)
+    return bytes(out)
+
+
+def packbits_encode(data: bytes) -> bytes:
+    """PackBits: runs of 3-128 equal bytes as a repeat, the rest as
+    literal runs of up to 128 bytes."""
+    out = bytearray()
+    i, n = 0, len(data)
+    lit = bytearray()
+
+    def flush():
+        for k in range(0, len(lit), 128):
+            part = lit[k:k + 128]
+            out.append(len(part) - 1)
+            out.extend(part)
+        lit.clear()
+
+    while i < n:
+        j = i
+        while j < n and j - i < 128 and data[j] == data[i]:
+            j += 1
+        if j - i >= 3:
+            flush()
+            out += bytes([257 - (j - i), data[i]])
+            i = j
+        else:
+            lit.append(data[i])
+            i += 1
+    flush()
+    return bytes(out)
+
+
+def tiff_file(path, planes, bps, compression, predictor=1,
+              rows_per_strip=None, big_endian=False):
+    """Write a chunky striped TIFF of `planes` (arrays of one shape) at 8
+    or 16 bits: uncompressed (1), LZW (5), deflate (8, 32946) or
+    PackBits (32773), with the horizontal predictor (2) or none (1)."""
+    import struct
+    import zlib
+
+    import numpy as np
+    e = ">" if big_endian else "<"
+    a = np.stack(planes, axis=-1).astype(
+        np.dtype(np.uint16).newbyteorder(e) if bps == 16 else np.uint8)
+    if predictor == 2:
+        a = a.copy()
+        a[:, 1:] = a[:, 1:] - a[:, :-1]
+    h, w, spp = a.shape
+    rps = rows_per_strip or h
+    code = {1: bytes, 5: lzw_encode, 8: zlib.compress, 32946: zlib.compress,
+            32773: packbits_encode}[compression]
+    strips = [code(a[y:y + rps].tobytes()) for y in range(0, h, rps)]
+    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bps] * spp),
+            (259, 3, [compression]), (262, 3, [2 if spp >= 3 else 1]),
+            (273, 4, [0] * len(strips)), (277, 3, [spp]), (278, 4, [rps]),
+            (279, 4, [len(s) for s in strips]), (317, 3, [predictor])]
+    heap_base = 8 + 2 + 12 * len(tags) + 4
+
+    def ifd(offsets):
+        ents, heap = b"", bytearray()
+        for tag, typ, vals in tags:
+            vals = offsets if tag == 273 else vals
+            pay = struct.pack(e + f"{len(vals)}{'H' if typ == 3 else 'I'}",
+                              *vals)
+            if len(pay) <= 4:
+                ents += struct.pack(e + "HHI", tag, typ, len(vals)) \
+                    + pay.ljust(4, b"\0")
+            else:
+                ents += struct.pack(e + "HHII", tag, typ, len(vals),
+                                    heap_base + len(heap))
+                heap += pay
+        return ents, heap
+
+    _, heap = ifd([0] * len(strips))
+    offs, pos = [], heap_base + len(heap)
+    for st in strips:
+        offs.append(pos)
+        pos += len(st)
+    ents, heap = ifd(offs)
+    with open(path, "wb") as f:
+        f.write((b"MM" if big_endian else b"II")
+                + struct.pack(e + "HIH", 42, 8, len(tags)) + ents
+                + struct.pack(e + "I", 0) + bytes(heap) + b"".join(strips))
+
+
+def icc_profile() -> bytes:
+    """A matrix-shaper RGB ICC profile (D50 primaries of sRGB, gamma 2.2
+    tone curves), as `tests/test_icc.make_profile` builds one."""
+    import struct
+
+    def xyz(v):
+        return b"XYZ " + b"\0" * 4 + b"".join(
+            struct.pack(">i", int(round(t * 65536))) for t in v)
+    curv = b"curv" + b"\0" * 4 + struct.pack(">IH", 1, int(round(2.2 * 256)))
+    tags = [(b"wtpt", xyz((0.9642, 1.0, 0.8249))),
+            (b"rXYZ", xyz((0.4361, 0.2225, 0.0139))),
+            (b"gXYZ", xyz((0.3851, 0.7169, 0.0971))),
+            (b"bXYZ", xyz((0.1431, 0.0606, 0.7141))),
+            (b"rTRC", curv), (b"gTRC", curv), (b"bTRC", curv)]
+    off = 128 + 4 + 12 * len(tags)
+    table, body = struct.pack(">I", len(tags)), b""
+    for sig, pay in tags:
+        table += struct.pack(">4sII", sig, off + len(body), len(pay))
+        body += pay + b"\0" * (-len(pay) % 4)
+    hdr = struct.pack(">I", 128 + len(table) + len(body)) + b"lcms" \
+        + struct.pack(">I", 0x02400000) + b"mntrRGB XYZ " \
+        + struct.pack(">6H", 2024, 1, 1, 0, 0, 0) + b"acsp"
+    hdr += b"\0" * (68 - len(hdr)) + xyz((0.9642, 1.0, 0.8249))[8:]
+    return hdr.ljust(128, b"\0") + table + body
+
+
+def cli_jp2(kind, cs: bytes, w: int, h: int, ncomps: int) -> bytes:
+    """A JP2 file of the 8-bit codestream `cs` whose colour is told by
+    `kind`: "palette" (a 4-entry RGB pclr and its cmap over component 0),
+    "icc" (an ICC colr box, `icc_profile`) or "cielab" (enumerated
+    colour space 14 with its default parameters)."""
+    import struct
+
+    def box(t, payload):
+        return struct.pack(">I", 8 + len(payload)) + t + payload
+    hdr = box(b"ihdr", struct.pack(">IIHBBBB", h, w, ncomps, 7, 7, 0, 0))
+    if kind == "palette":
+        pal = ((255, 0, 0), (0, 255, 0), (0, 0, 255), (255, 255, 0))
+        hdr += box(b"colr", struct.pack(">BBBI", 1, 0, 0, 16))
+        hdr += box(b"pclr", struct.pack(">HB", 4, 3) + bytes([7, 7, 7])
+                   + bytes(v for e in pal for v in e))
+        hdr += box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, k)
+                                     for k in range(3)))
+    elif kind == "icc":
+        hdr += box(b"colr", struct.pack(">BBB", 2, 0, 0) + icc_profile())
+    else:
+        hdr += box(b"colr", struct.pack(">BBBI", 1, 0, 0, 14))
+    return (b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+            + box(b"ftyp", b"jp2 " + struct.pack(">I", 0) + b"jp2 ")
+            + box(b"jp2h", hdr) + box(b"jp2c", cs))
+
+
+def run_cli_cases(d, tools, extra=(), plt_stream=None, cases=CLI_CASES):
+    """Run `cases` (CLI_CASES entries) in directory `d` (its inputs
+    written by `cli_inputs`) with `tools`, a dict of the "compress",
+    "decompress" and "dump" modules (the port's, or in the tests the
+    reference's), `extra` arguments appended to compress and decompress
+    runs (the port's --torch-device), and `plt_stream(path)`, the
+    library's stream of a PGM file with PLT and TLM markers. Each run must
+    exit 0. Returns {case: {file made by the run: SHA-256}}."""
+    def files():
+        return {os.path.relpath(os.path.join(r, f), d)
+                for r, _, fs in os.walk(d) for f in fs}
+
+    def path(a):
+        return os.path.join(d, a[1:]) if a.startswith("@") else a
+
+    out = {}
+    for name, tool, argv in cases:
+        before = files()
+        args = [path(a) for a in argv]
+        if tool in ("palette", "icc", "cielab"):
+            with open(args[0], "rb") as f:
+                cs = f.read()
+            w, h = CLI_SIZE
+            with open(args[1], "wb") as f:
+                f.write(cli_jp2(tool, cs, w, h, 1 if tool == "palette"
+                                else 3))
+        elif tool == "plt":
+            with open(args[1], "wb") as f:
+                f.write(plt_stream(args[0]))
+        else:
+            rc = tools[tool].main(args + (list(extra) if tool != "dump"
+                                          else []))
+            if rc != 0:
+                raise AssertionError(f"CLI case {name!r}: exit code {rc}")
+        made = sorted(files() - before)
+        if not made:
+            raise AssertionError(f"CLI case {name!r} wrote no file")
+        out[name] = {}
+        for rel in made:
+            with open(os.path.join(d, rel), "rb") as f:
+                out[name][rel] = hashlib.sha256(f.read()).hexdigest()
+    return out
 
 
 def cinema_sets():
@@ -3475,7 +3886,9 @@ def full_case(case, img, params, dev, card):
     image's decode at the same reduction, every tile the tile's crop, and
     on S1 the whole decode equals the source and each reduced decode the
     LL of the port's forward DWT of each tile. Returns the launches of
-    the requests' first runs by LAUNCHES key, and the stream."""
+    the requests' first runs by LAUNCHES key, the stream, and the
+    `plane_md5` of the whole decode, of reduce 2 and of W1 (phase 21's
+    checks)."""
     import numpy as np
     import torch
 
@@ -3626,7 +4039,11 @@ def full_case(case, img, params, dev, card):
           f"whole decode; {1e3 * best / len(wins):.1f} ms a request (best "
           f"of 3 of the set), {len(wins) * side * side / 1e6 / best:.2f} "
           f"MP/s out on {card}")
-    return launches, cs
+    refs = {"full": plane_md5(out["full"]), "W1": plane_md5(out["W1"]),
+            "reduce 2": hashlib.md5(b"".join(
+                np.ascontiguousarray(a).tobytes() for a in whole[2]))
+            .hexdigest()}
+    return launches, cs, refs
 
 
 def reduced_dwt_check(dev, results):
@@ -3701,17 +4118,19 @@ def window_phase(dev, card, results):
     of windows, reduced resolutions, single tiles and layer limits: the
     small-size requests against WIN_DIGESTS, S1 and S2 at full size, and
     the reduced inverse DWT against its plain version. Returns the
-    launches of the full-size requests' first runs by LAUNCHES key, and
-    S1's and S2's `encode_batch([img])` streams by name."""
+    launches of the full-size requests' first runs by LAUNCHES key,
+    S1's and S2's `encode_batch([img])` streams by name, and the digests
+    of S1's whole, reduce-2 and W1 decodes (`full_case`)."""
     window_small_check(dev)
     s1, s2 = s1_frame(), s2_frame()
     reduced_dwt_check(dev, results)
-    launches, s1_cs = full_case(FULL_CASES[0], s1, full_params("S1"), dev,
-                                card)
+    launches, s1_cs, s1_refs = full_case(FULL_CASES[0], s1,
+                                         full_params("S1"), dev, card)
     del s1
-    more, s2_cs = full_case(FULL_CASES[1], s2, full_params("S2"), dev, card)
+    more, s2_cs, _ = full_case(FULL_CASES[1], s2, full_params("S2"), dev,
+                               card)
     return ({k: launches[k] + more[k] for k in launches},
-            {"S1": s1_cs, "S2": s2_cs})
+            {"S1": s1_cs, "S2": s2_cs}, s1_refs)
 
 
 @contextlib.contextmanager
@@ -4199,6 +4618,330 @@ def image_encode_phase(mixed, batch_streams, c1_imgs, c2_imgs, dev, card):
     return launches
 
 
+@contextlib.contextmanager
+def cli_counts(launches, what, want):
+    """Inside a `with` block every kernel's launch count set to 0 and the
+    plain versions of the encode and decode routes counted
+    (`encode_counts`, `decode_counts`); after it, fail unless every kernel
+    of `want` was launched, no plain version ran and the host prepass was
+    not called, and add the launches to `launches` by LAUNCHES key."""
+    from grokimagecompression_tpu_torch.native import ht_prepass
+    from grokimagecompression_tpu_torch.ops import (dwt, ht_dec, ht_enc,
+                                                    mq_dec, mq_scan)
+    with encode_counts() as enc_plain, decode_counts() as dec_plain:
+        yield
+    counts = {"enc": ht_enc.LAUNCHES["enc"], "mq": mq_scan.LAUNCHES["mq"],
+              "dwt": dwt.LAUNCHES["dwt"], "dec": ht_dec.LAUNCHES["dec"],
+              "mq_dec": mq_dec.LAUNCHES["mq_dec"]}
+    if any(c.n for c in enc_plain + dec_plain) or ht_prepass.CALLS["prepass"]:
+        raise AssertionError(f"{what}: a plain version ran or the host "
+                             f"prepass was called")
+    if any(counts[k] < 1 for k in want):
+        raise AssertionError(f"{what}: a kernel of {want} was not launched "
+                             f"({counts})")
+    for k, v in counts.items():
+        launches[k] += v
+
+
+def tool_run(tool, argv, timers):
+    """One run of a CLI tool's `main(argv)` with `timers` = (stages,
+    inner), each {name: Timed (sync off)}: the stages of the run and the
+    stages inside its library call. Returns (seconds, {stage: seconds},
+    {inner stage: seconds}), the stages' "rest" the seconds outside them
+    (argument parsing, the stream's file write or read, the colour
+    policy). Fails unless it exits 0."""
+    import torch
+    outer, inner = timers
+    for t in list(outer.values()) + list(inner.values()):
+        t.calls.clear()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for t in list(outer.values()) + list(inner.values()):
+            stack.enter_context(t)
+        rc = tool.main(list(argv))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"{tool.__name__} {argv}: exit code {rc}")
+    stages = {k: t.total() for k, t in outer.items()}
+    stages["rest"] = sec - sum(stages.values())
+    inner_s = {k: t.total() for k, t in inner.items()}
+    for t in list(outer.values()) + list(inner.values()):
+        t.calls.clear()
+    return sec, stages, inner_s
+
+
+def fmt_stages(stages, inner):
+    """The stages of `tool_run`, the library call's inside parentheses."""
+    return ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()) + \
+        " (the library call: " + ", ".join(
+            f"{k} {v:.3f} s" for k, v in inner.items()) + ")"
+
+
+def cli_phase(c1_imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card):
+    """Phase 21: the command-line tools (`cli.compress`, `cli.decompress`,
+    `cli.dump`, run in this process through their `main`) on the card,
+    every file in a temporary directory removed afterwards: (a) every
+    CLI_CASES entry on `cli_inputs` against CLI_DIGESTS, and a flag the
+    port does not code (-R) ending non-zero with no file; (b) config 1's
+    64 frames as PGM files through directory mode with HT and with MQ,
+    each stream against its digest file, decoded back to the sources, and
+    config 2's 4 frames as PPM files at ratios 24 / 48 / 96 against
+    config2_pcrd_97.json, decoded to the host decoder's pixels, frame 0
+    also to PNG and to a deflate TIFF read back equal; seconds, MP/s and
+    stages beside `bench` (encode_batch / decode_batch MP/s of phases 4-9
+    on the same frames); (c) S1 as a 16-bit PGM through grk_compress,
+    equal to `s1_cs` (phase 19's stream, which phase 20's `encode` equals),
+    and its whole, reduce-2 and W1 decodes through grk_decompress equal
+    to `s1_refs` (phase 19's outputs), each step's file I/O and library
+    call timed. No plain version runs. Returns the launches by LAUNCHES
+    key."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from grokimagecompression_tpu_torch.cli import (common, compress,
+                                                    decompress, dump)
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.core.params import EncoderParams
+    from grokimagecompression_tpu_torch.io import png, pnm, tiff
+    from grokimagecompression_tpu_torch.models import fused_decode, fused_encode
+    t_phase = time.perf_counter()
+    launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
+    on_card = ["--torch-device", str(dev)]
+    enc_timers = (
+        {"file read": Timed(common, "read_image", sync=False),
+         "encoder.encode": Timed(encoder, "encode", sync=False)},
+        {"plans and coders": Timed(encoder, "_tile_encoders", sync=False),
+         "upload and device submit": Timed(fused_encode,
+                                           "encode_tile_submit", sync=False),
+         "fetch and host slice": Timed(fused_encode, "encode_tile_collect",
+                                       sync=False),
+         "T2 and stream": Timed(encoder, "write_codestream", sync=False)})
+    dec_timers = (
+        {"decoder.decode": Timed(decoder, "decode", sync=False),
+         "file write": Timed(common, "write_image", sync=False)},
+        {"T2": Timed(decoder, "_parse_frame", sync=False),
+         "lane packing": Timed(fused_decode, "prepare_chunk", sync=False),
+         "upload": Timed(fused_decode, "upload", sync=False),
+         "device decode": Timed(fused_decode._FusedDecoder, "forward",
+                                sync=False),
+         "fetch": Timed(fused_decode, "decode_tiles_collect", sync=False)})
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        # (a) the small cases, bytes only
+        d = os.path.join(tmp, "small")
+        os.makedirs(d)
+        cli_inputs(d)
+        with open(CLI_DIGESTS) as f:
+            want = json.load(f)
+        got = {}
+        for r, _, fs in os.walk(d):
+            for name in fs:
+                with open(os.path.join(r, name), "rb") as f:
+                    got[os.path.relpath(os.path.join(r, name), d)] = \
+                        hashlib.sha256(f.read()).hexdigest()
+        if got != want["inputs"]:
+            raise AssertionError("the CLI inputs differ from the digest "
+                                 "file's: numpy makes other inputs here")
+
+        def plt_stream(path):
+            return encoder.encode(pnm.read_pnm(path), EncoderParams(
+                numresolutions=3, tile_size=(32, 32), plt_markers=True,
+                tlm_markers=True), device=dev)
+        t0 = time.perf_counter()
+        with cli_counts(launches, "phase 21 (a)",
+                        ("enc", "mq", "dwt", "dec", "mq_dec")):
+            got = run_cli_cases(d, {"compress": compress,
+                                    "decompress": decompress,
+                                    "dump": dump}, extra=on_card,
+                                plt_stream=plt_stream)
+        bad = sorted(k for k in set(got) | set(want["cases"])
+                     if got.get(k) != want["cases"].get(k))
+        if bad:
+            raise AssertionError(f"CLI cases {bad} differ from the reference "
+                                 f"tools' outputs")
+        roi = os.path.join(d, "roi.j2k")
+        try:
+            compress.main(["-i", os.path.join(d, "gray.pgm"), "-o", roi,
+                           "-R", "c=0,U=4"] + on_card)
+            raise AssertionError("grk_compress -R exited 0")
+        except SystemExit as e:
+            if e.code != 1 or os.path.exists(roi):
+                raise AssertionError(f"grk_compress -R: exit {e.code}, file "
+                                     f"written: {os.path.exists(roi)}")
+        print(f"phase 21 (a): {len(got)} tool runs on {len(want['inputs'])} "
+              f"seeded inputs equal the reference tools' outputs "
+              f"({sum(len(v) for v in got.values())} files) in "
+              f"{time.perf_counter() - t0:.1f} s; -R exits 1 with no file; "
+              f"launches {launches} on {card}")
+
+        # (b) the BASELINE frames through directory mode
+        c1_in = os.path.join(tmp, "c1")
+        os.makedirs(c1_in)
+        for i, im in enumerate(c1_imgs):
+            pnm.write_pnm(os.path.join(c1_in, f"f{i:02d}.pgm"), im)
+        mpix = len(c1_imgs) * SIZE * SIZE / 1e6
+        for label, flags, path, kernel, dkernel in (
+                ("HT", ["-M", "64"], DIGESTS, "enc", "dec"),
+                ("MQ", [], MQ_DIGESTS, "mq", "mq_dec")):
+            with open(path) as f:
+                streams = json.load(f)["streams"]
+            out = os.path.join(tmp, f"c1_{label}")
+            with cli_counts(launches, f"phase 21 config-1 {label} compress",
+                            (kernel, "dwt")):
+                sec, stages, inner = tool_run(compress, [
+                    "-y", c1_in, "-O", "J2K", "-a", out, "-n", "6", "-C",
+                    "grokimagecompression_tpu"] + flags + on_card,
+                    enc_timers)
+            for i in range(len(c1_imgs)):
+                with open(os.path.join(out, f"f{i:02d}.j2k"), "rb") as f:
+                    if hashlib.sha256(f.read()).hexdigest() != streams[i]:
+                        raise AssertionError(f"grk_compress config-1 "
+                                             f"{label} frame {i}: stream "
+                                             f"differs from the digest file")
+            print(f"grk_compress -y (config 1, {label}, "
+                  f"{len(c1_imgs)} frames): streams equal {path}; "
+                  f"{sec:.3f} s, {mpix / sec:.2f} MP/s beside encode_batch's "
+                  f"{bench[f'config-1 {label} encode_batch']:.2f}; stages "
+                  f"{fmt_stages(stages, inner)} on {card}")
+            dec = os.path.join(tmp, f"c1_{label}_dec")
+            with cli_counts(launches, f"phase 21 config-1 {label} "
+                            f"decompress", (dkernel, "dwt")):
+                sec, stages, inner = tool_run(decompress, [
+                    "-y", out, "-a", dec, "-O", "pgm"] + on_card, dec_timers)
+            for i, im in enumerate(c1_imgs):
+                back = pnm.read_pnm(os.path.join(dec, f"f{i:02d}.pgm"))
+                if not np.array_equal(back.components[0].data,
+                                      im.components[0].data):
+                    raise AssertionError(f"grk_decompress config-1 {label} "
+                                         f"frame {i}: not the source")
+            print(f"grk_decompress -y (config 1, {label}): the sources; "
+                  f"{sec:.3f} s, {mpix / sec:.2f} MP/s beside decode_batch's "
+                  f"{bench[f'config-1 {label} decode_batch']:.2f}; stages "
+                  f"{fmt_stages(stages, inner)} on {card}")
+            shutil.rmtree(out)
+            shutil.rmtree(dec)
+        shutil.rmtree(c1_in)
+
+        c2_in = os.path.join(tmp, "c2")
+        os.makedirs(c2_in)
+        for i, im in enumerate(c2_imgs):
+            pnm.write_pnm(os.path.join(c2_in, f"f{i}.ppm"), im)
+        c2_mpix = len(c2_imgs) * C2_SIZE * C2_SIZE / 1e6
+        with open(C2_DIGESTS) as f:
+            streams = json.load(f)["streams"]
+        with open(C2_DEC_DIGESTS) as f:
+            decoded = json.load(f)["decoded"]
+        out = os.path.join(tmp, "c2_j2k")
+        with cli_counts(launches, "phase 21 config-2 compress",
+                        ("mq", "dwt")):
+            sec, stages, inner = tool_run(compress, [
+                "-y", c2_in, "-O", "J2K", "-a", out, "-n", "6", "-I", "-r",
+                "24,48,96", "-C", "grokimagecompression_tpu"] + on_card,
+                enc_timers)
+        for i in range(len(c2_imgs)):
+            with open(os.path.join(out, f"f{i}.j2k"), "rb") as f:
+                if hashlib.sha256(f.read()).hexdigest() != streams[i]:
+                    raise AssertionError(f"grk_compress config-2 frame {i}: "
+                                         f"stream differs from the digest "
+                                         f"file")
+        print(f"grk_compress -y (config 2, -I -r 24,48,96, {len(c2_imgs)} "
+              f"frames): streams equal {C2_DIGESTS}; {sec:.3f} s, "
+              f"{c2_mpix / sec:.2f} MP/s beside encode_batch's "
+              f"{bench['config-2 encode_batch']:.2f} (2-frame chunks); "
+              f"stages {fmt_stages(stages, inner)} on {card}")
+        dec = os.path.join(tmp, "c2_dec")
+        with cli_counts(launches, "phase 21 config-2 decompress",
+                        ("mq_dec", "dwt")):
+            sec, stages, inner = tool_run(decompress, [
+                "-y", out, "-a", dec, "-O", "ppm"] + on_card, dec_timers)
+        for i in range(len(c2_imgs)):
+            back = pnm.read_pnm(os.path.join(dec, f"f{i}.ppm"))
+            if frame_digest(back) != decoded[i]:
+                raise AssertionError(f"grk_decompress config-2 frame {i}: "
+                                     f"not the host decoder's pixels")
+            if i == 0:
+                frame0 = back
+        print(f"grk_decompress -y (config 2): the host decoder's pixels; "
+              f"{sec:.3f} s, {c2_mpix / sec:.2f} MP/s beside decode_batch's "
+              f"{bench['config-2 decode_batch']:.2f}; stages "
+              f"{fmt_stages(stages, inner)} on {card}")
+        for name, extra, read in (("f0.png", [], png.read_png),
+                                  ("f0.tif", ["-c", "8"], tiff.read_tiff)):
+            dst = os.path.join(tmp, name)
+            with cli_counts(launches, f"phase 21 config-2 {name}",
+                            ("mq_dec", "dwt")):
+                sec, stages, inner = tool_run(decompress, [
+                    "-i", os.path.join(out, "f0.j2k"), "-o", dst] + extra
+                    + on_card, dec_timers)
+            back = read(dst)
+            if frame_digest(back) != frame_digest(frame0):
+                raise AssertionError(f"grk_decompress config-2 frame 0 to "
+                                     f"{name}: read back differs")
+            print(f"grk_decompress config-2 frame 0 to {name} "
+                  f"{' '.join(extra)}: read back equal; {sec:.3f} s, stages "
+                  f"{fmt_stages(stages, inner)}")
+        shutil.rmtree(c2_in)
+        del frame0
+
+        # (c) S1 through the tools
+        s1 = s1_frame()
+        src = os.path.join(tmp, "s1.pgm")
+        t0 = time.perf_counter()
+        pnm.write_pnm(src, s1)
+        write_s = time.perf_counter() - t0
+        j2k = os.path.join(tmp, "s1.j2k")
+        with cli_counts(launches, "phase 21 S1 compress", ("enc", "dwt")):
+            sec, stages, inner = tool_run(compress, [
+                "-i", src, "-o", j2k, "-n", "6", "-M", "64", "-t",
+                f"{S1_TILE},{S1_TILE}", "-C", "grokimagecompression_tpu"]
+                + on_card, enc_timers)
+        with open(j2k, "rb") as f:
+            if f.read() != s1_cs:
+                raise AssertionError("grk_compress of S1 differs from phase "
+                                     "19's and 20's stream")
+        mp = S1_SIZE * S1_SIZE / 1e6
+        print(f"S1 ({S1_SIZE}^2 12-bit, {os.path.getsize(src)} B PGM written "
+              f"in {write_s:.3f} s): grk_compress -n 6 -M 64 -t "
+              f"{S1_TILE},{S1_TILE} equals phase 19's and 20's stream "
+              f"({len(s1_cs)} B); {sec:.3f} s, {mp / sec:.2f} MP/s; stages "
+              f"{fmt_stages(stages, inner)} on {card}")
+        w1 = FULL_CASES[0][3]
+        for label, extra in (("full", []), ("reduce 2", ["-r", "2"]),
+                             ("W1", ["-d", ",".join(map(str, w1))])):
+            dst = os.path.join(tmp, "s1_out.pgm")
+            with cli_counts(launches, f"phase 21 S1 decompress {label}",
+                            ("dec",) + (("dwt",) if label != "W1" else ())):
+                sec, stages, inner = tool_run(decompress, [
+                    "-i", j2k, "-o", dst] + extra + on_card, dec_timers)
+            t0 = time.perf_counter()
+            back = pnm.read_pnm(dst)
+            read_s = time.perf_counter() - t0
+            if plane_md5(back) != s1_refs[label]:
+                raise AssertionError(f"grk_decompress of S1 ({label}) "
+                                     f"differs from phase 19's output")
+            if label == "full" and not np.array_equal(
+                    back.components[0].data, s1.components[0].data):
+                raise AssertionError("grk_decompress of S1 is not the "
+                                     "source")
+            c0 = back.components[0].data
+            print(f"S1 grk_decompress {label} ({c0.shape[1]}x{c0.shape[0]} "
+                  f"out): equals phase 19's output"
+                  f"{' and the source' if label == 'full' else ''}; "
+                  f"{sec:.3f} s; stages {fmt_stages(stages, inner)}; read back "
+                  f"{read_s:.3f} s on {card}")
+            os.unlink(dst)
+            del back
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phase 21 (the command-line tools): "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}; launches "
+          f"{launches}")
+    return launches
+
+
 def best_of(n, fn):
     import torch
     best = float("inf")
@@ -4379,6 +5122,7 @@ def main() -> int:
         imgs, params, device="cuda", chunk=CHUNK))
     print(f"encode_batch: {mpix / best:.2f} MP/s (best of 3, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
+    bench = {"config-1 HT encode_batch": mpix / best}
     encode_stages(enc, chunk)
     stages = encode_stages(enc, chunk)
     fwd_ms = cuda_ms(lambda: enc(chunk), 3)
@@ -4418,6 +5162,7 @@ def main() -> int:
                                                    chunk=CHUNK))
     print(f"decode_batch: {mpix / best:.2f} MP/s (best of 3, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
+    bench["config-1 HT decode_batch"] = mpix / best
     decode_stages(out[:CHUNK], dev, "lane packing (host)")
     stages = decode_stages(out[:CHUNK], dev, "lane packing (host)")
     print(f"one {CHUNK}-frame decode chunk by stage (host clock, "
@@ -4459,6 +5204,7 @@ def main() -> int:
         imgs, mq_params, device="cuda", chunk=CHUNK))
     print(f"encode_batch (MQ): {mpix / best:.2f} MP/s (best of 3, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
+    bench["config-1 MQ encode_batch"] = mpix / best
     mq_encode_stages(mq_enc, chunk, imgs, mq_params)
     stages = mq_encode_stages(mq_enc, chunk, imgs, mq_params)
     print(f"one {CHUNK}-frame MQ encode chunk by stage (host clock, "
@@ -4493,6 +5239,7 @@ def main() -> int:
                                                    chunk=CHUNK))
     print(f"decode_batch (MQ): {mpix / best:.2f} MP/s (best of 3, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
+    bench["config-1 MQ decode_batch"] = mpix / best
     decode_stages(out[:CHUNK], dev, "lane packing (host)")
     stages = decode_stages(out[:CHUNK], dev, "lane packing (host)")
     print(f"one {CHUNK}-frame MQ decode chunk by stage (host clock, "
@@ -4540,6 +5287,7 @@ def main() -> int:
         c2_imgs, c2_params, device="cuda", chunk=C2_CHUNK))
     print(f"encode_batch (config 2): {c2_mpix / best:.2f} MP/s (best of 3, "
           f"{best:.3f} s for {C2_FRAMES} frames) on {card}")
+    bench["config-2 encode_batch"] = c2_mpix / best
     chunk2 = c2_chunk(0, C2_CHUNK)
     c2_encode_stages(c2_enc, chunk2, c2_imgs, c2_params, c2_siz, c2_cod,
                      c2_qcd, c2_tr)
@@ -4584,6 +5332,7 @@ def main() -> int:
           f"{best:.3f} s for {C2_FRAMES} frames) on {card}; peak device "
           f"memory {dec_peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
           f"before")
+    bench["config-2 decode_batch"] = c2_mpix / best
     c2_decode_stages(out, dev)
     stages = c2_decode_stages(out, dev)
     print(f"one {C2_FRAMES}-frame config-2 decode chunk by stage (host "
@@ -4664,22 +5413,26 @@ def main() -> int:
     gate_c1_phase(imgs, dev, card)
     corpus_phase(c2_imgs[0], dev, card)
     cinema = cinema_phase(dev, card, results)
-    windows, full_streams = window_phase(dev, card, results)
+    windows, full_streams, s1_refs = window_phase(dev, card, results)
     image_enc = image_encode_phase(mixed, full_streams, imgs, c2_imgs, dev,
                                    card)
+    s1_cs = full_streams["S1"]
     del mixed, full_streams
+    tools = cli_phase(imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card)
+    del s1_cs
 
     calls["mq_dense"] = launches["mq_dense"]
     for key, n in (list(cinema.items()) + list(windows.items())
-                   + list(image_enc.items())):
+                   + list(image_enc.items()) + list(tools.items())):
         calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
           f"whole config-2 forward transforms) plus the launches of phase "
           f"18's cinema encodes and decodes ({cinema}), of phase 19's "
-          f"full-size requests ({windows}) and of phase 20's encodes and "
-          f"decodes ({image_enc}): {calls}; all launches of the config-1 "
-          f"and config-2 runs: {launches}")
+          f"full-size requests ({windows}), of phase 20's encodes and "
+          f"decodes ({image_enc}) and of phase 21's tool runs ({tools}): "
+          f"{calls}; all launches of the config-1 and config-2 runs: "
+          f"{launches}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=calls[key],

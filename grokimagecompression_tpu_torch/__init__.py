@@ -22,7 +22,9 @@ points, the per-image decode `codestream.decoder.decode` (windows,
 reduced resolutions, single tiles, layer limits), the per-image encode
 `codestream.encoder.encode` (the tiles of one plan coded together), and
 the codec API `codec` (`compress`, `compress_batch`, `Codec`, `PRESETS`,
-`decompress`, `decompress_batch`).
+`decompress`, `decompress_batch`), and the command-line tools `cli`
+(grk_compress, grk_decompress, grk_dump, compare) with the image file
+readers and writers and the decode's colour policy `io`.
 """
 
 __all__ = ["codec"]

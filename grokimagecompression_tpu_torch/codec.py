@@ -153,13 +153,18 @@ def compress(array: np.ndarray, *, lossless: bool = True,
 
 def compress_batch(arrays: Sequence[np.ndarray], *, prec: int = 8,
                    container: str = "j2k", device: DeviceLike = "cuda",
-                   **kwargs) -> List[bytes]:
+                   workers: int = 0, **kwargs) -> List[bytes]:
     """Compress a batch of arrays, in order, with `compress`'s options;
     each stream equals `compress` of its array alone. Untiled arrays of
     one shape encode together through `encoder.encode_batch` (stacked on
     the device a chunk at a time); an array alone or in more than one
     tile goes through `encoder.encode`, which stacks the image's
-    same-plan tiles (`encode_batch` would launch once a tile position)."""
+    same-plan tiles (`encode_batch` would launch once a tile position).
+
+    `workers` is accepted as the reference's is (its thread pool of
+    per-image host encodes) and unused: the device codes a batch in one
+    call, and the only host pools left (T2, the image-wide allocator's,
+    which must admit every tile at once) size themselves."""
     arrays = list(arrays)
     params = _compress_params(**kwargs)
     groups: dict = {}
@@ -193,12 +198,14 @@ def decompress(data: bytes, *, reduce: int = 0, layers: int = 0,
 def decompress_batch(streams: Sequence[bytes], *, reduce: int = 0,
                      layers: int = 0,
                      window: Optional[Tuple[int, int, int, int]] = None,
-                     device: DeviceLike = "cuda") -> List[np.ndarray]:
+                     device: DeviceLike = "cuda",
+                     workers: int = 0) -> List[np.ndarray]:
     """Decompress a batch of streams, in order; each output equals
     `decompress` of its stream alone. Streams that `decoder.decode_batch`
     can take together (equal SIZ, COD and QCD, the same COC / QCC
     overrides and POC, and packed headers in all or none:
-    `decoder.batch_key`) decode together, the others apart."""
+    `decoder.batch_key`) decode together, the others apart. `workers` is
+    accepted as the reference's is and unused, as in `compress_batch`."""
     streams = list(streams)
     params = DecoderParams(reduce=reduce, layers=layers, window=window)
     groups: List[Tuple[tuple, List[int]]] = []

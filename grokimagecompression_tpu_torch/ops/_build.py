@@ -7,9 +7,10 @@ bound with ctypes: pointers and the stream are `c_void_p`, ints are
 `c_int`, and every entry point returns `cudaGetLastError()` after its
 launch.
 
-The host library (`csrc/host/*.cpp`: native T2 and the HT decode
-prepass, copies of the reference's native sources) is compiled on first
-use with g++ into `build/torch_host/`; it is single-threaded.
+The host library (`csrc/host/*.cpp`: native T2, the HT decode prepass
+and the PNG scanline filters, copies of the reference's native sources)
+is compiled on first use with g++ into `build/torch_host/`; it is
+single-threaded.
 
 Both builds write to a private file and rename it into place, so
 concurrent processes never load a half-written library; a failed build
@@ -155,6 +156,12 @@ def host_library() -> ctypes.CDLL:
     #  out_vlc, out_ms)
     lib.grok_ht_dec_prepass.restype = I
     lib.grok_ht_dec_prepass.argtypes = [P, P, P, P, I, I, I, I, P, P, P]
+    # (rows, nrows, rowbytes, bpp, out)
+    lib.grok_png_unfilter.restype = I
+    lib.grok_png_unfilter.argtypes = [P, I, I, I, P]
+    # (img, nrows, rowbytes, bpp, filter, out)
+    lib.grok_png_filter.restype = I
+    lib.grok_png_filter.argtypes = [P, I, I, I, I, P]
     return lib
 
 
