@@ -154,11 +154,13 @@ Phases, each fatal on failure:
      with 32x32 blocks by COC and PPM markers: every frame equal to its
      source, the HT decoder, the MQ decoder and the DWT launched, no plain
      decoder or host prepass called; MP/s (best of 3) each;
- 17. every tests/corpus stream that decode_batch takes (47 of 60), on the
-     card alone and as a batch of two copies, against the host decoder's
-     planes in grokimagecompression_tpu_torch/data/corpus_decode.json; the
-     other 13 raise NotImplementedError; a 9/7 HT stream with a QCC for
-     component 1 decodes on the card as on the CPU;
+ 17. every tests/corpus stream that decode_batch takes (50 of 60, a
+     custom MCT and ROI among them), on the card alone and as a batch of
+     two copies, against the host decoder's planes in
+     grokimagecompression_tpu_torch/data/corpus_decode.json; the other 10
+     (MQ code-block styles other than 0) raise NotImplementedError; a 9/7
+     HT stream with a QCC for component 1 decodes on the card as on the
+     CPU;
  18. the profile encodes at full size, frames made as the reference's
      bench_chip_cinema makes them (12-bit RGB ramps plus texture): cinema
      2K (2048x1080) at 24 and 48 fps, 4 frames through encode_batch(
@@ -228,7 +230,31 @@ Phases, each fatal on failure:
      their digest files, MP/s (best of 3) beside encode_batch's, and
      every preset's JP2 of config-2 frame 0 decoded on the card through
      Codec.decompress_image. No plain version runs in any of its encodes
-     or decodes.
+     or decodes;
+ 21. the command-line tools (`cli_phase`), in-process on the card;
+ 22. the streaming API and the requests the reference codes on its host
+     tile path (`route_phase`): (a) S1 through stream.StreamEncoder tile
+     by tile into a file, every tile-part equal to encoder.encode's (TLM
+     markers on), W1's four tiles and the corner tile through
+     StreamDecoder.decode_tile equal to the source's crops and the whole
+     StreamDecoder.decode lossless, with seconds a tile, launches and
+     peak device memory beside encode's; (b) config-2 frame 0 with ROI on
+     component 0 at shift 6 and at the largest shift within the MQ
+     decoder's 30 planes (`roi_max_shift`), and (c) with the custom MCT
+     of CUSTOM_MCT, MQ at ratios 24 / 48 / 96 and HT at the default step,
+     through encoder.encode against the reference host encoder's streams
+     in grokimagecompression_tpu_torch/data/host_routes.json and through
+     decode_batch against its host decoder's pixels, the MQ coder and
+     decoder against their plain versions on the ROI frame's 64x64 group;
+     (d) the small override and COC streams (`override_stream`,
+     `coc_stream` on `route_small_frame`) against the same file's streams
+     and pixels, S2 with a tile-part COD (32x32 blocks, RPCL) and QCD (base
+     step 2) in every fourth tile decoded tile by tile to the decodes of
+     the two codings it was spliced from, and config-2 frame 0 with
+     component 1 on 5/3 at 5 resolutions (COC, QCC) decoded in two
+     component groups, component 1 lossless and 0 and 2 equal to the
+     coding without the COC. Every run launches its kernels and no plain
+     version.
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
@@ -238,8 +264,9 @@ path (a whole DWT; a group kernel on the timed 64x64 group) plus, for the
 MQ coder, the MQ decoder and the DWT, their launches in phase 18's
 encodes and decodes, for both decoders and the DWT their launches in
 phase 19's full-size requests, and for every kernel but the dense scan
-its launches in phase 20's encodes and decodes; the last line is {"ok":
-true, "device": {...}}.
+its launches in phase 20's encodes and decodes, phase 21's tool runs and
+phase 22's streams and requests; the last line is {"ok": true,
+"device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py (needs one CUDA card;
 exits non-zero without one).
@@ -451,6 +478,10 @@ CLI_CASES = (
                                      "--display-res", "3780,3780"]),
     ("directory", "compress", ["-y", "@dir", "-O", "J2K", "-a", "@dir_j2k",
                                "-n", "4", "-M", "64"]),
+    ("ROI", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_roi.j2k", "-n", "4",
+                         "-R", "c=0,U=4"]),
+    ("custom MCT", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_mct.j2k",
+                                "-n", "4", "-m", "@mct.txt"]),
     # grk_compress: every input format
     ("in PGM 12-bit", "compress", ["-i", "@g12.pgm", "-o", "@g12.j2k", "-n",
                                    "4", "-M", "64"]),
@@ -517,12 +548,200 @@ CLI_CASES = (
     ("ICC", "decompress", ["-i", "@icc.jp2", "-o", "@icc_o.ppm"]),
     ("CIELab", "decompress", ["-i", "@lab.jp2", "-o", "@lab_o.ppm"]),
     ("9/7 tiles", "decompress", ["-i", "@rgb_g.j2k", "-o", "@g_o.ppm"]),
+    ("out ROI", "decompress", ["-i", "@rgb_roi.j2k", "-o", "@roi_o.ppm"]),
+    ("out custom MCT", "decompress", ["-i", "@rgb_mct.j2k", "-o",
+                                      "@mct_o.ppm"]),
     ("directory decode", "decompress", ["-y", "@dir_j2k", "-a", "@dir_dec",
                                         "-O", "pgm"]),
     # grk_dump
     ("dump", "dump", ["-i", "@plt.j2k", "-o", "@plt_dump.txt", "-m", "-p"]),
     ("dump JP2", "dump", ["-i", "@rgb.jp2", "-o", "@jp2_dump.txt"]),
 )
+# Phase 22, the streaming API and the requests the reference codes on its
+# host tile path, whose code-blocks the port's kernels code (ROI, a custom
+# MCT, tile-part header overrides, a COC that changes a component's
+# transform and resolutions). ROUTE_DIGESTS holds the reference host
+# encoder's streams and host decoder's pixel digests of the config-2 frame
+# 0 (`config2_frames`) at each ROUTE_CASES entry (EncoderParams arguments;
+# "roi_max": the largest shift whose Kmax stays within the MQ decoder's
+# 30 planes, `roi_max_shift`), and the reference host decoder's pixels of
+# the small override and COC streams (ROUTE_SMALL: `override_stream`,
+# `coc_stream`), which the port builds; tests/test_torch_host_copies.py
+# writes it.
+ROUTE_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                             "host_routes.json")
+# the decoding matrix of the reference's custom-MCT round trip
+# (its tests/test_markers_ext.py)
+CUSTOM_MCT = ((1.0, 0.2, 1.5), (1.0, -0.3, -0.6), (1.0, 1.9, 0.1))
+ROUTE_C2 = dict(numresolutions=6, transform="DWT_97", numlayers=3,
+                rates=(24.0, 48.0, 96.0))
+ROUTE_CASES = {
+    "roi6": dict(ROUTE_C2, roi_comp=0, roi_shift=6),
+    "roi_max": dict(ROUTE_C2, roi_comp=0, roi_shift="max"),
+    "mct_mq": dict(ROUTE_C2, custom_mct=CUSTOM_MCT),
+    "mct_ht": dict(numresolutions=6, transform="DWT_97", cblk_style=0x40,
+                   custom_mct=CUSTOM_MCT),
+}
+# the override and COC streams: every OVERRIDE_EVERY-th tile (0, 4, ...)
+# of the base coding carries a tile-part COD and QCD (other code-block
+# size and progression, another base step) and is coded with them; the
+# COC gives COC_COMP its COC_CHANGE and that COD's default QCD (QCC), the
+# MCT off. At full size the base coding is S2's at a fixed step
+# (`full_params("S2")` without rates) on S2 and config 2's without MCT
+# on config-2 frame 0; at small size (ROUTE_SMALL on `route_small_frame`)
+# the same at 3 resolutions in 16x20 tiles with 8x8 blocks (the
+# override's 32x32 blocks then cover each band whole, as they split S2's
+# 64x64 ones)
+OVERRIDE_EVERY = 4
+OVERRIDE_TILE = dict(cblk_w_exp=5, cblk_h_exp=5, progression="RPCL",
+                     base_step=2.0)
+COC_COMP = 1
+COC_CHANGE = dict(transform="DWT_53", numresolutions=-1)
+ROUTE_SMALL = dict(numresolutions=3, transform="DWT_97",
+                   tile_size=(16, 20), cblk_w_exp=3, cblk_h_exp=3)
+# DecoderParams arguments of the small streams' digests: the whole image,
+# and a window across an overridden and a plain tile at reduce 1
+ROUTE_SMALL_REQUESTS = ({}, {"window": (5, 2, 30, 36), "reduce": 1})
+
+
+def route_small_frame():
+    """The small frame of the override and COC streams: the top-left
+    64 x 40 samples of `image_encode_frames`' RGB frame (8 tiles of
+    ROUTE_SMALL)."""
+    rgb = image_encode_frames()["rgb"]
+    return dataclasses.replace(rgb, xsiz=64, ysiz=40, components=[
+        dataclasses.replace(c, data=c.data[:40, :64].copy())
+        for c in rgb.components])
+
+
+def roi_max_shift():
+    """The largest ROI shift of config 2's coding whose bands' Kmax (guard
+    bits + exponent - 1 + shift) stays within the MQ decoder's 30 planes."""
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.codestream.tile import default_qcd
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    img = config2_frames(1, size=64)[0]
+    p = EncoderParams(numresolutions=6, transform=Transform.DWT_97)
+    siz, cod = encoder.build_siz(img, p), encoder.build_cod(img, p)
+    qcd = default_qcd(siz, cod, p.num_guard_bits)
+    return 30 - (qcd.num_guard_bits + max(e for e, _ in qcd.steps) - 1)
+
+
+def route_params(params_mod, name):
+    """The EncoderParams of a ROUTE_CASES entry, made with `params_mod`'s
+    EncoderParams and Transform (the port's, or in the tests the
+    reference's)."""
+    import numpy as np
+    kw = dict(ROUTE_CASES[name])
+    kw["transform"] = getattr(params_mod.Transform, kw["transform"])
+    if kw.get("roi_shift") == "max":
+        kw["roi_shift"] = roi_max_shift()
+    if "custom_mct" in kw:
+        kw["custom_mct"] = np.asarray(kw["custom_mct"], np.float32)
+    return params_mod.EncoderParams(**kw)
+
+
+def override_params(params_mod, base):
+    """(base, override) EncoderParams of an override stream: `base`
+    (EncoderParams arguments, its transform by name), and `base` with
+    OVERRIDE_TILE, made with `params_mod`'s classes."""
+    kw = dict(base)
+    kw["transform"] = getattr(params_mod.Transform, kw["transform"])
+    over = dict(kw, **OVERRIDE_TILE)
+    over["progression"] = getattr(params_mod.Progression,
+                                  over["progression"])
+    return params_mod.EncoderParams(**kw), params_mod.EncoderParams(**over)
+
+
+def override_stream(base_cs, over_cs, every=OVERRIDE_EVERY):
+    """A codestream with tile-part header overrides: `base_cs`'s main
+    header and tile-parts, but every `every`-th tile's tile-part taken
+    from `over_cs` (the same image and tiles coded with another COD and
+    QCD) behind a tile-part COD and QCD of `over_cs`'s main header, its
+    Psot grown to match (the port's tile-part walk and marker writers)."""
+    from grokimagecompression_tpu_torch.codestream import decoder, markers
+    from grokimagecompression_tpu_torch.codestream.markers import SotInfo
+    ha, hb = decoder.read_header(base_cs), decoder.read_header(over_cs)
+    parts = [{tp.tile_index: tp.body for tp in decoder.iter_tile_parts(
+        cs, h.main_header_end)} for cs, h in ((base_cs, ha), (over_cs, hb))]
+    out = bytearray(base_cs[:ha.main_header_end])
+    for t in sorted(parts[0]):
+        seg, body = b"", parts[0][t]
+        if t % every == 0:
+            seg = markers.write_cod(hb.cod) + markers.write_qcd(hb.qcd)
+            body = parts[1][t]
+        psot = 12 + len(seg) + 2 + len(body)
+        out += markers.write_sot(SotInfo(tile_index=t, psot=psot))
+        out += seg + markers.write_sod() + body
+    out += markers.write_eoc()
+    return bytes(out)
+
+
+def coc_stream(img, params, device, comp=COC_COMP, change=None):
+    """A codestream of `img` (MQ, one layer, MCT off) whose COC and QCC
+    give component `comp` the COD with `change` applied (COC_CHANGE: the
+    5/3 transform and, negative, fewer resolutions) and that COD's
+    default QCD: each tile's components coded by their COD's group, each
+    group through the port's fused encode over its components' SIZ
+    entries (`fused_encode.build_plan`, `encode_tile_submit`), then the
+    tile's T2 with the overrides (`tile.encode_tile(cod_comp=,
+    qcd_comp=)`) and the port's marker writers."""
+    from grokimagecompression_tpu_torch.codestream import encoder, markers
+    from grokimagecompression_tpu_torch.codestream.markers import SotInfo
+    from grokimagecompression_tpu_torch.codestream.tile import (default_qcd,
+                                                                encode_tile)
+    from grokimagecompression_tpu_torch.core.params import Transform
+    from grokimagecompression_tpu_torch.models import fused_encode
+    from grokimagecompression_tpu_torch.utils.device import resolve_device
+    dev = resolve_device(device)
+    change = dict(COC_CHANGE if change is None else change)
+    p, siz, cod, qcd, _, trs = encoder._coding(img, params)
+    if cod.cblk_style or cod.mct or p.rates:
+        raise ValueError("coc_stream takes one-layer MQ codings without MCT")
+    change["transform"] = Transform[change["transform"]]
+    if change.get("numresolutions", 0) < 0:
+        change["numresolutions"] += cod.numresolutions
+    ccod = dataclasses.replace(cod, **change)
+    cqcd = default_qcd(siz, ccod, encoder._guard_bits(p), p.base_step)
+    n = len(siz.comps)
+    groups = [(tuple(c for c in range(n) if c != comp), cod, qcd),
+              ((comp,), ccod, cqcd)]
+    out = bytearray(markers.write_soc() + markers.write_siz(siz)
+                    + markers.write_cod(cod)
+                    + markers.write_coc(comp, ccod, n)
+                    + markers.write_qcd(qcd)
+                    + markers.write_qcc(comp, cqcd, n))
+    encoders = {}
+    for t, tr in enumerate(trs):
+        comps = encoder.extract_tile_comps(img, siz, t)
+        segs = {}
+        for cs, gcod, gqcd in groups:
+            sub = dataclasses.replace(siz, comps=[siz.comps[c] for c in cs])
+            plan = fused_encode.build_plan(sub, gcod, gqcd, tr, coder="mq")
+            if plan not in encoders:
+                encoders[plan] = fused_encode.FusedMQEncoder(plan, dev)
+            (got,) = fused_encode.encode_tile_collect(
+                fused_encode.encode_tile_submit([comps[c] for c in cs],
+                                                encoders[plan]))
+            counts = [sum(b.comp == i for (_, _, blocks) in plan.groups
+                          for b in blocks) for i in range(len(cs))]
+            pos = 0
+            for c, k in zip(cs, counts):
+                segs[c] = got[pos:pos + k]
+                pos += k
+        res = encode_tile([s for c in range(n) for s in segs[c]], siz, cod,
+                          qcd, tr, cod_comp=[ccod if c == comp else None
+                                             for c in range(n)],
+                          qcd_comp=[cqcd if c == comp else None
+                                    for c in range(n)])
+        psot = 12 + 2 + len(res.body)
+        out += markers.write_sot(SotInfo(tile_index=t, psot=psot))
+        out += markers.write_sod() + res.body
+    out += markers.write_eoc()
+    return bytes(out)
+
+
 # the plain MQ coder's decisions allowed in the config-2 byte-out check
 # (~1.5 ms a decision on the card), and in the dense scan's check (which
 # also packs words each step)
@@ -776,7 +995,8 @@ def cli_inputs(d):
     rgb.bmp, rgb.tga, rgba.png, rgb16.png, TIFF RGB 8-bit and gray 16-bit
     in LZW (rgb_lzw.tif with the horizontal predictor) and deflate,
     g12.raw (big endian), sub.rawl (4:2:0, little endian), idx.pgm
-    (palette indices 0-3) and dir/a.pgm, dir/b.pgm."""
+    (palette indices 0-3), dir/a.pgm, dir/b.pgm and mct.txt (the
+    CUSTOM_MCT decoding matrix for `-m`)."""
     import numpy as np
 
     from grokimagecompression_tpu_torch.core.image import Component, Image
@@ -828,6 +1048,9 @@ def cli_inputs(d):
     pnm.write_pnm(path("idx.pgm"), Image(xsiz=w, ysiz=h, components=[
         Component(data=idx, prec=8, signed=False, dx=1, dy=1)]))
     pnm.write_pnm(path("dir/a.pgm"), gray)
+    with open(path("mct.txt"), "w") as f:
+        f.write("".join(",".join(repr(v) for v in row) + "\n"
+                        for row in CUSTOM_MCT))
     pnm.write_pnm(path("dir/b.pgm"), Image(xsiz=w, ysiz=h, components=[
         dataclasses.replace(gray.components[0],
                             data=gray.components[0].data[::-1].copy())]))
@@ -4683,7 +4906,7 @@ def cli_phase(c1_imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card):
     `cli.dump`, run in this process through their `main`) on the card,
     every file in a temporary directory removed afterwards: (a) every
     CLI_CASES entry on `cli_inputs` against CLI_DIGESTS, and a flag the
-    port does not code (-R) ending non-zero with no file; (b) config 1's
+    port does not code (-M 1) ending non-zero with no file; (b) config 1's
     64 frames as PGM files through directory mode with HT and with MQ,
     each stream against its digest file, decoded back to the sources, and
     config 2's 4 frames as PPM files at ratios 24 / 48 / 96 against
@@ -4762,19 +4985,20 @@ def cli_phase(c1_imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card):
         if bad:
             raise AssertionError(f"CLI cases {bad} differ from the reference "
                                  f"tools' outputs")
-        roi = os.path.join(d, "roi.j2k")
+        lazy = os.path.join(d, "lazy.j2k")
         try:
-            compress.main(["-i", os.path.join(d, "gray.pgm"), "-o", roi,
-                           "-R", "c=0,U=4"] + on_card)
-            raise AssertionError("grk_compress -R exited 0")
+            compress.main(["-i", os.path.join(d, "gray.pgm"), "-o", lazy,
+                           "-M", "1"] + on_card)
+            raise AssertionError("grk_compress -M 1 exited 0")
         except SystemExit as e:
-            if e.code != 1 or os.path.exists(roi):
-                raise AssertionError(f"grk_compress -R: exit {e.code}, file "
-                                     f"written: {os.path.exists(roi)}")
+            if e.code != 1 or os.path.exists(lazy):
+                raise AssertionError(f"grk_compress -M 1: exit {e.code}, "
+                                     f"file written: {os.path.exists(lazy)}")
         print(f"phase 21 (a): {len(got)} tool runs on {len(want['inputs'])} "
               f"seeded inputs equal the reference tools' outputs "
               f"({sum(len(v) for v in got.values())} files) in "
-              f"{time.perf_counter() - t0:.1f} s; -R exits 1 with no file; "
+              f"{time.perf_counter() - t0:.1f} s; -M 1 (MQ bypass) exits 1 "
+              f"with no file; "
               f"launches {launches} on {card}")
 
         # (b) the BASELINE frames through directory mode
@@ -4939,6 +5163,393 @@ def cli_phase(c1_imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card):
     print(f"phase 21 (the command-line tools): "
           f"{time.perf_counter() - t_phase:.1f} s on {card}; launches "
           f"{launches}")
+    return launches
+
+
+def tile_crop(img, tr):
+    """The samples of `img` (origin 0) inside the canvas rect `tr`, by
+    component (no subsampling)."""
+    return [c.data[tr.y0:tr.y1, tr.x0:tr.x1] for c in img.components]
+
+
+def stream_check(dev, card, launches):
+    """Phase 22 (a): S1 through `stream.StreamEncoder` tile by tile into a
+    file, every tile-part equal to `encoder.encode`'s with TLM markers,
+    W1's four tiles and the corner tile through `StreamDecoder.
+    decode_tile` equal to crops of the source, the whole `decode`
+    lossless; seconds a tile, launches and peak device memory beside
+    `encode`'s."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import (decoder, encoder,
+                                                           stream)
+    from grokimagecompression_tpu_torch.core.geometry import tile_rect
+    s1 = s1_frame()
+    params = full_params("S1")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "s1.j2k")
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        counts = {k: 0 for k in launches}
+        with cli_counts(counts, "S1 StreamEncoder", ("enc", "dwt")):
+            t0 = time.perf_counter()
+            with stream.StreamEncoder(path, s1, params, device=dev) as se:
+                for t in range(se.numtiles):
+                    se.write_image_tile(t, s1)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        for k, v in counts.items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        enc_counts = {k: 0 for k in counts}
+        with cli_counts(enc_counts, "S1 encode", ("enc", "dwt")):
+            t0 = time.perf_counter()
+            want = encoder.encode(s1, dataclasses.replace(
+                params, tlm_markers=True), device=dev)
+            torch.cuda.synchronize()
+            enc_sec = time.perf_counter() - t0
+        enc_peak = torch.cuda.max_memory_allocated() - base
+        for k, v in enc_counts.items():
+            launches[k] += v
+        with open(path, "rb") as f:
+            data = f.read()
+        parts = [[(tp.tile_index, tp.body) for tp in decoder.iter_tile_parts(
+            cs, decoder.read_header(cs).main_header_end)]
+            for cs in (data, want)]
+        if parts[0] != parts[1] or len(parts[0]) != se.numtiles:
+            raise AssertionError("S1 StreamEncoder: tile-parts differ from "
+                                 "encoder.encode's")
+        print(f"S1 StreamEncoder: {se.numtiles} tiles in {sec:.3f} s "
+              f"({1e3 * sec / se.numtiles:.1f} ms a tile, "
+              f"{S1_SIZE * S1_SIZE / 1e6 / sec:.2f} MP/s), "
+              f"{len(se._encoders)} plans, launches {counts}, peak device "
+              f"memory "
+              f"{peak / 1e9:.3f} GB; encoder.encode: {enc_sec:.3f} s, "
+              f"launches {enc_counts}, peak {enc_peak / 1e9:.3f} GB; every "
+              f"tile-part equal, the files "
+              f"{'equal' if data == want else 'differ in the main header'}"
+              f" ({len(data)} B)")
+        s = decoder.read_header(data).siz
+        trs = [tile_rect(t, s.xsiz, s.ysiz, s.xosiz, s.yosiz, s.xtsiz,
+                         s.ytsiz, s.xtosiz, s.ytosiz)
+               for t in range(se.numtiles)]
+        w1 = FULL_CASES[0][3]
+        tiles = [t for t, tr in enumerate(trs)
+                 if tr.x0 < w1[2] and tr.x1 > w1[0] and tr.y0 < w1[3]
+                 and tr.y1 > w1[1]] + [len(trs) - 1]
+        dec_counts = {k: 0 for k in counts}
+        with cli_counts(dec_counts, "S1 StreamDecoder", ("dec", "dwt")):
+            with stream.StreamDecoder(path, device=dev) as sd:
+                t0 = time.perf_counter()
+                for t in tiles:
+                    got = sd.decode_tile(t)
+                    for g, w in zip(got.components, tile_crop(s1, trs[t])):
+                        if not np.array_equal(g.data, w):
+                            raise AssertionError(f"S1 StreamDecoder tile {t} "
+                                                 f"differs from the source")
+                torch.cuda.synchronize()
+                tile_sec = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                whole = sd.decode()
+                torch.cuda.synchronize()
+                whole_sec = time.perf_counter() - t0
+        if not np.array_equal(whole.components[0].data,
+                              s1.components[0].data):
+            raise AssertionError("S1 StreamDecoder.decode is not lossless")
+        for k, v in dec_counts.items():
+            launches[k] += v
+    print(f"S1 StreamDecoder: tiles {tiles} (W1's four and the corner) "
+          f"equal the source crops in {tile_sec:.3f} s, the whole image "
+          f"lossless in {whole_sec:.3f} s; launches {dec_counts} on {card}")
+
+
+def deepest_lanes(group, n, dev):
+    """The `n` lanes with the most bit-planes of an MQ lane group's host
+    arrays (`mq_dec.pack_lanes`: data, off, nbps, npas, ori), in lane
+    order, repacked, on `dev`. Lanes of one plane count start at one
+    global pass, so the plain decoder runs few passes for them."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.ops import mq_dec
+    data, off, nbps, npas, ori = group[:5]
+    idx = np.sort(np.argsort(-nbps.astype(np.int64), kind="stable")[:n])
+    sub = mq_dec.pack_lanes([data[off[i]:off[i + 1]].tobytes() for i in idx],
+                            ori[idx], nbps[idx], npas[idx])
+    return tuple(torch.from_numpy(a).to(dev) for a in sub)
+
+
+def roi_kernel_check(enc, frame, cs, dev):
+    """Phase 22 (b): the MQ coder on 64 lanes of an ROI frame's 64x64 slot
+    stream cut to its leading planes (CIN_PLAIN_MQ_DECISIONS decisions in
+    the deepest lane), and the MQ decoder on the 64 lanes of the ROI
+    stream's 64x64 lane group with the most bit-planes (Kmax + shift on
+    component 0), cut to their first 2 passes, each against its plain
+    version."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.models import (fused_decode,
+                                                       fused_encode)
+    from grokimagecompression_tpu_torch.ops import (mq_dec, mq_dec_torch,
+                                                    mq_scan, mq_torch)
+    args = fused_encode.upload_tile([c.data for c in frame.components], enc)
+    for (h, w, _), gin in zip(enc.plan.groups, enc.group_inputs(*args)):
+        if (h, w) != (64, 64):
+            continue
+        _, slots, *_ = enc.group_slots(*gin)
+        spans = mq_torch.pass_spans_padded(h, w)
+        tp = sum(spans)
+        npl = slots.shape[0] // tp
+        lanes = torch.linspace(0, slots.shape[1] - 1, 64,
+                               device=slots.device).round().long()
+        sub = slots[:, lanes]
+        coded = (sub.view(npl, tp, -1) & 1).sum(dim=1).cumsum(0).amax(dim=1)
+        keep = max(1, int((coded <= CIN_PLAIN_MQ_DECISIONS).sum()))
+        sub = sub[:keep * tp].contiguous()
+        got = mq_scan.mq_scan(sub, spans)
+        t0 = time.perf_counter()
+        want = mq_torch.mq_scan_plain(sub, spans)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not all(torch.equal(g, wv) for g, wv in zip(got, want)):
+            raise AssertionError("mq_scan differs from the plain version on "
+                                 "the ROI frame's 64x64 group")
+        print(f"kernel mq_scan on the ROI frame's 64x64 group (64 of "
+              f"{slots.shape[1]} lanes, {keep} of {npl} planes): bit-exact "
+              f"with plain (plain {plain_s:.3f} s)")
+        del slots, sub
+    hdr, trs, parsed = decoder.parse_batch([cs])
+    (plan,) = decoder.tile_groups(hdr, trs, parsed)
+    arrays = fused_decode.prepare_chunk(
+        plan, [fused_decode.jobs_by_block(*parsed[0][0][0][:3])])
+    for (w, h, _), group in zip(plan.groups, arrays):
+        if (w, h) != (64, 64):
+            continue
+        data, off, nbps, npas, ori = deepest_lanes(group, 64, dev)
+        a = (data, off, nbps, torch.clamp(npas, max=2), ori, w, h)
+        got = mq_dec.decode_group(*a, with_stats=True)
+        t0 = time.perf_counter()
+        want = mq_dec_torch.decode_group_plain(*a, with_stats=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        if not all(torch.equal(g, wv) for g, wv in zip(got, want)):
+            raise AssertionError("mq_dec_group differs from the plain "
+                                 "version on the ROI stream's 64x64 group")
+        kmax = max(j[7] for j in parsed[0][0][0][0])
+        print(f"kernel mq_dec_group on the ROI stream's 64x64 group (the 64 "
+              f"of {group[2].shape[0]} lanes with the most bit-planes, "
+              f"{int(nbps.min())}-{int(nbps.max())}; Kmax up to {kmax} with "
+              f"the shift; the first 2 passes): bit-exact with plain (plain "
+              f"{plain_s:.3f} s)")
+    torch.cuda.empty_cache()
+
+
+def route_cases_check(frame, want, dev, card, launches):
+    """Phase 22 (b, c): config-2 frame 0 at each ROUTE_CASES entry (ROI at
+    shift 6 and at the largest shift within 30 planes, a custom MCT with
+    MQ at ratios 24 / 48 / 96 and with HT) through `encoder.encode`, each
+    stream against ROUTE_DIGESTS, its decode through `decode_batch`
+    against the host decoder's pixel digests; the MQ kernels against
+    their plain versions on the ROI frame."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.core import params as port_params
+    if frame_digest(frame) != want["frame"]:
+        raise AssertionError("config-2 frame 0 differs from ROUTE_DIGESTS'")
+    for name, case in ROUTE_CASES.items():
+        p = route_params(port_params, name)
+        ht = bool(p.cblk_style & 0x40)
+        coder = ("enc",) if ht else ("mq",)
+        counts = {k: 0 for k in launches}
+        with cli_counts(counts, f"{name} encode", coder + ("dwt",)):
+            t0 = time.perf_counter()
+            cs = encoder.encode(frame, p, device=dev)
+            torch.cuda.synchronize()
+            enc_sec = time.perf_counter() - t0
+        if hashlib.sha256(cs).hexdigest() != want["cases"][name]["stream"]:
+            raise AssertionError(f"{name}: stream differs from the host "
+                                 f"encoder's ({len(cs)} B)")
+        with cli_counts(counts, f"{name} decode",
+                          ("dec" if ht else "mq_dec", "dwt")):
+            t0 = time.perf_counter()
+            (out,) = decoder.decode_batch([cs], device=dev)
+            torch.cuda.synchronize()
+            dec_sec = time.perf_counter() - t0
+        if frame_digest(out) != want["cases"][name]["pixels"]:
+            raise AssertionError(f"{name}: decode differs from the host "
+                                 f"decoder's pixels")
+        for k, v in counts.items():
+            launches[k] += v
+        what = (f"ROI comp 0 U={p.roi_shift}" if p.roi_shift
+                else "custom MCT")
+        print(f"{name} ({what}, {'HT' if ht else 'MQ'}): {len(cs)} B equal "
+              f"to the host "
+              f"encoder's, encode {enc_sec:.3f} s, decode {dec_sec:.3f} s to "
+              f"the host decoder's pixels (MSE {frame_mse(out, frame):.4f}); "
+              f"launches {counts} on {card}")
+        if name == "roi6":
+            p_, siz, cod, qcd, cod_comp, trs = encoder._coding(frame, p)
+            (enc,) = encoder._tile_encoders(p_, siz, cod, qcd, cod_comp,
+                                            trs, dev, True)
+            roi_kernel_check(enc, frame, cs, dev)
+            del enc
+        del cs, out
+        torch.cuda.empty_cache()
+
+
+def override_check(want, dev, card, launches):
+    """Phase 22 (d): the override streams. At small size
+    (`route_small_frame`) the port's `override_stream` and `coc_stream`
+    made on the card against ROUTE_DIGESTS' streams, and their decodes
+    at ROUTE_SMALL_REQUESTS against the host decoder's pixel digests. At
+    full size S2 (4096^2 RGB, 512^2 tiles, config 2's MQ 9/7 coding at a
+    fixed step) with a tile-part COD (32x32 blocks, RPCL) and QCD (base
+    step 2) in every fourth tile: the decode on the card equals, tile by
+    tile, the card's decodes of the two streams it was spliced from; and
+    config-2 frame 0 with component 1 on 5/3 at 5 resolutions (COC, QCC):
+    component 1 lossless, components 0 and 2 equal to the decode of the
+    same coding without the COC."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.core import params as port_params
+    from grokimagecompression_tpu_torch.core.geometry import tile_rect
+    from grokimagecompression_tpu_torch.core.params import DecoderParams
+    small = route_small_frame()
+    if frame_digest(small) != want["small_frame"]:
+        raise AssertionError("the small route frame differs from "
+                             "ROUTE_DIGESTS'")
+    base, over = override_params(port_params, ROUTE_SMALL)
+    noroute = port_params.EncoderParams(mct=port_params.MCT.NONE, **dict(
+        ROUTE_SMALL, transform=port_params.Transform.DWT_97))
+    counts = {k: 0 for k in launches}
+    with cli_counts(counts, "small override and COC streams",
+                      ("mq", "dwt", "mq_dec")):
+        made = {"override": override_stream(
+            encoder.encode(small, base, device=dev),
+            encoder.encode(small, over, device=dev)),
+            "coc": coc_stream(small, noroute, dev)}
+        for name, cs in made.items():
+            w = want["small"][name]
+            if hashlib.sha256(cs).hexdigest() != w["stream"]:
+                raise AssertionError(f"small {name} stream differs from "
+                                     f"ROUTE_DIGESTS'")
+            for kw in ROUTE_SMALL_REQUESTS:
+                got = decoder.decode(cs, DecoderParams(**kw), device=dev)
+                if frame_digest(got) != w["pixels"][request_name(kw)]:
+                    raise AssertionError(f"small {name} stream at "
+                                         f"{request_name(kw)}: pixels differ "
+                                         f"from the host decoder's")
+    for k, v in counts.items():
+        launches[k] += v
+    print(f"small override and COC streams ({small.xsiz}x{small.ysiz} RGB): "
+          f"equal to the digests' streams, decoded whole and at "
+          f"{request_name(ROUTE_SMALL_REQUESTS[1])} to the host decoder's "
+          f"pixels; launches {counts}")
+
+    s2 = s2_frame()
+    base, over = override_params(port_params, dict(
+        numresolutions=6, transform="DWT_97", tile_size=(S2_TILE, S2_TILE)))
+    counts = {k: 0 for k in launches}
+    with cli_counts(counts, "S2 override streams",
+                      ("mq", "dwt", "mq_dec")):
+        t0 = time.perf_counter()
+        a = encoder.encode(s2, base, device=dev)
+        b = encoder.encode(s2, over, device=dev)
+        torch.cuda.synchronize()
+        enc_sec = time.perf_counter() - t0
+        cs = override_stream(a, b)
+        t0 = time.perf_counter()
+        (got,) = decoder.decode_batch([cs], device=dev)
+        torch.cuda.synchronize()
+        dec_sec = time.perf_counter() - t0
+        plain = [decoder.decode_batch([x], device=dev)[0] for x in (a, b)]
+    s = decoder.read_header(cs).siz
+    ntiles = (S2_SIZE // S2_TILE) ** 2
+    nover = 0
+    for t in range(ntiles):
+        tr = tile_rect(t, s.xsiz, s.ysiz, s.xosiz, s.yosiz, s.xtsiz, s.ytsiz,
+                       s.xtosiz, s.ytosiz)
+        src = plain[1 if t % OVERRIDE_EVERY == 0 else 0]
+        nover += t % OVERRIDE_EVERY == 0
+        for g, w in zip(tile_crop(got, tr), tile_crop(src, tr)):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"S2 override stream tile {t} differs "
+                                     f"from its source stream's decode")
+    for k, v in counts.items():
+        launches[k] += v
+    print(f"S2 with a tile-part COD and QCD in {nover} of {ntiles} tiles "
+          f"({len(cs)} B): the two codings {enc_sec:.3f} s, the spliced "
+          f"stream's decode {dec_sec:.3f} s, every tile equal to its "
+          f"coding's decode; launches {counts} on {card}")
+    del s2, a, b, cs, got, plain
+
+    frame = config2_frames(1)[0]
+    params = port_params.EncoderParams(
+        numresolutions=6, transform=port_params.Transform.DWT_97,
+        mct=port_params.MCT.NONE)
+    counts = {k: 0 for k in launches}
+    with cli_counts(counts, "config-2 COC stream", ("mq", "dwt", "mq_dec")):
+        t0 = time.perf_counter()
+        cs = coc_stream(frame, params, dev)
+        torch.cuda.synchronize()
+        enc_sec = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        (got,) = decoder.decode_batch([cs], device=dev)
+        torch.cuda.synchronize()
+        dec_sec = time.perf_counter() - t0
+        (ref,) = decoder.decode_batch([encoder.encode(frame, params,
+                                                      device=dev)],
+                                      device=dev)
+    if not np.array_equal(got.components[COC_COMP].data,
+                          frame.components[COC_COMP].data):
+        raise AssertionError("config-2 COC stream: component 1 (5/3) is not "
+                             "lossless")
+    for c in range(3):
+        if c != COC_COMP and not np.array_equal(got.components[c].data,
+                                                ref.components[c].data):
+            raise AssertionError(f"config-2 COC stream: component {c} "
+                                 f"differs from the coding without the COC")
+    for k, v in counts.items():
+        launches[k] += v
+    print(f"config-2 frame 0 with component 1 on 5/3 at 5 resolutions (COC, "
+          f"QCC; {len(cs)} B): coded in {enc_sec:.3f} s, decoded in "
+          f"{dec_sec:.3f} s in two component groups, component 1 lossless, "
+          f"0 and 2 equal to the coding without the COC; launches {counts} "
+          f"on {card}")
+
+
+def route_phase(dev, card):
+    """Phase 22: the streaming API (a) and the requests the reference
+    codes on its host tile path, on the port's kernels: ROI and a custom
+    MCT (b, c), tile-part overrides and a per-component COC (d). Returns
+    the launches of its main-path runs by LAUNCHES key."""
+    t0 = time.perf_counter()
+    launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
+    with open(ROUTE_DIGESTS) as f:
+        want = json.load(f)
+    parts = []
+    for label, check in (
+            ("(a)", lambda: stream_check(dev, card, launches)),
+            ("(b, c)", lambda: route_cases_check(
+                config2_frames(1)[0], want, dev, card, launches)),
+            ("(d)", lambda: override_check(want, dev, card, launches))):
+        t = time.perf_counter()
+        check()
+        parts.append(f"{label} {time.perf_counter() - t:.1f} s")
+    print(f"phase 22 (stream API, ROI, custom MCT, overrides, COC): "
+          f"{time.perf_counter() - t0:.1f} s ({', '.join(parts)}) on {card}; "
+          f"launches {launches}")
     return launches
 
 
@@ -5420,17 +6031,20 @@ def main() -> int:
     del mixed, full_streams
     tools = cli_phase(imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card)
     del s1_cs
+    routes = route_phase(dev, card)
 
     calls["mq_dense"] = launches["mq_dense"]
     for key, n in (list(cinema.items()) + list(windows.items())
-                   + list(image_enc.items()) + list(tools.items())):
+                   + list(image_enc.items()) + list(tools.items())
+                   + list(routes.items())):
         calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
           f"whole config-2 forward transforms) plus the launches of phase "
           f"18's cinema encodes and decodes ({cinema}), of phase 19's "
           f"full-size requests ({windows}), of phase 20's encodes and "
-          f"decodes ({image_enc}) and of phase 21's tool runs ({tools}): "
+          f"decodes ({image_enc}), of phase 21's tool runs ({tools}) and "
+          f"of phase 22's streams and host-route requests ({routes}): "
           f"{calls}; all launches of the config-1 and config-2 runs: "
           f"{launches}")
     print(json.dumps({"kernels": [

@@ -11,9 +11,11 @@ A copy of `grokimagecompression_tpu/cli/compress.py` over the port's
 CUDA card by default (`--torch-device` names another torch device; the
 CPU runs the kernels' plain versions). `-D` is accepted and changes
 nothing. `-H` is accepted and unused: the port has no host T1 to give
-threads. A request the port does not code yet (`-R`, `-m` / `-Y 2`, an
+threads. `-R` (ROI, MQ) and `-m` / `-Y 2` (a custom MCT) code on the
+card like any other request. A request the port does not code yet (an
 MQ `-M` other than 0, `--ht-refinement`) ends through `common.fail` with
-the reason and writes no file; it is never coded on the host.
+the reason and writes no file; it is never coded on the host; `-R` with
+the HT coder ends with the reference's error.
 """
 
 from __future__ import annotations

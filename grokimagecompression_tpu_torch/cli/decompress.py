@@ -10,9 +10,12 @@ A copy of `grokimagecompression_tpu/cli/decompress.py` over the port's
 (`--torch-device` names another torch device; the CPU runs the kernels'
 plain versions), and the port's `io/color.py` and `io/icc.py` for the
 colour policy (host numpy, as in the reference). `-H` is accepted and
-unused. A stream the port does not decode yet (tile-part header
-overrides, ROI, custom MCT, MQ styles other than 0) ends through
-`common.fail` with the reason and writes no file.
+unused. Streams with tile-part header overrides, ROI, a custom MCT or
+COCs that change a component's transform, resolutions or block coder
+decode on the card like any other. A stream the port does not decode
+yet (MQ styles other than 0, HT refinement passes, ROI on HT
+code-blocks) ends through `common.fail` with the reason and writes no
+file.
 """
 
 from __future__ import annotations

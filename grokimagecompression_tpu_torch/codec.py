@@ -17,10 +17,10 @@ device (CUDA unless the caller names the CPU).
     img2 = c.decompress_image(data)
 
 Every stream equals the reference's `compress` / `Codec` output byte for
-byte. What the port's encoder and decoder do not cover raises
-NotImplementedError: MQ code-block styles other than 0, HT refinement
-passes, a custom MCT and ROI (`codestream/encoder.py`,
-`codestream/decoder.py`).
+byte. ROI and a custom MCT are coded and decoded on the device. What
+the port's encoder and decoder do not cover raises NotImplementedError:
+MQ code-block styles other than 0 and HT refinement passes
+(`codestream/encoder.py`, `codestream/decoder.py`).
 """
 
 from __future__ import annotations

@@ -9,18 +9,24 @@ reference. `decode_batch` is the port of the reference's fused
 port's native T2, or its Python T2 where packed packet headers are),
 then the fused device decode of `models/fused_decode.py`, whose block
 decoders and inverse transforms run on the device. Both take raw
-codestreams and JP2 files, single- or multi-tile, with COC overrides
-that keep the COD's transform, resolution count and code-block style,
-QCC, POC, and packed packet headers (PPM, PPT), and the reference's
+codestreams and JP2 files, single- or multi-tile, with COC and QCC
+overrides (a COC may change a component's transform, resolution count
+or block coder: such a tile decodes in groups of components,
+`tile_groups`), tile-part header overrides (COD, COC, QCD, QCC, POC
+between SOT and SOD, applied per tile as the reference's
+`_tile_params`), POC, packed packet headers (PPM, PPT), ROI shifts
+(RGN) and a Part-2 custom MCT (MCT / MCC records), and the reference's
 requests: a layer limit, a reduced resolution, a single tile and a
 window, alone or combined. A window's code-blocks are decoded and
 dequantized on the device and inverted on the host by the copy of the
 reference's windowed inverse (`ops/dwt_window.py`), as the reference
 does.
 
-Requests that the reference sends to its host decode (tile-part header
-overrides, ROI, a custom MCT, non-default MQ styles, HT refinement)
-raise NotImplementedError instead of falling back to a host decode.
+What the port's kernels cannot decode raises NotImplementedError with
+its reason instead of falling back to a host decode: MQ code-block
+styles other than the default (in the COD or a COC), HT refinement
+passes, ROI on HT code-blocks, and a band whose Kmax (with its ROI
+shift) exceeds the block decoder's word.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import concurrent.futures
 import dataclasses
 import os
 import struct
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -262,41 +268,130 @@ def iter_tile_parts(data: bytes, start: int, want=None):
 def batch_key(h: CodestreamHeader) -> tuple:
     """What `decode_batch` requires to be equal in every stream of a
     batch (`_out_of_slice`): SIZ, COD and QCD, then the COC / QCC
-    overrides, the POC and whether the stream has packed headers (PPM)."""
+    overrides, the POC, whether the stream has packed headers (PPM), the
+    ROI shifts (RGN) and the custom MCT's matrix and offsets."""
+    mct = None if h.custom_mct is None else tuple(
+        tuple(np.asarray(a, np.float32).ravel().tolist())
+        for a in h.custom_mct)
     return (h.siz, h.cod, h.qcd, h.cod_comp, h.qcd_comp, h.pocs,
-            h.ppm_sections is not None)
+            h.ppm_sections is not None,
+            tuple(h.roishifts) if h.roishifts else None, mct)
+
+
+def _coder(cod: CodInfo) -> str:
+    """The block coder of a COD or COC: "ht" or "mq"."""
+    return "ht" if cod.cblk_style & 0x40 else "mq"
+
+
+def _styles_out_of_slice(cods) -> Optional[str]:
+    """Why COD / COC code-block styles are outside the port, or None: an
+    MQ style other than the default."""
+    if any(cc is not None and not cc.cblk_style & 0x40 and cc.cblk_style
+           for cc in cods):
+        return ("an MQ code-block style other than the default (bypass, "
+                "RESET, TERMALL, VSC, PTERM or SEGMARK)")
+    return None
+
+
+def _roi_out_of_slice(cods, roishifts) -> Optional[str]:
+    """Why ROI shifts are outside the port, or None: a shift on a
+    component coded with the HT block coder (no encoder writes it, and
+    the HT decoder's Mb would take the shift)."""
+    if roishifts and any(s and _coder(cc) == "ht"
+                         for s, cc in zip(roishifts, cods)):
+        return "ROI shifts on HT code-blocks"
+    return None
 
 
 def _out_of_slice(hdrs: List[CodestreamHeader]) -> Optional[str]:
-    """Why a batch of parsed headers is outside the ported slice, or
-    None: the reference's `decode_batch` gate, which sends the same
-    streams to its device decode."""
+    """Why a batch of parsed headers is outside the port, or None; the
+    tile-part headers are checked as their tiles are parsed
+    (`_parse_frame`)."""
     h0 = hdrs[0]
     if any(batch_key(h)[:3] != batch_key(h0)[:3] for h in hdrs[1:]):
         return "streams of different coding parameters"
     siz, cod = h0.siz, h0.cod
-    if not cod.cblk_style & 0x40 and cod.cblk_style != 0:
-        return ("an MQ code-block style other than the default (bypass, "
-                "RESET, TERMALL, VSC, PTERM or SEGMARK)")
-    if cod.mct not in (0, 1) or any(h.custom_mct is not None for h in hdrs):
-        return "a custom MCT"
-    if any(h.roishifts and any(h.roishifts) for h in hdrs):
-        return "ROI shifts"
+    cods = [cc or cod for cc in (h0.cod_comp or [None] * len(siz.comps))]
+    why = _styles_out_of_slice([cod] + cods) or _roi_out_of_slice(
+        cods, h0.roishifts)
+    if why is not None:
+        return why
     if cod.mct and len(siz.comps) >= 3 and any(
             (c.dx, c.dy) != (siz.comps[0].dx, siz.comps[0].dy)
             for c in siz.comps[:3]):
         return "an MCT over differently sampled components"
     if any(batch_key(h)[3:] != batch_key(h0)[3:] for h in hdrs[1:]):
-        return ("streams of different COC / QCC overrides, POCs or packed "
-                "headers (PPM)")
-    if h0.cod_comp and any(
-            cc and (cc.transform != cod.transform
-                    or cc.numresolutions != cod.numresolutions
-                    or cc.cblk_style != cod.cblk_style)
-            for cc in h0.cod_comp):
-        return ("a COC that changes the transform, the resolution count or "
-                "the code-block style")
+        return ("streams of different COC / QCC overrides, POCs, packed "
+                "headers (PPM), ROI shifts or custom MCTs")
     return None
+
+
+class TileParams(NamedTuple):
+    """A tile's effective coding parameters (`_tile_params`)."""
+    cod: CodInfo
+    qcd: QcdInfo
+    cod_comp: Optional[List[Optional[CodInfo]]]
+    qcd_comp: Optional[List[Optional[QcdInfo]]]
+    pocs: Optional[list]
+
+
+class TileJobs(NamedTuple):
+    """One tile's parse, (t1_jobs, t1_job_slots, plans, cods) as
+    `tile.decode_tile` returns it, and the coding parameters it was
+    parsed with: two streams decode a tile with the same plans exactly
+    when their `params` are equal."""
+    jobs: list
+    slots: list
+    plans: list
+    cods: list
+    params: TileParams
+
+    @property
+    def cod(self) -> CodInfo:
+        """The tile's COD: its tile-part COD or the main header's, with
+        mct 2 where a custom MCT is signalled."""
+        return self.params.cod
+
+    @property
+    def coc(self) -> bool:
+        """Whether COC overrides apply to the tile."""
+        return bool(self.params.cod_comp)
+
+
+def _tile_params(hdr: CodestreamHeader, tp: Optional[TilePart]
+                 ) -> TileParams:
+    """The tile's effective coding parameters: the main header's with
+    the tile-part header overrides `tp` (the last tile-part of the tile
+    that has any) applied, as the reference's `decode` does (its
+    `_tile_params`). With a custom MCT the main COD signals mct 2, as
+    the reference sets it."""
+    ncomps = len(hdr.siz.comps)
+    tcod, tqcd = hdr.cod, hdr.qcd
+    if hdr.custom_mct is not None:
+        tcod = dataclasses.replace(tcod, mct=2)
+    cod_comp = list(hdr.cod_comp) if hdr.cod_comp else None
+    qcd_comp = list(hdr.qcd_comp) if hdr.qcd_comp else None
+    pocs = hdr.pocs
+    if tp is not None:
+        if tp.cod:
+            tcod = tp.cod
+            cod_comp = None
+        if tp.qcd:
+            tqcd = tp.qcd
+            qcd_comp = None
+        if tp.coc_raw:
+            cod_comp = cod_comp or [None] * ncomps
+            for payload in tp.coc_raw:
+                compno, cc = markers.parse_coc(payload, ncomps, tcod)
+                cod_comp[compno] = cc
+        if tp.qcc_raw:
+            qcd_comp = qcd_comp or [None] * ncomps
+            for payload in tp.qcc_raw:
+                compno, qq = markers.parse_qcc(payload, ncomps)
+                qcd_comp[compno] = qq
+        if tp.poc_raw:
+            pocs = markers.parse_poc(tp.poc_raw, ncomps)
+    return TileParams(tcod, tqcd, cod_comp, qcd_comp, pocs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -363,6 +458,7 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
     joined in the order of its tile-parts."""
     tile_bodies: Dict[int, List[bytes]] = {}
     tile_hdrs: Dict[int, List[bytes]] = {}
+    tile_over: Dict[int, TilePart] = {}
     ppm_iter = iter(hdr.ppm_sections or [])
     for tp in iter_tile_parts(data, hdr.main_header_end,
                               want=None if tiles is None
@@ -372,9 +468,7 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
                 next(ppm_iter, b"")
             continue
         if tp.cod or tp.qcd or tp.coc_raw or tp.qcc_raw or tp.poc_raw:
-            raise NotImplementedError(
-                "the torch decode does not cover tile-part header "
-                "overrides yet")
+            tile_over[tp.tile_index] = tp
         tile_bodies.setdefault(tp.tile_index, []).append(tp.body)
         if hdr.ppm_sections is not None:
             tile_hdrs.setdefault(tp.tile_index, []).append(
@@ -388,11 +482,23 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
             out.append(None)
             continue
         packed = b"".join(tile_hdrs[t]) if t in tile_hdrs else None
-        r = decode_tile(b"".join(tile_bodies.get(t, [])), hdr.siz, hdr.cod,
-                        hdr.qcd, tr, max_layers=layers, window=window,
-                        cod_comp=hdr.cod_comp, qcd_comp=hdr.qcd_comp,
-                        pocs=hdr.pocs, packed_headers=packed)
-        if hdr.cod.cblk_style & 0x40 and any(job[6] > 1 for job in r[0]):
+        tparams = _tile_params(hdr, tile_over.get(t))
+        tcod, tqcd, cod_comp, qcd_comp, pocs = tparams
+        if t in tile_over:
+            cods = [(cod_comp[c] if cod_comp and cod_comp[c] else tcod)
+                    for c in range(len(hdr.siz.comps))]
+            why = _styles_out_of_slice([tcod] + cods) or _roi_out_of_slice(
+                cods, hdr.roishifts)
+            if why is not None:
+                raise NotImplementedError(
+                    f"the torch decode does not cover {why} yet")
+        r = TileJobs(*decode_tile(
+            b"".join(tile_bodies.get(t, [])), hdr.siz, tcod, tqcd, tr,
+            max_layers=layers, window=window, cod_comp=cod_comp,
+            qcd_comp=qcd_comp, pocs=pocs, packed_headers=packed,
+            roishifts=hdr.roishifts), tparams)
+        if any(r.cods[c].cblk_style & 0x40 and job[6] > 1
+               for job, (c, _, _) in zip(r.jobs, r.slots)):
             raise NotImplementedError(
                 "the torch decode does not cover HT refinement passes yet")
         out.append(r)
@@ -432,29 +538,106 @@ def parse_batch(datas: List[bytes], params: Optional[DecoderParams] = None):
     return hdrs[0], trs, parsed
 
 
-def tile_groups(hdr: CodestreamHeader, trs, parsed,
-                max_res: Optional[int] = None
+def _comp_groups(tj: TileJobs):
+    """[(cod, comps)]: a parsed tile's components grouped by their
+    (transform, resolution count, block coder), each group with the COD
+    or COC its components share, in the order of their first component;
+    [(the tile's COD, None)] when every component shares the tile COD's
+    (the tile decodes in one plan)."""
+    def sig(cc):
+        return (cc.transform, cc.numresolutions, _coder(cc))
+    cods = tj.cods
+    if all(sig(cc) == sig(tj.cod) for cc in cods):
+        return [(tj.cod, None)]
+    groups: Dict[tuple, tuple] = {}
+    for c, cc in enumerate(cods):
+        groups.setdefault(sig(cc), (cc, []))[1].append(c)
+    return [(cc, tuple(comps)) for cc, comps in groups.values()]
+
+
+def tile_config(hdr: CodestreamHeader, tr: Rect, tj: TileJobs):
+    """The transform config of a whole parsed tile (its COD's MCT or the
+    custom MCT), whose `pipeline.inv_mct_dc` finishes a tile decoded in
+    component groups."""
+    return pipeline.config_for_tile(hdr.siz, tj.cod, tr, hdr.custom_mct)
+
+
+def tile_plans(hdr: CodestreamHeader, tr: Rect, tj: TileJobs,
+               reduce: int = 0, window_slots=None
+               ) -> List[fused_decode.FusedDecPlan]:
+    """The decode plans of one parsed tile at resolution reduction
+    `reduce`: one plan, or one a component group (`_comp_groups`) when
+    its components differ in transform, resolution count or block coder.
+    ROI components reconstruct their MQ lanes at plane 0 where COC
+    overrides apply to the tile, as the reference's host decode does
+    there (its per-block `_cblk_pmin`); elsewhere the reference's fused
+    native decode ignores the shift. `window_slots` makes window plans
+    (`fused_decode.build_plan`)."""
+    groups = _comp_groups(tj)
+    if groups[0][1] is not None:
+        cfg = tile_config(hdr, tr, tj)
+        if cfg.mct and cfg.mct_matrix is None and cfg.reversible and any(
+                cc.transform != Transform.DWT_53 for cc in tj.cods[:3]):
+            raise NotImplementedError(
+                "the torch decode does not cover an RCT over components "
+                "coded on 9/7 yet")
+    pm_zero = tuple(c for c, sh in enumerate(hdr.roishifts or ())
+                    if sh) if tj.coc else ()
+    plans = []
+    for gcod, comps in groups:
+        # a reduction past a component's levels leaves its resolution 0,
+        # as the reference's inverse does
+        max_res = max(0, gcod.numresolutions - 1 - reduce)
+        plans.append(fused_decode.build_plan(
+            tj.plans, hdr.siz, gcod, tr, coder=_coder(gcod), max_res=max_res,
+            window_slots=window_slots, comps=comps,
+            custom_mct=hdr.custom_mct, pm_zero=pm_zero))
+    return plans
+
+
+def tile_groups(hdr: CodestreamHeader, trs, parsed, reduce: int = 0
                 ) -> Dict[fused_decode.FusedDecPlan, List[int]]:
     """Group the tiles that share one decode plan: {plan: [tile, ...]},
     over the tiles that some stream has a tile-part for, each plan
-    decoding resolutions 0..`max_res` (all when None).
+    decoding its resolutions up to a reduction by `reduce`. A tile whose
+    components differ in transform, resolution count or block coder is
+    listed under each of its component groups' plans (`tile_plans`).
 
     A plan (`fused_decode.build_plan`) is the tile's geometry: its
     transform config (`pipeline.config_for_tile`, which carries each
     level's origin parity), band shapes and code-block placement. Two
     tiles with equal band shapes but opposite origin parity invert
-    differently and so get two plans. The streams share one header, so
-    any stream's component plans of a tile stand for all of them."""
-    coder = "ht" if hdr.cod.cblk_style & 0x40 else "mq"
+    differently and so get two plans. A tile's plans come from the first
+    stream that has it: the streams share one main header, and their
+    tile-part headers must give each tile the same parameters
+    (`_same_tile_params`)."""
     groups: Dict[fused_decode.FusedDecPlan, List[int]] = {}
     for t, tr in enumerate(trs):
-        if not any(t in tiles for _, tiles in parsed):
-            continue
-        plan = fused_decode.build_plan(parsed[0][0][t][2], hdr.siz,
-                                       hdr.cod, tr, coder=coder,
-                                       max_res=max_res)
-        groups.setdefault(plan, []).append(t)
+        have = [f for f, (_, tiles) in enumerate(parsed) if t in tiles]
+        if have:
+            for plan in tile_plans(hdr, tr, parsed[have[0]][0][t], reduce):
+                groups.setdefault(plan, []).append(t)
     return groups
+
+
+def _same_tile_params(parsed) -> bool:
+    """Whether every stream of a parsed batch that has a tile parsed it
+    with the same coding parameters (their tile-part headers agree)."""
+    for t in range(len(parsed[0][0])):
+        params = [p[0][t].params for p in parsed if t in p[1]]
+        if any(q != params[0] for q in params[1:]):
+            return False
+    return True
+
+
+def _finish(hdr: CodestreamHeader, tr: Rect, tj: TileJobs,
+            planes: Dict[int, torch.Tensor]) -> List[np.ndarray]:
+    """A tile decoded in component groups: its inverse-transformed
+    planes by component, on the device -> int32 samples
+    (`pipeline.inv_mct_dc` over the whole tile on the device, then one
+    fetch a component)."""
+    return [a.cpu().numpy() for a in pipeline.inv_mct_dc(
+        tile_config(hdr, tr, tj), [planes[c] for c in range(len(planes))])]
 
 
 def _canvas(siz: SizInfo, area: Rect, reduce: int) -> List[np.ndarray]:
@@ -519,32 +702,50 @@ def decode_batch(datas: List[bytes],
     hdr, trs, parsed = parse_batch(datas, params)
     siz = hdr.siz
     req = _request(siz, hdr.cod, trs, params)
-    max_res = hdr.cod.numresolutions - 1 - req.reduce
+    if not _same_tile_params(parsed):
+        return [decode_batch([d], params, dev, chunk)[0] for d in datas]
+    groups = tile_groups(hdr, trs, parsed, req.reduce)
 
-    submits = []  # (handle, [(frame, tile), ...])
-    for plan, tlist in tile_groups(hdr, trs, parsed, max_res).items():
+    submits = []  # (plan, handle, [(frame, tile), ...])
+    for plan, tlist in groups.items():
         decoder = fused_decode.decoder_for(plan, dev)
         instances = [(f, t) for t in tlist for f in range(len(datas))
                      if t in parsed[f][1]]
         for k in range(0, len(instances), max(1, chunk)):
             part = instances[k:k + max(1, chunk)]
-            submits.append((fused_decode.decode_tiles_submit(decoder, [
+            submits.append((plan, fused_decode.decode_tiles_submit(decoder, [
                 fused_decode.jobs_by_block(*parsed[f][0][t][:3],
-                                           max_res=plan.max_res)
+                                           max_res=plan.max_res,
+                                           comps=plan.comps)
                 for (f, t) in part]), part))
 
     r = req.reduce
     comps_out = [_canvas(siz, req.area, r) for _ in datas]
-    for handle, part in submits:
-        outs = fused_decode.decode_tiles_collect(handle)
-        for (f, t), comps in zip(part, outs):
-            for c, arr in enumerate(comps):
-                cs = siz.comps[c]
-                tc = parsed[f][0][t][2][c].layout.tc_rect
-                _paste(comps_out[f][c], arr,
-                       ceil_div(req.area.x0, cs.dx << r),
-                       ceil_div(req.area.y0, cs.dy << r),
-                       ceil_div(tc.x0, 1 << r), ceil_div(tc.y0, 1 << r))
+
+    def paste(f, t, c, arr):
+        cs = siz.comps[c]
+        tc = parsed[f][0][t][2][c].layout.tc_rect
+        _paste(comps_out[f][c], arr, ceil_div(req.area.x0, cs.dx << r),
+               ceil_div(req.area.y0, cs.dy << r), ceil_div(tc.x0, 1 << r),
+               ceil_div(tc.y0, 1 << r))
+
+    # a tile decoded in component groups keeps its groups' planes on the
+    # device until `_finish`
+    grouped: Dict[tuple, Dict[int, torch.Tensor]] = {}
+    for plan, handle, part in submits:
+        if plan.comps is None:
+            outs = fused_decode.decode_tiles_collect(handle)
+            for (f, t), comps in zip(part, outs):
+                for c, arr in enumerate(comps):
+                    paste(f, t, c, arr)
+        else:
+            for i, ft in enumerate(part):
+                grouped.setdefault(ft, {}).update(
+                    (c, a[i]) for c, a in zip(plan.comps, handle))
+    for (f, t), planes in grouped.items():
+        for c, arr in enumerate(_finish(hdr, trs[t], parsed[f][0][t],
+                                        planes)):
+            paste(f, t, c, arr)
     return [_image(siz, planes, req.area) for planes in comps_out]
 
 
@@ -575,37 +776,41 @@ def decode(data: bytes, params: Optional[DecoderParams] = None,
     req = _request(siz, cod, trs, params)
     parsed, have = _parse_frame(data, hdr, trs, params.layers, req.tiles,
                                 req.window)
-    max_res = cod.numresolutions - 1 - req.reduce
-    coder = "ht" if cod.cblk_style & 0x40 else "mq"
-    submits = []  # (tile, plan, handle)
+    submits = []  # (tile, [(plan, handle)])
     for t in sorted(have):
         if trs[t].clip(req.window).is_empty():
             continue
-        jobs, slots, plans, _ = parsed[t]
-        plan = fused_decode.build_plan(plans, siz, cod, trs[t], coder=coder,
-                                       max_res=max_res, window_slots=slots)
-        submits.append((t, plan, fused_decode.decode_tiles_submit(
+        jobs, slots, plans = parsed[t][:3]
+        submits.append((t, [(plan, fused_decode.decode_tiles_submit(
             fused_decode.decoder_for(plan, dev),
             [fused_decode.jobs_by_block(jobs, slots, plans,
-                                        max_res=plan.max_res)])))
+                                        max_res=plan.max_res,
+                                        comps=plan.comps)]))
+            for plan in tile_plans(hdr, trs[t], parsed[t], req.reduce,
+                                   window_slots=slots)]))
 
     r = req.reduce
-    reversible = cod.transform == Transform.DWT_53
-    dtype = np.int32 if reversible else np.float32
     planes = _canvas(siz, req.area, r)
-    for t, plan, handle in submits:
-        [[flat]] = fused_decode.decode_tiles_collect(handle)
-        boxes = fused_decode.window_boxes(plan, flat)
-        comps, origins = [], []
-        for c, cs in enumerate(siz.comps):
-            a, wx0, wy0 = dwt_window.inv_dwt_2d_window(
-                _box_fetch(boxes[c], dtype), parsed[t][2][c].layout.tc_rect,
-                cod.numresolutions,
-                component_rect(req.window, cs.dx, cs.dy),
-                reversible=reversible, max_res=max_res)
-            comps.append(torch.from_numpy(a))
-            origins.append((wx0, wy0))
-        samples = pipeline.inv_mct_dc(plan.cfg, comps)
+    for t, tile_submits in submits:
+        comps = [None] * len(siz.comps)
+        origins = [None] * len(siz.comps)
+        for plan, handle in tile_submits:
+            [[flat]] = fused_decode.decode_tiles_collect(handle)
+            boxes = fused_decode.window_boxes(plan, flat)
+            cfg = plan.cfg
+            for i, c in enumerate(fused_decode.plan_comps(plan)):
+                cs = siz.comps[c]
+                a, wx0, wy0 = dwt_window.inv_dwt_2d_window(
+                    _box_fetch(boxes[i], np.int32 if cfg.reversible
+                               else np.float32),
+                    parsed[t][2][c].layout.tc_rect, cfg.numresolutions,
+                    component_rect(req.window, cs.dx, cs.dy),
+                    reversible=cfg.reversible,
+                    max_res=max(0, cfg.numresolutions - 1 - r))
+                comps[c] = torch.from_numpy(a)
+                origins[c] = (wx0, wy0)
+        samples = pipeline.inv_mct_dc(tile_config(hdr, trs[t], parsed[t]),
+                                      comps)
         for c, cs in enumerate(siz.comps):
             _paste(planes[c], samples[c].numpy(),
                    ceil_div(req.area.x0, cs.dx << r),

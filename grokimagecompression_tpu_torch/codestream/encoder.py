@@ -8,7 +8,12 @@ default code-block style on 5/3 or 9/7, with or without byte or PSNR
 targets (`rates`, `quality_psnr`: PCRD rate control over quality
 layers, per tile or image-wide with `rate_alloc="global"`) or an
 explicit rate allocator (a profile's byte caps,
-`profiles.encode_with_profile`).
+`profiles.encode_with_profile`). Either coder takes a Part-2 custom MCT
+on 9/7 (the decoding matrix `custom_mct`; its coding matrix by LUP
+inversion, `ops/linalg.py`, applied on the device before the DWT), and
+the MQ coder an ROI upshift of one component (`roi_comp`, `roi_shift`:
+the RGN marker and the Kmax T2 signals; the code-blocks code as
+without it).
 
 - `encode(image, params)`: one image; its tiles are grouped by their
   fused plan and each group's tiles are stacked and coded together on
@@ -30,8 +35,9 @@ to the reference host encoder's.
 
 Requests the reference codes with its host T1 raise NotImplementedError
 instead of falling back to the host: MQ code-block styles other than 0,
-HT refinement passes, a custom MCT, ROI upshift, and an explicit rate
-allocator with the HT block coder.
+HT refinement passes, and an explicit rate allocator with the HT block
+coder. ROI with the HT coder, and a custom MCT off 9/7 or of the wrong
+size, raise the reference's ValueError.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from ..core.image import Image
 from ..core.params import MCT, EncoderParams, QuantStyle, Transform
 from ..models import fused_encode
 from ..ops import _build, ht_tables
+from ..ops.linalg import lup_inverse
 from ..utils.device import DeviceLike, resolve_device
 from . import markers
 from .markers import CodInfo, ComponentSiz, SizInfo, SotInfo
@@ -78,8 +85,9 @@ def build_siz(image: Image, params: EncoderParams) -> SizInfo:
 
 
 def build_cod(image: Image, params: EncoderParams) -> CodInfo:
-    """COD of the slice (no custom MCT: `encode_batch` rejects it)."""
-    mct = params.mct
+    """COD of the slice: mct 2 for a custom MCT, else the parameters' MCT
+    or RCT / ICT over three equally sampled components."""
+    mct = 2 if params.custom_mct is not None else params.mct
     if mct is None:
         same = (
             image.numcomps >= 3
@@ -134,6 +142,41 @@ def _cod_comp(siz: SizInfo, cod: CodInfo, params: EncoderParams):
     return cod_comp
 
 
+def _roishifts(siz: SizInfo, params: EncoderParams) -> Optional[List[int]]:
+    """Each component's ROI shift, or None without ROI."""
+    if params.roi_comp is None or params.roi_shift <= 0:
+        return None
+    shifts = [0] * len(siz.comps)
+    shifts[params.roi_comp] = params.roi_shift
+    return shifts
+
+
+def _part2(params: EncoderParams, siz: SizInfo):
+    """A custom MCT's coding matrix (the LUP inverse of the decoding
+    matrix `params.custom_mct`) and its Part-2 marker segments (CBD, the
+    decoding matrix and the DC offsets as MCT records, MCC, MCO), as the
+    reference encoder writes them (reference: j2k_setup_mct_encoding); or
+    (None, b"") without one. Raises the reference's ValueErrors: off the
+    9/7 transform, or a matrix that is not ncomps x ncomps."""
+    if params.custom_mct is None:
+        return None, b""
+    if params.transform != Transform.DWT_97:
+        raise ValueError("custom MCT requires the 9/7 transform")
+    decode_matrix = np.asarray(params.custom_mct, np.float32)
+    n = len(siz.comps)
+    if decode_matrix.shape != (n, n):
+        raise ValueError("custom MCT matrix must be ncomps x ncomps")
+    offsets = [0 if c.signed else (1 << (c.prec - 1)) for c in siz.comps]
+    extra = markers.write_cbd(siz.comps)
+    extra += markers.write_mct_record(
+        1, markers.MCT_ARRAY_DECORRELATION, decode_matrix)
+    extra += markers.write_mct_record(
+        2, markers.MCT_ARRAY_OFFSET, np.asarray(offsets, np.float32))
+    extra += markers.write_mcc(n, 1, 2)
+    extra += markers.write_mco([0])
+    return lup_inverse(decode_matrix), extra
+
+
 def _guard_bits(params: EncoderParams) -> int:
     """HT (Part 15) streams use one guard bit, as the reference
     (j2k.cpp:1834); Part-1 streams the parameter's."""
@@ -160,8 +203,10 @@ def write_codestream(image: Image, params: EncoderParams,
 
     The reference's host `encode(..., device=False,
     _t1_segments_by_tile=...)`: main header (SIZ, with `rsiz` ORed in
-    (a profile's) and the Part-15 flag and a CAP for HT, COD, COC, QCD,
-    POC, COM, PPM, TLM), the rate allocator `layer_alloc` where given (a
+    (a profile's), the Part-15 flag and a CAP for HT, and the Part-2
+    flags for a custom MCT, COD, COC, QCD, POC, RGN for ROI, the custom
+    MCT's CBD / MCT / MCC / MCO, COM, PPM, TLM), the rate allocator
+    `layer_alloc` where given (a
     profile's byte caps, `profiles.profile_allocator`), else, when the
     parameters set byte or PSNR targets, the image-wide allocator
     (`pcrd.GlobalPCRDAllocator`) with `rate_alloc="global"` and more
@@ -186,6 +231,10 @@ def write_codestream(image: Image, params: EncoderParams,
         # HT (Part 15): JPH rsiz flag, CAP marker after SIZ
         siz = dataclasses.replace(siz, rsiz=siz.rsiz | markers.JPH_RSIZ_FLAG)
     cod_comp = _cod_comp(siz, cod, params)
+    coding_matrix, part2 = _part2(params, siz)
+    if coding_matrix is not None:
+        siz = dataclasses.replace(siz, rsiz=siz.rsiz | 0x8000 | 0x0100)
+    roishifts = _roishifts(siz, params)
 
     out = bytearray()
     out += markers.write_soc()
@@ -205,6 +254,10 @@ def write_codestream(image: Image, params: EncoderParams,
     out += markers.write_qcd(qcd)
     if params.pocs:
         out += markers.write_poc(params.pocs, len(siz.comps))
+    if roishifts is not None:
+        out += markers.write_rgn(params.roi_comp, params.roi_shift,
+                                 len(siz.comps))
+    out += part2
     if params.comment:
         out += markers.write_com(params.comment)
 
@@ -231,7 +284,8 @@ def write_codestream(image: Image, params: EncoderParams,
             return encode_tile(
                 t1_segments_by_tile[t], siz, cod, qcd, tr,
                 layer_alloc=layer_alloc, cod_comp=cod_comp,
-                pocs=params.pocs or None, split_headers=split,
+                pocs=params.pocs or None, roishifts=roishifts,
+                split_headers=split,
                 want_packet_lengths=params.plt_markers
                 or params.tp_flag is not None, tile_index=t)
         except BaseException as e:
@@ -333,10 +387,6 @@ def _out_of_slice(params: EncoderParams, layer_alloc=None) -> Optional[str]:
                 f"the default style 0 is ported)")
     if params.ht_refinement:
         return "HT refinement passes"
-    if params.custom_mct is not None:
-        return "a custom MCT"
-    if params.roi_comp is not None and params.roi_shift > 0:
-        return "ROI upshift"
     return None
 
 
@@ -439,6 +489,47 @@ def _encode_ht_rate_controlled(image: Image, params: EncoderParams):
             return cs2 if len(cs2) <= target else cs
         ov = len(cs) - (yield from seg(step)) + max(32, target // 500)
     return best if best is not None else cs
+
+
+def _ht_rc_bisect(image: Image, params: EncoderParams, dev: torch.device,
+                  rsiz: int) -> bytes:
+    """HT + byte-rate targeting with a custom MCT: the reference's
+    bisection of the base step by whole encodes (its `_ht_rc_bisect`, the
+    route its `_encode_ht_rate_controlled` takes for a custom MCT), each
+    encode `encode` on the device. `params` passed `_ht_rc_check`."""
+    target = max(256, int(_image_bytes(image) / float(params.rates[0])))
+
+    def attempt(step: float) -> bytes:
+        return encode(image, dataclasses.replace(params, rates=(),
+                                                 base_step=step), device=dev,
+                      rsiz=rsiz)
+
+    lo, hi = 0.25, 1.0          # step bracket (bytes(lo) >= bytes(hi))
+    cs_hi = attempt(hi)
+    while len(cs_hi) > target and hi < 4096:
+        lo, hi = hi, hi * 4.0
+        cs_hi = attempt(hi)
+    if len(cs_hi) > target:
+        return cs_hi            # floor: even huge steps overshoot
+    best = cs_hi
+    cs_lo = attempt(lo)
+    while len(cs_lo) <= target and lo > 1e-4:
+        hi, best = lo, cs_lo
+        lo = lo / 4.0
+        cs_lo = attempt(lo)
+    if len(cs_lo) <= target:
+        return cs_lo
+    for _ in range(8):          # bisect in log space
+        mid = (lo * hi) ** 0.5
+        cs = attempt(mid)
+        if len(cs) <= target:
+            hi, best = mid, cs
+        else:
+            lo = mid
+        if abs(len(cs) - target) <= max(64, target // 200):
+            if len(cs) <= target:
+                return cs
+    return best
 
 
 class _HTRateSearch:
@@ -546,10 +637,14 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
 
 
 def _check(params: EncoderParams, layer_alloc, what: str) -> None:
-    """The reference's ValueErrors of an HT request with targets, then
-    NotImplementedError for a request outside the ported slices."""
+    """The reference's ValueErrors of an HT request with targets or with
+    ROI, then NotImplementedError for a request outside the ported
+    slices."""
     if params.cblk_style & 0x40:
         _ht_rc_check(params)
+        if params.roi_comp is not None and params.roi_shift > 0:
+            raise ValueError("ROI upshift is not supported with the HT "
+                             "block coder")
     why = _out_of_slice(params, layer_alloc)
     if why is not None:
         raise NotImplementedError(
@@ -575,26 +670,32 @@ def _coding(image: Image, params: EncoderParams):
     return p, siz, cod, qcd, cod_comp, trs
 
 
+def plan_encoder(plan: Optional[fused_encode.FusedPlan], dev: torch.device,
+                 encoders: Dict) -> object:
+    """The fused encoder of a tile's plan (`fused_encode.FusedHTEncoder`
+    or `FusedMQEncoder`, by the plan's coder), kept in `encoders` by plan
+    so that every tile of one plan shares one (the interior tiles of a
+    grid do)."""
+    if plan is None:
+        raise NotImplementedError("the tile is outside the fused plan's "
+                                  "scope")
+    if plan not in encoders:
+        encoders[plan] = (
+            fused_encode.FusedHTEncoder(plan, ht_tables.device_tables(dev))
+            if plan.coder == "ht" else fused_encode.FusedMQEncoder(plan, dev))
+    return encoders[plan]
+
+
 def _tile_encoders(p: EncoderParams, siz: SizInfo, cod: CodInfo, qcd,
                    cod_comp, trs, dev: torch.device, want_rd: bool) -> List:
-    """Each tile's fused encoder (`fused_encode.FusedHTEncoder` or
-    `FusedMQEncoder`), one shared by every tile of one plan."""
+    """Each tile's fused encoder (`plan_encoder`); a custom MCT's coding
+    matrix is part of the plan."""
     coder = "ht" if p.cblk_style & 0x40 else "mq"
-    encoders = {}
-    tile_enc = []
-    for t, tr in enumerate(trs):
-        plan = fused_encode.build_plan(siz, cod, qcd, tr, cod_comp=cod_comp,
-                                       coder=coder, want_rd=want_rd)
-        if plan is None:
-            raise NotImplementedError(
-                f"tile {t} is outside the fused plan's scope")
-        if plan not in encoders:
-            encoders[plan] = (
-                fused_encode.FusedHTEncoder(plan,
-                                            ht_tables.device_tables(dev))
-                if coder == "ht" else fused_encode.FusedMQEncoder(plan, dev))
-        tile_enc.append(encoders[plan])
-    return tile_enc
+    coding_matrix = _part2(p, siz)[0]
+    encoders: Dict = {}
+    return [plan_encoder(fused_encode.build_plan(
+        siz, cod, qcd, tr, cod_comp=cod_comp, coder=coder, want_rd=want_rd,
+        custom_mct=coding_matrix), dev, encoders) for tr in trs]
 
 
 def encode(image: Image, params: Optional[EncoderParams] = None,
@@ -613,9 +714,10 @@ def encode(image: Image, params: Optional[EncoderParams] = None,
     chunk is collected once the next is submitted, so the device codes
     one while the host fetches the other and at most two chunks' outputs
     are on the device; then each tile's T2, with the rate allocation,
-    runs on a host thread pool (`write_codestream`). HT with a byte target runs the reference's
-    search of the quantizer step on the device coder
-    (`encode_batch` of the one image)."""
+    runs on a host thread pool (`write_codestream`). HT with a byte
+    target runs the reference's search of the quantizer step on the
+    device coder (`encode_batch` of the one image); with a custom MCT its
+    bisection by whole encodes (`_ht_rc_bisect`)."""
     dev = resolve_device(device)
     params = params or EncoderParams()
     _check(params, layer_alloc, "encode")
@@ -690,6 +792,8 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
     p, siz, cod, qcd, cod_comp, trs = _coding(images[0], params)
     numtiles = len(trs)
     rate_control = bool(p.cblk_style & 0x40 and p.rates)
+    if rate_control and p.custom_mct is not None:
+        return [_ht_rc_bisect(im, p, dev, rsiz) for im in images]
     want_rd = not p.cblk_style & 0x40 and (layer_alloc is not None
                                            or _needs_rc(p))
     tile_enc = _tile_encoders(p, siz, cod, qcd, cod_comp, trs, dev, want_rd)

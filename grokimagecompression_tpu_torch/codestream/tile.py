@@ -8,8 +8,8 @@ device (the `t1_segments` branch of `encode_tile`, HT or MQ, with the
 PCRD distortion weighting and the `layer_alloc` rate control for MQ
 segments that carry their pass tables), and the packet parse of
 `decode_tile` up to its `_return_jobs` return, with COC / QCC, POC,
-packed headers and the window's code-block filter (`_band_window`), and
-the packet index `index_tile_packets`. Packets go
+packed headers, ROI shifts (RGN) and the window's code-block filter
+(`_band_window`), and the packet index `index_tile_packets`. Packets go
 through the native T2 (`native/t2_native.py`): the tile encoder, the
 tile simulator of the rate control (with its per-component totals for a
 profile's caps) and the tile parser; the Python packet coder runs only
@@ -17,7 +17,7 @@ where the reference runs it too (packed headers, packet lengths, the
 packet index).
 
 Not copied: the host transforms and T1 (a window's inverse DWT is
-`ops/dwt_window.py`) and ROI shifts.
+`ops/dwt_window.py`).
 """
 
 from __future__ import annotations
@@ -72,9 +72,16 @@ def _band_index(r: int, orient: int) -> int:
 
 
 def build_comp_plan(siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
-                    tile: Rect, compno: int) -> TileCompPlan:
+                    tile: Rect, compno: int,
+                    roishift: int = 0) -> TileCompPlan:
     """Band plans of one tile-component: exponents (reversible) or
-    stepsizes (scalar quantized) and the bands' Kmax."""
+    stepsizes (scalar quantized) and the bands' Kmax.
+
+    `roishift` (RGN marker) inflates Kmax like the reference quantizer
+    (reference: Quantizer.cpp:91 band->numbps = roishift + expn + gb - 1);
+    the coefficient data itself stays unshifted on the wire: the upshift
+    exists in the signalled missing-bit-plane budget, which is what gives
+    the component of interest earlier truncation priority."""
     comp = siz.comps[compno]
     tc = component_rect(tile, comp.dx, comp.dy)
     precincts = tuple(cod.precincts) if cod.precincts else None
@@ -102,7 +109,7 @@ def build_comp_plan(siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
                 expn = e0 - nl + nb
                 mant = m0
                 stepsize = quant.decode_stepsize(expn, mant, comp.prec + gain)
-            kmax = qcd.num_guard_bits + expn - 1
+            kmax = qcd.num_guard_bits + expn - 1 + roishift
             bands[(r, orient)] = BandPlan(
                 r=r, orient=orient, rect=band.rect, gain=gain,
                 expn=expn, mant=mant, stepsize=stepsize, kmax=kmax)
@@ -173,7 +180,9 @@ def encode_tile(
     tile: Rect,
     layer_alloc=None,
     cod_comp: Optional[List[CodInfo]] = None,
+    qcd_comp: Optional[List[QcdInfo]] = None,
     pocs=None,
+    roishifts: Optional[List[int]] = None,
     split_headers: bool = False,
     want_packet_lengths: bool = False,
     tile_index: int = -1,
@@ -194,11 +203,18 @@ def encode_tile(
     `split_headers=True` routes packet headers to a separate packed
     stream (for PPM/PPT signalling); the body then carries only SOP
     markers and packet payloads.
+
+    `cod_comp` / `qcd_comp` hold each component's COC / QCC (None where
+    the COD / QCD holds) and `roishifts` each component's ROI shift,
+    which raises its bands' Kmax and so the missing bit-planes T2 writes.
     """
     ncomps = len(siz.comps)
     cods = [cod_comp[c] if cod_comp and cod_comp[c] else cod
             for c in range(ncomps)]
-    plans = [build_comp_plan(siz, cods[c], qcd, tile, c)
+    qcds = [qcd_comp[c] if qcd_comp and qcd_comp[c] else qcd
+            for c in range(ncomps)]
+    plans = [build_comp_plan(siz, cods[c], qcds[c], tile, c,
+                             roishifts[c] if roishifts else 0)
              for c in range(ncomps)]
     reversible = cod.transform == Transform.DWT_53
 
@@ -443,15 +459,17 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
                 window: Optional[Rect] = None,
                 cod_comp: Optional[List[Optional[CodInfo]]] = None,
                 qcd_comp: Optional[List[Optional[QcdInfo]]] = None,
-                pocs=None, packed_headers: Optional[bytes] = None):
+                pocs=None, packed_headers: Optional[bytes] = None,
+                roishifts: Optional[List[int]] = None):
     """Parse one tile's packet body into its entropy-decode jobs: the
-    reference's `decode_tile(..., _return_jobs=True)` without ROI or
-    reduce (a reduced decode drops the higher resolutions' jobs itself).
+    reference's `decode_tile(..., _return_jobs=True)` without reduce (a
+    reduced decode drops the higher resolutions' jobs itself).
     `cod_comp` / `qcd_comp` hold the COC / QCC overrides of
     each component (None where the main COD / QCD holds), `pocs` the POC
     entries, which give the packet order in place of the COD's
     progression, and `packed_headers` the tile's packet headers from its
-    PPM or PPT markers. With `max_layers` > 0 only the passes of the
+    PPM or PPT markers, `roishifts` each component's ROI shift (its
+    bands' Kmax raised by it). With `max_layers` > 0 only the passes of the
     first `max_layers` quality layers are kept. With `window` (canvas
     coords at full resolution) only the code-blocks that can influence
     it get a job (the reference's filter, `_band_window`); every packet
@@ -472,7 +490,8 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
             for c in range(ncomps)]
     qcds = [qcd_comp[c] if qcd_comp and qcd_comp[c] else qcd
             for c in range(ncomps)]
-    plans = [build_comp_plan(siz, cods[c], qcds[c], tile, c)
+    plans = [build_comp_plan(siz, cods[c], qcds[c], tile, c,
+                             roishifts[c] if roishifts else 0)
              for c in range(ncomps)]
 
     # Build decode structures.

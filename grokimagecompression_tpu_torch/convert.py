@@ -60,7 +60,10 @@ def _cfg_from_reference(c) -> pipeline.TileTransformConfig:
 def plan_from_reference(ref_plan) -> FusedPlan:
     """A reference `models.fused_encode.FusedPlan` (HT or MQ, on 5/3 or
     9/7, MQ with or without R-D tables) -> the port's `FusedPlan`, band
-    steps, Mb and `want_rd` included."""
+    steps, Mb and `want_rd` included. A tile with an ROI shift has the
+    plan of the same tile without it on both sides: the shift raises only
+    the Kmax that T2 signals (`tile.build_comp_plan(roishift=)`), and the
+    code-blocks code as without it."""
     if ref_plan.coder not in ("ht", "mq"):
         raise NotImplementedError(
             f"unknown block coder {ref_plan.coder!r}")
@@ -76,26 +79,46 @@ def plan_from_reference(ref_plan) -> FusedPlan:
                      coder=ref_plan.coder, want_rd=ref_plan.want_rd)
 
 
-def dec_plan_from_reference(ref_plan) -> fused_decode.FusedDecPlan:
+def dec_plan_from_reference(ref_plan, comps=None
+                            ) -> fused_decode.FusedDecPlan:
     """A reference `models.fused_decode.FusedDecPlan` (HT or MQ, 5/3 or
     9/7) -> the port's `FusedDecPlan`, its coder and band stepsizes
     included. The reference plans a lane for each code-block that its
     plan's frame includes, in the order of the tile's geometry; it equals
     the port's plan, which gives every code-block a lane, when that frame
-    includes them all."""
+    includes them all.
+
+    With `comps`, the plan keeps those components only, as the port's
+    plan of a component group does (`build_plan(comps=)`: their lanes
+    and bands, a `raw` config without MCT): the reference plans no tile
+    whose components differ in transform, resolutions or coder, so a
+    group's plan is held to its plan of the same components coded
+    alike."""
     if ref_plan.coder not in ("ht", "mq"):
         raise NotImplementedError(
             f"unknown block coder {ref_plan.coder!r}")
+    keep = set(range(len(ref_plan.cfg.tc_rects)) if comps is None
+               else comps)
     groups = tuple(
-        (w, h, tuple(fused_decode.DecBlock(
-            comp=b.comp, key=tuple(b.key), y0=b.y0, x0=b.x0, h=b.h, w=b.w)
-            for b in lanes))
-        for (w, h, lanes) in ref_plan.groups)
+        (w, h, blocks) for (w, h, blocks) in (
+            (w, h, tuple(fused_decode.DecBlock(
+                comp=b.comp, key=tuple(b.key), y0=b.y0, x0=b.x0, h=b.h,
+                w=b.w) for b in lanes if b.comp in keep))
+            for (w, h, lanes) in ref_plan.groups) if blocks)
+    bands = [(tuple(s), float(st)) for s, st in zip(ref_plan.band_shapes,
+                                                    ref_plan.stepsizes)
+             if s[0] in keep]
+    cfg = _cfg_from_reference(ref_plan.cfg)
+    if comps is not None:
+        cfg = dataclasses.replace(
+            cfg, tc_rects=tuple(cfg.tc_rects[c] for c in comps),
+            precs=tuple(cfg.precs[c] for c in comps),
+            signeds=tuple(cfg.signeds[c] for c in comps), mct=False,
+            raw=True)
     return fused_decode.FusedDecPlan(
-        cfg=_cfg_from_reference(ref_plan.cfg), groups=groups,
-        band_shapes=tuple(tuple(s) for s in ref_plan.band_shapes),
-        coder=ref_plan.coder,
-        stepsizes=tuple(float(s) for s in ref_plan.stepsizes))
+        cfg=cfg, groups=groups, band_shapes=tuple(s for s, _ in bands),
+        coder=ref_plan.coder, stepsizes=tuple(st for _, st in bands),
+        comps=None if comps is None else tuple(comps))
 
 
 def image_from_reference(img) -> Image:

@@ -43,6 +43,16 @@ in the host dequantizer's order (`quant.reconstruct`); the inverse 9/7
 DWT, inverse ICT and rounding follow in `pipeline._inv_transform`. Bands
 in which no block is coded stay zero.
 
+A tile whose components differ in transform, resolution count or block
+coder (COC) gets one plan per group of components that share them
+(`build_plan(comps=)`): each decodes and inverts its components' DWT
+only (a `raw` transform config), and the caller runs the inverse MCT
+and DC shift over the whole tile (`pipeline.inv_mct_dc`). A Part-2
+custom MCT rides in the config (`pipeline.config_for_tile`). ROI
+components keep their blocks' decoded magnitudes (the shift only raises
+Kmax); their MQ lanes reconstruct at plane 0 where the reference's host
+decoder does (`pm_zero`).
+
 Two plan variants serve the per-image decode (`codestream/decoder.
 decode`):
 - reduced (`build_plan(..., max_res=)`): only the lanes and bands of
@@ -111,19 +121,38 @@ class FusedDecPlan:
     # bounding box in the band plane, band_shapes holding the box's
     # (h, w); the decoder returns the boxes. None: whole bands, inverted
     boxes: Optional[Tuple[Tuple[int, int], ...]] = None
+    # the tile components the plan decodes, in output order (a group of
+    # a tile whose components differ in transform, resolutions or coder;
+    # `cfg.raw`); None: all of them
+    comps: Optional[Tuple[int, ...]] = None
+    # components whose MQ lanes reconstruct at plane 0 rather than at
+    # their lowest decoded plane (ROI components decoded as the
+    # reference's host decoder decodes a tile with COC overrides)
+    pm_zero: Tuple[int, ...] = ()
+
+
+def plan_comps(plan: FusedDecPlan) -> Tuple[int, ...]:
+    """The tile components a plan decodes, in its output order."""
+    if plan.comps is not None:
+        return plan.comps
+    return tuple(range(len(plan.cfg.tc_rects)))
 
 
 def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
-               max_res: Optional[int] = None, window_slots=None
-               ) -> FusedDecPlan:
+               max_res: Optional[int] = None, window_slots=None,
+               comps: Optional[Tuple[int, ...]] = None, custom_mct=None,
+               pm_zero: Tuple[int, ...] = ()) -> FusedDecPlan:
     """The decode plan of one tile from its components' plans
-    (`codestream/tile.build_comp_plan`, each with its component's COC
-    and QCC) for the block coder `coder` ("ht" or "mq"): a lane for every
-    code-block of the geometry, grouped by block (w, h), in the order of
-    the tile's code-blocks within each group, and each band's stepsize
-    (1.0 on the reversible path). The transform config comes from the
-    main COD: the decode gate admits COCs that keep its transform and
-    resolution count.
+    (`codestream/tile.build_comp_plan`, each with its component's COC,
+    QCC and ROI shift) for the block coder `coder` ("ht" or "mq"): a lane
+    for every code-block of the geometry, grouped by block (w, h), in the
+    order of the tile's code-blocks within each group, and each band's
+    stepsize (1.0 on the reversible path). The transform config comes
+    from `cod` (with the custom MCT `custom_mct`, (matrix, offsets), where
+    it signals mct 2): the tile's COD, or, with `comps`, the COD or COC
+    that the components `comps` share, whose plan then decodes them alone
+    and stops after their inverse DWT. `pm_zero` lists the components
+    whose MQ lanes reconstruct at plane 0.
 
     `max_res` keeps only the bands of resolutions 0..max_res (a reduced
     decode). `window_slots`, the job slots of a windowed
@@ -137,8 +166,9 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
     if max_res is not None and max_res >= cod.numresolutions - 1:
         max_res = None
     top = cod.numresolutions - 1 if max_res is None else max_res
-    cfg = pipeline.config_for_tile(siz, cod, tile)
-    kmax = max(p.bands[k].kmax for p in plans for k in p.bands)
+    cfg = pipeline.config_for_tile(siz, cod, tile, custom_mct, comps)
+    ours = range(len(plans)) if comps is None else comps
+    kmax = max(plans[c].bands[k].kmax for c in ours for k in plans[c].bands)
     if coder == "ht" and kmax + 3 > 32:
         raise NotImplementedError(
             f"band Mb {kmax}: the HT decoder needs Mb + 3 <= 32")
@@ -152,7 +182,8 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
         keep = {_slot(plans, c, key, cb) for (c, key, cb) in window_slots}
     groups: Dict[Tuple[int, int], List[DecBlock]] = {}
     kept: Dict[Tuple[int, Tuple[int, int]], List[DecBlock]] = {}
-    for c, p in enumerate(plans):
+    for c in ours:
+        p = plans[c]
         for res in p.layout.resolutions:
             if res.r > top:
                 continue
@@ -171,7 +202,8 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
     band_shapes = []
     stepsizes = []
     boxes = []
-    for c, p in enumerate(plans):
+    for c in ours:
+        p = plans[c]
         rects = {(res.r, band.orient): band.rect
                  for res in p.layout.resolutions for band in res.bands}
         for k in keys:
@@ -194,7 +226,9 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
                      for (w, h) in sorted(groups)),
         band_shapes=tuple(band_shapes), coder=coder,
         stepsizes=tuple(stepsizes), max_res=max_res,
-        boxes=None if keep is None else tuple(boxes))
+        boxes=None if keep is None else tuple(boxes),
+        comps=None if comps is None else tuple(comps),
+        pm_zero=tuple(c for c in ours if c in pm_zero))
 
 
 def _slot(plans, c: int, key, cb) -> tuple:
@@ -204,13 +238,17 @@ def _slot(plans, c: int, key, cb) -> tuple:
 
 
 def jobs_by_block(t1_jobs, t1_job_slots, plans,
-                  max_res: Optional[int] = None) -> Dict[tuple, tuple]:
+                  max_res: Optional[int] = None,
+                  comps: Optional[Tuple[int, ...]] = None
+                  ) -> Dict[tuple, tuple]:
     """One frame's parsed jobs of a tile (`codestream/tile.decode_tile`)
     keyed by their code-block's `DecBlock.slot`; with `max_res`, only
-    those of resolutions 0..max_res (a reduced plan's lanes)."""
+    those of resolutions 0..max_res (a reduced plan's lanes); with
+    `comps`, only those of these components (a group plan's lanes)."""
     return {_slot(plans, c, key, cb): job
             for job, (c, key, cb) in zip(t1_jobs, t1_job_slots, strict=True)
-            if max_res is None or key[0] <= max_res}
+            if (max_res is None or key[0] <= max_res)
+            and (comps is None or c in comps)}
 
 
 def _scup(seg: bytes) -> int:
@@ -231,24 +269,26 @@ def _prepare_ht_group(jobs):
     return ht_dec.pack_segments(segs, scups) + (valid,)
 
 
-def _lane_halves(nbps, npas, rev: bool) -> np.ndarray:
+def _lane_halves(nbps, npas, rev: bool, zero=None) -> np.ndarray:
     """Per-lane mid-point reconstruction at the block's lowest decoded
-    plane pm (`quant.trunc_plane`): reversible, the int32 addend
-    2^(pm - 1) (0 for a fully decoded block); irreversible, the float32
-    factor 0.5 * 2^pm, as the host's dequantizer (`quant.dequantize`)."""
-    pms = [trunc_plane(nb, n) for nb, n in zip(nbps, npas)]
+    plane pm (`quant.trunc_plane`; 0 for the lanes that `zero` marks):
+    reversible, the int32 addend 2^(pm - 1) (0 for a fully decoded
+    block); irreversible, the float32 factor 0.5 * 2^pm, as the host's
+    dequantizer (`quant.dequantize`)."""
+    pms = [0 if zero is not None and z else trunc_plane(nb, n)
+           for nb, n, z in zip(nbps, npas, zero or [False] * len(nbps))]
     if rev:
         return np.asarray([(1 << (pm - 1)) if pm > 0 else 0 for pm in pms],
                           np.int32)
     return np.asarray([0.5 * (1 << pm) for pm in pms], np.float32)
 
 
-def _prepare_mq_group(jobs, rev: bool):
+def _prepare_mq_group(jobs, rev: bool, zero=None):
     """(data, off, nbps, npas, ori, halves) of an MQ lane group: the
     `mq_dec.pack_lanes` arrays and the (F*B,) mid-point addends or
-    factors (`_lane_halves`). A block with no job or no pass gets an
-    idle lane. Raises NotImplementedError for a block of several
-    codeword segments."""
+    factors (`_lane_halves`, plane 0 on the lanes `zero` marks). A block
+    with no job or no pass gets an idle lane. Raises NotImplementedError
+    for a block of several codeword segments."""
     segs: List[bytes] = []
     ori, nbps, npas = [], [], []
     for job in jobs:
@@ -262,7 +302,7 @@ def _prepare_mq_group(jobs, rev: bool):
         nbps.append(job[5] if live else 0)
         npas.append(job[6] if live else 0)
     return mq_dec.pack_lanes(segs, ori, nbps, npas) + (
-        _lane_halves(nbps, npas, rev),)
+        _lane_halves(nbps, npas, rev, zero),)
 
 
 def prepare_chunk(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
@@ -271,8 +311,6 @@ def prepare_chunk(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
     numpy arrays of `_prepare_ht_group` or `_prepare_mq_group`, lanes
     frame-major. Raises ValueError when a frame has a job for a
     code-block that the plan does not hold."""
-    prepare = (functools.partial(_prepare_mq_group, rev=plan.cfg.reversible)
-               if plan.coder == "mq" else _prepare_ht_group)
     placed = [0] * len(frames)
     out = []
     for (_, _, lanes) in plan.groups:
@@ -282,7 +320,12 @@ def prepare_chunk(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
                 job = frame.get(blk.slot)
                 placed[f] += job is not None
                 jobs.append(job)
-        out.append(prepare(jobs))
+        if plan.coder == "mq":
+            zero = [blk.comp in plan.pm_zero for blk in lanes] * len(frames)
+            out.append(_prepare_mq_group(jobs, plan.cfg.reversible,
+                                         zero if any(zero) else None))
+        else:
+            out.append(_prepare_ht_group(jobs))
     for f, frame in enumerate(frames):
         if placed[f] != len(frame):
             raise ValueError(f"frame {f} of the chunk has code-blocks "
@@ -313,10 +356,12 @@ def window_boxes(plan: FusedDecPlan, flat: np.ndarray
     """A window plan's fetched flat buffer of one frame -> per component
     {(r, orient): (y0, x0, box)}: each band's bounding box of dequantized
     coefficients and its origin in the band plane."""
+    local = {c: i for i, c in enumerate(plan_comps(plan))}
     out: List[Dict] = [{} for _ in plan.cfg.tc_rects]
     for ((c, key), (off, bh, bw)), (y0, x0) in zip(
             band_offsets(plan).items(), plan.boxes, strict=True):
-        out[c][key] = (y0, x0, flat[off:off + bh * bw].reshape(bh, bw))
+        out[local[c]][key] = (y0, x0,
+                              flat[off:off + bh * bw].reshape(bh, bw))
     return out
 
 
@@ -380,18 +425,21 @@ class _FusedDecoder(nn.Module):
                     ) -> List[Dict[Tuple[int, int], torch.Tensor]]:
         """The flat buffer as one {(r, orient): (F, bh, bw)} dict of band
         views per component."""
+        local = {c: i for i, c in enumerate(plan_comps(self.plan))}
         out: List[Dict[Tuple[int, int], torch.Tensor]] = [
             {} for _ in self.plan.cfg.tc_rects]
         for (c, key), (off, bh, bw) in self._bands.items():
-            out[c][key] = flat[:, off:off + bh * bw].reshape(
+            out[local[c]][key] = flat[:, off:off + bh * bw].reshape(
                 flat.shape[0], bh, bw)
         return out
 
     def forward(self, nframes: int, *groups) -> Tuple[torch.Tensor, ...]:
         """Per shape group the tensors of `upload` for F = nframes frames
         -> one (F, h_c, w_c) int32 sample tensor per component, at the
-        plan's `max_res`; for a window plan, the (F, total) flat buffer
-        of its dequantized boxes (`window_boxes` splits it)."""
+        plan's `max_res` (for a group plan, one inverse-transformed plane
+        per component of the group: int32 on 5/3, float32 on 9/7); for a
+        window plan, the (F, total) flat buffer of its dequantized boxes
+        (`window_boxes` splits it)."""
         decoded = self.decode(groups)
         flat = self.assemble(decoded, [g[-1] for g in groups], nframes)
         if self.plan.boxes is not None:

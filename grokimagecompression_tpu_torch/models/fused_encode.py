@@ -81,12 +81,17 @@ class FusedPlan:
 
 
 def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
-               coder: str = "ht", want_rd: bool = False
-               ) -> Optional[FusedPlan]:
+               coder: str = "ht", want_rd: bool = False,
+               custom_mct=None) -> Optional[FusedPlan]:
     """The plan for one tile and block coder ("ht" or "mq"), or None
     when out of scope (components with different transforms, an MCT
-    other than none/RCT/ICT). `want_rd` (MQ
+    other than none/RCT/ICT or a custom one given by its coding matrix
+    `custom_mct`, which the COD signals as mct 2). `want_rd` (MQ
     only) makes the encode also return per-pass R-D tables for PCRD.
+
+    A plan has no ROI shift: the shift raises only the Kmax that T2
+    signals (`tile.encode_tile(roishifts=)`), and the code-blocks code
+    exactly as without it.
 
     The block order (comp -> resolution -> band -> precinct -> cblk)
     matches codestream/tile.py's t1 desc construction, so collected
@@ -102,7 +107,8 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
     if any(cc.transform != cods[0].transform for cc in cods):
         return None
     reversible = cods[0].transform == Transform.DWT_53
-    if cod.mct not in (0, 1):
+    custom = cod.mct == 2 and custom_mct is not None
+    if cod.mct not in (0, 1) and not custom:
         return None
     groups: Dict[Tuple[int, int], List[Tuple[int, BlockSpec]]] = {}
     gi = 0
@@ -128,7 +134,8 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
         groups = {k: sorted(v, key=lambda e: -e[1].kmax)
                   for k, v in groups.items()}
     return FusedPlan(
-        cfg=pipeline.config_for_tile(siz, cod, tile),
+        cfg=pipeline.config_for_tile(
+            siz, cod, tile, (custom_mct, None) if custom else None),
         groups=tuple((gh, gw, tuple(s for (_, s) in groups[(gh, gw)]))
                      for (gh, gw) in keys),
         nblocks=gi,
@@ -202,7 +209,8 @@ def mq_frame_bytes(plan: "FusedPlan") -> int:
 # - per tile sample: the uploaded sample (`_upload_dtype`), held through
 #   the encode;
 # - per tile sample, the transform at its peak: with the ICT
-#   (`mct_torch.ict_fwd`) each component's shifted int32 samples (4),
+#   (`mct_torch.ict_fwd`; a custom MCT's float32 product, `custom_fwd`,
+#   takes less) each component's shifted int32 samples (4),
 #   their float64 copy (8), the float32 result (4) and, one component at
 #   a time, the fused multiply-add's float64 product, widened accumulator
 #   and sum (24 B a pixel, 8 a sample): 24 B; without the ICT the int32
@@ -250,7 +258,8 @@ def ht_frame_bytes(plan: "FusedPlan", rate_control: bool = False) -> int:
         raise ValueError("ht_frame_bytes needs an HT plan")
     cfg = plan.cfg
     samples = [r.w * r.h for r in cfg.tc_rects]
-    ict = bool(cfg.mct) and len(samples) >= 3 and not cfg.reversible
+    ict = not cfg.reversible and (cfg.mct_matrix is not None or (
+        bool(cfg.mct) and len(samples) >= 3))
     upload = sum(n * _upload_dtype(p, s).itemsize
                  for n, p, s in zip(samples, cfg.precs, cfg.signeds))
     transform = HT_TRANSFORM_BYTES[ict] * sum(samples)

@@ -5,7 +5,9 @@ the reference leaves to XLA fusion; here it is plain torch arithmetic on
 tensors of any shape (leading batch axes allowed). RCT and the DC shift
 are integer and exact; the forward ICT reproduces the host encoder's
 float32 rounding (`ict_fwd`), the inverse runs in float32 with the
-reference's coefficients rounded to float32 first.
+reference's coefficients rounded to float32 first. The Part-2 custom
+MCT (`custom_fwd` / `custom_inv`) reproduces the host's float32
+`np.einsum` product (`ops/mct_np.custom_fwd` of the reference).
 """
 
 from __future__ import annotations
@@ -63,6 +65,30 @@ def ict_inv(y, cb, cr):
     g = y - _f32(0.34413) * cb - _f32(0.71414) * cr
     b = y + _f32(1.772) * cb
     return r, g, b
+
+
+def custom_fwd(arrays, matrix):
+    """Arbitrary-matrix MCT forward (Part 2): out_j = sum_k M[j, k] in_k
+    in float32, as the host encoder's `np.einsum("jk,k...->j...")`
+    computes it: each product rounded to float32, then added to the
+    running sum in k order, each sum rounded to float32. Every product
+    and sum is its own elementwise op, so no multiply-add is fused on
+    any device. `matrix` is (n, n), float32 values."""
+    planes = [a.to(torch.float32) for a in arrays]
+    m = np.asarray(matrix, np.float32)
+    out = []
+    for row in m:
+        acc = planes[0] * float(row[0])
+        for c, x in zip(row[1:], planes[1:]):
+            acc = acc + x * float(c)
+        out.append(acc)
+    return out
+
+
+def custom_inv(arrays, decode_matrix):
+    """Arbitrary-matrix MCT inverse: the codestream carries the decoding
+    matrix, applied directly (`custom_fwd` with it)."""
+    return custom_fwd(arrays, decode_matrix)
 
 
 def dc_shift_fwd(a, prec: int, signed: bool):

@@ -288,8 +288,8 @@ def test_decompress_split_pnm(sides):
 
 def test_compress_cli_poc_tp_mct_and_directory(sides):
     """-P (POC), -u (tile-parts), -Y (MCT select) and -y / -O / -a
-    (directory mode); the reference's case adds -R (ROI), which the port
-    does not code yet (test_out_of_slice_flags_fail)."""
+    (directory mode); the reference's case adds -R (ROI), which
+    test_roi_and_custom_mct_flags_equal_reference runs."""
     d = smooth(40, 48, 3, seed=5)
     sides.write("in.ppm", pnm_bytes(d))
     sides.run("compress", ["-i", "@in.ppm", "-o", "@out.j2k", "-n", "4",
@@ -368,19 +368,27 @@ def test_jp2_colour_boxes(sides):
 # ---- what the port does not code, and no fallback
 
 @pytest.mark.parametrize("flags,why", [
-    (["-R", "c=0,U=4"], "ROI upshift"),
-    (["-m", "@mct.txt"], "a custom MCT"),
     (["-M", "1"], "the MQ code-block style 0x1"),
     (["-M", "64", "--ht-refinement"], "HT refinement passes"),
-], ids=["roi", "custom-mct", "mq-lazy", "ht-refinement"])
+    (["-M", "64", "-R", "c=0,U=4"], None),
+], ids=["mq-lazy", "ht-refinement", "roi-ht"])
 def test_out_of_slice_flags_fail(sides, capsys, flags, why):
     """A flag that needs what the port does not code yet exits non-zero
     through common.fail with the reason, and writes no file; the
-    reference codes it (on its host T1)."""
+    reference codes it (on its host T1). ROI with the HT coder fails on
+    both sides with the reference's ValueError, and neither writes a
+    file."""
     d = smooth(24, 32, 3, seed=6)
     sides.write("in.ppm", pnm_bytes(d))
-    sides.write("mct.txt", b"1,0,0\n0,1,0\n0,0,1\n")
     argv = ["-i", "@in.ppm", "-o", "@out.j2k", "-n", "3"] + flags
+    if why is None:
+        with pytest.raises(ValueError, match="ROI upshift"):
+            ref_compress.main(sides.args("ref", argv))
+        with pytest.raises(ValueError, match="ROI upshift"):
+            compress.main(sides.args("port", argv) + CPU)
+        for side in ("ref", "port"):
+            assert not os.path.exists(sides.args(side, ["@out.j2k"])[0])
+        return
     with _numpy_dwt():
         assert ref_compress.main(sides.args("ref", argv)) == 0
     capsys.readouterr()
@@ -393,14 +401,36 @@ def test_out_of_slice_flags_fail(sides, capsys, flags, why):
     assert not os.path.exists(sides.args("port", ["@out.j2k"])[0])
 
 
+@pytest.mark.parametrize("flags", [
+    ["-R", "c=0,U=4"],
+    ["-m", "@mct.txt"],
+], ids=["roi", "custom-mct"])
+def test_roi_and_custom_mct_flags_equal_reference(sides, flags):
+    """`grk_compress -R c=0,U=4` (ROI) and `-m` with a decoding matrix
+    file (a custom MCT on 9/7) code on the port's kernels to the
+    reference tool's file, and `grk_decompress` of it writes the
+    reference tool's image."""
+    d = smooth(24, 32, 3, seed=6)
+    sides.write("in.ppm", pnm_bytes(d))
+    sides.write("mct.txt", "".join(",".join(repr(v) for v in row) + "\n"
+                                   for row in chip_smoke.CUSTOM_MCT).encode())
+    sides.run("compress", ["-i", "@in.ppm", "-o", "@out.j2k", "-n", "3"]
+              + flags)
+    sides.run("decompress", ["-i", "@out.j2k", "-o", "@out.ppm"])
+    cs, _ = sides.same("out.j2k", "out.ppm")
+    assert (b"\xff\x5e" in cs) == (flags[0] == "-R")      # RGN
+    assert (b"\xff\x74" in cs) == (flags[0] == "-m")      # MCT
+
+
 def test_out_of_slice_stream_fails_to_decode(sides, capsys):
-    """A stream the port's decode leaves out (ROI, made by the reference's
-    tool) ends with the reason and no file."""
+    """A stream the port's decode leaves out (an MQ code-block style other
+    than 0, made by the reference's tool) ends with the reason and no
+    file."""
     sides.write("in.ppm", pnm_bytes(smooth(24, 32, 3, seed=7)))
     with _numpy_dwt():
         assert ref_compress.main(sides.args("ref", [
-            "-i", "@in.ppm", "-o", "@in.ppm.j2k", "-n", "3", "-R",
-            "c=0,U=4"])) == 0
+            "-i", "@in.ppm", "-o", "@in.ppm.j2k", "-n", "3", "-M",
+            "1"])) == 0
     capsys.readouterr()
     with pytest.raises(SystemExit) as e:
         decompress.main(sides.args("port", [

@@ -176,7 +176,7 @@ def test_prepare_chunk_rejects_a_block_outside_the_plan():
     streams = _encode(_frames(1, 32, 32), EncoderParams(numresolutions=2,
                                                         cblk_style=HT))
     hdr, trs, parsed = decoder.parse_batch(streams)
-    jobs, slots, plans, _ = parsed[0][0][0]
+    jobs, slots, plans = parsed[0][0][0][:3]
     plan = fused_decode.build_plan(plans, hdr.siz, hdr.cod, trs[0])
     frame = fused_decode.jobs_by_block(jobs, slots, plans)
     assert len(frame) == sum(len(lanes) for _, _, lanes in plan.groups)
@@ -214,10 +214,18 @@ def test_equals_reference_fused_decode_batch():
 def test_out_of_slice_raises():
     img = _frames(1, 24, 24)
     for params in (EncoderParams(cblk_style=0x01),   # MQ with bypass
-                   EncoderParams(cblk_style=HT, ht_refinement=True),
-                   EncoderParams(roi_comp=0, roi_shift=3)):
+                   EncoderParams(cblk_style=HT, ht_refinement=True)):
         with pytest.raises(NotImplementedError):
             decoder.decode_batch(_encode(img, params), device="cpu")
+    # ROI is inside the port now (tests/test_torch_host_routes.py holds
+    # it to the reference): an MQ stream with an ROI shift decodes to the
+    # host decoder's pixels
+    roi = _encode(img, EncoderParams(roi_comp=0, roi_shift=3,
+                                     numresolutions=2))
+    (got,) = decoder.decode_batch(roi, device="cpu")
+    np.testing.assert_array_equal(
+        got.components[0].data,
+        ref_decoder.decode(roi[0], device=False).components[0].data)
     # packed headers and COC are inside the gate now
     # (tests/test_torch_decode_gate.py decodes them)
     for params in (EncoderParams(cblk_style=HT, ppt_markers=True),
@@ -271,7 +279,7 @@ def test_dec_plan_equals_reference_plan(monkeypatch, name, imgs, params,
     for tp in ref_decoder.iter_tile_parts(streams[0], ref_hdr.main_header_end):
         bodies[tp.tile_index] = bodies.get(tp.tile_index, b"") + tp.body
     for t, tr in enumerate(trs):
-        jobs, slots, plans, _ = parsed[0][0][t]
+        jobs, slots, plans = parsed[0][0][t][:3]
         ref_rect = ref_decoder.tile_rect(
             t, *(getattr(ref_hdr.siz, k) for k in (
                 "xsiz", "ysiz", "xosiz", "yosiz", "xtsiz", "ytsiz",

@@ -9,8 +9,10 @@ T2; the digest files that `chip_smoke.py` checks the card's streams
 against (config 1 HT and MQ, config 2 rate-controlled 9/7) must equal
 digests made afresh with the reference host encoder, and the corpus
 decode digests (`corpus_decode.json`) and the per-image decode's
-(`window_decode.json`) its host decoder's, and the per-image encode's
-(`image_encode.json`) its host encoder and codec's; and the port's
+(`window_decode.json`) its host decoder's, the per-image encode's
+(`image_encode.json`) its host encoder and codec's, and those of the
+ROI, custom-MCT, override and COC streams (`host_routes.json`) its host
+encoder's and decoder's; and the port's
 MQ
 tables, quantization helpers, irreversible plans and QCDs, PCRD hull and
 allocator, T2 tile simulator and `PassInfo` must equal the reference's.
@@ -75,6 +77,7 @@ CORPUS_DIGESTS = os.path.join(DATA, "corpus_decode.json")
 CORPUS = os.path.join(REPO, "tests", "corpus")
 WIN_DIGESTS = os.path.join(DATA, "window_decode.json")
 IMG_ENC_DIGESTS = os.path.join(DATA, "image_encode.json")
+ROUTE_DIGESTS = os.path.join(DATA, "host_routes.json")
 
 CASES = [
     ("gray", [natural_image(64, 64, seed=0)],
@@ -679,6 +682,80 @@ def image_encode_digests():
     }
 
 
+def host_routes_digests():
+    """`chip_smoke.py` phase 22's digests: config-2 frame 0
+    (`chip_smoke.config2_frames`) coded by the reference host encoder at
+    each `chip_smoke.ROUTE_CASES` entry (ROI at shift 6 and at
+    `roi_max_shift`, a custom MCT with MQ at ratios 24 / 48 / 96 and with
+    HT at the default step), SHA-256 of each stream and of the host
+    decoder's pixels of it; and the small override and COC streams
+    (`chip_smoke.override_stream` of the reference host encoder's streams
+    at `override_params(ROUTE_SMALL)`, `chip_smoke.coc_stream` by the
+    port on the CPU) of `chip_smoke.route_small_frame`, with the host
+    decoder's pixels of each, whole and of one window at a reduction;
+    numpy DWT throughout."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    from grokimagecompression_tpu.core import params as ref_params
+    from grokimagecompression_tpu.core.params import (DecoderParams as
+                                                      RefDecoderParams)
+    from grokimagecompression_tpu_torch.core import params as port_params
+
+    def sha(cs):
+        return hashlib.sha256(cs).hexdigest()
+
+    frame = chip_smoke.config2_frames(1)[0]
+    small = chip_smoke.route_small_frame()
+    cases = {}
+    with _numpy_dwt():
+        for name in chip_smoke.ROUTE_CASES:
+            p = chip_smoke.route_params(ref_params, name)
+            cs = ref_encoder.encode(_reference_image(frame), p, device=False)
+            cases[name] = {"roi_shift": p.roi_shift, "stream": sha(cs),
+                           "pixels": chip_smoke.frame_digest(
+                               ref_decoder.decode(cs, device=False))}
+        base, over = chip_smoke.override_params(ref_params,
+                                                chip_smoke.ROUTE_SMALL)
+        ref_small = _reference_image(small)
+        override = chip_smoke.override_stream(
+            ref_encoder.encode(ref_small, base, device=False),
+            ref_encoder.encode(ref_small, over, device=False))
+    coc = chip_smoke.coc_stream(small, port_params.EncoderParams(
+        mct=port_params.MCT.NONE, **dict(
+            chip_smoke.ROUTE_SMALL, transform=port_params.Transform.DWT_97)),
+        "cpu")
+    smalls = {}
+    with _numpy_dwt():
+        for name, cs in (("override", override), ("coc", coc)):
+            smalls[name] = {"stream": sha(cs), "pixels": {
+                chip_smoke.request_name(kw): chip_smoke.frame_digest(
+                    ref_decoder.decode(cs, RefDecoderParams(**kw),
+                                       device=False))
+                for kw in chip_smoke.ROUTE_SMALL_REQUESTS}}
+    return {
+        "what": "grokimagecompression_tpu encoder.encode(device=False) of "
+                "chip_smoke.config2_frames(1)[0] at each chip_smoke."
+                "ROUTE_CASES entry and decoder.decode(device=False) of each "
+                "stream; the small override stream (chip_smoke."
+                "override_stream of the reference's streams) and COC stream "
+                "(chip_smoke.coc_stream, the port on the CPU) of chip_smoke."
+                "route_small_frame and the reference host decoder's pixels "
+                "at each chip_smoke.ROUTE_SMALL_REQUESTS entry; numpy DWT "
+                "(dwt_host._get_native None, GROK_TPU_DWT=python); "
+                "tests/test_torch_host_copies.py writes it",
+        "frame": chip_smoke.frame_digest(frame),
+        "small_frame": chip_smoke.frame_digest(small),
+        "cases": cases,
+        "small": smalls,
+    }
+
+
+def test_host_routes_digest_file_is_current():
+    with open(ROUTE_DIGESTS) as f:
+        assert json.load(f) == host_routes_digests()
+
+
 def test_image_encode_digest_file_is_current():
     with open(IMG_ENC_DIGESTS) as f:
         assert json.load(f) == image_encode_digests()
@@ -927,4 +1004,7 @@ if __name__ == "__main__":
         f.write("\n")
     with open(IMG_ENC_DIGESTS, "w") as f:
         json.dump(image_encode_digests(), f, indent=1)
+        f.write("\n")
+    with open(ROUTE_DIGESTS, "w") as f:
+        json.dump(host_routes_digests(), f, indent=1)
         f.write("\n")

@@ -401,20 +401,29 @@ def test_decompress_batch_of_streams_the_gate_keeps_apart():
         np.testing.assert_array_equal(out, src)
 
 
-@pytest.mark.parametrize("kw", [dict(cblk_style=0x01),
-                                dict(cblk_style=0x40, ht_refinement=True),
-                                dict(transform=ref_params.Transform.DWT_97,
-                                     custom_mct=np.eye(3).tolist()),
-                                dict(roi_comp=0, roi_shift=3)],
-                         ids=["mq_style", "ht_refinement", "custom_mct",
-                              "roi"])
-def test_host_t1_requests_raise(kw):
+@pytest.mark.parametrize("kw,exc", [
+    (dict(cblk_style=0x01), NotImplementedError),
+    (dict(cblk_style=0x40, ht_refinement=True), NotImplementedError),
+    (dict(transform=ref_params.Transform.DWT_53,
+          custom_mct=np.eye(3).tolist()), ValueError),
+    (dict(cblk_style=0x40, roi_comp=0, roi_shift=3), ValueError)],
+    ids=["mq_style", "ht_refinement", "custom_mct", "roi"])
+def test_host_t1_requests_raise(kw, exc):
+    """What the port does not code raises NotImplementedError (the
+    reference codes it on its host T1); a custom MCT and ROI are coded on
+    the device now (tests/test_torch_host_routes.py), so their cases are
+    the reference's own refusals: a custom MCT off 9/7 and ROI with the
+    HT coder raise its ValueError, on both sides."""
     img = _frames()["rgb"]
     p = params.EncoderParams(**{k: (params.Transform(v) if k == "transform"
                                     else v) for k, v in kw.items()})
-    with pytest.raises(NotImplementedError):
+    if exc is ValueError:
+        with pytest.raises(ValueError):
+            ref_encoder.encode(_ref_image(img), ref_params.EncoderParams(
+                **kw), device=False)
+    with pytest.raises(exc):
         encoder.encode(img, p, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         codec.Codec(params=p, device="cpu").compress_image(img)
 
 

@@ -160,7 +160,7 @@ def test_other_mq_styles_and_segments_raise():
                 numresolutions=2, cblk_style=style)), device="cpu")
     streams = _encode(img, EncoderParams(numresolutions=2, cblk_style=0))
     hdr, trs, parsed = decoder.parse_batch(streams)
-    jobs, slots, plans, _ = parsed[0][0][0]
+    jobs, slots, plans = parsed[0][0][0][:3]
     plan = fused_decode.build_plan(plans, hdr.siz, hdr.cod, trs[0],
                                    coder="mq")
     frame = fused_decode.jobs_by_block(jobs, slots, plans)

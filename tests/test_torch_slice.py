@@ -143,11 +143,18 @@ def test_out_of_slice_raises():
     # MQ: only the default code-block style 0 is ported
     mq_styles = (0x01, 0x02, 0x04, 0x08, 0x10, 0x20)   # LAZY .. SEGSYM
     for params in tuple(EncoderParams(cblk_style=s) for s in mq_styles) + (
-                   EncoderParams(cblk_style=0, transform=Transform.DWT_97,
-                                 custom_mct=np.eye(3).tolist()),
-                   EncoderParams(cblk_style=0, roi_comp=0, roi_shift=3),
-                   EncoderParams(cblk_style=HT, ht_refinement=True)):
+                   EncoderParams(cblk_style=HT, ht_refinement=True),):
         with pytest.raises(NotImplementedError):
+            _port_batch(imgs, params, device="cpu")
+    # a custom MCT and ROI are coded on the device now
+    # (tests/test_torch_host_routes.py); what is left of them is the
+    # reference's ValueError: a custom MCT off 9/7 (and of the wrong
+    # size: these frames have one component), ROI with the HT coder
+    for params in (EncoderParams(cblk_style=0, transform=Transform.DWT_97,
+                                 custom_mct=np.eye(3).tolist()),
+                   EncoderParams(cblk_style=0, custom_mct=[[1.0]]),
+                   EncoderParams(cblk_style=HT, roi_comp=0, roi_shift=3)):
+        with pytest.raises(ValueError):
             _port_batch(imgs, params, device="cpu")
 
 
@@ -172,7 +179,12 @@ def test_port_runs_without_jax(monkeypatch):
     `jp2`: a JP2 file of an HT stream with packed headers (PPM), wrapped
     there as the reference wraps it, decodes to the reference host
     decoder's pixels. So is `profiles`: a 12-bit cinema 2K encode with a
-    frame cap equals the reference host encoder's `encode_with_profile`."""
+    frame cap equals the reference host encoder's `encode_with_profile`.
+    And `stream`: a tile-by-tile HT stream equals the reference
+    `StreamEncoder`'s file and `StreamDecoder` decodes it to the source;
+    an ROI stream (MQ, 5/3) and a custom-MCT stream (HT, 9/7) equal the
+    reference host encoder's and decode to the source and to the
+    reference host decoder's pixels."""
     from grokimagecompression_tpu.core.params import DecoderParams
     from grokimagecompression_tpu.ops import dwt_host
     monkeypatch.setattr(dwt_host, "_get_native", lambda: None)
@@ -205,6 +217,30 @@ def test_port_runs_without_jax(monkeypatch):
     cin_prof = ref_profiles.apply_cinema(EncoderParams(), cin)
     cin_prof.max_cs_bytes = 2000
     want_cin = ref_profiles.encode_with_profile(cin, cin_prof, device=False)
+    import io
+    from grokimagecompression_tpu.codestream import stream as ref_stream
+    sbuf = io.BytesIO()
+    se = ref_stream.StreamEncoder(sbuf, convert_image(data[:32, :48]),
+                                  EncoderParams(numresolutions=2,
+                                                cblk_style=HT,
+                                                tile_size=(24, 16)))
+    for t in range(se.numtiles):
+        se.write_image_tile(t, convert_image(data[:32, :48]))
+    se.close()
+    want_stream = sbuf.getvalue()
+    rgb = natural_image(24, 16, ncomp=3, seed=4)
+    rgb_hex = np.stack([c.data for c in rgb.components]).astype(
+        "<i4").tobytes().hex()
+    roi_kw = dict(numresolutions=2, roi_comp=1, roi_shift=4, cblk_w_exp=3,
+                  cblk_h_exp=3)
+    want_roi = ref_encoder.encode(rgb, EncoderParams(**roi_kw),
+                                  device=False)
+    matrix = [[1.0, 0.2, 1.5], [1.0, -0.3, -0.6], [1.0, 1.9, 0.1]]
+    want_mct = ref_encoder.encode(rgb, EncoderParams(
+        numresolutions=2, transform=Transform.DWT_97, cblk_style=HT,
+        custom_mct=matrix), device=False)
+    want_mct_px = np.stack([c.data for c in decoder.decode(
+        want_mct, device=False).components]).astype("<i4").tobytes().hex()
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -262,6 +298,38 @@ def test_port_runs_without_jax(monkeypatch):
         prof.max_cs_bytes = 2000
         cs = profiles.encode_with_profile(cin, prof, device="cpu")
         assert cs.hex() == "{want_cin.hex()}"
+        import io
+        from grokimagecompression_tpu_torch.codestream import stream
+        gray = Image(xsiz=48, ysiz=32, components=[Component(
+            data=data[:32, :48].copy(), prec=8, signed=False, dx=1, dy=1)])
+        buf = io.BytesIO()
+        with stream.StreamEncoder(buf, gray, EncoderParams(
+                numresolutions=2, cblk_style=0x40, tile_size=(24, 16)),
+                device="cpu") as se:
+            for t in range(se.numtiles):
+                se.write_image_tile(t, gray)
+        assert buf.getvalue().hex() == "{want_stream.hex()}"
+        sd = stream.StreamDecoder(io.BytesIO(buf.getvalue()), device="cpu")
+        assert np.array_equal(sd.decode().components[0].data, data[:32, :48])
+        assert np.array_equal(sd.decode_tile(3).components[0].data,
+                              data[16:32, 24:48])
+        planes = np.frombuffer(bytes.fromhex("{rgb_hex}"), "<i4").reshape(
+            3, 16, 24)
+        rgb = Image(xsiz=24, ysiz=16, components=[Component(
+            data=planes[c].copy(), prec=8, signed=False, dx=1, dy=1)
+            for c in range(3)])
+        cs = encoder.encode(rgb, EncoderParams(**{roi_kw!r}), device="cpu")
+        assert cs.hex() == "{want_roi.hex()}"
+        out = decoder.decode(cs, device="cpu")
+        assert all(np.array_equal(out.components[c].data, planes[c])
+                   for c in range(3))
+        cs = encoder.encode(rgb, EncoderParams(
+            numresolutions=2, transform=Transform.DWT_97, cblk_style=0x40,
+            custom_mct={matrix!r}), device="cpu")
+        assert cs.hex() == "{want_mct.hex()}"
+        out = decoder.decode(cs, device="cpu")
+        assert np.stack([c.data for c in out.components]).astype(
+            "<i4").tobytes().hex() == "{want_mct_px}"
         import torch
         words, mask, nbo, state = mq_scan.run_mq_scans(
             torch.ones((300, 4), dtype=torch.int8))

@@ -262,19 +262,31 @@ def _tile_part_override(cs: bytes) -> bytes:
 
 
 def test_host_only_requests_raise():
-    """Streams the reference decodes on its host (ROI shifts, tile-part
-    header overrides) raise NotImplementedError on every route."""
+    """Streams the reference decodes on its host: ROI shifts and
+    tile-part header overrides decode on every route (a window, a
+    reduction, a tile) to the reference host decoder's pixels now; a
+    stream with an MQ code-block style other than 0 raises
+    NotImplementedError on every route."""
     img = _ref_image(chip_smoke.window_frames(1, 48, 40)[0])
-    roi = ref_encoder.encode(img, EncoderParams(numresolutions=3, roi_comp=0,
-                                                roi_shift=3), device=False)
+    roi = ref_encoder.encode(img, EncoderParams(
+        numresolutions=3, roi_comp=0, roi_shift=3, cblk_w_exp=4,
+        cblk_h_exp=4), device=False)
     over = _tile_part_override(ref_encoder.encode(
         img, EncoderParams(numresolutions=3, cblk_style=0x40),
         device=False))
-    for cs in (roi, over):
-        for kw in ({"window": (4, 4, 20, 20)}, {"reduce": 1},
-                   {"tile_index": 0}):
-            with pytest.raises(NotImplementedError):
-                decoder.decode(cs, DecoderParams(**kw), device="cpu")
+    lazy = ref_encoder.encode(img, EncoderParams(numresolutions=3,
+                                                 cblk_style=0x01),
+                              device=False)
+    for kw in ({"window": (4, 4, 20, 20)}, {"reduce": 1},
+               {"tile_index": 0}):
+        for cs in (roi, over):
+            got = decoder.decode(cs, DecoderParams(**kw), device="cpu")
+            want = ref_decoder.decode(cs, RefDecoderParams(**kw),
+                                      device=False)
+            for g, w in zip(got.components, want.components):
+                np.testing.assert_array_equal(g.data, w.data)
+        with pytest.raises(NotImplementedError):
+            decoder.decode(lazy, DecoderParams(**kw), device="cpu")
 
 
 def test_codec_decompress_equals_reference():
