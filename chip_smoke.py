@@ -39,7 +39,9 @@ Phases, each fatal on failure:
      source, all started together) and the port's host library from
      csrc/host/*.cpp with g++;
   3. the kernels at the main paths' shapes, each equal to its plain
-     version on every lane and both timed with CUDA events: the HT
+     version and both timed with CUDA events (the HT encoder, the HT
+     decoder and the MQ decoder held to it on `plain_lanes` of a group
+     past 128 lanes: its 64 deepest lanes and 64 spread ones): the HT
      cleanup encoder on the three shape groups of one chunk (the plain
      version: torch op streams, plain scans, metrics, word placement and
      the host splice; on the 64x64 group its device time by
@@ -254,7 +256,23 @@ Phases, each fatal on failure:
      component 1 on 5/3 at 5 resolutions (COC, QCC) decoded in two
      component groups, component 1 lossless and 0 and 2 equal to the
      coding without the COC. Every run launches its kernels and no plain
-     version.
+     version;
+ 23. multi-device coding (`mesh_phase`), with the machine's device count
+     (on one card; `tools/mesh_check.py` runs this phase alone, on every
+     card there is): (a) S1 through parallel.sharding.encode_sharded on
+     [cuda:0] and on [cuda:0, cuda:0] beside encoder.encode, each stream
+     equal to phase 20's, and S2 at rate_alloc="global" on two shards
+     equal to phase 20's global stream, seconds (first, second run) and
+     each shard's tiles, stacked calls, coder launches and seconds; (b)
+     sharding.decode_sharded of S1 whole and of W1 on two shards equal to
+     phase 19's decodes; (c) parallel.multihost.encode_multihost in two
+     processes of a gloo group (this script with --multihost-worker), both
+     on cuda:0, of config-2 frame 0 in 512^2 tiles at ratios 24 / 48 / 96
+     with image-wide PCRD and of S1, every rank's stream equal to the
+     one-process encode's, each rank's seconds and its seconds in
+     collectives. On n > 1 cards the meshes are [cuda:1, cuda:2] and all
+     n cards, and n processes take a card each. Every run launches its
+     kernels and no plain version.
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
@@ -264,8 +282,10 @@ path (a whole DWT; a group kernel on the timed 64x64 group) plus, for the
 MQ coder, the MQ decoder and the DWT, their launches in phase 18's
 encodes and decodes, for both decoders and the DWT their launches in
 phase 19's full-size requests, and for every kernel but the dense scan
-its launches in phase 20's encodes and decodes, phase 21's tool runs and
-phase 22's streams and requests; the last line is {"ok": true,
+its launches in phase 20's encodes and decodes, phase 21's tool runs,
+phase 22's streams and requests and phase 23's sharded and
+multi-process runs (the worker processes' launches included); the last
+line is {"ok": true,
 "device": {...}}.
 
 Run from the repository root: python3 chip_smoke.py (needs one CUDA card;
@@ -753,6 +773,10 @@ CIN_PLAIN_MQ_DECISIONS = 2000
 # the plain MQ decoder's longest run allowed at full depth on the 64x64
 # group (seconds, estimated from the 32x32 group's run)
 PLAIN_MQ_DEC_S = 90
+# the lanes of a phase-3 shape group held to the plain HT encoder, HT
+# decoder and MQ decoder: half the deepest lanes, half spread over the
+# rest (a group of fewer lanes whole); the kernel runs on every lane
+PLAIN_LANES = 128
 # lanes a block tried for the MQ decoder, the MQ coder and the HT decoder
 # (each source's kLanes; the coder's staged rows hold at most 8 lanes),
 # lanes a warp for the dense MQ scan (its kLanes), and code-blocks a CTA
@@ -1380,6 +1404,39 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.3f} ms"
 
 
+def plain_lanes(depth):
+    """The lanes of a shape group that phase 3 holds to a plain version,
+    ascending: every lane when there are at most PLAIN_LANES; else the
+    PLAIN_LANES // 2 lanes with the largest `depth` (a (B,) tensor:
+    segment bytes or passes, the work that sets a lane's chain) and
+    PLAIN_LANES // 2 more spread evenly over the others."""
+    import torch
+    B = depth.shape[0]
+    if B <= PLAIN_LANES:
+        return torch.arange(B, device=depth.device)
+    deep = torch.argsort(depth.to(torch.int64), descending=True,
+                         stable=True)[:PLAIN_LANES // 2]
+    rest = torch.ones(B, dtype=torch.bool, device=depth.device)
+    rest[deep] = False
+    others = rest.nonzero().flatten()
+    step = others.shape[0] / (PLAIN_LANES - deep.shape[0])
+    spread = others[(torch.arange(PLAIN_LANES - deep.shape[0])
+                     * step).long()]
+    return torch.sort(torch.cat([deep, spread])).values
+
+
+def lane_subset(data, off, idx):
+    """The packed segments `data` (lane k's at off[k]:off[k + 1]) of the
+    lanes `idx`, packed again: (data, off) on the same device."""
+    import torch
+    lo, hi = off[idx].tolist(), off[idx + 1].tolist()
+    sub = torch.cat([data[a:b] for a, b in zip(lo, hi)]) if lo else data[:0]
+    lens = torch.tensor([b - a for a, b in zip(lo, hi)], dtype=off.dtype)
+    return sub.contiguous(), torch.cat([
+        torch.zeros(1, dtype=off.dtype), torch.cumsum(lens, 0)]).to(
+            off.device)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -1894,7 +1951,8 @@ def ms_bytes(data, lens):
 
 def check_encoder(enc, plan, chunk, results, trial_libs, clock_lib):
     """Phase 3, encode side: the HT encoder on each shape group of one
-    chunk, every lane's segment against the plain version on the card;
+    chunk, the segments of the group's `plain_lanes` (by segment bytes)
+    against the plain version on the card on those lanes;
     on the 64x64 group the kernel's call and device time, the lane with
     the most MagSgn bytes alone, its stage clocks (`enc_stage_clocks`)
     and the trial (`enc_lane_trial`)."""
@@ -1906,25 +1964,28 @@ def check_encoder(enc, plan, chunk, results, trial_libs, clock_lib):
         tables = enc.tables()
         args = (coeffs, mbs, tables)
         got = ht_enc.encode_segments(*args)
+        idx = plain_lanes(got[1])
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = ht_enc.encode_segments_plain(*args)
+        want = ht_enc.encode_segments_plain(coeffs[idx].contiguous(),
+                                            mbs[idx].contiguous(), tables)
         stop.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(stop)
         qh, qw, _ = plan.groups[gi]
         B = coeffs.shape[0]
-        for part, w, g in zip(("data", "lens"), want, got):
-            if not torch.equal(w, g):
-                raise AssertionError(
-                    f"{name} {part} differ from the plain version (group "
-                    f"{qh}x{qw} quads, B={B})")
+        segs = split_segments(*got)
+        if split_segments(*want) != [segs[i] for i in idx.tolist()]:
+            raise AssertionError(
+                f"{name} segments differ from the plain version (group "
+                f"{qh}x{qw} quads, B={B})")
         line = (f"kernel {name}: group {qh}x{qw} quads, B={B}, "
                 f"{got[0].numel()} segment bytes: bit-exact with plain "
                 f"(op streams, plain scans, metrics, placement, host "
-                f"splice: {plain_ms:.1f} ms) on every lane")
+                f"splice: {plain_ms:.1f} ms) on {idx.shape[0]} lanes "
+                f"(`plain_lanes`)")
         if gi == len(plan.groups) - 1:
             for _ in range(3):
                 ht_enc.encode_segments(*args)
@@ -1981,7 +2042,9 @@ def check_decoder(streams, dev, results, trial_libs):
     lane group of one chunk of streams, every lane against the plain
     version (the host prepass, then the plain decoder on the card); on
     each group the threads trial (`ht_lane_trial`); on the 64x64 group
-    the kernel's time and the lane with the most MagSgn bytes alone."""
+    the kernel's time and the lane with the most MagSgn bytes alone. The
+    plain version decodes the group's `plain_lanes` (by segment
+    length)."""
     import numpy as np
     import torch
 
@@ -2004,11 +2067,13 @@ def check_decoder(streams, dev, results, trial_libs):
         B = lcup.shape[0]
         args = (data, off, lcup, scup, w, h, tables)
         got = ht_dec.decode_segments(*args)
+        idx = plain_lanes(lcup)
+        lanes = idx.tolist()
         raw, o = arrs[0].tobytes(), arrs[1]
-        segs = [raw[o[i]:o[i + 1]] for i in range(B)]
+        segs = [raw[o[i]:o[i + 1]] for i in lanes]
         words = [torch.from_numpy(a.view(np.int32)).to(dev)
-                 for a in ht_prepass.prepass_group(segs, arrs[2].tolist(),
-                                                   arrs[3].tolist())]
+                 for a in ht_prepass.prepass_group(
+                     segs, arrs[2][lanes].tolist(), arrs[3][lanes].tolist())]
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -2018,10 +2083,10 @@ def check_decoder(streams, dev, results, trial_libs):
         stop.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(stop)
-        err = max(int((wv.to(torch.int64) - g.to(torch.int64)).abs().max())
-                  for wv, g in zip(want, got))
+        err = max(int((wv.to(torch.int64) - g[idx].to(torch.int64))
+                      .abs().max()) for wv, g in zip(want, got))
         for part, wv, g in zip(("mags", "signs"), want, got):
-            if not torch.equal(wv, g):
+            if not torch.equal(wv, g[idx]):
                 raise AssertionError(
                     f"{name} {part} differ from the plain version "
                     f"({w}x{h} blocks, B={B})")
@@ -2029,8 +2094,9 @@ def check_decoder(streams, dev, results, trial_libs):
         trials[f"config 1, {w}x{h}, B={B}"] = trial
         line = (f"kernel {name}: {w}x{h} blocks, B={B}, {data.numel()} "
                 f"segment bytes -> {tuple(got[0].shape)}: bit-exact with "
-                f"plain (host prepass + decode_group_plain) on every lane "
-                f"(plain {plain_ms:.1f} ms)")
+                f"plain (host prepass + decode_group_plain) on "
+                f"{len(lanes)} lanes (`plain_lanes`) (plain "
+                f"{plain_ms:.1f} ms)")
         if (w, h) == (64, 64):
             for _ in range(3):
                 ht_dec.decode_segments(*args)
@@ -2461,8 +2527,9 @@ def check_mq_dense(mq_enc, chunk, results, launches, trial_libs, clock_lib):
 
 def check_mq_decoder(streams, dev, results, trial_libs):
     """Phase 3, MQ decode: the MQ decoder on the lane groups of one chunk
-    of MQ streams, every lane against the plain version; on the 64x64
-    group the lanes-per-block trial (`lane_trial`)."""
+    of MQ streams, the group's `plain_lanes` (by passes, then segment
+    bytes) against the plain version on those lanes; on the 64x64 group
+    the lanes-per-block trial (`lane_trial`)."""
     import torch
 
     from grokimagecompression_tpu_torch.codestream import decoder
@@ -2494,27 +2561,32 @@ def check_mq_decoder(streams, dev, results, trial_libs):
                         f"estimated from the 32x32 group)")
         args = (data, off, nbps, npas, ori, w, h)
         got = mq_dec.decode_group(*args, with_stats=True)
+        seg_bytes = (off[1:] - off[:-1]).to(torch.int64)
+        idx = plain_lanes(npas.to(torch.int64) * (1 << 32) + seg_bytes)
+        sub = lane_subset(data, off, idx) + (nbps[idx], npas[idx], ori[idx],
+                                             w, h)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = mq_dec_torch.decode_group_plain(*args, with_stats=True)
+        want = mq_dec_torch.decode_group_plain(*sub, with_stats=True)
         stop.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(stop)
         if (w, h) == (32, 32):
             rate = plain_ms / 1e3 / work
         for part, wv, g in zip(("samples", "statistics"), want, got):
-            if not torch.equal(wv, g):
+            if not torch.equal(wv, g[:, idx]):
                 raise AssertionError(
                     f"{name} {part} differ from the plain version "
                     f"({w}x{h} blocks, B={B})")
-        err = max(int((wv.to(torch.int64) - g.to(torch.int64)).abs().max())
-                  for wv, g in zip(want, got))
+        err = max(int((wv.to(torch.int64) - g[:, idx].to(torch.int64))
+                      .abs().max()) for wv, g in zip(want, got))
         line = (f"kernel {name}: {w}x{h} blocks, B={B}, {data.numel()} "
                 f"segment bytes, up to {int(npas.max())} passes -> "
-                f"{tuple(got[0].shape)}: bit-exact with plain on every "
-                f"lane (plain {plain_ms:.1f} ms){note}")
+                f"{tuple(got[0].shape)}: bit-exact with plain on "
+                f"{idx.shape[0]} lanes (`plain_lanes`) (plain "
+                f"{plain_ms:.1f} ms){note}")
         if (w, h) == (64, 64):
             full = (data, off, nbps, npas_full, ori, w, h)
             for _ in range(3):
@@ -4658,7 +4730,7 @@ def s2_global_check(img, params, tile_cs, dev, card):
     an earlier layer already holds more than the target, empty; the
     decode on the card no further from the source (MSE) than 1.001 x the
     per-tile allocation's; the simulator calls and the allocator's time.
-    Returns the launches by key."""
+    Returns (the launches by key, the global stream)."""
     import torch
 
     from grokimagecompression_tpu_torch.codestream import decoder, encoder
@@ -4701,7 +4773,7 @@ def s2_global_check(img, params, tile_cs, dev, card):
           + f"; the global allocation {wall:.3f} s (encode), its "
           f"allocation {alloc.total():.3f} s on one thread, "
           f"{sims.n} simulator calls, on {card}")
-    return counts
+    return counts, cs
 
 
 def codec_baseline_check(c1_imgs, c2_imgs, dev, card):
@@ -4814,7 +4886,8 @@ def image_encode_phase(mixed, batch_streams, c1_imgs, c2_imgs, dev, card):
     small cases and the mixed `decompress_batch`, (b) S1 and (c) S2
     against phase 19's `encode_batch([img])` streams (`batch_streams`),
     S2 with `rate_alloc="global"`, (d) the codec at BASELINE widths.
-    Returns the launches of its encodes and decodes by LAUNCHES key."""
+    Returns the launches of its encodes and decodes by LAUNCHES key and
+    S2's global stream (phase 23's)."""
     t0 = time.perf_counter()
     launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
 
@@ -4833,12 +4906,14 @@ def image_encode_phase(mixed, batch_streams, c1_imgs, c2_imgs, dev, card):
                                       batch_streams["S2"], dev, card, "mq")
     add(counts)
     stacked_scan_check(s2, full_params("S2"), dev, card)
-    add(s2_global_check(s2, full_params("S2"), s2_cs, dev, card))
+    counts, s2_global_cs = s2_global_check(s2, full_params("S2"), s2_cs, dev,
+                                           card)
+    add(counts)
     del s2
     add(codec_baseline_check(c1_imgs, c2_imgs, dev, card))
     print(f"phase 20 (per-image encode, global PCRD, codec): "
           f"{time.perf_counter() - t0:.1f} s on {card}; launches {launches}")
-    return launches
+    return launches, s2_global_cs
 
 
 @contextlib.contextmanager
@@ -5553,6 +5628,307 @@ def route_phase(dev, card):
     return launches
 
 
+# multi-device coding (phase 23): the group's timeout (a collective that
+# waits longer raises), and each worker process's limit
+MH_GROUP_TIMEOUT_S = 120
+MH_WORKER_S = 300
+
+
+def mh_cases():
+    """Phase 23 (c)'s images and EncoderParams by name: config-2 frame 0 in
+    512^2 tiles, MQ 9/7 at ratios 24 / 48 / 96 with image-wide PCRD, and
+    S1 (HT lossless)."""
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    return (("config-2 frame 0, global PCRD", lambda: config2_frames(1)[0],
+             EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                           numlayers=3, rates=(24.0, 48.0, 96.0),
+                           tile_size=(S2_TILE, S2_TILE),
+                           rate_alloc="global"), ("mq", "dwt")),
+            ("S1", s1_frame, full_params("S1"), ("enc", "dwt")))
+
+
+def multihost_worker(argv) -> int:
+    """Phase 23 (c)'s worker process (`chip_smoke.py --multihost-worker
+    rank world host:port out.json`): joins the gloo group, then each
+    `mh_cases` image through `multihost.encode_multihost` on
+    `cuda:{rank % cards}`, the processes starting together (a barrier);
+    writes per case the stream's SHA-256 and size, the seconds, the
+    seconds and calls of its collectives (`all_gather`) and the kernels'
+    launches (no plain version may run) to out.json."""
+    import torch
+    import torch.distributed as dist
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, root)
+    from grokimagecompression_tpu_torch.parallel import multihost
+    rank, world, coord, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    multihost.init_distributed(coord, world, rank,
+                               timeout_s=MH_GROUP_TIMEOUT_S)
+    spent = {"s": 0.0, "n": 0}
+    gather = dist.all_gather
+
+    def timed_gather(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return gather(*args, **kwargs)
+        finally:
+            spent["s"] += time.perf_counter() - t0
+            spent["n"] += 1
+    dist.all_gather = timed_gather
+    res = {}
+    for name, make, params, kernels in mh_cases():
+        img = make()
+        dist.barrier()
+        spent.update(s=0.0, n=0)
+        with encode_counts() as plain:
+            t0 = time.perf_counter()
+            cs = multihost.encode_multihost(img, params)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        counts = check_encode_counts(plain, f"rank {rank} {name}", kernels)
+        res[name] = dict(sha=hashlib.sha256(cs).hexdigest(), bytes=len(cs),
+                         s=secs, collective_s=spent["s"],
+                         collectives=spent["n"], launches=counts,
+                         device=f"cuda:{rank % torch.cuda.device_count()}")
+        del img, cs
+    dist.destroy_process_group()
+    with open(out, "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def mesh_encode_check(s1_cs, s2_global_cs, dev, card, launches, meshes):
+    """Phase 23 (a): S1 through `sharding.encode_sharded` on each of
+    `meshes` ((label, devices)) beside `encoder.encode` on `dev`, each
+    stream equal to phase
+    20's (`s1_cs`, equal to phase 19's), first and second run; S2 at
+    `rate_alloc="global"` on the last mesh equal to phase 20's global
+    stream (`s2_global_cs`). Each shard's tiles, stacked
+    calls, coder launches and seconds (from its start to the card's idle
+    after it)."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.parallel import sharding
+
+    def shards_of(rec):
+        return "shards in the order they finished: " + "; ".join(
+            f"{c['tiles']} tiles on {c['dev']} in {c['calls']} stacked "
+            f"calls, {c['launches']} coder launches, {c['s']:.3f} s"
+            for c in rec)
+
+    def run(name, img, params, mesh, want, kernels):
+        rec = []
+        code = sharding._code_shard
+
+        def recorded(image, siz, work, chunks):
+            t0 = time.perf_counter()
+            out = code(image, siz, work, chunks)
+            torch.cuda.synchronize()
+            rec.append(dict(
+                dev=str(work[0][0].device),
+                tiles=sum(len(part) for _, part in work),
+                calls=sum(-(-len(part) // n)
+                          for (_, part), n in zip(work, chunks)),
+                launches=sum(-(-len(part) // n) * len(enc.plan.groups)
+                             for (enc, part), n in zip(work, chunks)),
+                s=time.perf_counter() - t0))
+            return out
+        sharding._code_shard = recorded
+        try:
+            with encode_counts() as plain:
+                t0 = time.perf_counter()
+                cs = sharding.encode_sharded(img, params, mesh=mesh)
+                torch.cuda.synchronize()
+                first = time.perf_counter() - t0
+            counts = check_encode_counts(plain, name, kernels)
+        finally:
+            sharding._code_shard = code
+        for k, v in counts.items():
+            launches[k] += v
+        if cs != want:
+            raise AssertionError(f"{name}: the sharded stream differs from "
+                                 f"phase 20's ({len(cs)} B, {len(want)} B)")
+        again = best_of(1, lambda: sharding.encode_sharded(img, params,
+                                                           mesh=mesh))
+        print(f"{name}: stream equal to phase 20's ({len(cs)} B); first "
+              f"{first:.3f} s, second {again:.3f} s; launches {counts}; "
+              f"{shards_of(rec)} on {card}")
+
+    s1 = s1_frame()
+    p1 = full_params("S1")
+    one = best_of(2, lambda: encoder.encode(s1, p1, device=dev))
+    print(f"S1 through encoder.encode on {dev}: best of 2 {one:.3f} s on "
+          f"{card}")
+    for label, mesh in meshes:
+        run(f"S1 through encode_sharded on {label}", s1, p1, mesh, s1_cs,
+            ("enc", "dwt"))
+    del s1
+    s2 = s2_frame()
+    label, mesh = meshes[-1]
+    run(f"S2 at rate_alloc='global' through encode_sharded on {label}", s2,
+        dataclasses.replace(full_params("S2"), rate_alloc="global"), mesh,
+        s2_global_cs, ("mq", "dwt"))
+
+
+def mesh_decode_check(s1_cs, s1_refs, dev, card, launches, mesh, label):
+    """Phase 23 (b): `sharding.decode_sharded` of S1 whole and of W1 on
+    `mesh` (named `label`), each equal to phase 19's decode (`s1_refs`),
+    first and second run."""
+    import torch
+
+    from grokimagecompression_tpu_torch.core.params import DecoderParams
+    from grokimagecompression_tpu_torch.ops import dwt, ht_dec
+    from grokimagecompression_tpu_torch.parallel import sharding
+    for what, kw, kernels in (("whole", {}, ("dec", "dwt")),
+                              ("W1", {"window": FULL_CASES[0][3]},
+                               ("dec",))):
+        with decode_counts() as plain:
+            t0 = time.perf_counter()
+            img = sharding.decode_sharded(s1_cs, DecoderParams(**kw),
+                                          mesh=mesh)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        check_decode_counts(plain, f"S1 {what} through decode_sharded",
+                            kernels)
+        launches["dec"] += ht_dec.LAUNCHES["dec"]
+        launches["dwt"] += dwt.LAUNCHES["dwt"]
+        if plane_md5(img) != s1_refs["full" if not kw else "W1"]:
+            raise AssertionError(f"S1 {what} through decode_sharded "
+                                 f"differs from phase 19's decode")
+        again = best_of(1, lambda: sharding.decode_sharded(
+            s1_cs, DecoderParams(**kw), mesh=mesh))
+        print(f"S1 {what} through decode_sharded on {label}: equal to "
+              f"phase 19's decode; first {first:.3f} s, second {again:.3f} "
+              f"s on {card}")
+
+
+def multihost_check(s1_cs, dev, card, launches, world):
+    """Phase 23 (c): `multihost.encode_multihost` in `world` processes on
+    a gloo group at 127.0.0.1 (rank r on cuda:{r % the card count}: both
+    on cuda:0 on one card) for each `mh_cases` image,
+    every rank's stream equal to the one-process `encoder.encode`'s
+    (S1: phase 20's stream; config-2 frame 0 at global PCRD: encoded here
+    first, and timed); each rank's seconds and its seconds in
+    collectives."""
+    import socket
+
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import encoder
+    want = {}
+    for name, make, params, kernels in mh_cases():
+        if name == "S1":
+            want[name] = hashlib.sha256(s1_cs).hexdigest()
+            continue
+        img = make()
+        with encode_counts() as plain:
+            t0 = time.perf_counter()
+            cs = encoder.encode(img, params, device=dev)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        for k, v in check_encode_counts(plain, f"one-process {name}",
+                                        kernels).items():
+            launches[k] += v
+        want[name] = hashlib.sha256(cs).hexdigest()
+        print(f"{name} through encoder.encode in one process: {len(cs)} B, "
+              f"{secs:.3f} s on {card}")
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "multihost")
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"rank{r}.json") for r in range(world)]
+    logs = [open(os.path.join(out_dir, f"rank{r}.log"), "w+")
+            for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--multihost-worker",
+         str(r), str(world), f"127.0.0.1:{port}", outs[r]], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, MH_WORKER_S
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            raise AssertionError(f"multi-process rank {r} failed "
+                                 f"({p.returncode}):\n{text[-3000:]}")
+    res = []
+    for path in outs:
+        with open(path) as f:
+            res.append(json.load(f))
+    for name in want:
+        for r, got in enumerate(res):
+            if got[name]["sha"] != want[name]:
+                raise AssertionError(f"{name}: rank {r}'s stream differs "
+                                     f"from the one-process encode's")
+            for k, v in got[name]["launches"].items():
+                launches[k] += v
+        print(f"{name} through encode_multihost in {world} processes on "
+              + ", ".join(got[name]["device"] for got in res)
+              + f" (gloo): every rank's stream equals "
+              f"the one-process encode's ({res[0][name]['bytes']} B); "
+              + "; ".join(f"rank {r} {got[name]['s']:.3f} s, of it "
+                          f"{got[name]['collective_s']:.3f} s in "
+                          f"{got[name]['collectives']} all_gathers, "
+                          f"launches {got[name]['launches']}"
+                          for r, got in enumerate(res))
+              + f" on {card}")
+    print(f"phase 23 (c): the {world} processes took {wall:.1f} s from "
+          f"start to exit (start-up, the frames, both encodes)")
+
+
+def mesh_phase(s1_cs, s1_refs, s2_global_cs, dev, card):
+    """Phase 23: multi-device coding on the machine's cards: (a) the
+    sharded encode, (b) the sharded decode, (c) the multi-process encode.
+    On one card the meshes are [cuda:0] and two shards on cuda:0, and two
+    processes share cuda:0; on n > 1 cards they are [cuda:1, cuda:2]
+    (n >= 3) and all n cards, and n processes take a card each. The
+    device count is printed. Returns the launches of its runs by
+    LAUNCHES key."""
+    import torch
+    t0 = time.perf_counter()
+    n = torch.cuda.device_count()
+    print(f"phase 23: {n} CUDA device(s)")
+    if n == 1:
+        meshes = (("[cuda:0]", [dev]), ("[cuda:0, cuda:0]", [dev, dev]))
+    else:
+        cards = [torch.device("cuda", i) for i in range(n)]
+        meshes = ((("[cuda:1, cuda:2]", cards[1:3]),) if n >= 3 else ()) \
+            + ((f"[cuda:0 .. cuda:{n - 1}]", cards),)
+    launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
+    parts = []
+    for label, check in (
+            ("(a)", lambda: mesh_encode_check(s1_cs, s2_global_cs, dev,
+                                              card, launches, meshes)),
+            ("(b)", lambda: mesh_decode_check(s1_cs, s1_refs, dev, card,
+                                              launches, *meshes[-1][::-1])),
+            ("(c)", lambda: multihost_check(s1_cs, dev, card, launches,
+                                            max(2, n)))):
+        t = time.perf_counter()
+        check()
+        parts.append(f"{label} {time.perf_counter() - t:.1f} s")
+    print(f"phase 23 (sharded encode and decode, multi-process encode): "
+          f"{time.perf_counter() - t0:.1f} s ({', '.join(parts)}) on {card}; "
+          f"launches {launches}")
+    return launches
+
+
 def best_of(n, fn):
     import torch
     best = float("inf")
@@ -5565,6 +5941,7 @@ def best_of(n, fn):
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
@@ -5660,6 +6037,7 @@ def main() -> int:
                 np.uint8)).to(dev) for c in range(3)]
 
     # 3. kernels against their plain versions, at one chunk's shapes
+    t3 = time.perf_counter()
     results = {}
     launches = {}
     check_encoder(enc, plan, chunk, results, trial_libs["ht_enc.cu"],
@@ -5681,6 +6059,9 @@ def main() -> int:
                   trial_libs["mq_scan.cu"], trial_libs["mq_dense.cu"])
     c2_ht_trial(c2_enc, c2_chunk(0, C2_CHUNK), results,
                 trial_libs["ht_dec.cu"], trial_libs["ht_enc.cu"])
+
+    print(f"phase 3 (every kernel against its plain version, the trials): "
+          f"{time.perf_counter() - t3:.1f} s on {card}")
 
     # 4. the encode slice, through the user entry point
     with open(os.path.join(root, DIGESTS)) as f:
@@ -6025,28 +6406,31 @@ def main() -> int:
     corpus_phase(c2_imgs[0], dev, card)
     cinema = cinema_phase(dev, card, results)
     windows, full_streams, s1_refs = window_phase(dev, card, results)
-    image_enc = image_encode_phase(mixed, full_streams, imgs, c2_imgs, dev,
-                                   card)
+    image_enc, s2_global_cs = image_encode_phase(mixed, full_streams, imgs,
+                                                 c2_imgs, dev, card)
     s1_cs = full_streams["S1"]
     del mixed, full_streams
     tools = cli_phase(imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card)
-    del s1_cs
     routes = route_phase(dev, card)
+    meshes = mesh_phase(s1_cs, s1_refs, s2_global_cs, dev, card)
+    del s1_cs, s2_global_cs
 
     calls["mq_dense"] = launches["mq_dense"]
     for key, n in (list(cinema.items()) + list(windows.items())
                    + list(image_enc.items()) + list(tools.items())
-                   + list(routes.items())):
+                   + list(routes.items()) + list(meshes.items())):
         calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
           f"whole config-2 forward transforms) plus the launches of phase "
           f"18's cinema encodes and decodes ({cinema}), of phase 19's "
           f"full-size requests ({windows}), of phase 20's encodes and "
-          f"decodes ({image_enc}), of phase 21's tool runs ({tools}) and "
-          f"of phase 22's streams and host-route requests ({routes}): "
+          f"decodes ({image_enc}), of phase 21's tool runs ({tools}), "
+          f"of phase 22's streams and host-route requests ({routes}) and "
+          f"of phase 23's sharded and multi-process runs ({meshes}): "
           f"{calls}; all launches of the config-1 and config-2 runs: "
           f"{launches}")
+    print(f"the whole run: {time.perf_counter() - t_main:.1f} s on {card}")
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=source, replaces=replaces,
              launches=calls[key],
@@ -6063,4 +6447,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(sys.argv[2:]))
     sys.exit(main())

@@ -35,7 +35,7 @@ import concurrent.futures
 import dataclasses
 import os
 import struct
-from typing import Dict, List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -47,7 +47,7 @@ from ..core.image import Component, Image
 from ..core.params import DecoderParams, Transform
 from ..models import fused_decode, pipeline
 from ..ops import dwt_window
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, resolve_mesh
 from . import jp2, markers
 from .markers import CodInfo, QcdInfo, SizInfo
 from .tile import decode_tile
@@ -633,11 +633,14 @@ def _same_tile_params(parsed) -> bool:
 def _finish(hdr: CodestreamHeader, tr: Rect, tj: TileJobs,
             planes: Dict[int, torch.Tensor]) -> List[np.ndarray]:
     """A tile decoded in component groups: its inverse-transformed
-    planes by component, on the device -> int32 samples
-    (`pipeline.inv_mct_dc` over the whole tile on the device, then one
-    fetch a component)."""
+    planes by component, on the device (under a mesh its groups may have
+    run on different devices: the planes join on component 0's) -> int32
+    samples (`pipeline.inv_mct_dc` over the whole tile on the device,
+    then one fetch a component)."""
+    dev = planes[0].device
     return [a.cpu().numpy() for a in pipeline.inv_mct_dc(
-        tile_config(hdr, tr, tj), [planes[c] for c in range(len(planes))])]
+        tile_config(hdr, tr, tj),
+        [planes[c].to(dev) for c in range(len(planes))])]
 
 
 def _canvas(siz: SizInfo, area: Rect, reduce: int) -> List[np.ndarray]:
@@ -674,7 +677,8 @@ def _image(siz: SizInfo, planes: List[np.ndarray], area: Rect) -> Image:
 def decode_batch(datas: List[bytes],
                  params: Optional[DecoderParams] = None,
                  device: DeviceLike = "cuda",
-                 chunk: int = 32) -> List[Image]:
+                 chunk: int = 32,
+                 mesh: Optional[Sequence[DeviceLike]] = None) -> List[Image]:
     """Decode many same-geometry codestreams or JP2 files (a serving
     batch), coded with the HT block coder or the Part-1 MQ coder in the
     default code-block style, on the reversible 5/3 or the irreversible
@@ -692,32 +696,43 @@ def decode_batch(datas: List[bytes],
     only the resolutions kept. Every chunk is submitted before any is
     collected. Frames may include different code-blocks of a tile: each
     job goes to its code-block's lane. Decode mirror of
-    `encoder.encode_batch`."""
-    dev = resolve_device(device)
+    `encoder.encode_batch`.
+
+    `mesh` (a sequence of devices, one shard each; it replaces `device`)
+    sends each plan's (frame, tile) instances round-robin over the mesh,
+    as the reference's `_mesh_fused_decode` sends its tiles, each shard
+    decoded `chunk` at a time on its device; the pixels equal the
+    one-device decode's."""
+    devs = resolve_mesh(mesh, device)
     params = params or DecoderParams()
     if not datas:
         return []
     if params.window is not None:
-        return [decode(d, params, dev) for d in datas]
+        return [decode(d, params, mesh=devs) for d in datas]
     hdr, trs, parsed = parse_batch(datas, params)
     siz = hdr.siz
     req = _request(siz, hdr.cod, trs, params)
     if not _same_tile_params(parsed):
-        return [decode_batch([d], params, dev, chunk)[0] for d in datas]
+        return [decode_batch([d], params, chunk=chunk, mesh=devs)[0]
+                for d in datas]
     groups = tile_groups(hdr, trs, parsed, req.reduce)
 
     submits = []  # (plan, handle, [(frame, tile), ...])
+    step = max(1, chunk)
     for plan, tlist in groups.items():
-        decoder = fused_decode.decoder_for(plan, dev)
         instances = [(f, t) for t in tlist for f in range(len(datas))
                      if t in parsed[f][1]]
-        for k in range(0, len(instances), max(1, chunk)):
-            part = instances[k:k + max(1, chunk)]
-            submits.append((plan, fused_decode.decode_tiles_submit(decoder, [
-                fused_decode.jobs_by_block(*parsed[f][0][t][:3],
-                                           max_res=plan.max_res,
-                                           comps=plan.comps)
-                for (f, t) in part]), part))
+        shards = [(fused_decode.decoder_for(plan, d),
+                   instances[di::len(devs)]) for di, d in enumerate(devs)]
+        for k in range(0, -(-len(instances) // len(devs)), step):
+            for decoder, shard in shards:
+                part = shard[k:k + step]
+                if not part:
+                    continue
+                submits.append((plan, fused_decode.decode_tiles_submit(
+                    decoder, [fused_decode.jobs_by_block(
+                        *parsed[f][0][t][:3], max_res=plan.max_res,
+                        comps=plan.comps) for (f, t) in part]), part))
 
     r = req.reduce
     comps_out = [_canvas(siz, req.area, r) for _ in datas]
@@ -750,7 +765,8 @@ def decode_batch(datas: List[bytes],
 
 
 def decode(data: bytes, params: Optional[DecoderParams] = None,
-           device: DeviceLike = "cuda") -> Image:
+           device: DeviceLike = "cuda",
+           mesh: Optional[Sequence[DeviceLike]] = None) -> Image:
     """Decode one codestream or JP2 file: the whole image, a window
     (`params.window`, canvas coords), a reduced resolution
     (`params.reduce`), one tile (`params.tile_index`, the output cropped
@@ -765,11 +781,17 @@ def decode(data: bytes, params: Optional[DecoderParams] = None,
     window=)`, `fused_decode.build_plan(window_slots=)`), whose decoder
     returns their dequantized per-band bounding boxes; the host fetches
     them and runs the windowed inverse DWT (`ops/dwt_window.py`), then
-    the inverse MCT and the DC shift, as the reference does."""
-    dev = resolve_device(device)
+    the inverse MCT and the DC shift, as the reference does.
+
+    `mesh` (a sequence of devices; it replaces `device`) sends the tiles
+    round-robin over it: `decode_batch(mesh=)` without a window, and with
+    one, the i-th tile that meets the window to mesh[i % len(mesh)]. A
+    failure on any device raises; the pixels equal the one-device
+    decode's."""
+    devs = resolve_mesh(mesh, device)
     params = params or DecoderParams()
     if params.window is None:
-        return decode_batch([data], params, dev)[0]
+        return decode_batch([data], params, mesh=devs)[0]
     (data,), (hdr,) = _headers([data])
     siz, cod = hdr.siz, hdr.cod
     trs = _tile_rects(siz)
@@ -781,6 +803,7 @@ def decode(data: bytes, params: Optional[DecoderParams] = None,
         if trs[t].clip(req.window).is_empty():
             continue
         jobs, slots, plans = parsed[t][:3]
+        dev = devs[len(submits) % len(devs)]
         submits.append((t, [(plan, fused_decode.decode_tiles_submit(
             fused_decode.decoder_for(plan, dev),
             [fused_decode.jobs_by_block(jobs, slots, plans,

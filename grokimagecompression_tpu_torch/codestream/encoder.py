@@ -17,14 +17,17 @@ without it).
 
 - `encode(image, params)`: one image; its tiles are grouped by their
   fused plan and each group's tiles are stacked and coded together on
-  the device (`models/fused_encode.py`), then every tile's T2 runs on a
-  host pool (`write_codestream`).
+  the device (`models/fused_encode.py`), or with `mesh=` split over
+  several devices (`parallel/sharding.py`), then every tile's T2 runs
+  on a host pool (`write_codestream`).
 - `encode_batch(images, params)`: same-geometry frames stacked and coded
   a chunk at a time; frames of different geometries go to `encode` one
   by one.
 - `write_codestream`: the codestream of one image whose code-block
   segments were coded on the device (the reference host `encode`'s
-  header and tile-part writing, with its rate allocator).
+  header and tile-part writing, with its rate allocator), or the T2 of
+  some of its tiles and the codestream from finished tile results (the
+  multi-process encode, `parallel/multihost.py`).
 
 The codestream parameters (`build_siz`, `build_cod`), tile extraction,
 the rate allocators' construction and the main-header and tile-part
@@ -42,10 +45,11 @@ size, raise the reference's ValueError.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import dataclasses
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,11 +60,11 @@ from ..core.params import MCT, EncoderParams, QuantStyle, Transform
 from ..models import fused_encode
 from ..ops import _build, ht_tables
 from ..ops.linalg import lup_inverse
-from ..utils.device import DeviceLike, resolve_device
+from ..utils.device import DeviceLike, resolve_device, resolve_mesh
 from . import markers
 from .markers import CodInfo, ComponentSiz, SizInfo, SotInfo
 from .pcrd import GlobalPCRDAllocator, make_layer_alloc
-from .tile import default_qcd, encode_tile
+from .tile import TileEncResult, default_qcd, encode_tile
 
 
 def build_siz(image: Image, params: EncoderParams) -> SizInfo:
@@ -194,8 +198,10 @@ def _image_bytes(image: Image) -> int:
 
 
 def write_codestream(image: Image, params: EncoderParams,
-                     t1_segments_by_tile: Dict[int, List], rsiz: int = 0,
-                     layer_alloc=None) -> bytes:
+                     t1_segments_by_tile: Optional[Dict[int, List]],
+                     rsiz: int = 0, layer_alloc=None,
+                     only_tiles: Optional[Sequence[int]] = None,
+                     tile_results: Optional[Dict[int, TileEncResult]] = None):
     """Write the codestream of one image whose code-block segments were
     coded on the device: `t1_segments_by_tile[t]` in t1-desc order (HT
     segment bytes, MQ (data, numbps, numpasses) tuples, or under rate
@@ -215,7 +221,19 @@ def write_codestream(image: Image, params: EncoderParams,
     tile-part, or split at progression changes (`tp_flag`), with PPT/PLT
     where asked. Under the image-wide allocator the pool holds every
     tile at once: each tile waits at the allocator's barrier for all the
-    others."""
+    others.
+
+    The multi-process encode (`parallel.multihost.encode_multihost`)
+    splits this in two, as the reference's `_only_tiles` /
+    `_tile_results`. With `only_tiles` it runs the T2 of those tiles only
+    and returns {tile: `tile.TileEncResult`}; with `rate_alloc="global"`
+    and more than one tile in the image, their allocator is the
+    process-reduce `GlobalPCRDAllocator`, whose sums run over every
+    process of the `torch.distributed` group (a process that owns no
+    tile still joins them, `participate_empty`). With `tile_results`
+    ({tile: `TileEncResult`}) it assembles the codestream from them, the
+    T2 of any other tile run here from `t1_segments_by_tile`; under the
+    image-wide allocator they must be every tile, allocated already."""
     # Layer count follows the rate/quality vectors when they are longer
     _nl = max(params.numlayers, len(params.rates),
               len(params.quality_psnr))
@@ -268,12 +286,27 @@ def write_codestream(image: Image, params: EncoderParams,
     ppm_sections: list = []
     numtiles = ntx * nty
     split = params.ppt_markers or params.ppm_markers
+    if only_tiles is not None:
+        todo = sorted(only_tiles)
+    else:
+        todo = [t for t in range(numtiles)
+                if tile_results is None or t not in tile_results]
     global_alloc = None
     if layer_alloc is None and _needs_rc(params):
-        if params.rate_alloc == "global" and numtiles > 1:
+        if params.rate_alloc == "global" and tile_results is not None:
+            # every tile arrives with its layers allocated already
+            if todo:
+                raise NotImplementedError(
+                    "rate_alloc='global' with partial tile_results")
+        elif params.rate_alloc == "global" and numtiles > 1:
             layer_alloc = global_alloc = GlobalPCRDAllocator(
                 rates=params.rates, quality_psnr=params.quality_psnr,
-                image_bytes=_image_bytes(image), numtiles=numtiles)
+                image_bytes=_image_bytes(image), numtiles=max(len(todo), 1),
+                **({} if only_tiles is None else dict(
+                    process_reduce=True, global_numtiles=numtiles,
+                    numlayers=cod.numlayers)))
+            if not todo:
+                global_alloc.participate_empty()
         else:
             layer_alloc = make_layer_alloc(image, params)
 
@@ -293,14 +326,18 @@ def write_codestream(image: Image, params: EncoderParams,
                 global_alloc.fail(e)
             raise
 
-    workers = numtiles if global_alloc is not None else \
-        min(numtiles, os.cpu_count() or 1)
+    workers = len(todo) if global_alloc is not None else \
+        min(len(todo), os.cpu_count() or 1)
     if workers > 1:
         with concurrent.futures.ThreadPoolExecutor(
                 max_workers=workers) as pool:
-            results = list(pool.map(tile_t2, range(numtiles)))
+            done = dict(zip(todo, pool.map(tile_t2, todo)))
     else:
-        results = [tile_t2(t) for t in range(numtiles)]
+        done = {t: tile_t2(t) for t in todo}
+    if only_tiles is not None:
+        return done
+    results = [done[t] if t in done else tile_results[t]
+               for t in range(numtiles)]
 
     axis_idx = {"L": 0, "R": 1, "C": 2}
     for t in range(numtiles):
@@ -399,15 +436,16 @@ def free_device_bytes(dev: torch.device) -> Optional[int]:
 
 
 def _capped_chunk(chunk: int, encoders, dev: torch.device,
-                  rate_control: bool = False) -> int:
+                  rate_control: bool = False, shares: int = 1) -> int:
     """`chunk`, lowered for each plan to the frames whose encode (under
     HT rate control: with the blocks resident through the search) fits in
-    half the device's free memory (`fused_encode.chunk_cap`); as it is
+    half the device's free memory, split evenly among the `shares` mesh
+    shards that code on it at once (`fused_encode.chunk_cap`); as it is
     on the CPU."""
     free = free_device_bytes(dev)
     for plan in encoders:
         if free is not None:
-            chunk = min(chunk, fused_encode.chunk_cap(plan, free,
+            chunk = min(chunk, fused_encode.chunk_cap(plan, free // shares,
                                                       rate_control))
     return chunk
 
@@ -491,17 +529,18 @@ def _encode_ht_rate_controlled(image: Image, params: EncoderParams):
     return best if best is not None else cs
 
 
-def _ht_rc_bisect(image: Image, params: EncoderParams, dev: torch.device,
-                  rsiz: int) -> bytes:
+def _ht_rc_bisect(image: Image, params: EncoderParams,
+                  devs: List[torch.device], rsiz: int) -> bytes:
     """HT + byte-rate targeting with a custom MCT: the reference's
     bisection of the base step by whole encodes (its `_ht_rc_bisect`, the
     route its `_encode_ht_rate_controlled` takes for a custom MCT), each
-    encode `encode` on the device. `params` passed `_ht_rc_check`."""
+    encode `encode` on the devices `devs` (a mesh). `params` passed
+    `_ht_rc_check`."""
     target = max(256, int(_image_bytes(image) / float(params.rates[0])))
 
     def attempt(step: float) -> bytes:
         return encode(image, dataclasses.replace(params, rates=(),
-                                                 base_step=step), device=dev,
+                                                 base_step=step), mesh=devs,
                       rsiz=rsiz)
 
     lo, hi = 0.25, 1.0          # step bracket (bytes(lo) >= bytes(hi))
@@ -572,13 +611,14 @@ def _ht_rc_segment_bytes(search: _HTRateSearch, frames: List[int],
     """Exact total HT segment bytes of the chunk's frames numbered
     `frames`, each at its base step in `steps`, from the resident
     blocks: the device's quantization and HT coder, nothing else (one
-    `FusedHTEncoder.segment_totals` a tile, one fetch of the totals)."""
-    total = None
+    `FusedHTEncoder.segment_totals` a tile, one fetch of the totals a
+    device)."""
+    totals: Dict[torch.device, torch.Tensor] = {}
     for t, enc in enumerate(search.tile_enc):
         n = enc.segment_totals(search.blocks[t], frames,
                                [search.lanes(s)[t] for s in steps])
-        total = n if total is None else total + n
-    return total.tolist()
+        totals[n.device] = n + totals[n.device] if n.device in totals else n
+    return sum(n.cpu() for n in totals.values()).tolist()
 
 
 def _ht_rc_segments(search: _HTRateSearch, frames: List[int],
@@ -673,34 +713,55 @@ def _coding(image: Image, params: EncoderParams):
 def plan_encoder(plan: Optional[fused_encode.FusedPlan], dev: torch.device,
                  encoders: Dict) -> object:
     """The fused encoder of a tile's plan (`fused_encode.FusedHTEncoder`
-    or `FusedMQEncoder`, by the plan's coder), kept in `encoders` by plan
-    so that every tile of one plan shares one (the interior tiles of a
-    grid do)."""
+    or `FusedMQEncoder`, by the plan's coder) on `dev`, kept in `encoders`
+    by plan and device so that every tile of one plan on one device
+    shares one (the interior tiles of a grid do)."""
     if plan is None:
         raise NotImplementedError("the tile is outside the fused plan's "
                                   "scope")
-    if plan not in encoders:
-        encoders[plan] = (
+    if (plan, dev) not in encoders:
+        encoders[plan, dev] = (
             fused_encode.FusedHTEncoder(plan, ht_tables.device_tables(dev))
             if plan.coder == "ht" else fused_encode.FusedMQEncoder(plan, dev))
-    return encoders[plan]
+    return encoders[plan, dev]
+
+
+def tile_plans(siz: SizInfo, cod: CodInfo, qcd, trs, coder: str,
+               cod_comp=None, want_rd: bool = False,
+               custom_mct=None) -> List[fused_encode.FusedPlan]:
+    """The fused plan of each tile rect in `trs` (a custom MCT's coding
+    matrix is part of the plan). Raises NotImplementedError for a tile
+    outside the fused plan's scope."""
+    plans = [fused_encode.build_plan(siz, cod, qcd, tr, cod_comp=cod_comp,
+                                     coder=coder, want_rd=want_rd,
+                                     custom_mct=custom_mct) for tr in trs]
+    if any(plan is None for plan in plans):
+        raise NotImplementedError("a tile is outside the fused plan's "
+                                  "scope")
+    return plans
 
 
 def _tile_encoders(p: EncoderParams, siz: SizInfo, cod: CodInfo, qcd,
-                   cod_comp, trs, dev: torch.device, want_rd: bool) -> List:
-    """Each tile's fused encoder (`plan_encoder`); a custom MCT's coding
-    matrix is part of the plan."""
-    coder = "ht" if p.cblk_style & 0x40 else "mq"
-    coding_matrix = _part2(p, siz)[0]
+                   cod_comp, trs, dev, want_rd: bool) -> List:
+    """Each tile's fused encoder (`plan_encoder`) on `dev`, or on a mesh
+    (a list of devices) each plan's tiles split over it as
+    `sharding.plan_shards` splits them."""
+    from ..parallel.sharding import plan_shards
+    devs = dev if isinstance(dev, list) else [dev]
+    plans = tile_plans(siz, cod, qcd, trs,
+                       "ht" if p.cblk_style & 0x40 else "mq", cod_comp,
+                       want_rd, _part2(p, siz)[0])
+    on = {t: devs[di] for _, di, part in plan_shards(
+        range(len(plans)), plans, len(devs)) for t in part}
     encoders: Dict = {}
-    return [plan_encoder(fused_encode.build_plan(
-        siz, cod, qcd, tr, cod_comp=cod_comp, coder=coder, want_rd=want_rd,
-        custom_mct=coding_matrix), dev, encoders) for tr in trs]
+    return [plan_encoder(plan, on[t], encoders)
+            for t, plan in enumerate(plans)]
 
 
 def encode(image: Image, params: Optional[EncoderParams] = None,
            layer_alloc=None, device: DeviceLike = "cuda",
-           rsiz: int = 0) -> bytes:
+           rsiz: int = 0, mesh: Optional[Sequence[DeviceLike]] = None
+           ) -> bytes:
     """Encode one image to a raw J2K codestream on a torch device: the
     slices of `encode_batch`, byte-identical to the reference's host
     `encode(image, params, layer_alloc, device=False, rsiz=rsiz)`.
@@ -717,37 +778,42 @@ def encode(image: Image, params: Optional[EncoderParams] = None,
     runs on a host thread pool (`write_codestream`). HT with a byte
     target runs the reference's search of the quantizer step on the
     device coder (`encode_batch` of the one image); with a custom MCT its
-    bisection by whole encodes (`_ht_rc_bisect`)."""
-    dev = resolve_device(device)
-    params = params or EncoderParams()
+    bisection by whole encodes (`_ht_rc_bisect`).
+
+    `mesh` (a sequence of devices, one shard each; it replaces `device`)
+    splits each plan group's tiles over the mesh and codes the shards
+    together (`parallel.sharding.fused_entropy_tiles_on_mesh`; under HT
+    rate control each plan's tiles are split the same way); every other
+    stage is this same code path, so the stream equals the one-device
+    encode's."""
+    return _encode(image, params or EncoderParams(), layer_alloc,
+                   resolve_mesh(mesh, device), rsiz)
+
+
+def _encode(image: Image, params: EncoderParams, layer_alloc,
+            devs: List[torch.device], rsiz: int,
+            only_tiles: Optional[Sequence[int]] = None):
+    """`encode` on the mesh `devs`; with `only_tiles`, the coding and T2
+    of those tiles only: {tile: `tile.TileEncResult`}
+    (`write_codestream(only_tiles=)`)."""
+    from ..parallel.sharding import fused_entropy_tiles_on_mesh
     _check(params, layer_alloc, "encode")
     if params.cblk_style & 0x40 and params.rates:
-        return encode_batch([image], params, dev, rsiz=rsiz)[0]
+        if only_tiles is not None:
+            raise NotImplementedError(
+                "HT rate control searches the base step over the whole "
+                "image; it does not code a part of the tiles")
+        return _encode_batch([image], params, devs, rsiz=rsiz)[0]
     _build.host_library()
     p, siz, cod, qcd, cod_comp, trs = _coding(image, params)
     want_rd = not p.cblk_style & 0x40 and (layer_alloc is not None
                                            or _needs_rc(p))
-    tile_enc = _tile_encoders(p, siz, cod, qcd, cod_comp, trs, dev, want_rd)
-    by_plan: Dict[object, List[int]] = {}
-    for t, enc in enumerate(tile_enc):
-        by_plan.setdefault(enc, []).append(t)
-    chunks = []
-    for enc, tiles in by_plan.items():
-        n = max(1, min(_capped_chunk(len(tiles), [enc.plan], dev),
-                       len(tiles)))
-        chunks += [(enc, tiles[lo:lo + n]) for lo in range(0, len(tiles), n)]
-    segs: Dict[int, List] = {}
-    prev = None
-    for enc, part in chunks:
-        stacks = zip(*(extract_tile_comps(image, siz, t) for t in part))
-        handle = fused_encode.encode_tile_submit(
-            [np.stack(c) for c in stacks], enc)
-        if prev is not None:
-            segs.update(zip(prev[0], fused_encode.encode_tile_collect(
-                prev[1])))
-        prev = (part, handle)
-    segs.update(zip(prev[0], fused_encode.encode_tile_collect(prev[1])))
-    return write_codestream(image, params, segs, rsiz, layer_alloc)
+    segs = fused_entropy_tiles_on_mesh(
+        image, siz, cod, qcd, devs, "ht" if p.cblk_style & 0x40 else "mq",
+        cod_comp=cod_comp, want_rd=want_rd, custom_mct=_part2(p, siz)[0],
+        tiles=only_tiles)
+    return write_codestream(image, params, segs, rsiz, layer_alloc,
+                            only_tiles=only_tiles)
 
 
 def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
@@ -780,27 +846,40 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
     parameters' targets would make: with it the encode also returns the
     per-pass R-D tables the allocator needs, as with targets. A profile's
     encode (`profiles.encode_with_profile`) passes both."""
-    dev = resolve_device(device)
-    params = params or EncoderParams()
+    return _encode_batch(images, params or EncoderParams(),
+                         [resolve_device(device)], chunk, rsiz, layer_alloc)
+
+
+def _encode_batch(images: List[Image], params: EncoderParams,
+                  devs: List[torch.device], chunk: int = 32, rsiz: int = 0,
+                  layer_alloc=None) -> List[bytes]:
+    """`encode_batch` on the mesh `devs`: each plan's tiles split over it
+    (`_tile_encoders`), a chunk capped on every device by the plans coded
+    there and the mesh's shards on it."""
     if not images:
         return []
     _check(params, layer_alloc, "encode_batch")
     if any(_geom(im) != _geom(images[0]) for im in images):
-        return [encode(im, params, layer_alloc, dev, rsiz) for im in images]
+        return [encode(im, params, layer_alloc, rsiz=rsiz, mesh=devs)
+                for im in images]
     _build.host_library()
 
     p, siz, cod, qcd, cod_comp, trs = _coding(images[0], params)
     numtiles = len(trs)
     rate_control = bool(p.cblk_style & 0x40 and p.rates)
     if rate_control and p.custom_mct is not None:
-        return [_ht_rc_bisect(im, p, dev, rsiz) for im in images]
+        return [_ht_rc_bisect(im, p, devs, rsiz) for im in images]
     want_rd = not p.cblk_style & 0x40 and (layer_alloc is not None
                                            or _needs_rc(p))
-    tile_enc = _tile_encoders(p, siz, cod, qcd, cod_comp, trs, dev, want_rd)
-    encoders = {enc.plan: enc for enc in tile_enc}
+    tile_enc = _tile_encoders(p, siz, cod, qcd, cod_comp, trs, devs,
+                              want_rd)
 
     n = len(images)
-    chunk = max(1, min(_capped_chunk(chunk, encoders, dev, rate_control), n))
+    shares = collections.Counter(devs)
+    for d in shares:
+        encoders = {enc.plan: enc for enc in tile_enc if enc.device == d}
+        chunk = _capped_chunk(chunk, encoders, d, rate_control, shares[d])
+    chunk = max(1, min(chunk, n))
     results: List[Optional[bytes]] = [None] * n
     futures = []
     with concurrent.futures.ThreadPoolExecutor(

@@ -7,10 +7,11 @@ A copy of `grokimagecompression_tpu/codestream/pcrd.py`: `HullPoint`,
 `make_layer_alloc`, as they are, but for `_TileTables`, which always
 builds its hull tables with the Python `convex_hull` (the reference's
 oracle for its native batch hull, which computes the same tables), and
-`GlobalPCRDAllocator`, which has no device mesh and no cross-process
-reduction (those wait for the multi-device port), no last-layer byte cap
-(`max_abs_bytes`, which no caller of the image-wide allocator sets) and
-takes a `fail(exc)` that wakes every waiting tile. `tests/test_torch_host_copies.py`
+`GlobalPCRDAllocator`, whose cross-process reduction runs over
+`torch.distributed`, which has no device-mesh reduction (see its
+docstring), no last-layer byte cap (`max_abs_bytes`, which no caller of
+the image-wide allocator sets) and takes a `fail(exc)` that wakes every
+waiting tile. `tests/test_torch_host_copies.py`
 and `tests/test_torch_image_encode.py` hold the copy to the original.
 
 Algorithmic analog of the reference's feasible-slope bisection
@@ -332,19 +333,52 @@ class GlobalPCRDAllocator:
     which thread registered first. An error in the allocation is raised
     in every waiting tile; `fail` does the same for a tile that failed
     before it registered, which would otherwise leave the others waiting.
+
+    With `process_reduce` (the multi-process encode,
+    `parallel.multihost`), `numtiles` counts the tiles this process owns
+    (the barrier) and every sum runs over all the processes of the
+    `torch.distributed` group: each process gathers every process's
+    (tile index, float64 value) rows as int32 words (`_pg`), sorts them
+    by tile index and sums them in that order, so every process derives
+    the single-process allocator's thresholds bit for bit and the bytes
+    do not depend on how the tiles were split. `global_numtiles` (the
+    image's tiles) sizes the gathered rows; `numlayers` lets a process
+    that owns no tile walk the layer loop in lockstep
+    (`participate_empty`). Only the allocating thread of each process
+    makes the collectives, and every process makes the same ones in the
+    same order. A process that fails leaves the others in a collective
+    until the group's timeout, which then raises there.
+
+    The reference's device-mesh reduction (`mesh`: its `_mesh_sum`, a
+    psum of per-shard partials, distortions in float32) is not ported:
+    within one process every tile's tables are on the host already, so
+    the tile-order float64 sum above serves a sharded encode too, and its
+    bytes equal the one-device encode's by construction.
     """
 
     def __init__(self, rates: Sequence[float] = (),
                  quality_psnr: Sequence[float] = (),
-                 image_bytes: int = 0, numtiles: int = 1):
+                 image_bytes: int = 0, numtiles: int = 1,
+                 process_reduce: bool = False, global_numtiles: int = 0,
+                 numlayers: int = 0):
         self.rates = tuple(rates)
         self.quality_psnr = tuple(quality_psnr)
         self.image_bytes = image_bytes
         self.numtiles = numtiles
+        self.process_reduce = process_reduce
+        self.global_numtiles = global_numtiles or numtiles
+        self._numlayers_hint = numlayers
         self._lock = threading.Lock()
         self._done = threading.Event()
         self._ctxs: List[RateControlCtx] = []
         self._error: Optional[BaseException] = None
+
+    def participate_empty(self) -> None:
+        """Join the allocation's collectives with no owned tile (a process
+        of a group larger than the tile grid; without it every other
+        process would wait in a collective)."""
+        self._allocate()
+        self._done.set()
 
     def fail(self, exc: BaseException) -> None:
         """Release every tile waiting at the barrier with `exc` (a tile
@@ -363,7 +397,78 @@ class GlobalPCRDAllocator:
             parts[0] += v
         return float(parts.sum())
 
+    # ---- the multi-process collectives (process_reduce) ----
+    #
+    # Every process must derive the float64 values the single-process
+    # allocator computes, so floats cross as two int32 words and the
+    # per-tile terms are summed in ascending tile order, the order of
+    # `_allocate`'s sorted contexts.
+
+    @staticmethod
+    def _f64w(x: float) -> np.ndarray:
+        return np.frombuffer(np.float64(x).tobytes(), np.int32).copy()
+
+    @staticmethod
+    def _wf64(words: np.ndarray) -> float:
+        return float(np.frombuffer(
+            np.ascontiguousarray(words, np.int32).tobytes(), np.float64)[0])
+
+    @staticmethod
+    def _pg(mat: np.ndarray) -> np.ndarray:
+        """All-gather a small int32 matrix over the processes of the
+        `torch.distributed` group (CPU tensors): the (P * rows, cols)
+        stack, process 0 first. Every process calls it in lockstep with
+        the same shape; without a group it is the matrix itself."""
+        import torch
+        import torch.distributed as dist
+        mat = np.ascontiguousarray(mat, np.int32)
+        if not dist.is_initialized():
+            return mat
+        t = torch.from_numpy(mat)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t)
+        return torch.cat(parts).numpy().reshape((-1, mat.shape[-1]))
+
+    def _rows_per_proc(self) -> int:
+        import torch.distributed as dist
+        p = dist.get_world_size() if dist.is_initialized() else 1
+        return max(-(-self.global_numtiles // p), 1)
+
+    def _psum_tiles(self, pairs) -> float:
+        """Sum (tile_index, float64 value) pairs of every process in
+        ascending tile order: bit-identical to the single-process sum over
+        the sorted contexts."""
+        k = self._rows_per_proc()
+        pairs = list(pairs)
+        if len(pairs) > k:
+            raise ValueError(
+                f"process registered {len(pairs)} tiles but the global "
+                f"PCRD gather is sized for at most {k} per process "
+                f"(global_numtiles={self.global_numtiles}); split tiles "
+                "across processes more evenly or raise global_numtiles")
+        for t, _ in pairs:
+            if t < 0:
+                raise ValueError(
+                    "rate_alloc='global' requires every tile context to "
+                    "carry a non-negative global tile_index; got "
+                    f"tile_index={t} (left at the default?)")
+        mat = np.full((k, 3), -1, np.int32)
+        for i, (t, v) in enumerate(pairs):
+            w = self._f64w(v)
+            mat[i] = (t, w[0], w[1])
+        g = self._pg(mat)
+        g = g[g[:, 0] >= 0]
+        g = g[np.argsort(g[:, 0], kind="stable")]
+        total = np.float64(0.0)
+        for row in g:
+            total = total + np.frombuffer(
+                np.ascontiguousarray(row[1:3]).tobytes(), np.float64)[0]
+        return float(total)
+
     def _sum_live(self, live, fn) -> float:
+        if self.process_reduce:
+            return self._psum_tiles(
+                [(tt.ctx.tile_index, float(fn(tt))) for tt in live])
         return self._sum([float(fn(tt)) for tt in live])
 
     def __call__(self, ctx: RateControlCtx) -> None:
@@ -395,11 +500,27 @@ class GlobalPCRDAllocator:
             if not tt.slopes and tt.ctx.cblks:
                 for cb in tt.ctx.cblks:
                     cb.layer_npasses[-1] = cb.numpasses
-        if not live:
-            return
-        numlayers = ctxs[0].numlayers
-        smin = min(min(tt.slopes) for tt in live)
-        smax = max(max(tt.slopes) for tt in live)
+        if self.process_reduce:
+            # one gather of [live tiles, slope min words, max words]
+            lmin = min((min(tt.slopes) for tt in live), default=np.inf)
+            lmax = max((max(tt.slopes) for tt in live), default=-np.inf)
+            g = self._pg(np.concatenate([
+                np.asarray([len(live)], np.int32), self._f64w(lmin),
+                self._f64w(lmax)]).reshape(1, -1))
+            if int(g[:, 0].sum()) == 0:
+                return
+            smin = min(self._wf64(row[1:3]) for row in g)
+            smax = max(self._wf64(row[3:5]) for row in g)
+            numlayers = ctxs[0].numlayers if ctxs else self._numlayers_hint
+            if numlayers <= 0:
+                raise ValueError("process_reduce allocation on a process "
+                                 "with no tiles needs numlayers=")
+        else:
+            if not live:
+                return
+            numlayers = ctxs[0].numlayers
+            smin = min(min(tt.slopes) for tt in live)
+            smax = max(max(tt.slopes) for tt in live)
         max_se = self._sum_live(
             live, lambda tt: float((1 << tt.ctx.max_prec) - 1) ** 2
             * tt.ctx.tile_samples)

@@ -8,7 +8,7 @@ a machine without it raises: the port never drops to the CPU by itself.
 
 from __future__ import annotations
 
-from typing import Union
+from typing import List, Optional, Sequence, Union
 
 import torch
 
@@ -28,3 +28,21 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def resolve_mesh(mesh: Optional[Sequence[DeviceLike]],
+                 device: DeviceLike = "cuda") -> List[torch.device]:
+    """The devices of a mesh, one shard each (`resolve_device` of every
+    entry; entries may repeat a device), or `[resolve_device(device)]`
+    without a mesh. A CUDA entry without CUDA, or past the card count,
+    raises."""
+    if mesh is None:
+        return [resolve_device(device)]
+    devs = [resolve_device(d) for d in mesh]
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    for d in devs:
+        if d.type == "cuda" and d.index >= torch.cuda.device_count():
+            raise ValueError(f"{d} is not among the "
+                             f"{torch.cuda.device_count()} CUDA devices")
+    return devs

@@ -184,7 +184,9 @@ def test_port_runs_without_jax(monkeypatch):
     `StreamEncoder`'s file and `StreamDecoder` decodes it to the source;
     an ROI stream (MQ, 5/3) and a custom-MCT stream (HT, 9/7) equal the
     reference host encoder's and decode to the source and to the
-    reference host decoder's pixels."""
+    reference host decoder's pixels. And `parallel`: a two-shard CPU
+    `encode(mesh=)` of a tiled HT stream equals the reference host
+    encoder's and decodes over the mesh to the source."""
     from grokimagecompression_tpu.core.params import DecoderParams
     from grokimagecompression_tpu.ops import dwt_host
     monkeypatch.setattr(dwt_host, "_get_native", lambda: None)
@@ -193,6 +195,8 @@ def test_port_runs_without_jax(monkeypatch):
     data = rng.integers(0, 256, (64, 64)).astype(np.int32)
     params = EncoderParams(numresolutions=3, cblk_style=HT)
     want = ref_encoder.encode(convert_image(data), params, device=False)
+    want_tiled = ref_encoder.encode(convert_image(data), EncoderParams(
+        numresolutions=3, cblk_style=HT, tile_size=(32, 24)), device=False)
     mq_params = EncoderParams(numresolutions=2, cblk_style=0)
     want_mq = ref_encoder.encode(convert_image(data[:8, :12]), mq_params,
                                  device=False)
@@ -330,6 +334,14 @@ def test_port_runs_without_jax(monkeypatch):
         out = decoder.decode(cs, device="cpu")
         assert np.stack([c.data for c in out.components]).astype(
             "<i4").tobytes().hex() == "{want_mct_px}"
+        from grokimagecompression_tpu_torch.parallel import (multihost,
+                                                             sharding)
+        cs = encoder.encode(img, EncoderParams(
+            numresolutions=3, cblk_style=0x40, tile_size=(32, 24)),
+            mesh=["cpu", "cpu"])
+        assert cs.hex() == "{want_tiled.hex()}"
+        out = sharding.decode_sharded(cs, mesh=["cpu", "cpu"])
+        assert np.array_equal(out.components[0].data, data)
         import torch
         words, mask, nbo, state = mq_scan.run_mq_scans(
             torch.ones((300, 4), dtype=torch.int8))
