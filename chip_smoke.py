@@ -28,7 +28,10 @@ single tiles and layer limits through `codestream.decoder.decode` and
 image; and the per-image encode through `codestream.encoder.encode`
 (same-plan tiles coded together), image-wide PCRD (`rate_alloc=
 "global"`) and the codec's encode API (`codec.compress`,
-`compress_batch`, `Codec`) on the same images and at BASELINE widths.
+`compress_batch`, `Codec`) on the same images and at BASELINE widths;
+and the MQ code-block styles other than the default (the transform on
+the card, the host Tier-1 coder) through `encode_batch`, `decode_batch`,
+the tools and `StreamEncoder` at config 1 and config 2.
 It checks every CUDA kernel on those paths against its plain PyTorch
 version, and imports only the port, torch, numpy and the standard
 library.
@@ -156,12 +159,11 @@ Phases, each fatal on failure:
      with 32x32 blocks by COC and PPM markers: every frame equal to its
      source, the HT decoder, the MQ decoder and the DWT launched, no plain
      decoder or host prepass called; MP/s (best of 3) each;
- 17. every tests/corpus stream that decode_batch takes (50 of 60, a
-     custom MCT and ROI among them), on the card alone and as a batch of
-     two copies, against the host decoder's planes in
-     grokimagecompression_tpu_torch/data/corpus_decode.json; the other 10
-     (MQ code-block styles other than 0) raise NotImplementedError; a 9/7
-     HT stream with a QCC for component 1 decodes on the card as on the
+ 17. every tests/corpus stream (60 of 60: a custom MCT, ROI and the MQ
+     code-block styles other than 0 among them), on the card alone and as
+     a batch of two copies, against the host decoder's planes in
+     grokimagecompression_tpu_torch/data/corpus_decode.json; a 9/7 HT
+     stream with a QCC for component 1 decodes on the card as on the
      CPU;
  18. the profile encodes at full size, frames made as the reference's
      bench_chip_cinema makes them (12-bit RGB ramps plus texture): cinema
@@ -185,7 +187,8 @@ Phases, each fatal on failure:
      control's simulator calls, total and per-component), the peak device
      memory beside `mq_frame_bytes`, and the MQ coder (every shape group,
      64 lanes at their leading planes), the MQ decoder (every lane group of
-     frame 0, the first 3 passes) and the DWT (2K and 4K frames, 5/3 and
+     frame 0, the first 3 passes, on `plain_lanes` of each group) and the
+     DWT (2K and 4K frames, 5/3 and
      9/7) against their plain versions at the cinema shapes, with the
      whole 32x32 group's and the frames' call ms beside their bounds;
  19. the per-image decode (`decoder.decode`, `codec.decompress`): at
@@ -272,7 +275,23 @@ Phases, each fatal on failure:
      one-process encode's, each rank's seconds and its seconds in
      collectives. On n > 1 cards the meshes are [cuda:1, cuda:2] and all
      n cards, and n processes take a card each. Every run launches its
-     kernels and no plain version.
+     kernels and no plain version;
+ 24. the MQ code-block styles other than the default on the host Tier-1
+     route (`t1_phase`): (a) config 1's 64 frames at style 0x01 (BYPASS)
+     through encode_batch against grokimagecompression_tpu_torch/data/
+     config1_mq_styles.json (the reference host encoder's streams) and
+     back through decode_batch to the sources, MP/s (best of 3) beside
+     phases 6 and 7, one chunk's stages (the transform on the card, the
+     fetch, the host T1, T2); (b) config-2 frame 0 at 0x3F (all six
+     Part-1 styles) and at 0x14 (TERMALL | PTERM), ratios 24 / 48 / 96,
+     and at 0x3F with ratios 96 / 48 / 24, streams and pixels (whole and
+     at layers=1) against config2_mq_styles.json, with stages and peak
+     device memory; (c) the 10 corpus streams of those styles through
+     decode_batch; (d) the tools' MQ-style cases of CLI_CASES; (e)
+     config-2 frame 0 in 512^2 tiles through StreamEncoder at 0x01, its
+     tile-parts equal to encode's. Every run calls the host coder and
+     launches the DWT and no MQ kernel; phases 4-7 (the default MQ style
+     and HT) call the host coder not at all.
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
@@ -284,7 +303,8 @@ encodes and decodes, for both decoders and the DWT their launches in
 phase 19's full-size requests, and for every kernel but the dense scan
 its launches in phase 20's encodes and decodes, phase 21's tool runs,
 phase 22's streams and requests and phase 23's sharded and
-multi-process runs (the worker processes' launches included); the last
+multi-process runs (the worker processes' launches included), and for
+the DWT its launches in phase 24; the last
 line is {"ok": true,
 "device": {...}}.
 
@@ -298,6 +318,7 @@ import contextlib
 import dataclasses
 import hashlib
 import inspect
+import io
 import json
 import os
 import re
@@ -502,6 +523,11 @@ CLI_CASES = (
                          "-R", "c=0,U=4"]),
     ("custom MCT", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_mct.j2k",
                                 "-n", "4", "-m", "@mct.txt"]),
+    ("MQ styles lazy", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_lazy.j2k",
+                                    "-n", "4", "-M", "1"]),
+    ("MQ styles all", "compress", ["-i", "@gray.pgm", "-o", "@gray_sty.j2k",
+                                   "-n", "4", "-I", "-r", "20,10", "-M",
+                                   "63"]),
     # grk_compress: every input format
     ("in PGM 12-bit", "compress", ["-i", "@g12.pgm", "-o", "@g12.j2k", "-n",
                                    "4", "-M", "64"]),
@@ -571,6 +597,10 @@ CLI_CASES = (
     ("out ROI", "decompress", ["-i", "@rgb_roi.j2k", "-o", "@roi_o.ppm"]),
     ("out custom MCT", "decompress", ["-i", "@rgb_mct.j2k", "-o",
                                       "@mct_o.ppm"]),
+    ("MQ styles out lazy", "decompress", ["-i", "@rgb_lazy.j2k", "-o",
+                                          "@lazy_o.ppm"]),
+    ("MQ styles out all", "decompress", ["-i", "@gray_sty.j2k", "-o",
+                                         "@sty_o.pgm", "-l", "1"]),
     ("directory decode", "decompress", ["-y", "@dir_j2k", "-a", "@dir_dec",
                                         "-O", "pgm"]),
     # grk_dump
@@ -622,6 +652,26 @@ ROUTE_SMALL = dict(numresolutions=3, transform="DWT_97",
 # DecoderParams arguments of the small streams' digests: the whole image,
 # and a window across an overridden and a plain tile at reduce 1
 ROUTE_SMALL_REQUESTS = ({}, {"window": (5, 2, 30, 36), "reduce": 1})
+
+
+# Phase 24, the MQ code-block styles other than the default on the host
+# Tier-1 route (the transform on the card, the host library's Tier-1
+# coder): config 1's 64 frames at T1_C1_STYLE through encode_batch and
+# decode_batch; config-2 frame 0 at each of T1_C2_STYLES (all six Part-1
+# styles, and TERMALL | PTERM) and at T1_C2_LAYERED's style and rates
+# (whose first layer carries data) decoded whole and at layers=1; the
+# config-2 frame in T1_STREAM_TILE tiles through StreamEncoder at
+# T1_C1_STYLE. T1_C1_DIGESTS and T1_C2_DIGESTS hold the reference host
+# encoder's streams and host decoder's pixels; tests/test_torch_t1_styles.py
+# writes them.
+T1_C1_STYLE = 0x01
+T1_C2_STYLES = (0x3F, 0x14)
+T1_C2_LAYERED = (0x3F, (96.0, 48.0, 24.0))
+T1_STREAM_TILE = (512, 512)
+T1_C1_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                             "config1_mq_styles.json")
+T1_C2_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                             "config2_mq_styles.json")
 
 
 def route_small_frame():
@@ -3788,7 +3838,9 @@ def cinema_mq_scan_check(enc, chunk):
 def cinema_mq_dec_check(streams, dev):
     """Phase 18, the MQ decoder at the cinema shapes: every lane group of
     the first stream's decode, every lane cut to its first 3 passes,
-    against the plain version; then the whole 32x32 group of the streams'
+    against the plain version on `plain_lanes` of the group (its deepest
+    lanes by passes and bytes, and lanes spread over the rest); then the
+    whole 32x32 group of the streams'
     decode chunk at full depth timed (call ms, 20 after 3 warm-up) beside
     its bound. Returns (largest difference, ms, plain ms, bound ms, bound
     by)."""
@@ -3809,29 +3861,36 @@ def cinema_mq_dec_check(streams, dev):
     err, plain_total = 0, 0.0
     for (w, h, _), group in zip(plan.groups, arrays):
         data, off, nbps, npas_full, ori = group[:5]
-        args = (data, off, nbps, torch.clamp(npas_full, max=3), ori, w, h)
+        npas = torch.clamp(npas_full, max=3)
+        args = (data, off, nbps, npas, ori, w, h)
         got = mq_dec.decode_group(*args, with_stats=True)
+        seg_bytes = (off[1:] - off[:-1]).to(torch.int64)
+        idx = plain_lanes(npas.to(torch.int64) * (1 << 32) + seg_bytes)
+        sub = lane_subset(data, off, idx) + (nbps[idx], npas[idx], ori[idx],
+                                             w, h)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = mq_dec_torch.decode_group_plain(*args, with_stats=True)
+        want = mq_dec_torch.decode_group_plain(*sub, with_stats=True)
         stop.record()
         torch.cuda.synchronize()
         plain_ms = start.elapsed_time(stop)
         for part, wv, g in zip(("samples", "statistics"), want, got):
-            if not torch.equal(wv, g):
+            if not torch.equal(wv, g[:, idx]):
                 raise AssertionError(f"mq_dec_group {part} differ from the "
                                      f"plain version (cinema {w}x{h} "
                                      f"blocks)")
-        err = max([err] + [int((wv.to(torch.int64) - g.to(torch.int64))
-                               .abs().max()) for wv, g in zip(want, got)])
+        err = max([err] + [int((wv.to(torch.int64)
+                                - g[:, idx].to(torch.int64)).abs().max())
+                           for wv, g in zip(want, got)])
         if (w, h) == (32, 32):
             plain_total = plain_ms
         print(f"kernel mq_dec_group at the cinema shapes: {w}x{h} blocks of "
               f"frame 0, B={nbps.shape[0]}, {data.numel()} segment bytes, "
               f"every lane cut to its first 3 passes (of up to "
-              f"{int(npas_full.max())}): bit-exact with plain (plain "
+              f"{int(npas_full.max())}): bit-exact with plain on "
+              f"{idx.shape[0]} lanes (`plain_lanes`) (plain "
               f"{plain_ms:.1f} ms)")
     plan, arrays = lane_groups(streams)
     ((w, h, _), group), = [(g, a) for g, a in zip(plan.groups, arrays)
@@ -4981,7 +5040,8 @@ def cli_phase(c1_imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card):
     `cli.dump`, run in this process through their `main`) on the card,
     every file in a temporary directory removed afterwards: (a) every
     CLI_CASES entry on `cli_inputs` against CLI_DIGESTS, and a flag the
-    port does not code (-M 1) ending non-zero with no file; (b) config 1's
+    port does not code (--ht-refinement) ending non-zero with no file;
+    (b) config 1's
     64 frames as PGM files through directory mode with HT and with MQ,
     each stream against its digest file, decoded back to the sources, and
     config 2's 4 frames as PPM files at ratios 24 / 48 / 96 against
@@ -5060,20 +5120,21 @@ def cli_phase(c1_imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card):
         if bad:
             raise AssertionError(f"CLI cases {bad} differ from the reference "
                                  f"tools' outputs")
-        lazy = os.path.join(d, "lazy.j2k")
+        refined = os.path.join(d, "refined.j2k")
         try:
-            compress.main(["-i", os.path.join(d, "gray.pgm"), "-o", lazy,
-                           "-M", "1"] + on_card)
-            raise AssertionError("grk_compress -M 1 exited 0")
+            compress.main(["-i", os.path.join(d, "gray.pgm"), "-o", refined,
+                           "-M", "64", "--ht-refinement"] + on_card)
+            raise AssertionError("grk_compress --ht-refinement exited 0")
         except SystemExit as e:
-            if e.code != 1 or os.path.exists(lazy):
-                raise AssertionError(f"grk_compress -M 1: exit {e.code}, "
-                                     f"file written: {os.path.exists(lazy)}")
+            if e.code != 1 or os.path.exists(refined):
+                raise AssertionError(
+                    f"grk_compress --ht-refinement: exit {e.code}, file "
+                    f"written: {os.path.exists(refined)}")
         print(f"phase 21 (a): {len(got)} tool runs on {len(want['inputs'])} "
               f"seeded inputs equal the reference tools' outputs "
               f"({sum(len(v) for v in got.values())} files) in "
-              f"{time.perf_counter() - t0:.1f} s; -M 1 (MQ bypass) exits 1 "
-              f"with no file; "
+              f"{time.perf_counter() - t0:.1f} s; -M 64 --ht-refinement (HT "
+              f"refinement passes) exits 1 with no file; "
               f"launches {launches} on {card}")
 
         # (b) the BASELINE frames through directory mode
@@ -5929,6 +5990,325 @@ def mesh_phase(s1_cs, s1_refs, s2_global_cs, dev, card):
     return launches
 
 
+@contextlib.contextmanager
+def t1_counts():
+    """The host Tier-1 coder's calls and every kernel's launches set to 0
+    and the plain versions counted, inside a `with` block (`cli_counts`
+    into the dict it yields, {"dwt", "mq", "mq_dec", ...}); after it,
+    fail unless the host coder was called and the DWT kernel launched,
+    and unless no MQ kernel ran: a styled request never reaches them."""
+    from grokimagecompression_tpu_torch.native import t1_native
+    launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
+    t1_native.CALLS["t1"] = 0
+    with cli_counts(launches, "the host Tier-1 route", ("dwt",)):
+        yield launches
+    launches["t1"] = t1_native.CALLS["t1"]
+    if launches["t1"] < 1:
+        raise AssertionError("the host Tier-1 coder was not called")
+    if launches["mq"] or launches["mq_dec"]:
+        raise AssertionError(f"a styled request launched an MQ kernel "
+                             f"({launches})")
+
+
+def no_t1_calls(what):
+    """Fail if the host Tier-1 coder was called since its count was last
+    set to 0 (the default MQ style and HT never reach it)."""
+    from grokimagecompression_tpu_torch.native import t1_native
+    if t1_native.CALLS["t1"]:
+        raise AssertionError(f"{what} called the host Tier-1 coder "
+                             f"{t1_native.CALLS['t1']} times")
+
+
+def t1_encode_stages(imgs, params, dev):
+    """One chunk of a styled encode by stage (host clock, synchronised),
+    as `encoder.encode_batch` runs it: the upload and the transform on
+    the card (`FusedT1Encoder.forward`), the fetch of the band planes, the
+    host Tier-1 coder (`fused_encode.assemble_collected_t1`) and each
+    frame's T2 (`encoder.write_codestream`, one after another here)."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.models import fused_encode
+    p, siz, cod, qcd, cod_comp, trs = encoder._coding(imgs[0], params)
+    (enc,) = encoder._tile_encoders(p, siz, cod, qcd, cod_comp, trs, dev,
+                                    False)
+    tt = time.perf_counter
+    stages = {}
+    torch.cuda.synchronize()
+    t = tt()
+    args = fused_encode.upload_tile(
+        [np.stack([im.components[c].data for im in imgs])
+         for c in range(len(imgs[0].components))], enc)
+    (flat,) = enc(*args)
+    torch.cuda.synchronize()
+    stages["upload + transform (card)"] = tt() - t
+    t = tt()
+    host = flat.cpu().numpy()
+    stages["fetch"] = tt() - t
+    t = tt()
+    segs = fused_encode.assemble_collected_t1(enc.plan, host)
+    stages["host T1"] = tt() - t
+    t = tt()
+    for im, sg in zip(imgs, segs):
+        encoder.write_codestream(im, params, {0: sg})
+    stages["T2"] = tt() - t
+    return stages
+
+
+def t1_decode_stages(streams, dev):
+    """One chunk of a styled decode by stage (host clock, synchronised):
+    T2, the host Tier-1 decoder into the band planes
+    (`fused_decode.prepare_chunk` of a T1 plan), their upload, the
+    inverse transforms on the card and the fetch."""
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder
+    from grokimagecompression_tpu_torch.models import fused_decode, pipeline
+    tt = time.perf_counter
+    stages = {}
+    t = tt()
+    hdr, trs, parsed = decoder.parse_batch(streams)
+    stages["T2"] = tt() - t
+    (plan,) = decoder.tile_groups(hdr, trs, parsed)
+    dec = fused_decode.decoder_for(plan, dev)
+    t = tt()
+    arrays = fused_decode.prepare_chunk(plan, [
+        fused_decode.jobs_by_block(*p[0][0][:3]) for p in parsed])
+    stages["host T1 into band planes"] = tt() - t
+    torch.cuda.synchronize()
+    t = tt()
+    ((flat,),) = fused_decode.upload(arrays, dev)
+    torch.cuda.synchronize()
+    stages["upload"] = tt() - t
+    t = tt()
+    comps = pipeline._inv_transform(plan.cfg, dec.split_bands(flat))
+    torch.cuda.synchronize()
+    stages["inverse DWT + MCT + DC unshift (card)"] = tt() - t
+    t = tt()
+    [c.cpu() for c in comps]
+    stages["fetch"] = tt() - t
+    return stages
+
+
+def fmt_s(stages):
+    return ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in stages.items())
+
+
+def t1_phase(c1_imgs, c2_img, bench, dev, card):
+    """Phase 24: the MQ code-block styles other than the default on the
+    host Tier-1 route, through the user entry points, every run holding
+    the route's counts (`t1_counts`: the host coder called, the DWT kernel
+    launched, no MQ kernel):
+    (a) config 1's 64 frames at T1_C1_STYLE through `encode_batch`, the
+        streams against T1_C1_DIGESTS, and back through `decode_batch` to
+        the sources; MP/s beside phase 6 / 7's default-style MQ, and one
+        chunk's stages;
+    (b) config-2 frame 0 at each T1_C2_STYLES entry (ratios 24 / 48 / 96)
+        and at T1_C2_LAYERED, streams and pixels (whole, and at layers=1)
+        against T1_C2_DIGESTS, with stages and peak device memory;
+    (c) the corpus streams of the MQ styles through `decode_batch` against
+        CORPUS_DIGESTS;
+    (d) the CLI_CASES entries of the MQ styles through the tools against
+        CLI_DIGESTS;
+    (e) the config-2 frame in T1_STREAM_TILE tiles through `StreamEncoder`
+        at T1_C1_STYLE (9/7), its tile-parts equal to `encode`'s.
+    Returns the launches by LAUNCHES key."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.cli import compress, decompress, dump
+    from grokimagecompression_tpu_torch.codestream import (decoder, encoder,
+                                                           stream)
+    from grokimagecompression_tpu_torch.core.params import (DecoderParams,
+                                                            EncoderParams,
+                                                            Transform)
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    total = {"dwt": 0}
+
+    def add(launches):
+        total["dwt"] += launches["dwt"]
+
+    # (a) config 1
+    with open(os.path.join(root, T1_C1_DIGESTS)) as f:
+        want = json.load(f)
+    if want["frames"] != [frame_digest(im) for im in c1_imgs]:
+        raise AssertionError("the config-1 frames differ from "
+                             "T1_C1_DIGESTS'")
+    params = EncoderParams(numresolutions=6, cblk_style=T1_C1_STYLE)
+    mpix = len(c1_imgs) * SIZE * SIZE / 1e6
+    with t1_counts() as launches:
+        out = encoder.encode_batch(c1_imgs, params, device=dev, chunk=CHUNK)
+        torch.cuda.synchronize()
+    add(launches)
+    if [hashlib.sha256(cs).hexdigest() for cs in out] != want["streams"]:
+        raise AssertionError("phase 24 (a): config-1 streams at style "
+                             f"{T1_C1_STYLE:#x} differ from the host "
+                             "encoder's")
+    best = best_of(3, lambda: encoder.encode_batch(c1_imgs, params,
+                                                   device=dev, chunk=CHUNK))
+    nb = sum(len(cs) for cs in out)
+    print(f"phase 24 (a): config 1 at MQ style {T1_C1_STYLE:#x}: "
+          f"{len(out)} streams equal the host encoder's ({nb} B); "
+          f"encode_batch {mpix / best:.2f} MP/s (best of 3, {best:.3f} s) "
+          f"beside {bench['config-1 MQ encode_batch']:.2f} at style 0 "
+          f"(phase 6); counts {launches} on {card}")
+    t1_encode_stages(c1_imgs[:CHUNK], params, dev)
+    print(f"phase 24 (a): one {CHUNK}-frame styled encode chunk by stage "
+          f"(host clock, synchronised): "
+          f"{fmt_s(t1_encode_stages(c1_imgs[:CHUNK], params, dev))}")
+    with t1_counts() as launches:
+        dec = decoder.decode_batch(out, device=dev, chunk=CHUNK)
+        torch.cuda.synchronize()
+    add(launches)
+    for i, (d, im) in enumerate(zip(dec, c1_imgs)):
+        if not np.array_equal(d.components[0].data, im.components[0].data):
+            raise AssertionError(f"phase 24 (a): frame {i} does not decode "
+                                 f"to its source")
+    best = best_of(3, lambda: decoder.decode_batch(out, device=dev,
+                                                   chunk=CHUNK))
+    t1_decode_stages(out[:CHUNK], dev)
+    print(f"phase 24 (a): decode_batch back to the sources exactly, "
+          f"{mpix / best:.2f} MP/s (best of 3, {best:.3f} s) beside "
+          f"{bench['config-1 MQ decode_batch']:.2f} at style 0 (phase 7); "
+          f"counts {launches}; one {CHUNK}-frame chunk by stage: "
+          f"{fmt_s(t1_decode_stages(out[:CHUNK], dev))} on {card}")
+    del out, dec
+
+    # (b) config-2 frame 0
+    with open(os.path.join(root, T1_C2_DIGESTS)) as f:
+        want = json.load(f)
+    if want["frame"] != frame_digest(c2_img):
+        raise AssertionError("the config-2 frame differs from "
+                             "T1_C2_DIGESTS'")
+    lay_style, lay_rates = T1_C2_LAYERED
+    c2_mpix = C2_SIZE * C2_SIZE / 1e6
+    for style, rates, got_want in (
+            [(s, (24.0, 48.0, 96.0), want["styles"][f"{s:#x}"])
+             for s in T1_C2_STYLES]
+            + [(lay_style, lay_rates, want["layered"])]):
+        p = EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                          numlayers=3, rates=rates, cblk_style=style)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with t1_counts() as enc_launches:
+            (cs,) = encoder.encode_batch([c2_img], p, device=dev)
+            torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        enc_peak = torch.cuda.max_memory_allocated() - base
+        add(enc_launches)
+        if hashlib.sha256(cs).hexdigest() != got_want["stream"]:
+            raise AssertionError(f"phase 24 (b): config-2 stream at style "
+                                 f"{style:#x}, ratios {rates} differs from "
+                                 f"the host encoder's")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with t1_counts() as dec_launches:
+            decoded = {k: decoder.decode_batch([cs], DecoderParams(
+                layers=layers), device=dev)[0]
+                for k, layers in (("pixels", 0), ("layers1", 1))
+                if k in got_want}
+            torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        dec_peak = torch.cuda.max_memory_allocated() - base
+        add(dec_launches)
+        for k, img in decoded.items():
+            if frame_digest(img) != got_want[k]:
+                raise AssertionError(f"phase 24 (b): style {style:#x}, "
+                                     f"ratios {rates}, {k}: pixels differ "
+                                     f"from the host decoder's")
+        print(f"phase 24 (b): config-2 frame 0 at style {style:#x}, ratios "
+              f"{rates}: stream ({len(cs)} B) and pixels "
+              f"({', '.join(decoded)}) equal the host codec's; encode "
+              f"{enc_s:.3f} s ({c2_mpix / enc_s:.2f} MP/s), peak device "
+              f"memory {enc_peak / 1e9:.3f} GB; decodes {dec_s:.3f} s, peak "
+              f"{dec_peak / 1e9:.3f} GB; counts {enc_launches} / "
+              f"{dec_launches} on {card}")
+        if style == T1_C2_STYLES[0] and rates == (24.0, 48.0, 96.0):
+            print(f"phase 24 (b): one config-2 frame at style {style:#x} by "
+                  f"stage (host clock, synchronised): encode "
+                  f"{fmt_s(t1_encode_stages([c2_img], p, dev))}; decode "
+                  f"{fmt_s(t1_decode_stages([cs], dev))}")
+
+    # (c) the corpus streams of the MQ styles
+    with open(os.path.join(root, CORPUS_DIGESTS)) as f:
+        corpus = json.load(f)
+    names = [n for n in sorted(corpus["decoded"])
+             if n.startswith(("sty_", "styles_"))
+             and n not in ("sty_default.j2k", "sty_ht.j2k")]
+    with t1_counts() as launches:
+        for name in names:
+            with open(os.path.join(root, CORPUS, name), "rb") as f:
+                (img,) = decoder.decode_batch([f.read()], device=dev)
+            if plane_md5(img) != corpus["decoded"][name]:
+                raise AssertionError(f"phase 24 (c): corpus {name} differs "
+                                     f"from the host decoder's planes")
+        torch.cuda.synchronize()
+    add(launches)
+    print(f"phase 24 (c): the {len(names)} corpus streams of the MQ styles "
+          f"({', '.join(names)}) decode on the card to the host decoder's "
+          f"planes; {len(corpus['decoded'])} of "
+          f"{len(corpus['decoded']) + len(corpus['refused'])} corpus streams "
+          f"admitted; counts {launches}")
+
+    # (d) the tools at the MQ styles
+    with open(os.path.join(root, CLI_DIGESTS)) as f:
+        cli = json.load(f)
+    cases = [c for c in CLI_CASES if c[0].startswith("MQ styles")]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_t1_")
+    try:
+        cli_inputs(tmp)
+        with t1_counts() as launches:
+            got = run_cli_cases(tmp, {"compress": compress,
+                                      "decompress": decompress,
+                                      "dump": dump},
+                                extra=["--torch-device", str(dev)],
+                                cases=cases)
+        add(launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [k for k in got if got[k] != cli["cases"][k]]
+    if bad or len(got) != len(cases):
+        raise AssertionError(f"phase 24 (d): CLI cases {bad} differ from the "
+                             f"reference tools' outputs")
+    print(f"phase 24 (d): {', '.join(got)}: files equal the reference "
+          f"tools'; counts {launches}")
+
+    # (e) StreamEncoder
+    p = EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                      cblk_style=T1_C1_STYLE, tile_size=T1_STREAM_TILE)
+    buf = io.BytesIO()
+    t0 = time.perf_counter()
+    with t1_counts() as launches:
+        with stream.StreamEncoder(buf, c2_img, p, device=dev) as se:
+            for t in range(se.numtiles):
+                se.write_image_tile(t, c2_img)
+        torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    add(launches)
+    whole = encoder.encode(c2_img, dataclasses.replace(p, tlm_markers=True),
+                           device=dev)
+    got = buf.getvalue()
+    if got[decoder.read_header(got).main_header_end:] != \
+            whole[decoder.read_header(whole).main_header_end:]:
+        raise AssertionError("phase 24 (e): the StreamEncoder's tile-parts "
+                             "differ from encode's")
+    print(f"phase 24 (e): config-2 frame 0 in {T1_STREAM_TILE} tiles at style "
+          f"{T1_C1_STYLE:#x} through StreamEncoder ({se.numtiles} tiles, "
+          f"{len(got)} B, {stream_s / se.numtiles * 1e3:.1f} ms a tile): "
+          f"tile-parts equal encode's; counts {launches}")
+    print(f"phase 24 (the MQ code-block styles on the host Tier-1 route): "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}; DWT launches "
+          f"{total['dwt']}")
+    return total
+
+
 def best_of(n, fn):
     import torch
     best = float("inf")
@@ -5958,7 +6338,7 @@ def main() -> int:
                                                             EncoderParams,
                                                             Transform)
     from grokimagecompression_tpu_torch.models import fused_encode
-    from grokimagecompression_tpu_torch.native import ht_prepass
+    from grokimagecompression_tpu_torch.native import ht_prepass, t1_native
     from grokimagecompression_tpu_torch.ops import (_build, dwt, ht_dec,
                                                     ht_enc, ht_tables,
                                                     ht_torch, mq_dec,
@@ -6075,6 +6455,7 @@ def main() -> int:
     mpix = FRAMES * SIZE * SIZE / 1e6
     ht_enc.LAUNCHES["enc"] = 0
     dwt.LAUNCHES["dwt"] = 0
+    t1_native.CALLS["t1"] = 0
     per_group = [Calls(ht_enc, "encode_segments",
                        lambda a, *_, s=(2 * qh, 2 * qw): tuple(a.shape[1:])
                        == s) for (qh, qw, _) in plan.groups]
@@ -6095,6 +6476,7 @@ def main() -> int:
     if any(c.n for c in plain_calls):
         raise AssertionError("the CUDA encode route built op streams or "
                              "spliced segments on the host")
+    no_t1_calls("the HT encode slice")
     if any(c.n < 1 for c in per_group) or \
             launches["enc"] != sum(c.n for c in per_group):
         raise AssertionError("ht_encode was not launched by the slice on "
@@ -6126,6 +6508,7 @@ def main() -> int:
     ht_dec.LAUNCHES["dec"] = 0
     dwt.LAUNCHES["dwt"] = 0
     ht_prepass.CALLS["prepass"] = 0
+    t1_native.CALLS["t1"] = 0
     with Calls(ht_dec, "decode_segments",
                lambda *a: (a[4], a[5]) == (64, 64)) as counter:
         dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
@@ -6138,6 +6521,7 @@ def main() -> int:
     if ht_prepass.CALLS["prepass"] != 0:
         raise AssertionError("the CUDA decode route called the host "
                              "prepass")
+    no_t1_calls("the HT decode slice")
     if launches["dec"] < 1 or not 1 <= calls["dec"] <= launches["dec"]:
         raise AssertionError("ht_dec_group was not launched by the slice "
                              "on the 64x64 group")
@@ -6168,6 +6552,7 @@ def main() -> int:
         raise AssertionError("the two digest files hold other frames")
     mq_scan.LAUNCHES["mq"] = 0
     dwt.LAUNCHES["dwt"] = 0
+    t1_native.CALLS["t1"] = 0
     with Calls(mq_scan, "scan_into", lambda a, *_: a.shape[1]
                == results[MQ[0]]["shape"][1]) as counter:
         out = encoder.encode_batch(imgs, mq_params, device="cuda",
@@ -6183,6 +6568,7 @@ def main() -> int:
     if dwt.LAUNCHES["dwt"] < 1:
         raise AssertionError("the DWT kernel was not launched by the MQ "
                              "slice")
+    no_t1_calls("the MQ encode slice (style 0)")
     if len(out) != FRAMES:
         raise AssertionError(f"{len(out)} MQ streams for {FRAMES} frames")
     for i, cs in enumerate(out):
@@ -6206,6 +6592,7 @@ def main() -> int:
     # 7. the MQ decode slice, through the user entry point
     mq_dec.LAUNCHES["mq_dec"] = 0
     dwt.LAUNCHES["dwt"] = 0
+    t1_native.CALLS["t1"] = 0
     with Calls(mq_dec, "decode_group",
                lambda *a, **_: (a[5], a[6]) == (64, 64)) as counter:
         dec = decoder.decode_batch(out, device="cuda", chunk=CHUNK)
@@ -6221,6 +6608,7 @@ def main() -> int:
     if dwt.LAUNCHES["dwt"] < 1:
         raise AssertionError("the DWT kernel was not launched by the MQ "
                              "decode slice")
+    no_t1_calls("the MQ decode slice (style 0)")
     if len(dec) != FRAMES:
         raise AssertionError(f"{len(dec)} images for {FRAMES} MQ streams")
     for i, (d, im) in enumerate(zip(dec, imgs)):
@@ -6414,11 +6802,13 @@ def main() -> int:
     routes = route_phase(dev, card)
     meshes = mesh_phase(s1_cs, s1_refs, s2_global_cs, dev, card)
     del s1_cs, s2_global_cs
+    styles = t1_phase(imgs, c2_imgs[0], bench, dev, card)
 
     calls["mq_dense"] = launches["mq_dense"]
     for key, n in (list(cinema.items()) + list(windows.items())
                    + list(image_enc.items()) + list(tools.items())
-                   + list(routes.items()) + list(meshes.items())):
+                   + list(routes.items()) + list(meshes.items())
+                   + list(styles.items())):
         calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
@@ -6426,8 +6816,9 @@ def main() -> int:
           f"18's cinema encodes and decodes ({cinema}), of phase 19's "
           f"full-size requests ({windows}), of phase 20's encodes and "
           f"decodes ({image_enc}), of phase 21's tool runs ({tools}), "
-          f"of phase 22's streams and host-route requests ({routes}) and "
-          f"of phase 23's sharded and multi-process runs ({meshes}): "
+          f"of phase 22's streams and host-route requests ({routes}), "
+          f"of phase 23's sharded and multi-process runs ({meshes}) and of "
+          f"phase 24's MQ code-block styles ({styles}): "
           f"{calls}; all launches of the config-1 and config-2 runs: "
           f"{launches}")
     print(f"the whole run: {time.perf_counter() - t_main:.1f} s on {card}")

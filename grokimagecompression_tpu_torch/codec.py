@@ -17,9 +17,10 @@ device (CUDA unless the caller names the CPU).
     img2 = c.decompress_image(data)
 
 Every stream equals the reference's `compress` / `Codec` output byte for
-byte. ROI and a custom MCT are coded and decoded on the device. What
-the port's encoder and decoder do not cover raises NotImplementedError:
-MQ code-block styles other than 0 and HT refinement passes
+byte. ROI and a custom MCT are coded and decoded on the device; the MQ
+code-block styles other than 0 take the host Tier-1 coder behind the
+device's transforms. What the port's encoder and decoder do not cover
+raises NotImplementedError: HT refinement passes
 (`codestream/encoder.py`, `codestream/decoder.py`).
 """
 

@@ -1,7 +1,7 @@
 """Decode entry points on a torch device.
 
 Port of `grokimagecompression_tpu/codestream/decoder.py` for the HT and
-Part-1 MQ (default code-block style) slices, 5/3 or 9/7. The
+Part-1 MQ slices, 5/3 or 9/7. The
 main-header and tile-part walk (`CodestreamHeader`, `TilePart`,
 `_validate_siz`, `read_header`, `iter_tile_parts`) is copied from the
 reference. `decode_batch` is the port of the reference's fused
@@ -22,11 +22,20 @@ dequantized on the device and inverted on the host by the copy of the
 reference's windowed inverse (`ops/dwt_window.py`), as the reference
 does.
 
-What the port's kernels cannot decode raises NotImplementedError with
-its reason instead of falling back to a host decode: MQ code-block
-styles other than the default (in the COD or a COC), HT refinement
-passes, ROI on HT code-blocks, and a band whose Kmax (with its ROI
-shift) exceeds the block decoder's word.
+The MQ code-block styles other than the default (in the COD or a COC)
+and MQ bands whose Kmax (with its ROI shift) exceeds the CUDA MQ
+decoder's word take the reference's host route for them: the host
+library's Tier-1 decoder into band planes, one upload, and the inverse
+transforms on the device (`fused_decode.FusedT1Decoder`). The route is
+chosen per component group from the COD / COC style and the bands' Kmax
+before anything is launched (`_coder`); the default style and the HT
+style never reach the host decoder.
+
+What is outside the port raises NotImplementedError with its reason
+instead of falling back to a host decode: HT refinement passes, ROI on
+HT code-blocks, an HT band whose Mb + 3 exceeds 32, and a styled MQ
+request on a mesh of more than one shard (the reference's transform-only
+mesh route).
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ from ..core.image import Component, Image
 from ..core.params import DecoderParams, Transform
 from ..models import fused_decode, pipeline
 from ..ops import dwt_window
+from ..ops.mq_dec import MAX_PLANES as MQ_MAX_PLANES
 from ..utils.device import DeviceLike, resolve_mesh
 from . import jp2, markers
 from .markers import CodInfo, QcdInfo, SizInfo
@@ -279,18 +289,13 @@ def batch_key(h: CodestreamHeader) -> tuple:
 
 
 def _coder(cod: CodInfo) -> str:
-    """The block coder of a COD or COC: "ht" or "mq"."""
-    return "ht" if cod.cblk_style & 0x40 else "mq"
-
-
-def _styles_out_of_slice(cods) -> Optional[str]:
-    """Why COD / COC code-block styles are outside the port, or None: an
-    MQ style other than the default."""
-    if any(cc is not None and not cc.cblk_style & 0x40 and cc.cblk_style
-           for cc in cods):
-        return ("an MQ code-block style other than the default (bypass, "
-                "RESET, TERMALL, VSC, PTERM or SEGMARK)")
-    return None
+    """The block coder route of a COD or COC: "ht" (the CUDA HT
+    decoder), "mq" (the default MQ style, the CUDA MQ decoder) or "t1"
+    (any other MQ style: the host Tier-1 decoder). `tile_plans` also
+    sends "mq" bands deeper than the CUDA MQ decoder's word to "t1"."""
+    if cod.cblk_style & 0x40:
+        return "ht"
+    return "t1" if cod.cblk_style else "mq"
 
 
 def _roi_out_of_slice(cods, roishifts) -> Optional[str]:
@@ -312,8 +317,7 @@ def _out_of_slice(hdrs: List[CodestreamHeader]) -> Optional[str]:
         return "streams of different coding parameters"
     siz, cod = h0.siz, h0.cod
     cods = [cc or cod for cc in (h0.cod_comp or [None] * len(siz.comps))]
-    why = _styles_out_of_slice([cod] + cods) or _roi_out_of_slice(
-        cods, h0.roishifts)
+    why = _roi_out_of_slice(cods, h0.roishifts)
     if why is not None:
         return why
     if cod.mct and len(siz.comps) >= 3 and any(
@@ -487,8 +491,7 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
         if t in tile_over:
             cods = [(cod_comp[c] if cod_comp and cod_comp[c] else tcod)
                     for c in range(len(hdr.siz.comps))]
-            why = _styles_out_of_slice([tcod] + cods) or _roi_out_of_slice(
-                cods, hdr.roishifts)
+            why = _roi_out_of_slice(cods, hdr.roishifts)
             if why is not None:
                 raise NotImplementedError(
                     f"the torch decode does not cover {why} yet")
@@ -588,11 +591,28 @@ def tile_plans(hdr: CodestreamHeader, tr: Rect, tj: TileJobs,
         # a reduction past a component's levels leaves its resolution 0,
         # as the reference's inverse does
         max_res = max(0, gcod.numresolutions - 1 - reduce)
+        ours = range(len(tj.cods)) if comps is None else comps
+        coder = _coder(gcod)
+        if coder == "mq" and max(tj.plans[c].bands[k].kmax for c in ours
+                                 for k in tj.plans[c].bands) > MQ_MAX_PLANES:
+            coder = "t1"
         plans.append(fused_decode.build_plan(
-            tj.plans, hdr.siz, gcod, tr, coder=_coder(gcod), max_res=max_res,
+            tj.plans, hdr.siz, gcod, tr, coder=coder, max_res=max_res,
             window_slots=window_slots, comps=comps,
-            custom_mct=hdr.custom_mct, pm_zero=pm_zero))
+            custom_mct=hdr.custom_mct, pm_zero=pm_zero,
+            styles=tuple(tj.cods[c].cblk_style for c in ours)))
     return plans
+
+
+def _check_mesh(plans, devs) -> None:
+    """NotImplementedError for host-T1 plans on a mesh of more than one
+    shard (the reference's transform-only mesh route)."""
+    if len(devs) > 1 and any(plan.coder == "t1" for plan in plans):
+        raise NotImplementedError(
+            f"the torch decode does not cover MQ code-block styles other "
+            f"than the default, or MQ bands deeper than "
+            f"{MQ_MAX_PLANES} planes, on a mesh of {len(devs)} shards yet "
+            f"(the transform-only mesh route)")
 
 
 def tile_groups(hdr: CodestreamHeader, trs, parsed, reduce: int = 0
@@ -680,8 +700,9 @@ def decode_batch(datas: List[bytes],
                  chunk: int = 32,
                  mesh: Optional[Sequence[DeviceLike]] = None) -> List[Image]:
     """Decode many same-geometry codestreams or JP2 files (a serving
-    batch), coded with the HT block coder or the Part-1 MQ coder in the
-    default code-block style, on the reversible 5/3 or the irreversible
+    batch), coded with the HT block coder or the Part-1 MQ coder (the
+    default code-block style on the MQ decoder kernel, the others on the
+    host Tier-1 decoder), on the reversible 5/3 or the irreversible
     9/7 path, all quality layers or the first `params.layers`, at a
     resolution reduction `params.reduce`, of one tile
     (`params.tile_index`) or all; with COC / QCC overrides, a POC or
@@ -716,6 +737,7 @@ def decode_batch(datas: List[bytes],
         return [decode_batch([d], params, chunk=chunk, mesh=devs)[0]
                 for d in datas]
     groups = tile_groups(hdr, trs, parsed, req.reduce)
+    _check_mesh(groups, devs)
 
     submits = []  # (plan, handle, [(frame, tile), ...])
     step = max(1, chunk)
@@ -798,19 +820,20 @@ def decode(data: bytes, params: Optional[DecoderParams] = None,
     req = _request(siz, cod, trs, params)
     parsed, have = _parse_frame(data, hdr, trs, params.layers, req.tiles,
                                 req.window)
+    todo = {t: tile_plans(hdr, trs[t], parsed[t], req.reduce,
+                          window_slots=parsed[t][1])
+            for t in sorted(have) if not trs[t].clip(req.window).is_empty()}
+    _check_mesh([p for plans in todo.values() for p in plans], devs)
     submits = []  # (tile, [(plan, handle)])
-    for t in sorted(have):
-        if trs[t].clip(req.window).is_empty():
-            continue
-        jobs, slots, plans = parsed[t][:3]
+    for t, plans in todo.items():
+        jobs, slots, tplans = parsed[t][:3]
         dev = devs[len(submits) % len(devs)]
         submits.append((t, [(plan, fused_decode.decode_tiles_submit(
             fused_decode.decoder_for(plan, dev),
-            [fused_decode.jobs_by_block(jobs, slots, plans,
+            [fused_decode.jobs_by_block(jobs, slots, tplans,
                                         max_res=plan.max_res,
                                         comps=plan.comps)]))
-            for plan in tile_plans(hdr, trs[t], parsed[t], req.reduce,
-                                   window_slots=slots)]))
+            for plan in plans]))
 
     r = req.reduce
     planes = _canvas(siz, req.area, r)

@@ -15,6 +15,16 @@ the MQ coder an ROI upshift of one component (`roi_comp`, `roi_shift`:
 the RGN marker and the Kmax T2 signals; the code-blocks code as
 without it).
 
+The MQ code-block styles other than the default (BYPASS, RESET,
+TERMALL, VSC, PTERM, SEGMARK, alone or together) take the reference's
+route for them: the transform on the device (`csrc/dwt.cu` on the card),
+one fetch of the band planes, and the host library's Tier-1 coder
+(`models/fused_encode.FusedT1Encoder`, `tile.encode_t1_blocks`), then
+the same T2 and rate allocation. The route is chosen from the request's
+code-block style before anything is launched (`block_coder`): the
+default style goes to the CUDA MQ coder, the HT style to the CUDA HT
+coder, and neither reaches the host coder.
+
 - `encode(image, params)`: one image; its tiles are grouped by their
   fused plan and each group's tiles are stacked and coded together on
   the device (`models/fused_encode.py`), or with `mesh=` split over
@@ -36,11 +46,13 @@ device's segments (with their R-D pass tables under rate control), and
 packetize through the port's native T2. Every stream is byte-identical
 to the reference host encoder's.
 
-Requests the reference codes with its host T1 raise NotImplementedError
-instead of falling back to the host: MQ code-block styles other than 0,
-HT refinement passes, and an explicit rate allocator with the HT block
-coder. ROI with the HT coder, and a custom MCT off 9/7 or of the wrong
-size, raise the reference's ValueError.
+Requests outside the port raise NotImplementedError instead of falling
+back to the host: HT refinement passes, an explicit rate allocator with
+the HT block coder, and a styled MQ request on a mesh of more than one
+shard (the reference's transform-only mesh route). The HT refinement
+flag on an MQ request changes nothing, as in the reference. ROI with the
+HT coder, and a custom MCT off 9/7 or of the wrong size, raise the
+reference's ValueError.
 """
 
 from __future__ import annotations
@@ -413,17 +425,27 @@ def tile_count(image: Image, params: EncoderParams) -> int:
     return ntx * nty
 
 
-def _out_of_slice(params: EncoderParams, layer_alloc=None) -> Optional[str]:
-    """Why a request is outside the ported slices, or None: what the
-    reference codes with its host T1."""
+def block_coder(params: EncoderParams) -> str:
+    """The block coder route of a request, from its code-block style:
+    "ht" (the HT style bit, the CUDA HT coder), "mq" (the default MQ
+    style 0, the CUDA MQ coder) or "t1" (any other MQ style: the host
+    library's Tier-1 coder behind the device transform)."""
+    if params.cblk_style & 0x40:
+        return "ht"
+    return "t1" if params.cblk_style else "mq"
+
+
+def _out_of_slice(params: EncoderParams, layer_alloc=None,
+                  shards: int = 1) -> Optional[str]:
+    """Why a request is outside the ported slices, or None."""
     is_ht = bool(params.cblk_style & 0x40)
     if is_ht and layer_alloc is not None:
         return "a rate allocator with the HT block coder"
-    if params.cblk_style and not is_ht:
-        return (f"the MQ code-block style {params.cblk_style:#x} (only "
-                f"the default style 0 is ported)")
-    if params.ht_refinement:
+    if is_ht and params.ht_refinement:
         return "HT refinement passes"
+    if shards > 1 and block_coder(params) == "t1":
+        return (f"the MQ code-block style {params.cblk_style:#x} on a mesh "
+                f"of {shards} shards (the transform-only mesh route)")
     return None
 
 
@@ -676,16 +698,17 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
     return [done[f] for f in range(len(images))]
 
 
-def _check(params: EncoderParams, layer_alloc, what: str) -> None:
+def _check(params: EncoderParams, layer_alloc, what: str,
+           shards: int = 1) -> None:
     """The reference's ValueErrors of an HT request with targets or with
     ROI, then NotImplementedError for a request outside the ported
-    slices."""
+    slices on a mesh of `shards` shards."""
     if params.cblk_style & 0x40:
         _ht_rc_check(params)
         if params.roi_comp is not None and params.roi_shift > 0:
             raise ValueError("ROI upshift is not supported with the HT "
                              "block coder")
-    why = _out_of_slice(params, layer_alloc)
+    why = _out_of_slice(params, layer_alloc, shards)
     if why is not None:
         raise NotImplementedError(
             f"{what} on a torch device does not cover {why} yet")
@@ -712,17 +735,22 @@ def _coding(image: Image, params: EncoderParams):
 
 def plan_encoder(plan: Optional[fused_encode.FusedPlan], dev: torch.device,
                  encoders: Dict) -> object:
-    """The fused encoder of a tile's plan (`fused_encode.FusedHTEncoder`
-    or `FusedMQEncoder`, by the plan's coder) on `dev`, kept in `encoders`
-    by plan and device so that every tile of one plan on one device
-    shares one (the interior tiles of a grid do)."""
+    """The fused encoder of a tile's plan (`fused_encode.FusedHTEncoder`,
+    `FusedMQEncoder` or `FusedT1Encoder`, by the plan's coder) on `dev`,
+    kept in `encoders` by plan and device so that every tile of one plan
+    on one device shares one (the interior tiles of a grid do)."""
     if plan is None:
         raise NotImplementedError("the tile is outside the fused plan's "
                                   "scope")
     if (plan, dev) not in encoders:
-        encoders[plan, dev] = (
-            fused_encode.FusedHTEncoder(plan, ht_tables.device_tables(dev))
-            if plan.coder == "ht" else fused_encode.FusedMQEncoder(plan, dev))
+        if plan.coder == "ht":
+            enc = fused_encode.FusedHTEncoder(plan,
+                                              ht_tables.device_tables(dev))
+        elif plan.coder == "t1":
+            enc = fused_encode.FusedT1Encoder(plan, dev)
+        else:
+            enc = fused_encode.FusedMQEncoder(plan, dev)
+        encoders[plan, dev] = enc
     return encoders[plan, dev]
 
 
@@ -748,8 +776,7 @@ def _tile_encoders(p: EncoderParams, siz: SizInfo, cod: CodInfo, qcd,
     `sharding.plan_shards` splits them."""
     from ..parallel.sharding import plan_shards
     devs = dev if isinstance(dev, list) else [dev]
-    plans = tile_plans(siz, cod, qcd, trs,
-                       "ht" if p.cblk_style & 0x40 else "mq", cod_comp,
+    plans = tile_plans(siz, cod, qcd, trs, block_coder(p), cod_comp,
                        want_rd, _part2(p, siz)[0])
     on = {t: devs[di] for _, di, part in plan_shards(
         range(len(plans)), plans, len(devs)) for t in part}
@@ -797,7 +824,7 @@ def _encode(image: Image, params: EncoderParams, layer_alloc,
     of those tiles only: {tile: `tile.TileEncResult`}
     (`write_codestream(only_tiles=)`)."""
     from ..parallel.sharding import fused_entropy_tiles_on_mesh
-    _check(params, layer_alloc, "encode")
+    _check(params, layer_alloc, "encode", len(devs))
     if params.cblk_style & 0x40 and params.rates:
         if only_tiles is not None:
             raise NotImplementedError(
@@ -809,7 +836,7 @@ def _encode(image: Image, params: EncoderParams, layer_alloc,
     want_rd = not p.cblk_style & 0x40 and (layer_alloc is not None
                                            or _needs_rc(p))
     segs = fused_entropy_tiles_on_mesh(
-        image, siz, cod, qcd, devs, "ht" if p.cblk_style & 0x40 else "mq",
+        image, siz, cod, qcd, devs, block_coder(p),
         cod_comp=cod_comp, want_rd=want_rd, custom_mct=_part2(p, siz)[0],
         tiles=only_tiles)
     return write_codestream(image, params, segs, rsiz, layer_alloc,
@@ -822,9 +849,10 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
     """Encode same-geometry frames with the HT block coder (`cblk_style`
     0x40; 5/3, lossless, or 9/7, at the default or a given base step, or
     at one byte target `rates=(r,)`) or the Part-1 MQ coder (`cblk_style`
-    0; 5/3 or 9/7, one layer or quality layers at the byte targets
-    `rates` or the PSNR targets `quality_psnr`, per tile or image-wide
-    with `rate_alloc="global"`).
+    0, or any other MQ code-block style on the host Tier-1 route,
+    `block_coder`; 5/3 or 9/7, one layer or quality layers at the byte
+    targets `rates` or the PSNR targets `quality_psnr`, per tile or
+    image-wide with `rate_alloc="global"`).
 
     Frames of different geometries go to `encode` one at a time, as the
     reference routes them. Same-geometry frames are coded `chunk` at a
@@ -858,7 +886,7 @@ def _encode_batch(images: List[Image], params: EncoderParams,
     there and the mesh's shards on it."""
     if not images:
         return []
-    _check(params, layer_alloc, "encode_batch")
+    _check(params, layer_alloc, "encode_batch", len(devs))
     if any(_geom(im) != _geom(images[0]) for im in images):
         return [encode(im, params, layer_alloc, rsiz=rsiz, mesh=devs)
                 for im in images]

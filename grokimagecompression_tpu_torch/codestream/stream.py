@@ -8,7 +8,9 @@ port's device encode and decode.
 `StreamEncoder` writes a codestream tile by tile without holding the
 whole image: each `write_tile` codes one tile on the device (the fused
 transform and block coder of `models/fused_encode.py`, one call a tile)
-and packetizes it with the port's T2 (`tile.encode_tile`); a TLM marker
+and packetizes it with the port's T2 (`tile.encode_tile`; the MQ
+code-block styles other than the default take the transform on the
+device and the host Tier-1 coder, `encoder.block_coder`); a TLM marker
 reserved in the main header is patched on close so readers can seek.
 Tiles of one plan share one fused encoder (interior tiles of a grid
 do). `StreamDecoder` reads from a file handle (or memory
@@ -36,7 +38,7 @@ from ..ops import _build
 from ..utils.device import DeviceLike, resolve_device
 from . import decoder as _decoder
 from . import markers
-from .encoder import (_out_of_slice, build_cod, build_siz,
+from .encoder import (_out_of_slice, block_coder, build_cod, build_siz,
                       extract_tile_comps, plan_encoder)
 from .markers import SotInfo
 from .tile import default_qcd, encode_tile
@@ -119,8 +121,8 @@ class StreamEncoder:
         encoder shared by every tile of that plan (`encoder.plan_encoder`,
         as `encoder.encode` shares them)."""
         return plan_encoder(fused_encode.build_plan(
-            self.siz, self.cod, self.qcd, tr,
-            coder="ht" if self.is_ht else "mq"), self.device, self._encoders)
+            self.siz, self.cod, self.qcd, tr, coder=block_coder(self.params)),
+            self.device, self._encoders)
 
     def write_tile(self, tile_index: int,
                    comp_arrays: List[np.ndarray]) -> int:

@@ -3,10 +3,14 @@
 A copy of the parts of `grokimagecompression_tpu/codestream/tile.py`
 that the port's slices run: the static tile-component plan
 (`BandPlan`, `TileCompPlan`, `build_comp_plan`, `default_qcd`, both
-transforms), T2 of a tile whose code-block segments were coded on the
-device (the `t1_segments` branch of `encode_tile`, HT or MQ, with the
-PCRD distortion weighting and the `layer_alloc` rate control for MQ
-segments that carry their pass tables), and the packet parse of
+transforms), the host-T1 half of `encode_tile` for the MQ code-block
+styles other than the default (`encode_t1_blocks`: block descriptors
+over band planes, 9/7 quantization with each band's step, one batched
+call of the host library's Tier-1 coder), T2 of a tile whose
+code-block segments were coded on the device or by that coder (the
+`t1_segments` branch of `encode_tile`, HT or MQ, with the PCRD
+distortion weighting and the `layer_alloc` rate control for MQ segments
+that carry their pass tables), and the packet parse of
 `decode_tile` up to its `_return_jobs` return, with COC / QCC, POC,
 packed headers, ROI shifts (RGN) and the window's code-block filter
 (`_band_window`), and the packet index `index_tile_packets`. Packets go
@@ -16,8 +20,8 @@ profile's caps) and the tile parser; the Python packet coder runs only
 where the reference runs it too (packed headers, packet lengths, the
 packet index).
 
-Not copied: the host transforms and T1 (a window's inverse DWT is
-`ops/dwt_window.py`).
+Not copied: the host transforms (the device runs them; a window's
+inverse DWT is `ops/dwt_window.py`).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..core.geometry import (
 from ..core.params import QuantStyle, Transform
 from ..native import t2_native
 from ..ops import quant
+from ..t1 import backend as t1_backend
 from .markers import CodInfo, QcdInfo, SizInfo
 from .packetiter import CompIterInfo, packet_order, packet_order_poc
 from .pcrd import RateControlCtx
@@ -163,6 +168,37 @@ def _comps_iter(siz: SizInfo, cods, plans) -> List[CompIterInfo]:
 # Encode
 # --------------------------------------------------------------------------
 
+def encode_t1_blocks(planes, blocks, cblk_style: int, reversible: bool):
+    """The host-T1 half of the reference's `encode_tile` over a stack of
+    tiles of one geometry. `planes[f]` holds frame f's band planes,
+    {(comp, (r, orient)): 2-D plane}: int32 5/3 coefficients, or float32
+    9/7 ones, quantized in the native block gather with their band's
+    step; `blocks` the tile's code-blocks in t1-desc order, (comp, (r,
+    orient), x0, y0, w, h, stepsize) each, offsets in the band plane.
+    Every block of every frame is coded at `cblk_style` in one batched
+    call of the host library's Tier-1 coder
+    (`t1/backend.encode_cblk_batch_bands`, worker threads inside).
+    Returns per frame each block's (data, numbps, numpasses, passes) in
+    t1-desc order, with the per-pass rates that T2 and the rate
+    allocation read and the distortion decreases that `encode_tile`
+    weights."""
+    bands: List = []
+    index: Dict = {}
+    for f, fp in enumerate(planes):
+        for k, plane in fp.items():
+            index[(f, k)] = len(bands)
+            bands.append(plane)
+    step_of = {(c, key): st for (c, key, _, _, _, _, st) in blocks}
+    res = t1_backend.encode_cblk_batch_bands(
+        bands, [(index[(f, (b[0], b[1]))], *b[2:6])
+                for f in range(len(planes)) for b in blocks],
+        [b[1][1] for b in blocks] * len(planes), cblk_style,
+        stepsizes=None if reversible else [step_of.get(k, 1.0)
+                                           for fp in planes for k in fp])
+    n = len(blocks)
+    return [res[f * n:(f + 1) * n] for f in range(len(planes))]
+
+
 @dataclasses.dataclass
 class TileEncResult:
     body: bytes
@@ -188,12 +224,15 @@ def encode_tile(
     tile_index: int = -1,
 ) -> TileEncResult:
     """Encode one tile to its packet body bytes from its code-block
-    segments coded on the device (models/fused_encode.py), `t1_segments`,
-    in t1-desc order (comp -> resolution -> band -> precinct ->
-    code-block): HT cleanup segments as bytes, or MQ segments as
-    (data, numbps, numpasses) tuples, one codeword segment terminated at
-    its last pass, or (data, numbps, numpasses, passes) with the block's
-    per-pass R-D table (`PassInfo` list) for rate control.
+    segments coded on the device (models/fused_encode.py) or by the host
+    Tier-1 coder (`encode_t1_blocks`), `t1_segments`, in t1-desc order
+    (comp -> resolution -> band -> precinct -> code-block): HT cleanup
+    segments as bytes, or MQ segments as (data, numbps, numpasses)
+    tuples, one codeword segment terminated at its last pass, or (data,
+    numbps, numpasses, passes) with the block's per-pass R-D table
+    (`PassInfo` list: for rate control, and for the host coder's
+    code-block styles, whose passes end codeword segments of their
+    own).
 
     `layer_alloc(ctx: pcrd.RateControlCtx) -> None` assigns
     `layer_npasses` on each CblkEnc (e.g. pcrd.PCRDAllocator, whose

@@ -483,7 +483,9 @@ struct TagTreeDec {
   }
 };
 
-constexpr int T2D_MAX_SEGS = 64;
+// codeword segments a code-block may have: every pass of its 32 planes
+// terminated (TERMALL), 3 * 32 - 2
+constexpr int T2D_MAX_SEGS = 94;
 constexpr int T2D_MAX_CHUNKS = 160;
 
 struct CblkDecState {

@@ -21,6 +21,14 @@ band-plane assembly and the inverse DWT, inverse MCT and DC unshift
   per-lane reversible mid-point addend at the block's lowest decoded
   plane (`_lane_halves`), so truncated blocks reconstruct like the host
   decoder.
+- T1 (`FusedT1Decoder`): the Part-1 MQ code-block styles other than the
+  default, and MQ bands deeper than the CUDA MQ decoder's word. The host
+  library's Tier-1 decoder decodes the chunk's blocks straight into the
+  band planes, with the mid-point reconstruction and the 9/7
+  dequantization, as the reference's host decode does
+  (`t1/backend.decode_cblk_batch_bands`, one threaded call a chunk); the
+  planes go to the device in one upload, and the inverse transforms run
+  there.
 
 The plan gives every code-block of the tile's geometry a lane, whether a
 frame includes it or not, and each frame's jobs go to their lanes by
@@ -28,7 +36,9 @@ code-block position. Lanes are frame-major: frame f's blocks of a group
 sit at lanes f*B .. f*B+B-1, so one plan serves any content. The plan is
 built from each component's own plan, so components whose code-blocks
 differ in size (COC) put their blocks in lane groups of their own shapes,
-and each band keeps its own component's stepsize (QCC).
+and each band keeps its own component's stepsize (QCC). A T1 plan's
+lanes each take their component's code-block style (`FusedDecPlan.
+styles`).
 
 Band assembly is one `index_copy_` per shape group into a flat per-frame
 buffer holding every band of every component, with plan-static
@@ -68,7 +78,8 @@ decode`):
 
 Scope: the HT decoder needs every band's Mb + 3 <= 32
 (`ht_dec_pallas.supports`); the MQ decoder keeps the sign in bit 31, so
-Mb <= 30, and one codeword segment per block.
+Mb <= 30, and one codeword segment per block (the default style); the
+T1 decoder takes any Part-1 style and depth.
 """
 
 from __future__ import annotations
@@ -84,6 +95,7 @@ from torch import nn
 from ..core.geometry import Rect
 from ..ops import ht_dec, ht_tables, mq_dec
 from ..ops.quant import reconstruct, trunc_plane
+from ..t1 import backend as t1_backend
 from . import pipeline
 
 DUMMY_SEGMENT = b"\x00\x00"
@@ -129,6 +141,9 @@ class FusedDecPlan:
     # their lowest decoded plane (ROI components decoded as the
     # reference's host decoder decodes a tile with COC overrides)
     pm_zero: Tuple[int, ...] = ()
+    # T1: the code-block style of each component the plan decodes, in
+    # `plan_comps` order
+    styles: Tuple[int, ...] = ()
 
 
 def plan_comps(plan: FusedDecPlan) -> Tuple[int, ...]:
@@ -141,10 +156,13 @@ def plan_comps(plan: FusedDecPlan) -> Tuple[int, ...]:
 def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
                max_res: Optional[int] = None, window_slots=None,
                comps: Optional[Tuple[int, ...]] = None, custom_mct=None,
-               pm_zero: Tuple[int, ...] = ()) -> FusedDecPlan:
+               pm_zero: Tuple[int, ...] = (),
+               styles: Tuple[int, ...] = ()) -> FusedDecPlan:
     """The decode plan of one tile from its components' plans
     (`codestream/tile.build_comp_plan`, each with its component's COC,
-    QCC and ROI shift) for the block coder `coder` ("ht" or "mq"): a lane
+    QCC and ROI shift) for the block coder `coder` ("ht", "mq", or "t1":
+    the host Tier-1 decoder, each component at its code-block style in
+    `styles`, one per component decoded, in `comps` order): a lane
     for every code-block of the geometry, grouped by block (w, h), in the
     order of the tile's code-blocks within each group, and each band's
     stepsize (1.0 on the reversible path). The transform config comes
@@ -161,7 +179,7 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
     the band's origin where none is kept). Raises
     NotImplementedError when a band's Mb exceeds the decoder's word:
     Mb + 3 > 32 for HT, Mb > 30 for MQ (the sign rides in bit 31)."""
-    if coder not in ("ht", "mq"):
+    if coder not in ("ht", "mq", "t1"):
         raise ValueError(f"unknown block coder {coder!r}")
     if max_res is not None and max_res >= cod.numresolutions - 1:
         max_res = None
@@ -228,7 +246,8 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
         stepsizes=tuple(stepsizes), max_res=max_res,
         boxes=None if keep is None else tuple(boxes),
         comps=None if comps is None else tuple(comps),
-        pm_zero=tuple(c for c in ours if c in pm_zero))
+        pm_zero=tuple(c for c in ours if c in pm_zero),
+        styles=tuple(styles) if coder == "t1" else ())
 
 
 def _slot(plans, c: int, key, cb) -> tuple:
@@ -305,12 +324,57 @@ def _prepare_mq_group(jobs, rev: bool, zero=None):
         _lane_halves(nbps, npas, rev, zero),)
 
 
+def _prepare_t1(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
+    """Host side of a T1 chunk: the host Tier-1 decoder decodes every
+    job of every frame into the (F, total) band-plane buffer that
+    `band_offsets` lays out (int32, or float32 dequantized on 9/7), in one
+    threaded call (`t1/backend.decode_cblk_batch_bands`); blocks without a
+    job stay zero. Returns [(buffer,)]."""
+    offsets = band_offsets(plan)
+    origin = dict(zip(offsets, plan.boxes or ()))
+    keys = list(offsets)
+    total = sum(bh * bw for (_, bh, bw) in offsets.values())
+    flat = np.zeros((len(frames), total),
+                    np.int32 if plan.cfg.reversible else np.float32)
+    bands = [flat[f, off:off + bh * bw].reshape(bh, bw)
+             for f in range(len(frames))
+             for (off, bh, bw) in offsets.values()]
+    bidx = {k: i for i, k in enumerate(keys)}
+    style = dict(zip(plan_comps(plan), plan.styles))
+    jobs, placements, styles, zero = [], [], [], []
+    placed = [0] * len(frames)
+    for f, frame in enumerate(frames):
+        for (_, _, lanes) in plan.groups:
+            for blk in lanes:
+                job = frame.get(blk.slot)
+                if job is None:
+                    continue
+                placed[f] += 1
+                k = (blk.comp, blk.key)
+                y0, x0 = origin.get(k, (0, 0))
+                jobs.append(job)
+                placements.append((f * len(keys) + bidx[k], blk.x0 - x0,
+                                   blk.y0 - y0))
+                styles.append(style[blk.comp])
+                zero.append(blk.comp in plan.pm_zero)
+    _check_placed(placed, frames)
+    steps = None
+    if not plan.cfg.reversible:
+        steps = list(plan.stepsizes) * len(frames)
+    t1_backend.decode_cblk_batch_bands(jobs, bands, placements, styles,
+                                       stepsizes=steps, pm_zero=zero)
+    return [(flat,)]
+
+
 def prepare_chunk(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
     """Host side of a chunk: `frames` holds each frame's jobs for the
     plan's tile, as `jobs_by_block` keys them. Returns per group the
     numpy arrays of `_prepare_ht_group` or `_prepare_mq_group`, lanes
-    frame-major. Raises ValueError when a frame has a job for a
+    frame-major, or for a T1 plan the decoded band planes
+    (`_prepare_t1`). Raises ValueError when a frame has a job for a
     code-block that the plan does not hold."""
+    if plan.coder == "t1":
+        return _prepare_t1(plan, frames)
     placed = [0] * len(frames)
     out = []
     for (_, _, lanes) in plan.groups:
@@ -326,11 +390,17 @@ def prepare_chunk(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
                                          zero if any(zero) else None))
         else:
             out.append(_prepare_ht_group(jobs))
+    _check_placed(placed, frames)
+    return out
+
+
+def _check_placed(placed, frames) -> None:
+    """ValueError unless every job of each frame found its lane (`placed`
+    counts them a frame)."""
     for f, frame in enumerate(frames):
         if placed[f] != len(frame):
             raise ValueError(f"frame {f} of the chunk has code-blocks "
                              f"outside the tile's decode plan")
-    return out
 
 
 def upload(arrays, device: torch.device):
@@ -373,15 +443,18 @@ class _FusedDecoder(nn.Module):
     coefficients and calls `_scatter`; `lasts` holds the last array of
     each group (validity for HT, mid-point addends for MQ)."""
 
-    def __init__(self, plan: FusedDecPlan, device: torch.device, grid):
+    def __init__(self, plan: FusedDecPlan, device: torch.device, grid=None):
         """`grid(w, h)` is the (rows, columns) of one lane's coefficient
-        grid as `assemble` hands it to `_scatter`."""
+        grid as `assemble` hands it to `_scatter`; None for a decoder that
+        gets its band planes whole (no scatter indices)."""
         super().__init__()
         self.plan = plan
         self.device = device
         # (c, key) -> (offset, h, w) in the flat buffer
         self._bands = band_offsets(plan)
         self._total = sum(bh * bw for (_, bh, bw) in self._bands.values())
+        if grid is None:
+            return
         origin = dict(zip(self._bands, plan.boxes or ()))
         steps = {(c, (r, o)): st for (c, r, o, _, _), st in zip(
             plan.band_shapes, plan.stepsizes, strict=True)}
@@ -519,9 +592,25 @@ class FusedMQDecoder(_FusedDecoder):
         return self._scatter(coeffs, nframes)
 
 
+class FusedT1Decoder(_FusedDecoder):
+    """The device half of the T1 decode for one plan: the band planes
+    that the host Tier-1 decoder filled (`_prepare_t1`), uploaded as one
+    (F, total) tensor, go straight to the inverse transforms (or, for a
+    window plan, back as the boxes)."""
+
+    def decode(self, groups):
+        return groups
+
+    def assemble(self, groups, lasts, nframes: int) -> torch.Tensor:
+        ((flat,),) = groups
+        return flat
+
+
 def _new_decoder(plan: FusedDecPlan, device: torch.device) -> _FusedDecoder:
     if plan.coder == "mq":
         return FusedMQDecoder(plan, device)
+    if plan.coder == "t1":
+        return FusedT1Decoder(plan, device)
     return FusedHTDecoder(plan, ht_tables.device_dec_tables(device))
 
 

@@ -24,7 +24,13 @@ of the stack) it runs DC shift -> MCT -> DWT (`ops/dwt.py`)
   finished segments packed lane after lane. With `want_rd` (rate
   control) the slot build also sums each pass's distortion decrease and
   the coder records its byte-outs at every pass end, from which the host
-  builds each block's R-D pass table (`assemble_collected_mq`).
+  builds each block's R-D pass table (`assemble_collected_mq`);
+- T1 (`FusedT1Encoder`, the Part-1 MQ code-block styles other than the
+  default, 5/3 or 9/7): the transform on the device, one fetch of the
+  band planes, then the host library's Tier-1 coder
+  (`codestream/tile.encode_t1_blocks`: the 9/7 quantization fused into
+  its block gather, every block of the stack in one threaded native
+  call), which gives each block its segments and its R-D pass table.
 The host then runs T2 (and the rate allocation) on the segments.
 
 Block order in the outputs: group-major, then frame-major within a
@@ -46,7 +52,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..codestream.tile import build_comp_plan
+from ..codestream.tile import build_comp_plan, encode_t1_blocks
 from ..core.geometry import Rect
 from ..core.params import Transform
 from ..ops import ht_enc, mq_scan, mq_torch, quant
@@ -70,24 +76,32 @@ class BlockSpec:
 class FusedPlan:
     """Static per-tile-geometry encode plan."""
     cfg: pipeline.TileTransformConfig
-    # (gh, gw, blocks) per shape group: quads for HT, samples for MQ
+    # (gh, gw, blocks) per shape group: quads for HT, samples for MQ; for
+    # T1 one group (0, 0, every block in t1-desc order)
     groups: Tuple[Tuple[int, int, Tuple[BlockSpec, ...]], ...]
     nblocks: int
     # order[g][j] = global t1-desc index of group g's j-th block
     order: Tuple[Tuple[int, ...], ...]
-    coder: str = "ht"           # "ht" or "mq"
+    coder: str = "ht"           # "ht", "mq" or "t1"
     # emit per-pass R-D tables from the MQ encode (PCRD callers)
     want_rd: bool = False
+    # T1: each band's (comp, r, orient, h, w), in the order of the fetched
+    # band planes, and the code-block style (an encoder's COC repeats the
+    # COD's)
+    bands: Tuple[Tuple[int, int, int, int, int], ...] = ()
+    cblk_style: int = 0
 
 
 def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
                coder: str = "ht", want_rd: bool = False,
                custom_mct=None) -> Optional[FusedPlan]:
-    """The plan for one tile and block coder ("ht" or "mq"), or None
-    when out of scope (components with different transforms, an MCT
-    other than none/RCT/ICT or a custom one given by its coding matrix
-    `custom_mct`, which the COD signals as mct 2). `want_rd` (MQ
-    only) makes the encode also return per-pass R-D tables for PCRD.
+    """The plan for one tile and block coder ("ht", "mq", or "t1": the
+    host library's Tier-1 coder for the MQ code-block styles other than
+    the default), or None when out of scope (components with different
+    transforms, an MCT other than none/RCT/ICT or a custom one given by
+    its coding matrix `custom_mct`, which the COD signals as mct 2).
+    `want_rd` (MQ only) makes the encode also return per-pass R-D
+    tables for PCRD; T1 returns them always.
 
     A plan has no ROI shift: the shift raises only the Kmax that T2
     signals (`tile.encode_tile(roishifts=)`), and the code-blocks code
@@ -98,7 +112,9 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
     segments slot into T2 positionally. HT groups blocks by their shape
     in quads, MQ by their shape in samples, with each MQ group's blocks
     in descending Kmax order as in the reference (stable; `order`
-    carries the mapping)."""
+    carries the mapping). T1 keeps the t1-desc order in one group."""
+    if coder not in ("ht", "mq", "t1"):
+        raise ValueError(f"unknown block coder {coder!r}")
     ncomps = len(siz.comps)
     cods = [cod_comp[c] if cod_comp and cod_comp[c] else cod
             for c in range(ncomps)]
@@ -111,12 +127,15 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
     if cod.mct not in (0, 1) and not custom:
         return None
     groups: Dict[Tuple[int, int], List[Tuple[int, BlockSpec]]] = {}
+    bands = []
     gi = 0
     for c in range(ncomps):
         plan = build_comp_plan(siz, cods[c], qcds[c], tile, c)
         for res in plan.layout.resolutions:
             for band in res.bands:
                 bp = plan.bands[(res.r, band.orient)]
+                bands.append((c, res.r, band.orient, band.rect.h,
+                              band.rect.w))
                 for prc in band.precincts:
                     for cb in prc.cblks:
                         spec = BlockSpec(
@@ -126,7 +145,8 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
                             h=cb.rect.h, w=cb.rect.w, kmax=bp.kmax,
                             step=1.0 if reversible else float(bp.stepsize))
                         gk = (((spec.h + 1) // 2, (spec.w + 1) // 2)
-                              if coder == "ht" else (spec.h, spec.w))
+                              if coder == "ht" else (0, 0) if coder == "t1"
+                              else (spec.h, spec.w))
                         groups.setdefault(gk, []).append((gi, spec))
                         gi += 1
     keys = sorted(groups)
@@ -140,7 +160,9 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
                      for (gh, gw) in keys),
         nblocks=gi,
         order=tuple(tuple(i for (i, _) in groups[k]) for k in keys),
-        coder=coder, want_rd=bool(want_rd and coder == "mq"))
+        coder=coder, want_rd=bool(want_rd and coder == "mq"),
+        bands=tuple(bands) if coder == "t1" else (),
+        cblk_style=cod.cblk_style if coder == "t1" else 0)
 
 
 # Device bytes of the MQ encode, read off the code (`FusedMQEncoder.forward`
@@ -281,10 +303,30 @@ def ht_frame_bytes(plan: "FusedPlan", rate_control: bool = False) -> int:
                         held + max(peak, 2 * segs))
 
 
+def t1_frame_bytes(plan: "FusedPlan") -> int:
+    """Peak device bytes one frame of a T1 plan takes in
+    `FusedT1Encoder.forward`: the uploaded samples and the transform's
+    peak (`HT_TRANSFORM_BYTES`, the same transform), which exceeds the
+    band planes beside their concatenated copy for the fetch (4 + 4 B a
+    sample)."""
+    if plan.coder != "t1":
+        raise ValueError("t1_frame_bytes needs a T1 plan")
+    cfg = plan.cfg
+    samples = [r.w * r.h for r in cfg.tc_rects]
+    ict = not cfg.reversible and (cfg.mct_matrix is not None or (
+        bool(cfg.mct) and len(samples) >= 3))
+    upload = sum(n * _upload_dtype(p, s).itemsize
+                 for n, p, s in zip(samples, cfg.precs, cfg.signeds))
+    return upload + HT_TRANSFORM_BYTES[ict] * sum(samples)
+
+
 def frame_bytes(plan: "FusedPlan", rate_control: bool = False) -> int:
-    """`mq_frame_bytes` or `ht_frame_bytes` of the plan's coder."""
+    """`mq_frame_bytes`, `ht_frame_bytes` or `t1_frame_bytes` of the
+    plan's coder."""
     if plan.coder == "mq":
         return mq_frame_bytes(plan)
+    if plan.coder == "t1":
+        return t1_frame_bytes(plan)
     return ht_frame_bytes(plan, rate_control)
 
 
@@ -295,7 +337,7 @@ def chunk_cap(plan: "FusedPlan", free_bytes: int,
     temporaries or the HT encoder's stepsizes) fits in MEMORY_SHARE of
     `free_bytes`, and at least 1."""
     fixed = mq_scan.EMIT_BLOCK_BYTES if plan.coder == "mq" \
-        else HT_STEP_BYTES * plan.nblocks
+        else 0 if plan.coder == "t1" else HT_STEP_BYTES * plan.nblocks
     room = int(MEMORY_SHARE * free_bytes) - fixed
     return max(1, room // frame_bytes(plan, rate_control))
 
@@ -506,6 +548,28 @@ class FusedMQEncoder(nn.Module):
                 *rd)
 
 
+class FusedT1Encoder(nn.Module):
+    """The device half of the T1 route for one plan (the MQ code-block
+    styles other than the default, coded by the host library's Tier-1
+    coder): `forward(*frames)` takes one integer (N, h_c, w_c) tensor per
+    component, on `device`, runs the transform (`pipeline._fwd_transform`:
+    DC shift, MCT, the DWT, on the card `csrc/dwt.cu`) and returns
+    ((N, total) band planes, int32 on 5/3 or float32 on 9/7, each frame's
+    bands concatenated in `plan.bands` order), fetched in one copy by
+    `encode_tile_collect`, which runs the host T1 on them."""
+
+    def __init__(self, plan: FusedPlan, device: torch.device):
+        super().__init__()
+        self.plan = plan
+        self.device = torch.device(device)
+
+    def forward(self, *frames):
+        n = frames[0].shape[0]
+        bands_list = pipeline._fwd_transform(self.plan.cfg, frames)
+        return (torch.cat([bands_list[c][(r, o)].reshape(n, -1)
+                           for (c, r, o, _, _) in self.plan.bands], dim=1),)
+
+
 def _upload_dtype(prec: int, signed: bool) -> torch.dtype:
     """Narrowest torch dtype holding the component's samples (8-bit
     content uploads 4x fewer bytes than int32)."""
@@ -546,12 +610,34 @@ def encode_tile_collect(handle) -> List[List]:
     """Copy a submitted result to the host; returns a segment list in
     t1-desc order for each stacked tile, in stack order (N x nblocks): HT
     segment bytes, or MQ (data, numbps, numpasses) tuples, under rate
-    control with each tile's own R-D pass tables."""
+    control with each tile's own R-D pass tables; for T1 the fetched band
+    planes' host Tier-1 coding (`assemble_collected_t1`)."""
     plan, nframes, outs = handle
     outs = [t.cpu().numpy() for t in outs]
     if plan.coder == "mq":
         return assemble_collected_mq(plan, nframes, *outs)
+    if plan.coder == "t1":
+        return assemble_collected_t1(plan, *outs)
     return assemble_collected_ht(plan, nframes, *outs)
+
+
+def assemble_collected_t1(plan: FusedPlan, flat: np.ndarray
+                          ) -> List[List[Tuple]]:
+    """Per-frame (data, numbps, numpasses, passes) lists, in t1-desc
+    order, of a T1 plan's fetched (N, total) band planes: the host Tier-1
+    coder on every block of every frame (`tile.encode_t1_blocks`), each
+    frame's planes 2-D views of its row."""
+    planes = []
+    for f in range(flat.shape[0]):
+        views, off = {}, 0
+        for (c, r, o, h, w) in plan.bands:
+            views[(c, (r, o))] = flat[f, off:off + h * w].reshape(h, w)
+            off += h * w
+        planes.append(views)
+    (_, _, specs), = plan.groups
+    return encode_t1_blocks(
+        planes, [(b.comp, b.key, b.x0, b.y0, b.w, b.h, b.step)
+                 for b in specs], plan.cblk_style, plan.cfg.reversible)
 
 
 def assemble_collected_ht(plan: FusedPlan, nframes: int, lens_np,

@@ -18,6 +18,22 @@ from ..codestream.t2 import SegDec
 from ..ops import _build
 
 
+# the parser's limits per code-block (csrc/host/t2.cpp T2D_MAX_CHUNKS):
+# the (packet, codeword segment) pieces of its bytes it records
+MAX_CHUNKS = 160
+# pieces recorded a code-block where its style ends few codeword segments
+CHUNKS = 12
+
+
+def _chunk_cap(kmax: int, style: int) -> int:
+    """Room for the pieces of one code-block's bytes: TERMALL and BYPASS
+    (MQ) end a codeword segment every pass or two, and a piece holds a
+    pass at least, so up to the 3 Kmax - 2 passes of the block."""
+    if style & 0x40 or not style & 0x05:
+        return CHUNKS
+    return min(MAX_CHUNKS, max(CHUNKS, 3 * kmax - 2))
+
+
 def decode_tile_packets(body: bytes, packets, groups, kmaxs_per_band,
                         styles_per_band, sop: bool, eph: bool,
                         nlayers: int = 0):
@@ -63,7 +79,8 @@ def decode_tile_packets(body: bytes, packets, groups, kmaxs_per_band,
     pkt_layer = np.asarray([p[1] for p in packets] or [0], dtype=np.int32)
     body_arr = np.frombuffer(body or b"\x00", dtype=np.uint8)
     out_meta = np.zeros(max(1, n * 4), dtype=np.int64)
-    seg_cap = max(16, n * 12)
+    seg_cap = max(16, sum(nc * _chunk_cap(k, st)
+                          for nc, k, st in zip(ncblks, kmaxs, styles)))
     seg_out = np.zeros(seg_cap * 3, dtype=np.int64)
     rc = lib.grok_t2_decode_tile(
         body_arr.ctypes.data, len(body), len(packets),

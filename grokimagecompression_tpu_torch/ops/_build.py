@@ -7,10 +7,11 @@ bound with ctypes: pointers and the stream are `c_void_p`, ints are
 `c_int`, and every entry point returns `cudaGetLastError()` after its
 launch.
 
-The host library (`csrc/host/*.cpp`: native T2, the HT decode prepass
-and the PNG scanline filters, copies of the reference's native sources)
-is compiled on first use with g++ into `build/torch_host/`; it is
-single-threaded.
+The host library (`csrc/host/*.cpp`: native T2, the HT decode prepass,
+the PNG scanline filters and the Tier-1 MQ coder, copies of the
+reference's native sources) is compiled on first use with g++ into
+`build/torch_host/`, without OpenMP; only the Tier-1 batch entries run
+on worker threads (std::thread, the count passed in by the caller).
 
 Both builds write to a private file and rename it into place, so
 concurrent processes never load a half-written library; a failed build
@@ -162,6 +163,31 @@ def host_library() -> ctypes.CDLL:
     # (img, nrows, rowbytes, bpp, filter, out)
     lib.grok_png_filter.restype = I
     lib.grok_png_filter.argtypes = [P, I, I, I, I, P]
+    # (mag, neg, w, h, orient, style, out, cap, meta, rates, dist, term)
+    lib.grok_t1_encode.restype = I
+    lib.grok_t1_encode.argtypes = [P, P, I, I, I, I, P, I, P, P, P, P]
+    # (data, len, seg_lens, nsegs, w, h, orient, numbps, numpasses, style,
+    #  mag, neg)
+    lib.grok_t1_decode.restype = I
+    lib.grok_t1_decode.argtypes = [P, I, P, I, I, I, I, I, I, I, P, P]
+    # (n, mag, neg, desc, style, out, out_stride, meta, rates, dist, term,
+    #  pass_stride, nthreads)
+    lib.grok_t1_encode_batch.restype = I
+    lib.grok_t1_encode_batch.argtypes = [I, P, P, P, I, P, I, P, P, P, P, I,
+                                         I]
+    # (n, data, seg_lens, desc, mag, neg, nthreads, signed_out)
+    lib.grok_t1_decode_batch.restype = I
+    lib.grok_t1_decode_batch.argtypes = [I, P, P, P, P, P, I, I]
+    # (n, data, seg_lens, desc, band_ptrs, band_strides, steps, is_float,
+    #  nthreads)
+    lib.grok_t1_decode_bands.restype = I
+    lib.grok_t1_decode_bands.argtypes = [I, P, P, P, P, P, P, I, I]
+    # (n, band_ptrs, band_strides, desc, mag, neg, nthreads)
+    lib.grok_extract_blocks.restype = I
+    lib.grok_extract_blocks.argtypes = [I, P, P, P, P, P, I]
+    # (n, band_ptrs, band_strides, steps, desc, mag, neg, nthreads)
+    lib.grok_extract_blocks_f32.restype = I
+    lib.grok_extract_blocks_f32.argtypes = [I, P, P, P, P, P, P, I]
     return lib
 
 

@@ -368,14 +368,15 @@ def test_jp2_colour_boxes(sides):
 # ---- what the port does not code, and no fallback
 
 @pytest.mark.parametrize("flags,why", [
-    (["-M", "1"], "the MQ code-block style 0x1"),
+    # the bypass mode switch on the HT coder with its refinement passes
+    (["-M", "65", "--ht-refinement"], "HT refinement passes"),
     (["-M", "64", "--ht-refinement"], "HT refinement passes"),
     (["-M", "64", "-R", "c=0,U=4"], None),
 ], ids=["mq-lazy", "ht-refinement", "roi-ht"])
 def test_out_of_slice_flags_fail(sides, capsys, flags, why):
     """A flag that needs what the port does not code yet exits non-zero
     through common.fail with the reason, and writes no file; the
-    reference codes it (on its host T1). ROI with the HT coder fails on
+    reference codes it (on its host HT coder). ROI with the HT coder fails on
     both sides with the reference's ValueError, and neither writes a
     file."""
     d = smooth(24, 32, 3, seed=6)
@@ -423,14 +424,13 @@ def test_roi_and_custom_mct_flags_equal_reference(sides, flags):
 
 
 def test_out_of_slice_stream_fails_to_decode(sides, capsys):
-    """A stream the port's decode leaves out (an MQ code-block style other
-    than 0, made by the reference's tool) ends with the reason and no
-    file."""
+    """A stream the port's decode leaves out (HT refinement passes, made
+    by the reference's tool) ends with the reason and no file."""
     sides.write("in.ppm", pnm_bytes(smooth(24, 32, 3, seed=7)))
     with _numpy_dwt():
         assert ref_compress.main(sides.args("ref", [
             "-i", "@in.ppm", "-o", "@in.ppm.j2k", "-n", "3", "-M",
-            "1"])) == 0
+            "64", "--ht-refinement"])) == 0
     capsys.readouterr()
     with pytest.raises(SystemExit) as e:
         decompress.main(sides.args("port", [

@@ -87,7 +87,8 @@ GATE_STREAMS = ["container.jp2", "jp2_gray16.jp2", "jp2_rgb.jp2",
 # the corpus streams the reference decodes on its host path and the port
 # on its kernels: a custom MCT and ROI
 HOST_ROUTE_STREAMS = ["custom_mct.j2k", "poc_roi.j2k", "roi_shift6.j2k"]
-# the corpus streams outside the port: non-default MQ styles
+# the corpus streams outside the reference's device gate that the port
+# decodes on its host Tier-1 route: non-default MQ styles
 OUT_OF_GATE = ["sty_all_part1.j2k", "sty_lazy.j2k", "sty_lazy_termall.j2k",
                "sty_pterm.j2k", "sty_reset.j2k", "sty_reset_vsc_segsym.j2k",
                "sty_segsym.j2k", "sty_termall.j2k", "sty_vsc.j2k",
@@ -486,12 +487,12 @@ class _AtHost(Exception):
 
 
 def test_corpus_gate_equals_reference(monkeypatch):
-    """Over the whole corpus, the port admits every stream that the
-    reference's decode_batch sends to its device decode (47 of 60) and
+    """Over the whole corpus, the port admits every stream: those that
+    the reference's decode_batch sends to its device decode (47 of 60),
     the three it sends to its host decode whose code-blocks the port's
-    kernels decode (ROI, a custom MCT); the other 10 (MQ styles other
-    than 0) both send elsewhere: the reference to its host, the port to
-    NotImplementedError."""
+    kernels decode (ROI, a custom MCT), and the other 10 (MQ styles other
+    than 0), which the reference sends to its host decode and the port to
+    its host Tier-1 decoder behind the device's inverse transforms."""
     from grokimagecompression_tpu.models import fused_decode as ref_fd
 
     def at_device(*args, **kwargs):
@@ -509,23 +510,32 @@ def test_corpus_gate_equals_reference(monkeypatch):
         data = _corpus(name)
         with pytest.raises((_AtDevice, _AtHost)) as where:
             ref_decoder.decode_batch([data], device=True)
-        try:
-            decoder.parse_batch([data])
-        except NotImplementedError:
-            assert where.type is _AtHost, name
-        else:
-            assert (where.type is _AtDevice) == \
-                (name not in HOST_ROUTE_STREAMS), name
-            admitted.append(name)
-    assert len(names) == 60 and len(admitted) == 50
-    assert sorted(set(names) - set(admitted)) == sorted(OUT_OF_GATE)
-    assert set(GATE_STREAMS + HOST_ROUTE_STREAMS) <= set(admitted)
+        hdr, _, parsed = decoder.parse_batch([data])
+        assert (where.type is _AtDevice) == \
+            (name not in HOST_ROUTE_STREAMS + OUT_OF_GATE), name
+        coders = {p.coder for t, tr in enumerate(decoder._tile_rects(hdr.siz))
+                  if parsed[0][0][t] is not None
+                  for p in decoder.tile_plans(hdr, tr, parsed[0][0][t])}
+        assert ("t1" in coders) == (name in OUT_OF_GATE), name
+        admitted.append(name)
+    assert len(names) == 60 and len(admitted) == 60
+    assert set(GATE_STREAMS + HOST_ROUTE_STREAMS + OUT_OF_GATE) <= \
+        set(admitted)
 
 
 @pytest.mark.parametrize("name", OUT_OF_GATE)
 def test_out_of_gate_corpus_streams_raise(name):
-    with pytest.raises(NotImplementedError):
-        decoder.decode_batch([_corpus(name)], device="cpu")
+    """The corpus stream decodes to the host decoder's pixels on the host
+    Tier-1 route; its pixels coded with HT refinement passes by the
+    reference's host encoder raise NotImplementedError."""
+    (got,) = _assert_decodes_like_host([_corpus(name)])
+    img = Image(xsiz=got.xsiz, ysiz=got.ysiz, components=[Component(
+        data=c.data, prec=c.prec, signed=c.signed, dx=c.dx, dy=c.dy)
+        for c in got.components])
+    (refined,) = _encode([img], EncoderParams(
+        numresolutions=3, cblk_style=HT, ht_refinement=True))
+    with pytest.raises(NotImplementedError, match="HT refinement"):
+        decoder.decode_batch([refined], device="cpu")
 
 
 def _tile_part_override(cs: bytes) -> bytes:
@@ -541,13 +551,15 @@ def _tile_part_override(cs: bytes) -> bytes:
 
 
 def test_out_of_gate_streams_raise():
-    """Tile-part header overrides, ROI and a COC that changes a
-    component's HT code-block style decode to the host decoder's pixels
-    now (streams whose COC changes a component's transform or resolution
-    count, coded that way, are in tests/test_torch_host_routes.py); a COC
-    with an MQ code-block style other than 0, ROI on HT code-blocks and a
-    batch whose streams differ in their COC, POC or packed headers raise
-    NotImplementedError; none falls back to a host decode."""
+    """Tile-part header overrides, ROI, a COC that changes a component's
+    HT code-block style and a COC that gives an MQ component other MQ
+    styles (VSC, RESET, SEGMARK: the same packets, another context model)
+    decode to the host decoder's pixels now (streams whose COC changes a
+    component's transform or resolution count, coded that way, are in
+    tests/test_torch_host_routes.py); HT refinement passes, ROI on HT
+    code-blocks and a batch whose streams differ in their COC, POC or
+    packed headers raise NotImplementedError; none falls back to a host
+    decode."""
     img = natural_image(32, 32, ncomp=3, seed=61)
     params = EncoderParams(numresolutions=3, cblk_style=HT)
     (cs,) = _encode([img], params)
@@ -561,10 +573,12 @@ def test_out_of_gate_streams_raise():
     for stream in good:
         _assert_decodes_like_host([stream])
     (mq,) = _encode([img], EncoderParams(numresolutions=3))
-    bad = [_splice_main(mq, ref_markers.write_coc(
+    _assert_decodes_like_host([_splice_main(mq, ref_markers.write_coc(
         1, dataclasses.replace(ref_decoder.read_header(mq).cod,
-                               cblk_style=0x01), 3)),
-           _splice_main(cs, ref_markers.write_rgn(0, 3, 3))]
+                               cblk_style=0x2A), 3))])
+    bad = _encode([img], EncoderParams(numresolutions=3, cblk_style=HT,
+                                       ht_refinement=True))
+    bad.append(_splice_main(cs, ref_markers.write_rgn(0, 3, 3)))
     for stream in bad:
         with pytest.raises(NotImplementedError):
             decoder.decode_batch([stream], device="cpu")

@@ -164,16 +164,26 @@ def _largest_mb(frames, params, frames_seen):
                for (e, _) in default_qcd(siz, cod, 1, s).steps)
 
 
-@pytest.mark.parametrize("name,imgs,params", [
+FIXED_CASES = [
     ("rgb_two_frames", [natural_image(96, 96, ncomp=3, seed=s)
                         for s in (3, 4)], _p(numresolutions=4, **BLOCKS)),
     ("gray_odd_origin", [natural_image(75, 69, seed=5)],
      _p(numresolutions=3, image_offset=(3, 1), **BLOCKS)),
     ("rgb_base_step", [natural_image(64, 64, ncomp=3, seed=6)],
      _p(numresolutions=4, base_step=2.5, **BLOCKS)),
-])
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _fixed_port(name):
+    """The port's streams of the FIXED_CASES entry `name`, made once."""
+    _, imgs, params = next(c for c in FIXED_CASES if c[0] == name)
+    return _port(imgs, params)
+
+
+@pytest.mark.parametrize("name,imgs,params", FIXED_CASES)
 def test_fixed_step_matches_host(name, imgs, params):
-    assert _port(imgs, params) == _host(imgs, params)
+    assert _fixed_port(name) == _host(imgs, params)
 
 
 @pytest.mark.parametrize("ratio", sorted(RATE_CASES))
@@ -263,8 +273,7 @@ def test_streams_decode_to_host_pixels():
     from grokimagecompression_tpu.core.params import (DecoderParams as
                                                       RefDecoderParams)
     from grokimagecompression_tpu_torch.core.params import DecoderParams
-    fixed = _port([natural_image(96, 96, ncomp=3, seed=s) for s in (3, 4)],
-                  _p(numresolutions=4, **BLOCKS))
+    fixed = _fixed_port("rgb_two_frames")
     # the fixed-step streams in one batch; each rate-controlled stream
     # alone, as each has its own base step, hence its own QCD
     batches = [fixed] + [[cs] for cs in _rate_run(24.0)[3]]

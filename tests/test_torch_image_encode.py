@@ -237,10 +237,14 @@ def test_compress_batch_of_tiled_arrays_encodes_each(monkeypatch):
 
 def test_encode_batch_of_mixed_geometries_equals_encode():
     frames = _frames()
-    imgs = [frames["rgb"], frames["gray"], frames["rgb"]]
     p = _params("ht53")
-    assert encoder.encode_batch(imgs, p, device="cpu") == \
-        [encoder.encode(im, p, device="cpu") for im in imgs]
+    # each frame's `encode` once (the ht53 case's frame is cached)
+    one = {k: _port_stream("ht53") if k == chip_smoke.IMG_ENC_CASES[
+        "ht53"][0] else encoder.encode(frames[k], p, device="cpu")
+        for k in ("rgb", "gray")}
+    assert encoder.encode_batch([frames[k] for k in ("rgb", "gray", "rgb")],
+                                p, device="cpu") == \
+        [one[k] for k in ("rgb", "gray", "rgb")]
 
 
 def test_encode_batch_global_equals_encode():
@@ -402,7 +406,8 @@ def test_decompress_batch_of_streams_the_gate_keeps_apart():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(cblk_style=0x01), NotImplementedError),
+    # the bypass mode switch on the HT coder with its refinement passes
+    (dict(cblk_style=0x41, ht_refinement=True), NotImplementedError),
     (dict(cblk_style=0x40, ht_refinement=True), NotImplementedError),
     (dict(transform=ref_params.Transform.DWT_53,
           custom_mct=np.eye(3).tolist()), ValueError),
@@ -410,7 +415,9 @@ def test_decompress_batch_of_streams_the_gate_keeps_apart():
     ids=["mq_style", "ht_refinement", "custom_mct", "roi"])
 def test_host_t1_requests_raise(kw, exc):
     """What the port does not code raises NotImplementedError (the
-    reference codes it on its host T1); a custom MCT and ROI are coded on
+    reference codes it on its host HT coder: HT refinement passes; the
+    MQ code-block styles are coded, tests/test_torch_t1_styles.py); a
+    custom MCT and ROI are coded on
     the device now (tests/test_torch_host_routes.py), so their cases are
     the reference's own refusals: a custom MCT off 9/7 and ROI with the
     HT coder raise its ValueError, on both sides."""

@@ -140,11 +140,15 @@ def test_plan_from_reference_equals_build_plan(size, ncomp, numres,
 
 def test_out_of_slice_raises():
     imgs = _frames(2, 16, 16)
-    # MQ: only the default code-block style 0 is ported
+    # HT refinement passes, on 5/3 and 9/7, in every MQ code-block style
+    # bit besides the HT one (the MQ styles themselves are coded:
+    # tests/test_torch_t1_styles.py)
     mq_styles = (0x01, 0x02, 0x04, 0x08, 0x10, 0x20)   # LAZY .. SEGSYM
-    for params in tuple(EncoderParams(cblk_style=s) for s in mq_styles) + (
-                   EncoderParams(cblk_style=HT, ht_refinement=True),):
-        with pytest.raises(NotImplementedError):
+    for params in tuple(EncoderParams(cblk_style=HT | s, ht_refinement=True)
+                        for s in mq_styles) + (
+                   EncoderParams(cblk_style=HT, ht_refinement=True,
+                                 transform=Transform.DWT_97),):
+        with pytest.raises(NotImplementedError, match="HT refinement"):
             _port_batch(imgs, params, device="cpu")
     # a custom MCT and ROI are coded on the device now
     # (tests/test_torch_host_routes.py); what is left of them is the
@@ -186,7 +190,10 @@ def test_port_runs_without_jax(monkeypatch):
     reference host encoder's and decode to the source and to the
     reference host decoder's pixels. And `parallel`: a two-shard CPU
     `encode(mesh=)` of a tiled HT stream equals the reference host
-    encoder's and decodes over the mesh to the source."""
+    encoder's and decodes over the mesh to the source. And the host
+    Tier-1 route: a 9/7 stream in all six MQ code-block styles at a byte
+    target (0x3F) equals the reference host encoder's and decodes to the
+    reference host decoder's pixels."""
     from grokimagecompression_tpu.core.params import DecoderParams
     from grokimagecompression_tpu.ops import dwt_host
     monkeypatch.setattr(dwt_host, "_get_native", lambda: None)
@@ -245,6 +252,11 @@ def test_port_runs_without_jax(monkeypatch):
         custom_mct=matrix), device=False)
     want_mct_px = np.stack([c.data for c in decoder.decode(
         want_mct, device=False).components]).astype("<i4").tobytes().hex()
+    sty_kw = dict(numresolutions=2, transform=Transform.DWT_97,
+                  cblk_style=0x3F, rates=(6.0,), cblk_w_exp=3, cblk_h_exp=3)
+    want_sty = ref_encoder.encode(rgb, EncoderParams(**sty_kw), device=False)
+    want_sty_px = np.stack([c.data for c in decoder.decode(
+        want_sty, device=False).components]).astype("<i4").tobytes().hex()
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -334,6 +346,14 @@ def test_port_runs_without_jax(monkeypatch):
         out = decoder.decode(cs, device="cpu")
         assert np.stack([c.data for c in out.components]).astype(
             "<i4").tobytes().hex() == "{want_mct_px}"
+        cs = encoder.encode(rgb, EncoderParams(
+            transform=Transform.DWT_97,
+            **{ {k: v for k, v in sty_kw.items() if k != "transform"}!r}),
+            device="cpu")
+        assert cs.hex() == "{want_sty.hex()}"
+        out = decoder.decode(cs, device="cpu")
+        assert np.stack([c.data for c in out.components]).astype(
+            "<i4").tobytes().hex() == "{want_sty_px}"
         from grokimagecompression_tpu_torch.parallel import (multihost,
                                                              sharding)
         cs = encoder.encode(img, EncoderParams(

@@ -234,13 +234,14 @@ def test_stream_encoder_order_completion_and_close(tmp_path):
     (dict(transform=Transform.DWT_97,
           custom_mct=[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]),
      ValueError),
-    (dict(cblk_style=0x01), NotImplementedError),
+    # the bypass mode switch on the HT coder with its refinement passes
+    (dict(cblk_style=HT | 0x01, ht_refinement=True), NotImplementedError),
     (dict(cblk_style=HT, ht_refinement=True), NotImplementedError),
 ], ids=["rates", "psnr", "ppm", "custom_mct", "mq_lazy", "ht_refinement"])
 def test_stream_encoder_refusals(kw, exc):
     """What the reference's stream encoder refuses raises its ValueError
     on both sides; what the port does not code raises
-    NotImplementedError (the reference codes it on its host T1)."""
+    NotImplementedError (the reference codes it on its host HT coder)."""
     img = _image(32, 32, 3, seed=8)
     params = EncoderParams(tile_size=(16, 16), numresolutions=2, **kw)
     if exc is ValueError:

@@ -264,8 +264,9 @@ def _tile_part_override(cs: bytes) -> bytes:
 def test_host_only_requests_raise():
     """Streams the reference decodes on its host: ROI shifts and
     tile-part header overrides decode on every route (a window, a
-    reduction, a tile) to the reference host decoder's pixels now; a
-    stream with an MQ code-block style other than 0 raises
+    reduction, a tile) to the reference host decoder's pixels now, and so
+    does a stream with an MQ code-block style other than 0 (the host
+    Tier-1 route); a stream with HT refinement passes raises
     NotImplementedError on every route."""
     img = _ref_image(chip_smoke.window_frames(1, 48, 40)[0])
     roi = ref_encoder.encode(img, EncoderParams(
@@ -277,16 +278,18 @@ def test_host_only_requests_raise():
     lazy = ref_encoder.encode(img, EncoderParams(numresolutions=3,
                                                  cblk_style=0x01),
                               device=False)
+    refined = ref_encoder.encode(img, EncoderParams(
+        numresolutions=3, cblk_style=0x40, ht_refinement=True), device=False)
     for kw in ({"window": (4, 4, 20, 20)}, {"reduce": 1},
                {"tile_index": 0}):
-        for cs in (roi, over):
+        for cs in (roi, over, lazy):
             got = decoder.decode(cs, DecoderParams(**kw), device="cpu")
             want = ref_decoder.decode(cs, RefDecoderParams(**kw),
                                       device=False)
             for g, w in zip(got.components, want.components):
                 np.testing.assert_array_equal(g.data, w.data)
-        with pytest.raises(NotImplementedError):
-            decoder.decode(lazy, DecoderParams(**kw), device="cpu")
+        with pytest.raises(NotImplementedError, match="HT refinement"):
+            decoder.decode(refined, DecoderParams(**kw), device="cpu")
 
 
 def test_codec_decompress_equals_reference():
