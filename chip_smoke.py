@@ -291,7 +291,25 @@ Phases, each fatal on failure:
      config-2 frame 0 in 512^2 tiles through StreamEncoder at 0x01, its
      tile-parts equal to encode's. Every run calls the host coder and
      launches the DWT and no MQ kernel; phases 4-7 (the default MQ style
-     and HT) call the host coder not at all.
+     and HT) call the host coder not at all;
+ 25. HT refinement passes, HT under an explicit rate allocator and deep
+     HT bands (`refine_phase`), against grokimagecompression_tpu_torch/
+     data/ht_refine.json (the reference host codec's streams and pixels):
+     (a) config 1's first 8 frames with refinement through encode_batch
+     and back through decode_batch to the sources, MP/s (best of 3) and
+     one chunk's stages (transform on the card, fetch, host T1, T2; T2,
+     host T1 into band planes, upload, inverse on the card, fetch); (b)
+     config-2 frame 0 (ICT + 9/7) with refinement through encode and
+     decode, whole, at reduce 1 and in a window, with stages; (c) the same
+     frame at three layers under a PCRD allocator at 24 / 48 / 96 (the
+     refinement dropped, as the reference drops it: the HT encoder
+     kernel's route, the host coder not called), decoded whole and at
+     layers=1; (d) a 512^2 28-bit 5/3 frame (`deep_frame`: HH bands of
+     Mb 30) through encode (the HT encoder kernel) and decode (the host
+     cleanup decoder: Mb + 3 > 32) back to the source; (e) the tools at
+     REFINE_CLI_CASES (grk_compress --ht-refinement, grk_decompress).
+     The refined and deep routes call the host coder, launch the DWT and
+     launch no HT encoder or decoder;
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
@@ -304,7 +322,8 @@ phase 19's full-size requests, and for every kernel but the dense scan
 its launches in phase 20's encodes and decodes, phase 21's tool runs,
 phase 22's streams and requests and phase 23's sharded and
 multi-process runs (the worker processes' launches included), and for
-the DWT its launches in phase 24; the last
+the DWT its launches in phase 24, and for the DWT, the HT encoder and
+the HT decoder their launches in phase 25; the last
 line is {"ok": true,
 "device": {...}}.
 
@@ -673,6 +692,39 @@ T1_C1_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
 T1_C2_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                              "config2_mq_styles.json")
 
+# Phase 25, HT refinement passes (Part 15 full mode), HT under an explicit
+# rate allocator and HT bands deeper than the CUDA HT decoder's word, on
+# the host route where the reference takes it (the transform on the card,
+# the host library's HT coder): REFINE_C1_FRAMES config-1 frames with
+# refinement through encode_batch and decode_batch; config-2 frame 0 with
+# refinement through encode and decode (whole, at reduce 1 and in
+# REFINE_WINDOW) and at REFINE_ALLOC_RATES' allocator (three layers, the
+# refinement dropped, on the CUDA HT coder), decoded whole and at layers 1;
+# `deep_frame` (REFINE_DEEP_PREC bits, 5/3 HT: its HH bands have Mb 30,
+# Mb + 3 > 32) through encode and decode; the tools at REFINE_CLI_CASES.
+# HT_REFINE_DIGESTS holds the reference host codec's outputs of each, and
+# the small case of tests/test_torch_ht_refine.py's `gpu` test; that file
+# writes it.
+HT_REFINE_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
+                                 "ht_refine.json")
+REFINE_C1_FRAMES = 8
+REFINE_ALLOC_RATES = (24.0, 48.0, 96.0)
+REFINE_WINDOW = (600, 400, 1400, 1000)
+REFINE_DEEP_SIZE = 512
+REFINE_DEEP_PREC = 28
+REFINE_CLI_CASES = (
+    ("HT refinement", "compress", ["-i", "@rgb.ppm", "-o", "@rgb_hr.j2k",
+                                   "-n", "4", "-M", "64",
+                                   "--ht-refinement"]),
+    ("HT refinement 9/7", "compress", ["-i", "@gray.pgm", "-o",
+                                       "@gray_hr.j2k", "-n", "4", "-I",
+                                       "-M", "65", "--ht-refinement"]),
+    ("decompress HT refinement", "decompress", ["-i", "@rgb_hr.j2k", "-o",
+                                                "@rgb_hr.ppm"]),
+    ("decompress HT refinement 9/7 at reduce 1", "decompress", [
+        "-i", "@gray_hr.j2k", "-o", "@gray_hr.pgm", "-r", "1"]),
+)
+
 
 def route_small_frame():
     """The small frame of the override and COC streams: the top-left
@@ -929,6 +981,38 @@ def config2_frames(n, size=C2_SIZE):
                 signed=False, dx=1, dy=1))
         frames.append(Image(xsiz=size, ysiz=size, components=comps))
     return frames
+
+
+def deep_frame(size=REFINE_DEEP_SIZE, prec=REFINE_DEEP_PREC):
+    """A gray frame of `prec` bits (phase 25 (d)): config 1's wave in the
+    top bits and uniform noise in the 20 below, seeded 7. Coded 5/3 with
+    the HT coder (one guard bit) its bands' Mb is `prec` plus the band's
+    gain: 30 in the HH bands at 28 bits, the deepest the reference's
+    native HT coder defines."""
+    import numpy as np
+    from grokimagecompression_tpu_torch.core.image import Component, Image
+
+    rng = np.random.default_rng(7)
+    y = np.arange(size)[:, None]
+    x = np.arange(size)[None, :]
+    wave = (128 + 60 * np.sin(y / 37.0) * np.cos(x / 29.0)).astype(np.int64)
+    data = (wave << (prec - 8)) + rng.integers(0, 1 << 20, (size, size))
+    return Image(xsiz=size, ysiz=size, components=[Component(
+        data=data.astype(np.int32), prec=prec, signed=False, dx=1, dy=1)])
+
+
+def refine_params(params_cls, transform_cls, case):
+    """The EncoderParams (of the port's or the reference's `params_cls`
+    and `transform_cls`) of a phase-25 case: "c1" (config 1 with
+    refinement), "c2" (config 2 with refinement), "alloc" (config 2's
+    coding in three layers, for REFINE_ALLOC_RATES' allocator, which
+    drops the refinement), "deep" (`deep_frame`'s plain HT coding)."""
+    kw = dict(numresolutions=6, cblk_style=0x40)
+    if case in ("c2", "alloc"):
+        kw["transform"] = transform_cls.DWT_97
+    if case == "alloc":
+        kw["numlayers"] = len(REFINE_ALLOC_RATES)
+    return params_cls(ht_refinement=case != "deep", **kw)
 
 
 def cinema_frames(n, w=2048, h=1080):
@@ -5039,9 +5123,8 @@ def cli_phase(c1_imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card):
     """Phase 21: the command-line tools (`cli.compress`, `cli.decompress`,
     `cli.dump`, run in this process through their `main`) on the card,
     every file in a temporary directory removed afterwards: (a) every
-    CLI_CASES entry on `cli_inputs` against CLI_DIGESTS, and a flag the
-    port does not code (--ht-refinement) ending non-zero with no file;
-    (b) config 1's
+    CLI_CASES entry on `cli_inputs` against CLI_DIGESTS (--ht-refinement,
+    which the port codes now, is phase 25 (e)); (b) config 1's
     64 frames as PGM files through directory mode with HT and with MQ,
     each stream against its digest file, decoded back to the sources, and
     config 2's 4 frames as PPM files at ratios 24 / 48 / 96 against
@@ -5120,22 +5203,11 @@ def cli_phase(c1_imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card):
         if bad:
             raise AssertionError(f"CLI cases {bad} differ from the reference "
                                  f"tools' outputs")
-        refined = os.path.join(d, "refined.j2k")
-        try:
-            compress.main(["-i", os.path.join(d, "gray.pgm"), "-o", refined,
-                           "-M", "64", "--ht-refinement"] + on_card)
-            raise AssertionError("grk_compress --ht-refinement exited 0")
-        except SystemExit as e:
-            if e.code != 1 or os.path.exists(refined):
-                raise AssertionError(
-                    f"grk_compress --ht-refinement: exit {e.code}, file "
-                    f"written: {os.path.exists(refined)}")
         print(f"phase 21 (a): {len(got)} tool runs on {len(want['inputs'])} "
               f"seeded inputs equal the reference tools' outputs "
               f"({sum(len(v) for v in got.values())} files) in "
-              f"{time.perf_counter() - t0:.1f} s; -M 64 --ht-refinement (HT "
-              f"refinement passes) exits 1 with no file; "
-              f"launches {launches} on {card}")
+              f"{time.perf_counter() - t0:.1f} s; launches {launches} on "
+              f"{card}")
 
         # (b) the BASELINE frames through directory mode
         c1_in = os.path.join(tmp, "c1")
@@ -6309,6 +6381,223 @@ def t1_phase(c1_imgs, c2_img, bench, dev, card):
     return total
 
 
+@contextlib.contextmanager
+def refine_counts(what, host: bool, want=("dwt",)):
+    """Every kernel's launches and the host Tier-1 coder's calls set to 0
+    inside a `with` block (`cli_counts` into the dict it yields, which
+    gains "t1"); after it, fail unless the kernels of `want` were
+    launched and, with `host` (the refined and deep routes), the host
+    coder was called and no HT encoder or decoder and no MQ kernel was
+    launched, or without it (the allocator's route), the host coder was
+    not called."""
+    from grokimagecompression_tpu_torch.native import t1_native
+    launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
+    t1_native.CALLS["t1"] = 0
+    with cli_counts(launches, what, want):
+        yield launches
+    launches["t1"] = t1_native.CALLS["t1"]
+    if host and (launches["t1"] < 1 or launches["enc"] or launches["dec"]
+                 or launches["mq"] or launches["mq_dec"]):
+        raise AssertionError(f"{what}: the host route's counts are wrong "
+                             f"({launches})")
+    if not host and launches["t1"]:
+        raise AssertionError(f"{what}: the host coder was called "
+                             f"({launches})")
+
+
+def refine_phase(c1_imgs, c2_img, dev, card):
+    """Phase 25: HT refinement passes, HT under an explicit rate
+    allocator and deep HT bands, through the user entry points, each
+    against HT_REFINE_DIGESTS (the module docstring lists (a)-(e)).
+    Returns the DWT, HT encoder and HT decoder launches by LAUNCHES
+    key."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.cli import compress, decompress, dump
+    from grokimagecompression_tpu_torch.codestream import (decoder, encoder,
+                                                           pcrd)
+    from grokimagecompression_tpu_torch.core.params import (DecoderParams,
+                                                            EncoderParams,
+                                                            Transform)
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, HT_REFINE_DIGESTS)) as f:
+        want = json.load(f)
+    total = {"dwt": 0, "enc": 0, "dec": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def sha(cs):
+        return hashlib.sha256(cs).hexdigest()
+
+    def params(case):
+        return refine_params(EncoderParams, Transform, case)
+
+    # (a) config 1, refined
+    imgs = c1_imgs[:REFINE_C1_FRAMES]
+    if want["c1"]["frames"] != [frame_digest(im) for im in imgs]:
+        raise AssertionError("the config-1 frames differ from "
+                             "HT_REFINE_DIGESTS'")
+    p = params("c1")
+    mpix = len(imgs) * SIZE * SIZE / 1e6
+    with refine_counts("phase 25 (a) encode", True) as launches:
+        out = encoder.encode_batch(imgs, p, device=dev, chunk=CHUNK)
+        torch.cuda.synchronize()
+    add(launches)
+    if [sha(cs) for cs in out] != want["c1"]["streams"]:
+        raise AssertionError("phase 25 (a): refined config-1 streams differ "
+                             "from the host encoder's")
+    enc_best = best_of(3, lambda: encoder.encode_batch(imgs, p, device=dev,
+                                                       chunk=CHUNK))
+    with refine_counts("phase 25 (a) decode", True) as dec_launches:
+        dec = decoder.decode_batch(out, device=dev, chunk=CHUNK)
+        torch.cuda.synchronize()
+    add(dec_launches)
+    for i, (d, im) in enumerate(zip(dec, imgs)):
+        if not np.array_equal(d.components[0].data, im.components[0].data):
+            raise AssertionError(f"phase 25 (a): frame {i} does not decode "
+                                 f"to its source")
+    dec_best = best_of(3, lambda: decoder.decode_batch(out, device=dev,
+                                                       chunk=CHUNK))
+    print(f"phase 25 (a): config 1 with HT refinement, {len(out)} frames: "
+          f"streams equal the host encoder's ({sum(map(len, out))} B), "
+          f"decoded back to the sources; encode_batch "
+          f"{mpix / enc_best:.2f} MP/s ({enc_best:.3f} s), decode_batch "
+          f"{mpix / dec_best:.2f} MP/s ({dec_best:.3f} s), best of 3; "
+          f"counts {launches} / {dec_launches} on {card}")
+    t1_encode_stages(imgs, p, dev)
+    print(f"phase 25 (a): {len(imgs)} refined config-1 frames by stage "
+          f"(host clock, synchronised): encode "
+          f"{fmt_s(t1_encode_stages(imgs, p, dev))}; decode "
+          f"{fmt_s(t1_decode_stages(out, dev))}")
+    del out, dec
+
+    # (b) config-2 frame 0, refined
+    if want["c2"]["frame"] != frame_digest(c2_img):
+        raise AssertionError("the config-2 frame differs from "
+                             "HT_REFINE_DIGESTS'")
+    c2_mpix = C2_SIZE * C2_SIZE / 1e6
+    p = params("c2")
+    t0 = time.perf_counter()
+    with refine_counts("phase 25 (b) encode", True) as launches:
+        cs = encoder.encode(c2_img, p, device=dev)
+        torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    add(launches)
+    if sha(cs) != want["c2"]["stream"]:
+        raise AssertionError("phase 25 (b): the refined config-2 stream "
+                             "differs from the host encoder's")
+    t0 = time.perf_counter()
+    with refine_counts("phase 25 (b) decode", True) as dec_launches:
+        decoded = {k: decoder.decode(cs, DecoderParams(**kw), device=dev)
+                   for k, kw in (("pixels", {}), ("reduce1", {"reduce": 1}),
+                                 ("window", {"window": REFINE_WINDOW}))}
+        torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    add(dec_launches)
+    for k, img in decoded.items():
+        if frame_digest(img) != want["c2"][k]:
+            raise AssertionError(f"phase 25 (b): {k}: pixels differ from "
+                                 f"the host decoder's")
+    print(f"phase 25 (b): config-2 frame 0 with HT refinement: stream "
+          f"({len(cs)} B) and pixels (whole, reduce 1, window "
+          f"{REFINE_WINDOW}) equal the host codec's; encode {enc_s:.3f} s "
+          f"({c2_mpix / enc_s:.2f} MP/s), the three decodes {dec_s:.3f} s; "
+          f"counts {launches} / {dec_launches}; by stage (host clock, "
+          f"synchronised): encode "
+          f"{fmt_s(t1_encode_stages([c2_img], p, dev))}; decode "
+          f"{fmt_s(t1_decode_stages([cs], dev))}")
+
+    # (c) config-2 frame 0 under an allocator
+    p = params("alloc")
+    alloc = pcrd.make_layer_alloc(c2_img, dataclasses.replace(
+        p, rates=REFINE_ALLOC_RATES))
+    t0 = time.perf_counter()
+    with refine_counts("phase 25 (c) encode", False,
+                       ("enc", "dwt")) as launches:
+        cs = encoder.encode(c2_img, p, layer_alloc=alloc, device=dev)
+        torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    add(launches)
+    if sha(cs) != want["alloc"]["stream"]:
+        raise AssertionError("phase 25 (c): the config-2 stream under the "
+                             "allocator differs from the host encoder's")
+    with refine_counts("phase 25 (c) decode", False,
+                       ("dec", "dwt")) as dec_launches:
+        decoded = {k: decoder.decode(cs, DecoderParams(layers=layers),
+                                     device=dev)
+                   for k, layers in (("pixels", 0), ("layers1", 1))}
+        torch.cuda.synchronize()
+    add(dec_launches)
+    for k, img in decoded.items():
+        if frame_digest(img) != want["alloc"][k]:
+            raise AssertionError(f"phase 25 (c): {k}: pixels differ from "
+                                 f"the host decoder's")
+    print(f"phase 25 (c): config-2 frame 0, 3 layers under a PCRD allocator "
+          f"at {REFINE_ALLOC_RATES} with refinement asked for (dropped): "
+          f"stream ({len(cs)} B) and pixels (whole, layers=1) equal the "
+          f"host codec's; encode {enc_s:.3f} s; counts {launches} / "
+          f"{dec_launches}")
+    del cs, decoded
+
+    # (d) the deep frame
+    deep = deep_frame()
+    if want["deep"]["frame"] != frame_digest(deep):
+        raise AssertionError("the deep frame differs from "
+                             "HT_REFINE_DIGESTS'")
+    p = params("deep")
+    with refine_counts("phase 25 (d) encode", False,
+                       ("enc", "dwt")) as launches:
+        cs = encoder.encode(deep, p, device=dev)
+        torch.cuda.synchronize()
+    add(launches)
+    if sha(cs) != want["deep"]["stream"]:
+        raise AssertionError("phase 25 (d): the deep stream differs from "
+                             "the host encoder's")
+    t0 = time.perf_counter()
+    with refine_counts("phase 25 (d) decode", True) as dec_launches:
+        got = decoder.decode(cs, device=dev)
+        torch.cuda.synchronize()
+    dec_s = time.perf_counter() - t0
+    add(dec_launches)
+    if not np.array_equal(got.components[0].data, deep.components[0].data):
+        raise AssertionError("phase 25 (d): the deep stream does not decode "
+                             "to its source")
+    print(f"phase 25 (d): a {REFINE_DEEP_SIZE}^2 {REFINE_DEEP_PREC}-bit 5/3 "
+          f"HT frame (HH Mb 30): stream ({len(cs)} B) equal to the host "
+          f"encoder's, decoded to its source on the host cleanup decoder "
+          f"in {dec_s:.3f} s; counts {launches} / {dec_launches}")
+
+    # (e) the tools
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_refine_")
+    try:
+        cli_inputs(tmp)
+        with refine_counts("phase 25 (e)", True) as launches:
+            got = run_cli_cases(tmp, {"compress": compress,
+                                      "decompress": decompress,
+                                      "dump": dump},
+                                extra=["--torch-device", str(dev)],
+                                cases=REFINE_CLI_CASES)
+        add(launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if got != want["cli"]:
+        raise AssertionError(f"phase 25 (e): {sorted(got)} differ from the "
+                             f"reference tools' outputs")
+    print(f"phase 25 (e): {', '.join(got)}: files equal the reference "
+          f"tools'; counts {launches}")
+    print(f"phase 25 (HT refinement, HT under an allocator, deep HT bands): "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}; launches "
+          f"{total}")
+    return total
+
+
 def best_of(n, fn):
     import torch
     best = float("inf")
@@ -6803,12 +7092,13 @@ def main() -> int:
     meshes = mesh_phase(s1_cs, s1_refs, s2_global_cs, dev, card)
     del s1_cs, s2_global_cs
     styles = t1_phase(imgs, c2_imgs[0], bench, dev, card)
+    refine = refine_phase(imgs, c2_imgs[0], dev, card)
 
     calls["mq_dense"] = launches["mq_dense"]
     for key, n in (list(cinema.items()) + list(windows.items())
                    + list(image_enc.items()) + list(tools.items())
                    + list(routes.items()) + list(meshes.items())
-                   + list(styles.items())):
+                   + list(styles.items()) + list(refine.items())):
         calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
@@ -6817,8 +7107,9 @@ def main() -> int:
           f"full-size requests ({windows}), of phase 20's encodes and "
           f"decodes ({image_enc}), of phase 21's tool runs ({tools}), "
           f"of phase 22's streams and host-route requests ({routes}), "
-          f"of phase 23's sharded and multi-process runs ({meshes}) and of "
-          f"phase 24's MQ code-block styles ({styles}): "
+          f"of phase 23's sharded and multi-process runs ({meshes}), of "
+          f"phase 24's MQ code-block styles ({styles}) and of phase 25's "
+          f"HT refinement, allocator and deep-band runs ({refine}): "
           f"{calls}; all launches of the config-1 and config-2 runs: "
           f"{launches}")
     print(f"the whole run: {time.perf_counter() - t_main:.1f} s on {card}")

@@ -10,12 +10,14 @@ A copy of `grokimagecompression_tpu/cli/compress.py` over the port's
 `encoder.encode` and `profiles.encode_with_profile`, which run on the
 CUDA card by default (`--torch-device` names another torch device; the
 CPU runs the kernels' plain versions). `-D` is accepted and changes
-nothing. `-H` is accepted and unused: the port has no host T1 to give
-threads. `-R` (ROI, MQ) and `-m` / `-Y 2` (a custom MCT) code on the
-card like any other request. A request the port does not code yet (an
-MQ `-M` other than 0, `--ht-refinement`) ends through `common.fail` with
-the reason and writes no file; it is never coded on the host; `-R` with
-the HT coder ends with the reference's error.
+nothing. `-H` is accepted and unused (the host Tier-1 coders take
+`os.cpu_count()` worker threads). `-R` (ROI, MQ) and `-m` / `-Y 2` (a
+custom MCT) code on the card like any other request; an MQ `-M` other
+than 0 and `--ht-refinement` (with `-M 64`) code on the host library's
+Tier-1 coders behind the card's transform, as the reference codes them
+on its host. A request the port does not code would end through
+`common.fail` with the reason and write no file; `-R` with the HT coder
+ends with the reference's error.
 """
 
 from __future__ import annotations

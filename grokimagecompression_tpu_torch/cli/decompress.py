@@ -12,10 +12,11 @@ plain versions), and the port's `io/color.py` and `io/icc.py` for the
 colour policy (host numpy, as in the reference). `-H` is accepted and
 unused. Streams with tile-part header overrides, ROI, a custom MCT or
 COCs that change a component's transform, resolutions or block coder
-decode on the card like any other. A stream the port does not decode
-yet (MQ styles other than 0, HT refinement passes, ROI on HT
-code-blocks) ends through `common.fail` with the reason and writes no
-file.
+decode on the card like any other; MQ styles other than 0, HT
+refinement passes and HT bands whose Mb + 3 exceeds 32 decode on the
+host library's Tier-1 decoders behind the card's inverse transforms. A
+stream the port does not decode (ROI on HT code-blocks) ends through
+`common.fail` with the reason and writes no file.
 """
 
 from __future__ import annotations

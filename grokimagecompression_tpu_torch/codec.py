@@ -18,10 +18,12 @@ device (CUDA unless the caller names the CPU).
 
 Every stream equals the reference's `compress` / `Codec` output byte for
 byte. ROI and a custom MCT are coded and decoded on the device; the MQ
-code-block styles other than 0 take the host Tier-1 coder behind the
-device's transforms. What the port's encoder and decoder do not cover
-raises NotImplementedError: HT refinement passes
-(`codestream/encoder.py`, `codestream/decoder.py`).
+code-block styles other than 0 and HT refinement passes take the host
+Tier-1 coders behind the device's transforms. What the port's encoder
+and decoder do not cover raises NotImplementedError
+(`codestream/encoder.py`, `codestream/decoder.py`): ROI on HT
+code-blocks in a stream, and the host routes on a mesh of more than one
+device.
 """
 
 from __future__ import annotations

@@ -22,20 +22,22 @@ dequantized on the device and inverted on the host by the copy of the
 reference's windowed inverse (`ops/dwt_window.py`), as the reference
 does.
 
-The MQ code-block styles other than the default (in the COD or a COC)
-and MQ bands whose Kmax (with its ROI shift) exceeds the CUDA MQ
-decoder's word take the reference's host route for them: the host
-library's Tier-1 decoder into band planes, one upload, and the inverse
-transforms on the device (`fused_decode.FusedT1Decoder`). The route is
-chosen per component group from the COD / COC style and the bands' Kmax
-before anything is launched (`_coder`); the default style and the HT
-style never reach the host decoder.
+The MQ code-block styles other than the default (in the COD or a COC),
+MQ bands whose Kmax (with its ROI shift) exceeds the CUDA MQ decoder's
+word, HT code-blocks with refinement passes (Part 15 full mode) and HT
+bands whose Mb + 3 exceeds the CUDA HT decoder's 32 bits take the
+reference's host route for them: the host library's Tier-1 decoders
+into band planes, one upload, and the inverse transforms on the device
+(`fused_decode.FusedT1Decoder`). The route is chosen per component group
+from the COD / COC style, the bands' Kmax and the parsed jobs' pass
+counts before anything is launched (`_coder`, `tile_plans`); MQ blocks
+of the default style and HT blocks of the cleanup pass alone in bands
+the HT kernel holds never reach the host decoder.
 
 What is outside the port raises NotImplementedError with its reason
-instead of falling back to a host decode: HT refinement passes, ROI on
-HT code-blocks, an HT band whose Mb + 3 exceeds 32, and a styled MQ
-request on a mesh of more than one shard (the reference's transform-only
-mesh route).
+instead of falling back to a host decode: ROI on HT code-blocks, and a
+request on the host route on a mesh of more than one shard (the
+reference's transform-only mesh route).
 """
 
 from __future__ import annotations
@@ -292,7 +294,10 @@ def _coder(cod: CodInfo) -> str:
     """The block coder route of a COD or COC: "ht" (the CUDA HT
     decoder), "mq" (the default MQ style, the CUDA MQ decoder) or "t1"
     (any other MQ style: the host Tier-1 decoder). `tile_plans` also
-    sends "mq" bands deeper than the CUDA MQ decoder's word to "t1"."""
+    sends "mq" bands deeper than the CUDA MQ decoder's word and "ht"
+    components with refinement passes to "t1", and
+    `fused_decode.build_plan` "ht" bands deeper than the CUDA HT
+    decoder's."""
     if cod.cblk_style & 0x40:
         return "ht"
     return "t1" if cod.cblk_style else "mq"
@@ -495,16 +500,11 @@ def _parse_frame(data: bytes, hdr: CodestreamHeader, trs: List,
             if why is not None:
                 raise NotImplementedError(
                     f"the torch decode does not cover {why} yet")
-        r = TileJobs(*decode_tile(
+        out.append(TileJobs(*decode_tile(
             b"".join(tile_bodies.get(t, [])), hdr.siz, tcod, tqcd, tr,
             max_layers=layers, window=window, cod_comp=cod_comp,
             qcd_comp=qcd_comp, pocs=pocs, packed_headers=packed,
-            roishifts=hdr.roishifts), tparams)
-        if any(r.cods[c].cblk_style & 0x40 and job[6] > 1
-               for job, (c, _, _) in zip(r.jobs, r.slots)):
-            raise NotImplementedError(
-                "the torch decode does not cover HT refinement passes yet")
-        out.append(r)
+            roishifts=hdr.roishifts), tparams))
     # tiles with NO tile-parts at all stay zero in the canvas, like the
     # single-stream decode (a truncated stream can lose whole tiles; an
     # empty-BODY tile-part still decodes to DC midline)
@@ -565,18 +565,33 @@ def tile_config(hdr: CodestreamHeader, tr: Rect, tj: TileJobs):
     return pipeline.config_for_tile(hdr.siz, tj.cod, tr, hdr.custom_mct)
 
 
+def refined_comps(tj: TileJobs) -> frozenset:
+    """The components of a parsed tile whose HT code-blocks carry
+    refinement passes (a job of more than one pass), which the reference
+    decodes on its host (its `decode_tile` skips its device decode for
+    them)."""
+    return frozenset(c for job, (c, _, _) in zip(tj.jobs, tj.slots)
+                     if tj.cods[c].cblk_style & 0x40 and job[6] > 1)
+
+
 def tile_plans(hdr: CodestreamHeader, tr: Rect, tj: TileJobs,
-               reduce: int = 0, window_slots=None
+               reduce: int = 0, window_slots=None,
+               refined: Optional[frozenset] = None
                ) -> List[fused_decode.FusedDecPlan]:
     """The decode plans of one parsed tile at resolution reduction
     `reduce`: one plan, or one a component group (`_comp_groups`) when
     its components differ in transform, resolution count or block coder.
+    A group of HT components with refinement passes (`refined`, by
+    default the tile's own `refined_comps`; a batch passes those of
+    every stream) gets the host decoders' "t1" plan.
     ROI components reconstruct their MQ lanes at plane 0 where COC
     overrides apply to the tile, as the reference's host decode does
     there (its per-block `_cblk_pmin`); elsewhere the reference's fused
     native decode ignores the shift. `window_slots` makes window plans
     (`fused_decode.build_plan`)."""
     groups = _comp_groups(tj)
+    if refined is None:
+        refined = refined_comps(tj)
     if groups[0][1] is not None:
         cfg = tile_config(hdr, tr, tj)
         if cfg.mct and cfg.mct_matrix is None and cfg.reversible and any(
@@ -596,6 +611,8 @@ def tile_plans(hdr: CodestreamHeader, tr: Rect, tj: TileJobs,
         if coder == "mq" and max(tj.plans[c].bands[k].kmax for c in ours
                                  for k in tj.plans[c].bands) > MQ_MAX_PLANES:
             coder = "t1"
+        if coder == "ht" and any(c in refined for c in ours):
+            coder = "t1"
         plans.append(fused_decode.build_plan(
             tj.plans, hdr.siz, gcod, tr, coder=coder, max_res=max_res,
             window_slots=window_slots, comps=comps,
@@ -610,9 +627,10 @@ def _check_mesh(plans, devs) -> None:
     if len(devs) > 1 and any(plan.coder == "t1" for plan in plans):
         raise NotImplementedError(
             f"the torch decode does not cover MQ code-block styles other "
-            f"than the default, or MQ bands deeper than "
-            f"{MQ_MAX_PLANES} planes, on a mesh of {len(devs)} shards yet "
-            f"(the transform-only mesh route)")
+            f"than the default, MQ bands deeper than {MQ_MAX_PLANES} "
+            f"planes, HT refinement passes or HT bands whose Mb + 3 "
+            f"exceeds 32 on a mesh of {len(devs)} shards yet (the "
+            f"transform-only mesh route)")
 
 
 def tile_groups(hdr: CodestreamHeader, trs, parsed, reduce: int = 0
@@ -630,12 +648,16 @@ def tile_groups(hdr: CodestreamHeader, trs, parsed, reduce: int = 0
     differently and so get two plans. A tile's plans come from the first
     stream that has it: the streams share one main header, and their
     tile-part headers must give each tile the same parameters
-    (`_same_tile_params`)."""
+    (`_same_tile_params`); its HT components go to the host decoders
+    where any stream's code-blocks there carry refinement passes."""
     groups: Dict[fused_decode.FusedDecPlan, List[int]] = {}
     for t, tr in enumerate(trs):
         have = [f for f, (_, tiles) in enumerate(parsed) if t in tiles]
         if have:
-            for plan in tile_plans(hdr, tr, parsed[have[0]][0][t], reduce):
+            refined = frozenset().union(*(refined_comps(parsed[f][0][t])
+                                          for f in have))
+            for plan in tile_plans(hdr, tr, parsed[have[0]][0][t], reduce,
+                                   refined=refined):
                 groups.setdefault(plan, []).append(t)
     return groups
 

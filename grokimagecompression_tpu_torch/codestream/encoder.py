@@ -8,7 +8,9 @@ default code-block style on 5/3 or 9/7, with or without byte or PSNR
 targets (`rates`, `quality_psnr`: PCRD rate control over quality
 layers, per tile or image-wide with `rate_alloc="global"`) or an
 explicit rate allocator (a profile's byte caps,
-`profiles.encode_with_profile`). Either coder takes a Part-2 custom MCT
+`profiles.encode_with_profile`; with the HT coder one pass a block, as
+the reference hands its allocator HT blocks). Either coder takes a
+Part-2 custom MCT
 on 9/7 (the decoding matrix `custom_mct`; its coding matrix by LUP
 inversion, `ops/linalg.py`, applied on the device before the DWT), and
 the MQ coder an ROI upshift of one component (`roi_comp`, `roi_shift`:
@@ -16,14 +18,20 @@ the RGN marker and the Kmax T2 signals; the code-blocks code as
 without it).
 
 The MQ code-block styles other than the default (BYPASS, RESET,
-TERMALL, VSC, PTERM, SEGMARK, alone or together) take the reference's
-route for them: the transform on the device (`csrc/dwt.cu` on the card),
-one fetch of the band planes, and the host library's Tier-1 coder
-(`models/fused_encode.FusedT1Encoder`, `tile.encode_t1_blocks`), then
-the same T2 and rate allocation. The route is chosen from the request's
-code-block style before anything is launched (`block_coder`): the
-default style goes to the CUDA MQ coder, the HT style to the CUDA HT
-coder, and neither reaches the host coder.
+TERMALL, VSC, PTERM, SEGMARK, alone or together) and HT refinement
+passes (`ht_refinement`, Part 15 full mode: each code-block's cleanup one
+plane up, then a SigProp and a MagRef pass for the plane it drops) take
+the reference's route for them: the transform on the device
+(`csrc/dwt.cu` on the card), one fetch of the band planes, and the host
+library's Tier-1 coders (`models/fused_encode.FusedT1Encoder`,
+`tile.encode_t1_blocks`), then the same T2 and rate allocation. The
+route is chosen from the request before anything is launched
+(`block_coder`): the default style goes to the CUDA MQ coder, the HT
+style without refinement (or with it under an explicit rate allocator,
+which drops it, as the reference does) to the CUDA HT coder, and neither
+reaches the host coders. HT rate control with refinement searches the
+step on the CUDA HT coder's cleanup totals and confirms it with refined
+encodes, as the reference's search does.
 
 - `encode(image, params)`: one image; its tiles are grouped by their
   fused plan and each group's tiles are stacked and coded together on
@@ -47,12 +55,11 @@ packetize through the port's native T2. Every stream is byte-identical
 to the reference host encoder's.
 
 Requests outside the port raise NotImplementedError instead of falling
-back to the host: HT refinement passes, an explicit rate allocator with
-the HT block coder, and a styled MQ request on a mesh of more than one
-shard (the reference's transform-only mesh route). The HT refinement
-flag on an MQ request changes nothing, as in the reference. ROI with the
-HT coder, and a custom MCT off 9/7 or of the wrong size, raise the
-reference's ValueError.
+back to the host: a styled MQ or a refined HT request on a mesh of more
+than one shard (the reference's transform-only mesh route). The HT
+refinement flag on an MQ request changes nothing, as in the reference.
+ROI with the HT coder, and a custom MCT off 9/7 or of the wrong size,
+raise the reference's ValueError.
 """
 
 from __future__ import annotations
@@ -425,27 +432,28 @@ def tile_count(image: Image, params: EncoderParams) -> int:
     return ntx * nty
 
 
-def block_coder(params: EncoderParams) -> str:
+def block_coder(params: EncoderParams, layer_alloc=None) -> str:
     """The block coder route of a request, from its code-block style:
     "ht" (the HT style bit, the CUDA HT coder), "mq" (the default MQ
-    style 0, the CUDA MQ coder) or "t1" (any other MQ style: the host
-    library's Tier-1 coder behind the device transform)."""
+    style 0, the CUDA MQ coder) or "t1" (any other MQ style, or HT with
+    refinement passes: the host library's Tier-1 coders behind the
+    device transform). An explicit rate allocator `layer_alloc` drops
+    the refinement, as the reference's `encode_tile` does: its HT
+    blocks go to the allocator as one pass each."""
     if params.cblk_style & 0x40:
-        return "ht"
+        return "t1" if params.ht_refinement and layer_alloc is None \
+            else "ht"
     return "t1" if params.cblk_style else "mq"
 
 
 def _out_of_slice(params: EncoderParams, layer_alloc=None,
                   shards: int = 1) -> Optional[str]:
     """Why a request is outside the ported slices, or None."""
-    is_ht = bool(params.cblk_style & 0x40)
-    if is_ht and layer_alloc is not None:
-        return "a rate allocator with the HT block coder"
-    if is_ht and params.ht_refinement:
-        return "HT refinement passes"
-    if shards > 1 and block_coder(params) == "t1":
-        return (f"the MQ code-block style {params.cblk_style:#x} on a mesh "
-                f"of {shards} shards (the transform-only mesh route)")
+    if shards > 1 and block_coder(params, layer_alloc) == "t1":
+        what = "HT refinement passes" if params.cblk_style & 0x40 else \
+            f"the MQ code-block style {params.cblk_style:#x}"
+        return (f"{what} on a mesh of {shards} shards (the transform-only "
+                f"mesh route)")
     return None
 
 
@@ -661,13 +669,17 @@ def _ht_rc_segments(search: _HTRateSearch, frames: List[int],
 
 def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
                         search: _HTRateSearch, t2_pool,
+                        devs: List[torch.device],
                         rsiz: int = 0) -> List[bytes]:
     """The streams of a chunk's frames under HT rate control: every
     frame's search (`_encode_ht_rate_controlled`) driven in lockstep, a
     round being one probe for every frame that asks for a total, and one
     fused encode for every frame that asks for a stream, whose host T2
     runs on `t2_pool` (`encode` at the step, as the reference's confirm
-    encodes)."""
+    encodes). With HT refinement the probes stay the cleanup totals of
+    the CUDA HT coder, and each confirm is `encode` at the step on the
+    mesh `devs`: the refined route, as the reference's confirm encodes
+    code its refinement and its probes do not."""
     gens = [_encode_ht_rate_controlled(im, params) for im in images]
     asks = {f: next(g) for f, g in enumerate(gens)}
     done: Dict[int, bytes] = {}
@@ -675,7 +687,12 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
         probes = [f for f in sorted(asks) if asks[f][0] == "probe"]
         confirms = [f for f in sorted(asks) if asks[f][0] == "encode"]
         futures = []
-        if confirms:
+        answers = {}
+        if confirms and params.ht_refinement:
+            answers.update((f, _encode(images[f], dataclasses.replace(
+                params, rates=(), base_step=asks[f][1]), None, devs, rsiz))
+                for f in confirms)
+        elif confirms:
             segs = _ht_rc_segments(search, confirms,
                                    [asks[f][1] for f in confirms])
             futures = [(f, t2_pool.submit(write_codestream, images[f],
@@ -684,7 +701,6 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
                                               base_step=asks[f][1]), sg,
                                           rsiz))
                        for f, sg in zip(confirms, segs)]
-        answers = {}
         if probes:
             answers.update(zip(probes, _ht_rc_segment_bytes(
                 search, probes, [asks[f][1] for f in probes])))
@@ -770,14 +786,16 @@ def tile_plans(siz: SizInfo, cod: CodInfo, qcd, trs, coder: str,
 
 
 def _tile_encoders(p: EncoderParams, siz: SizInfo, cod: CodInfo, qcd,
-                   cod_comp, trs, dev, want_rd: bool) -> List:
-    """Each tile's fused encoder (`plan_encoder`) on `dev`, or on a mesh
-    (a list of devices) each plan's tiles split over it as
-    `sharding.plan_shards` splits them."""
+                   cod_comp, trs, dev, want_rd: bool,
+                   coder: Optional[str] = None) -> List:
+    """Each tile's fused encoder (`plan_encoder`) for the block coder
+    `coder` (by default `block_coder(p)`) on `dev`, or on a mesh (a list
+    of devices) each plan's tiles split over it as `sharding.plan_shards`
+    splits them."""
     from ..parallel.sharding import plan_shards
     devs = dev if isinstance(dev, list) else [dev]
-    plans = tile_plans(siz, cod, qcd, trs, block_coder(p), cod_comp,
-                       want_rd, _part2(p, siz)[0])
+    plans = tile_plans(siz, cod, qcd, trs, coder or block_coder(p),
+                       cod_comp, want_rd, _part2(p, siz)[0])
     on = {t: devs[di] for _, di, part in plan_shards(
         range(len(plans)), plans, len(devs)) for t in part}
     encoders: Dict = {}
@@ -836,7 +854,7 @@ def _encode(image: Image, params: EncoderParams, layer_alloc,
     want_rd = not p.cblk_style & 0x40 and (layer_alloc is not None
                                            or _needs_rc(p))
     segs = fused_entropy_tiles_on_mesh(
-        image, siz, cod, qcd, devs, block_coder(p),
+        image, siz, cod, qcd, devs, block_coder(p, layer_alloc),
         cod_comp=cod_comp, want_rd=want_rd, custom_mct=_part2(p, siz)[0],
         tiles=only_tiles)
     return write_codestream(image, params, segs, rsiz, layer_alloc,
@@ -869,11 +887,19 @@ def encode_batch(images: List[Image], params: Optional[EncoderParams] = None,
     (`write_codestream`).
 
     `rsiz` is ORed into each stream's SIZ (a profile's code), and
-    `layer_alloc` (MQ only; a `pcrd.PCRDAllocator`, which keeps no state
-    between tiles, so one serves every frame) replaces the allocator the
-    parameters' targets would make: with it the encode also returns the
-    per-pass R-D tables the allocator needs, as with targets. A profile's
-    encode (`profiles.encode_with_profile`) passes both."""
+    `layer_alloc` (a `pcrd.PCRDAllocator`, which keeps no state between
+    tiles, so one serves every frame) replaces the allocator the
+    parameters' targets would make: with it the MQ encode also returns
+    the per-pass R-D tables the allocator needs, as with targets, and
+    the HT encode gives it each block's cleanup as one pass (refinement
+    dropped, as the reference's). A profile's encode
+    (`profiles.encode_with_profile`) passes both.
+
+    HT with refinement passes (`ht_refinement`) takes the host coders'
+    route (`block_coder`) for every frame, as the reference's host
+    encoder does; the reference's device `encode_batch` drops the
+    refinement for a batch of two or more same-geometry frames (ROADMAP
+    Queue C)."""
     return _encode_batch(images, params or EncoderParams(),
                          [resolve_device(device)], chunk, rsiz, layer_alloc)
 
@@ -900,7 +926,8 @@ def _encode_batch(images: List[Image], params: EncoderParams,
     want_rd = not p.cblk_style & 0x40 and (layer_alloc is not None
                                            or _needs_rc(p))
     tile_enc = _tile_encoders(p, siz, cod, qcd, cod_comp, trs, devs,
-                              want_rd)
+                              want_rd, "ht" if rate_control
+                              else block_coder(p, layer_alloc))
 
     n = len(images)
     shares = collections.Counter(devs)
@@ -918,7 +945,8 @@ def _encode_batch(images: List[Image], params: EncoderParams,
                 search = _HTRateSearch(images[lo:hi], siz, cod, cod_comp,
                                        tile_enc)
                 results[lo:hi] = _encode_ht_rc_chunk(images[lo:hi], p,
-                                                     search, t2_pool, rsiz)
+                                                     search, t2_pool, devs,
+                                                     rsiz)
                 del search
                 continue
             handles = []

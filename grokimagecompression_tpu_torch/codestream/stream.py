@@ -9,15 +9,20 @@ port's device encode and decode.
 whole image: each `write_tile` codes one tile on the device (the fused
 transform and block coder of `models/fused_encode.py`, one call a tile)
 and packetizes it with the port's T2 (`tile.encode_tile`; the MQ
-code-block styles other than the default take the transform on the
-device and the host Tier-1 coder, `encoder.block_coder`); a TLM marker
+code-block styles other than the default and HT refinement passes take
+the transform on the device and the host Tier-1 coders,
+`encoder.block_coder`); a TLM marker
 reserved in the main header is patched on close so readers can seek.
 Tiles of one plan share one fused encoder (interior tiles of a grid
 do). `StreamDecoder` reads from a file handle (or memory
 map), parses only the main header up front, builds a tile index (from
 TLM when present, otherwise one SOT-hopping scan), and decodes single
 tiles reading only their byte ranges, through `decoder.decode` on the
-device. The files equal the reference's byte for byte.
+device. The files equal the reference's byte for byte, but for HT
+refinement passes: the reference's `StreamEncoder` drops them (its
+`write_tile` does not pass `ht_refined` to its `encode_tile`), and the
+port's codes them, as the reference's host `encode` does (ROADMAP Queue
+C).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from ..ops import _build
 from ..utils.device import DeviceLike, resolve_device
 from . import decoder as _decoder
 from . import markers
-from .encoder import (_out_of_slice, block_coder, build_cod, build_siz,
+from .encoder import (block_coder, build_cod, build_siz,
                       extract_tile_comps, plan_encoder)
 from .markers import SotInfo
 from .tile import default_qcd, encode_tile
@@ -63,10 +68,6 @@ class StreamEncoder:
                 p.custom_mct is not None:
             raise ValueError("streaming encode does not support whole-image "
                              "rate control, PPM, or custom MCT")
-        why = _out_of_slice(p)
-        if why is not None:
-            raise NotImplementedError(
-                f"StreamEncoder on a torch device does not cover {why} yet")
         _build.host_library()
         if isinstance(f, str):
             f = open(f, "wb")

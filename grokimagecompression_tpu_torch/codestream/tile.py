@@ -4,9 +4,10 @@ A copy of the parts of `grokimagecompression_tpu/codestream/tile.py`
 that the port's slices run: the static tile-component plan
 (`BandPlan`, `TileCompPlan`, `build_comp_plan`, `default_qcd`, both
 transforms), the host-T1 half of `encode_tile` for the MQ code-block
-styles other than the default (`encode_t1_blocks`: block descriptors
-over band planes, 9/7 quantization with each band's step, one batched
-call of the host library's Tier-1 coder), T2 of a tile whose
+styles other than the default and for HT refinement passes
+(`encode_t1_blocks`: block descriptors over band planes, 9/7
+quantization with each band's step, one batched call of the host
+library's Tier-1 coder), T2 of a tile whose
 code-block segments were coded on the device or by that coder (the
 `t1_segments` branch of `encode_tile`, HT or MQ, with the PCRD
 distortion weighting and the `layer_alloc` rate control for MQ segments
@@ -174,13 +175,14 @@ def encode_t1_blocks(planes, blocks, cblk_style: int, reversible: bool):
     {(comp, (r, orient)): 2-D plane}: int32 5/3 coefficients, or float32
     9/7 ones, quantized in the native block gather with their band's
     step; `blocks` the tile's code-blocks in t1-desc order, (comp, (r,
-    orient), x0, y0, w, h, stepsize) each, offsets in the band plane.
-    Every block of every frame is coded at `cblk_style` in one batched
-    call of the host library's Tier-1 coder
-    (`t1/backend.encode_cblk_batch_bands`, worker threads inside).
-    Returns per frame each block's (data, numbps, numpasses, passes) in
-    t1-desc order, with the per-pass rates that T2 and the rate
-    allocation read and the distortion decreases that `encode_tile`
+    orient), x0, y0, w, h, stepsize, kmax) each, offsets in the band
+    plane. Every block of every frame is coded at `cblk_style` in one
+    batched call of the host library's Tier-1 coder
+    (`t1/backend.encode_cblk_batch_bands`, worker threads inside; with
+    the HT style bit, the HT coder with refinement passes at each band's
+    Mb, `kmax`). Returns per frame each block's (data, numbps, numpasses,
+    passes) in t1-desc order, with the per-pass rates that T2 and the
+    rate allocation read and the distortion decreases that `encode_tile`
     weights."""
     bands: List = []
     index: Dict = {}
@@ -188,13 +190,14 @@ def encode_t1_blocks(planes, blocks, cblk_style: int, reversible: bool):
         for k, plane in fp.items():
             index[(f, k)] = len(bands)
             bands.append(plane)
-    step_of = {(c, key): st for (c, key, _, _, _, _, st) in blocks}
+    step_of = {(c, key): st for (c, key, _, _, _, _, st, _) in blocks}
     res = t1_backend.encode_cblk_batch_bands(
         bands, [(index[(f, (b[0], b[1]))], *b[2:6])
                 for f in range(len(planes)) for b in blocks],
         [b[1][1] for b in blocks] * len(planes), cblk_style,
         stepsizes=None if reversible else [step_of.get(k, 1.0)
-                                           for fp in planes for k in fp])
+                                           for fp in planes for k in fp],
+        kmaxs=[b[7] for b in blocks] * len(planes))
     n = len(blocks)
     return [res[f * n:(f + 1) * n] for f in range(len(planes))]
 

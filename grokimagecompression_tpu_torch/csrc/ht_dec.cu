@@ -5,7 +5,7 @@
 // ht_dec_pallas.py (_pallas_group_decoder, pallas_call at :490, reached
 // through decode_group_pallas :534) together with the host prepass that
 // feeds it (ht_dec_jax.py _prepass_mel :293, _prepass_vlc :315,
-// _prepass_ms :274, prepass_all :345; the port's csrc/host/ht_prepass.cpp).
+// _prepass_ms :274, prepass_all :345; the port's csrc/host/ht.cpp).
 // It computes what the prepass followed by ht_dec_jax.decode_group_core
 // computes, bit for bit, and what ops/ht_dec_torch.decode_group_plain
 // spells out step by step on the prepass's words.

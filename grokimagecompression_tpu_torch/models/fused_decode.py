@@ -22,13 +22,15 @@ band-plane assembly and the inverse DWT, inverse MCT and DC unshift
   plane (`_lane_halves`), so truncated blocks reconstruct like the host
   decoder.
 - T1 (`FusedT1Decoder`): the Part-1 MQ code-block styles other than the
-  default, and MQ bands deeper than the CUDA MQ decoder's word. The host
-  library's Tier-1 decoder decodes the chunk's blocks straight into the
-  band planes, with the mid-point reconstruction and the 9/7
-  dequantization, as the reference's host decode does
-  (`t1/backend.decode_cblk_batch_bands`, one threaded call a chunk); the
-  planes go to the device in one upload, and the inverse transforms run
-  there.
+  default, MQ bands deeper than the CUDA MQ decoder's word, HT tiles
+  whose code-blocks carry refinement passes, and HT bands whose Mb + 3
+  exceeds the CUDA HT decoder's 32 bits. The host library's Tier-1
+  decoders (MQ, HT refined, HT cleanup) decode the chunk's blocks
+  straight into the band planes, with the mid-point reconstruction and
+  the 9/7 dequantization, as the reference's host decode does
+  (`t1/backend.decode_cblk_batch_bands`, one threaded call a chunk and
+  decoder); the planes go to the device in one upload, and the inverse
+  transforms run there.
 
 The plan gives every code-block of the tile's geometry a lane, whether a
 frame includes it or not, and each frame's jobs go to their lanes by
@@ -77,9 +79,11 @@ decode`):
   windowed inverse (`ops/dwt_window.py`), as the reference does.
 
 Scope: the HT decoder needs every band's Mb + 3 <= 32
-(`ht_dec_pallas.supports`); the MQ decoder keeps the sign in bit 31, so
-Mb <= 30, and one codeword segment per block (the default style); the
-T1 decoder takes any Part-1 style and depth.
+(`ht_dec_pallas.supports`; `build_plan` sends a deeper HT plan to the T1
+decoder, as the reference decodes such bands off its Pallas decoder);
+the MQ decoder keeps the sign in bit 31, so Mb <= 30, and one codeword
+segment per block (the default style); the T1 decoder takes any Part-1
+style and depth, and HT blocks with or without refinement passes.
 """
 
 from __future__ import annotations
@@ -161,7 +165,7 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
     """The decode plan of one tile from its components' plans
     (`codestream/tile.build_comp_plan`, each with its component's COC,
     QCC and ROI shift) for the block coder `coder` ("ht", "mq", or "t1":
-    the host Tier-1 decoder, each component at its code-block style in
+    the host Tier-1 decoders, each component at its code-block style in
     `styles`, one per component decoded, in `comps` order): a lane
     for every code-block of the geometry, grouped by block (w, h), in the
     order of the tile's code-blocks within each group, and each band's
@@ -176,9 +180,10 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
     decode). `window_slots`, the job slots of a windowed
     `tile.decode_tile`, keeps only their code-blocks and makes each band
     the bounding box of its kept blocks (a window plan; an empty box at
-    the band's origin where none is kept). Raises
-    NotImplementedError when a band's Mb exceeds the decoder's word:
-    Mb + 3 > 32 for HT, Mb > 30 for MQ (the sign rides in bit 31)."""
+    the band's origin where none is kept). An "ht" plan with a band
+    whose Mb + 3 exceeds the CUDA HT decoder's 32 bits becomes a "t1"
+    plan. Raises NotImplementedError for an "mq" plan with a band whose
+    Mb exceeds 30 (the MQ decoder's sign rides in bit 31)."""
     if coder not in ("ht", "mq", "t1"):
         raise ValueError(f"unknown block coder {coder!r}")
     if max_res is not None and max_res >= cod.numresolutions - 1:
@@ -188,8 +193,7 @@ def build_plan(plans, siz, cod, tile: Rect, coder: str = "ht",
     ours = range(len(plans)) if comps is None else comps
     kmax = max(plans[c].bands[k].kmax for c in ours for k in plans[c].bands)
     if coder == "ht" and kmax + 3 > 32:
-        raise NotImplementedError(
-            f"band Mb {kmax}: the HT decoder needs Mb + 3 <= 32")
+        coder, styles = "t1", styles or (0x40,) * len(ours)
     if coder == "mq" and kmax > mq_dec.MAX_PLANES:
         raise NotImplementedError(
             f"band Mb {kmax}: the MQ decoder needs Mb <= {mq_dec.MAX_PLANES}")

@@ -26,11 +26,13 @@ of the stack) it runs DC shift -> MCT -> DWT (`ops/dwt.py`)
   the coder records its byte-outs at every pass end, from which the host
   builds each block's R-D pass table (`assemble_collected_mq`);
 - T1 (`FusedT1Encoder`, the Part-1 MQ code-block styles other than the
-  default, 5/3 or 9/7): the transform on the device, one fetch of the
-  band planes, then the host library's Tier-1 coder
-  (`codestream/tile.encode_t1_blocks`: the 9/7 quantization fused into
-  its block gather, every block of the stack in one threaded native
-  call), which gives each block its segments and its R-D pass table.
+  default, and HT with refinement passes, 5/3 or 9/7): the transform on
+  the device, one fetch of the band planes, then the host library's
+  Tier-1 coder (`codestream/tile.encode_t1_blocks`: the 9/7 quantization
+  fused into its block gather, every block of the stack in one threaded
+  native call; the MQ coder, or for the HT style the refined HT coder at
+  each band's Mb), which gives each block its segments and its pass
+  table.
 The host then runs T2 (and the rate allocation) on the segments.
 
 Block order in the outputs: group-major, then frame-major within a
@@ -87,7 +89,8 @@ class FusedPlan:
     want_rd: bool = False
     # T1: each band's (comp, r, orient, h, w), in the order of the fetched
     # band planes, and the code-block style (an encoder's COC repeats the
-    # COD's)
+    # COD's); on a T1 plan the HT style bit means HT with refinement
+    # passes, the only HT request the encoder sends to the host coder
     bands: Tuple[Tuple[int, int, int, int, int], ...] = ()
     cblk_style: int = 0
 
@@ -96,8 +99,9 @@ def build_plan(siz, cod, qcd, tile: Rect, cod_comp=None, qcd_comp=None,
                coder: str = "ht", want_rd: bool = False,
                custom_mct=None) -> Optional[FusedPlan]:
     """The plan for one tile and block coder ("ht", "mq", or "t1": the
-    host library's Tier-1 coder for the MQ code-block styles other than
-    the default), or None when out of scope (components with different
+    host library's Tier-1 coders, for the MQ code-block styles other than
+    the default and for HT with refinement passes, by the COD's style),
+    or None when out of scope (components with different
     transforms, an MCT other than none/RCT/ICT or a custom one given by
     its coding matrix `custom_mct`, which the COD signals as mct 2).
     `want_rd` (MQ only) makes the encode also return per-pass R-D
@@ -304,7 +308,8 @@ def ht_frame_bytes(plan: "FusedPlan", rate_control: bool = False) -> int:
 
 
 def t1_frame_bytes(plan: "FusedPlan") -> int:
-    """Peak device bytes one frame of a T1 plan takes in
+    """Peak device bytes one frame of a T1 plan (MQ styles or refined
+    HT: the device runs the same transform for both) takes in
     `FusedT1Encoder.forward`: the uploaded samples and the transform's
     peak (`HT_TRANSFORM_BYTES`, the same transform), which exceeds the
     band planes beside their concatenated copy for the fetch (4 + 4 B a
@@ -636,7 +641,7 @@ def assemble_collected_t1(plan: FusedPlan, flat: np.ndarray
         planes.append(views)
     (_, _, specs), = plan.groups
     return encode_t1_blocks(
-        planes, [(b.comp, b.key, b.x0, b.y0, b.w, b.h, b.step)
+        planes, [(b.comp, b.key, b.x0, b.y0, b.w, b.h, b.step, b.kmax)
                  for b in specs], plan.cblk_style, plan.cfg.reversible)
 
 

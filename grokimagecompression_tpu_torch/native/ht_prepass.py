@@ -1,5 +1,5 @@
 """ctypes binding for the host library's HT decode prepass
-(csrc/host/ht_prepass.cpp).
+(csrc/host/ht.cpp).
 
 A copy of `ht_dec_prepass` from `grokimagecompression_tpu/native/
 t1_native.py`: each HT cleanup segment's three streams (MEL forward, VLC

@@ -1,13 +1,19 @@
-"""ctypes binding for the host library's Tier-1 MQ coder (csrc/host/t1.cpp).
+"""ctypes binding for the host library's Tier-1 coders (csrc/host/t1.cpp,
+csrc/host/ht.cpp).
 
-A copy of the MQ entry points of `grokimagecompression_tpu/native/
-t1_native.py`: the per-block coder (`encode_cblk`, `decode_cblk`), the
-block gather out of band planes (`extract_blocks`), and the batch
-entries that code many blocks in one call on the library's worker
-threads (`encode_cblk_batch`, `encode_cblk_batch_bands`,
-`decode_cblk_batch`, `decode_cblk_batch_bands`). It codes every Part-1
-code-block style; the port sends it only what its CUDA MQ kernels do not
-code (`t1/backend.py`). The library is built on first use
+A copy of entry points of `grokimagecompression_tpu/native/
+t1_native.py`. The MQ coder: the per-block coder (`encode_cblk`,
+`decode_cblk`), the block gather out of band planes (`extract_blocks`),
+and the batch entries that code many blocks in one call on the
+library's worker threads (`encode_cblk_batch`, `encode_cblk_batch_bands`,
+`decode_cblk_batch`, `decode_cblk_batch_bands`); it codes every Part-1
+code-block style. The HT coder: one block with refinement passes
+(`ht_encode_cblk_refined`, `ht_decode_cblk_refined`), their batch forms
+over band planes (`ht_encode_refined_batch_bands`,
+`ht_decode_refined_batch_bands`, which the original does not have) and
+the plain cleanup decode into band planes (`ht_decode_cblk_batch_bands`).
+The port sends it only what its CUDA MQ and HT kernels do not code
+(`t1/backend.py`). The library is built on first use
 (`ops/_build.host_library`); a failed build raises, and there is no
 Python coder behind it.
 """
@@ -24,7 +30,7 @@ from ..ops import _build
 
 MAX_PASSES = 3 * 32 - 2
 
-# calls of the entry points above that code or gather blocks: none on the
+# calls of the entry points below that code or gather blocks: none on the
 # routes of the CUDA MQ and HT kernels
 CALLS = {"t1": 0}
 
@@ -297,3 +303,131 @@ def decode_cblk_batch_bands(blocks, bands: Sequence[np.ndarray], placements,
         nthreads if nthreads is not None else default_threads())
     if rc != 0:
         raise RuntimeError("T1 band decode failed")
+
+
+def ht_encode_cblk_refined(mag: np.ndarray, neg: np.ndarray, Mb: int,
+                           passes: int = 3) -> Tuple[bytes, int, int]:
+    """Encode one HT cleanup segment (at one plane up) plus a
+    SigProp(/MagRef) refinement segment (Part 15 full mode).
+
+    Returns (data, len_cleanup, len_refinement); data holds both
+    segments back to back, as they appear in the codestream."""
+    h, w = mag.shape
+    mag = np.ascontiguousarray(mag, dtype=np.uint32)
+    neg = np.ascontiguousarray(neg, dtype=np.uint8)
+    cap = max(4096, w * h * 8)
+    out = np.empty(cap, dtype=np.uint8)
+    lens = np.zeros(2, dtype=np.int32)
+    rc = _lib().grok_ht_encode_refined(
+        mag.ctypes.data, neg.ctypes.data, w, h, Mb, passes,
+        out.ctypes.data, cap, lens.ctypes.data, lens[1:].ctypes.data)
+    if rc != 0:
+        raise RuntimeError("HT refined encode failed")
+    l1, l2 = int(lens[0]), int(lens[1])
+    return bytes(out[:l1 + l2]), l1, l2
+
+
+def ht_decode_cblk_refined(data: bytes, len1: int, len2: int, passes: int,
+                           w: int, h: int, Mb: int
+                           ) -> Tuple[np.ndarray, np.ndarray]:
+    """Decode cleanup + refinement segments; returns (quarters, neg)
+    with magnitudes in quarter units of the cleanup plane (see
+    csrc/host/ht.cpp grok_ht_decode_refined for the exact mapping)."""
+    quarters = np.zeros((h, w), dtype=np.uint32)
+    neg = np.zeros((h, w), dtype=np.uint8)
+    buf = np.frombuffer(bytes(data), dtype=np.uint8) if data else \
+        np.zeros(1, dtype=np.uint8)
+    rc = _lib().grok_ht_decode_refined(
+        buf.ctypes.data, len1, len2, passes, w, h, Mb,
+        quarters.ctypes.data, neg.ctypes.data)
+    if rc != 0:
+        raise RuntimeError("HT refined decode failed")
+    return quarters, neg
+
+
+def ht_encode_refined_batch_bands(bands: Sequence[np.ndarray],
+                                  descs: np.ndarray, mbs, passes: int = 3,
+                                  stepsizes=None,
+                                  nthreads: Optional[int] = None
+                                  ) -> List[Tuple[bytes, int, int]]:
+    """`ht_encode_cblk_refined` of many blocks gathered out of band planes
+    in one call on the library's worker threads (the gather quantizes
+    float32 planes with `stepsizes`, as `extract_blocks`); a block whose
+    band Mb (`mbs`) is below 2 gets one plain cleanup segment instead.
+    `descs`: (n, 5) int64 (band_idx, x0, y0, w, h). Returns per block
+    (data, len_cleanup, len_refinement), the last 0 for a plain block."""
+    descs = np.ascontiguousarray(np.asarray(descs, np.int64).reshape(-1, 5))
+    n = len(descs)
+    if n == 0:
+        return []
+    ptrs, strides, steps, is_float = _band_meta(bands, stepsizes)
+    mbs64 = np.ascontiguousarray(mbs, dtype=np.int64)
+    out_stride = max(4096, int((descs[:, 3] * descs[:, 4]).max()) * 8)
+    out_flat = np.empty(n * out_stride, dtype=np.uint8)
+    len1 = np.zeros(n, dtype=np.int32)
+    len2 = np.zeros(n, dtype=np.int32)
+    rc = _lib().grok_ht_encode_refined_bands(
+        n, ptrs.ctypes.data, strides.ctypes.data, steps.ctypes.data,
+        1 if is_float else 0, descs.ctypes.data, mbs64.ctypes.data, passes,
+        out_flat.ctypes.data, out_stride, len1.ctypes.data, len2.ctypes.data,
+        nthreads if nthreads is not None else default_threads())
+    if rc != 0:
+        raise RuntimeError("HT refined band encode failed")
+    buf = out_flat.tobytes()
+    return [(buf[i * out_stride:i * out_stride + a + b], a, b)
+            for i, (a, b) in enumerate(zip(len1.tolist(), len2.tolist()))]
+
+
+def ht_decode_refined_batch_bands(blocks, bands: Sequence[np.ndarray],
+                                  placements, stepsizes=None,
+                                  nthreads: Optional[int] = None) -> None:
+    """Decode refined blocks (data, len_cleanup, len_refinement, passes,
+    w, h, Mb) and scatter them into band planes in one call: quarter
+    magnitudes q >> 1 with the sign, int32, or float32 with the mid-point
+    dequantizer and `stepsizes`, as `ht_decode_cblk_batch_bands`. A
+    block whose cleanup does not decode stays zero. placements =
+    (band_idx, x0, y0) per block; `bands`: zeroed planes with unit column
+    stride."""
+    n = len(blocks)
+    if n == 0:
+        return
+    data_flat = np.frombuffer(b"".join(bytes(b[0]) for b in blocks)
+                              or b"\x00", dtype=np.uint8)
+    ptrs, strides, steps, is_float = _band_meta(bands, stepsizes)
+    rows = np.empty((n, 10), dtype=np.int64)
+    off = 0
+    for i, (data, l1, l2, passes, w, h, mb) in enumerate(blocks):
+        rows[i] = (off, l1, l2, passes, w, h, mb, *placements[i][:3])
+        off += len(data)
+    desc = np.ascontiguousarray(rows.ravel())
+    _lib().grok_ht_decode_refined_bands(
+        n, data_flat.ctypes.data, desc.ctypes.data, ptrs.ctypes.data,
+        strides.ctypes.data, steps.ctypes.data, 1 if is_float else 0,
+        nthreads if nthreads is not None else default_threads())
+
+
+def ht_decode_cblk_batch_bands(blocks, bands: Sequence[np.ndarray],
+                               placements, stepsizes=None,
+                               nthreads: Optional[int] = None) -> None:
+    """Plain HT cleanup decode + scatter into band planes in one call.
+
+    blocks = [(data, w, h, missing_msbs), ...]; placements = (band_idx,
+    x0, y0) per block; `bands` are zeroed planes with unit column stride,
+    int32, or float32 with `stepsizes` (the mid-point dequantizer fused
+    into the scatter)."""
+    n = len(blocks)
+    if n == 0:
+        return
+    data_flat = np.frombuffer(b"".join(bytes(b[0]) for b in blocks)
+                              or b"\x00", dtype=np.uint8)
+    ptrs, strides, steps, is_float = _band_meta(bands, stepsizes)
+    rows = np.empty((n, 9), dtype=np.int64)
+    off = 0
+    for i, (data, w, h, miss) in enumerate(blocks):
+        rows[i] = (off, len(data), w, h, miss, *placements[i][:3], 0)
+        off += len(data)
+    desc = np.ascontiguousarray(rows.ravel())
+    _lib().grok_ht_decode_bands(
+        n, data_flat.ctypes.data, desc.ctypes.data, ptrs.ctypes.data,
+        strides.ctypes.data, steps.ctypes.data, 1 if is_float else 0,
+        nthreads if nthreads is not None else default_threads())

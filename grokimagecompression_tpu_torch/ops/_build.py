@@ -7,11 +7,12 @@ bound with ctypes: pointers and the stream are `c_void_p`, ints are
 `c_int`, and every entry point returns `cudaGetLastError()` after its
 launch.
 
-The host library (`csrc/host/*.cpp`: native T2, the HT decode prepass,
-the PNG scanline filters and the Tier-1 MQ coder, copies of the
-reference's native sources) is compiled on first use with g++ into
-`build/torch_host/`, without OpenMP; only the Tier-1 batch entries run
-on worker threads (std::thread, the count passed in by the caller).
+The host library (`csrc/host/*.cpp`: native T2, the HT block coder with
+its refinement passes and the HT decode prepass, the PNG scanline
+filters and the Tier-1 MQ coder, copies of the reference's native
+sources) is compiled on first use with g++ into `build/torch_host/`,
+without OpenMP; only the Tier-1 and HT batch entries run on worker
+threads (std::thread, the count passed in by the caller).
 
 Both builds write to a private file and rename it into place, so
 concurrent processes never load a half-written library; a failed build
@@ -188,6 +189,21 @@ def host_library() -> ctypes.CDLL:
     # (n, band_ptrs, band_strides, steps, desc, mag, neg, nthreads)
     lib.grok_extract_blocks_f32.restype = I
     lib.grok_extract_blocks_f32.argtypes = [I, P, P, P, P, P, P, I]
+    # (mag, neg, w, h, Mb, passes, out, cap, len1, len2)
+    lib.grok_ht_encode_refined.restype = I
+    lib.grok_ht_encode_refined.argtypes = [P, P, I, I, I, I, P, I, P, P]
+    # (data, len1, len2, passes, w, h, Mb, quarters, neg)
+    lib.grok_ht_decode_refined.restype = I
+    lib.grok_ht_decode_refined.argtypes = [P, I, I, I, I, I, I, P, P]
+    # (n, band_ptrs, band_strides, steps, is_float, desc5, mbs, passes,
+    #  out, out_stride, len1, len2, nthreads)
+    lib.grok_ht_encode_refined_bands.restype = I
+    lib.grok_ht_encode_refined_bands.argtypes = [I, P, P, P, I, P, P, I, P,
+                                                 I, P, P, I]
+    # (n, data, desc, band_ptrs, band_strides, steps, is_float, nthreads)
+    for fn in (lib.grok_ht_decode_bands, lib.grok_ht_decode_refined_bands):
+        fn.restype = I
+        fn.argtypes = [I, P, P, P, P, P, I, I]
     return lib
 
 

@@ -21,8 +21,9 @@ sends each plan group's tiles round-robin over the mesh.
 
 Unlike the reference, a tile the fused plan cannot code raises
 NotImplementedError (the reference codes such a tile on its host), and
-so does a request in an MQ code-block style other than the default on
-more than one shard (`encoder._out_of_slice`, `decoder._check_mesh`):
+so does a request in an MQ code-block style other than the default or
+with HT refinement passes on more than one shard
+(`encoder._out_of_slice`, `decoder._check_mesh`):
 the reference's transform-only mesh route (`transform_tiles_on_mesh`,
 `inverse_tiles_on_mesh`, `pcrd_global_stats`), which feeds its host
 coder, is not ported; on one device such a request takes the port's

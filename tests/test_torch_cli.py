@@ -9,10 +9,10 @@ printed text equal. Images are small (48 x 40 gray, 32 x 24 RGB) and
 smooth: the plain MQ coder takes a torch step a coding decision.
 
 JP2 files with a palette, an opacity channel, an ICC profile and CIELab
-go through the decode's colour policy on both sides. Also: the flags
-the port does not code yet end with the reason, a
-non-zero exit code and no file; a CUDA request on a machine without CUDA
-fails the same way; the flag lines that `chip_smoke.py` phase 21 runs at
+go through the decode's colour policy on both sides. Also:
+`--ht-refinement` codes and decodes to the reference tools' files; ROI
+with the HT coder fails on both sides; a CUDA request on a machine
+without CUDA ends with the reason, a non-zero exit code and no file; the flag lines that `chip_smoke.py` phase 21 runs at
 BASELINE widths make the library's streams of the digest files'
 parameters; `codec.compress_batch` / `decompress_batch` take `workers=`
 and give the same outputs; the tools run with JAX and the reference
@@ -53,6 +53,7 @@ from grokimagecompression_tpu_torch.cli import (common, compare, compress,
 from grokimagecompression_tpu_torch.codestream import decoder, encoder
 from grokimagecompression_tpu_torch.core.params import EncoderParams
 from grokimagecompression_tpu_torch.io import pnm
+from grokimagecompression_tpu_torch.native import t1_native
 
 from test_torch_host_copies import _numpy_dwt
 
@@ -367,22 +368,23 @@ def test_jp2_colour_boxes(sides):
 
 # ---- what the port does not code, and no fallback
 
-@pytest.mark.parametrize("flags,why", [
-    # the bypass mode switch on the HT coder with its refinement passes
-    (["-M", "65", "--ht-refinement"], "HT refinement passes"),
-    (["-M", "64", "--ht-refinement"], "HT refinement passes"),
-    (["-M", "64", "-R", "c=0,U=4"], None),
+@pytest.mark.parametrize("flags,coded", [
+    # the HT coder with its refinement passes, with the bypass mode
+    # switch and without: coded, as the reference's host coder codes them
+    (["-M", "65", "--ht-refinement"], True),
+    (["-M", "64", "--ht-refinement"], True),
+    (["-M", "64", "-R", "c=0,U=4"], False),
 ], ids=["mq-lazy", "ht-refinement", "roi-ht"])
-def test_out_of_slice_flags_fail(sides, capsys, flags, why):
-    """A flag that needs what the port does not code yet exits non-zero
-    through common.fail with the reason, and writes no file; the
-    reference codes it (on its host HT coder). ROI with the HT coder fails on
-    both sides with the reference's ValueError, and neither writes a
-    file."""
+def test_out_of_slice_flags_fail(sides, capsys, flags, coded):
+    """`--ht-refinement` (with `-M 64` and `-M 65`) codes through the
+    port's tool to the reference tool's file, on the host coders behind
+    the transform, and `grk_decompress` of it writes the reference tool's
+    image. ROI with the HT coder fails on both sides with the reference's
+    ValueError, and neither writes a file."""
     d = smooth(24, 32, 3, seed=6)
     sides.write("in.ppm", pnm_bytes(d))
     argv = ["-i", "@in.ppm", "-o", "@out.j2k", "-n", "3"] + flags
-    if why is None:
+    if not coded:
         with pytest.raises(ValueError, match="ROI upshift"):
             ref_compress.main(sides.args("ref", argv))
         with pytest.raises(ValueError, match="ROI upshift"):
@@ -390,16 +392,14 @@ def test_out_of_slice_flags_fail(sides, capsys, flags, why):
         for side in ("ref", "port"):
             assert not os.path.exists(sides.args(side, ["@out.j2k"])[0])
         return
-    with _numpy_dwt():
-        assert ref_compress.main(sides.args("ref", argv)) == 0
-    capsys.readouterr()
-    with pytest.raises(SystemExit) as e:
-        compress.main(sides.args("port", argv) + CPU)
-    assert e.value.code == 1
-    err = capsys.readouterr().err
-    assert "error: encode on a torch device does not cover" in err
-    assert why in err
-    assert not os.path.exists(sides.args("port", ["@out.j2k"])[0])
+    t1_native.CALLS["t1"] = 0
+    sides.run("compress", argv)
+    sides.run("decompress", ["-i", "@out.j2k", "-o", "@out.ppm"])
+    assert t1_native.CALLS["t1"] >= 2
+    cs, _ = sides.same("out.j2k", "out.ppm")
+    sides.run("compress", ["-i", "@in.ppm", "-o", "@plain.j2k", "-n", "3"]
+              + flags[:-1])
+    assert sides.same("plain.j2k") != cs
 
 
 @pytest.mark.parametrize("flags", [
@@ -424,20 +424,19 @@ def test_roi_and_custom_mct_flags_equal_reference(sides, flags):
 
 
 def test_out_of_slice_stream_fails_to_decode(sides, capsys):
-    """A stream the port's decode leaves out (HT refinement passes, made
-    by the reference's tool) ends with the reason and no file."""
+    """A stream with HT refinement passes made by the reference's tool
+    decodes through the port's `grk_decompress` to the reference tool's
+    image (the host decoders behind the inverse transform)."""
     sides.write("in.ppm", pnm_bytes(smooth(24, 32, 3, seed=7)))
     with _numpy_dwt():
         assert ref_compress.main(sides.args("ref", [
             "-i", "@in.ppm", "-o", "@in.ppm.j2k", "-n", "3", "-M",
             "64", "--ht-refinement"])) == 0
-    capsys.readouterr()
-    with pytest.raises(SystemExit) as e:
-        decompress.main(sides.args("port", [
-            "-i", "@../ref/in.ppm.j2k", "-o", "@out.ppm"]) + CPU)
-    assert e.value.code == 1
-    assert "the torch decode does not cover" in capsys.readouterr().err
-    assert not os.path.exists(sides.args("port", ["@out.ppm"])[0])
+    sides.write("in.j2k", (sides.dirs["ref"] / "in.ppm.j2k").read_bytes())
+    t1_native.CALLS["t1"] = 0
+    sides.run("decompress", ["-i", "@in.j2k", "-o", "@out.ppm"])
+    assert t1_native.CALLS["t1"] >= 1
+    sides.same("out.ppm")
 
 
 @pytest.mark.parametrize("tool", ["compress", "decompress"])

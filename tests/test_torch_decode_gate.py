@@ -31,8 +31,10 @@ case gives the port and the reference the same numpy inputs:
   the plain MQ decoder takes ~75 s for their full decodes, which
   `chip_smoke.py` phase 17 makes on the card against
   `corpus_decode.json`);
-- the rest (MQ styles other than 0, ROI on HT code-blocks, unequal
-  batches) raises NotImplementedError.
+- HT refinement passes (the corpus-stream cases' pixels coded with them,
+  by the port's encode equal to the reference's) decode to the host
+  decoder's pixels on the host decoders; the rest (ROI on HT
+  code-blocks, unequal batches) raises NotImplementedError.
 
 The reference's host codec imports no JAX at module level, so the `gpu`
 case (the CUDA decode of a COC + POC + PPM HT stream against the CPU
@@ -527,15 +529,19 @@ def test_corpus_gate_equals_reference(monkeypatch):
 def test_out_of_gate_corpus_streams_raise(name):
     """The corpus stream decodes to the host decoder's pixels on the host
     Tier-1 route; its pixels coded with HT refinement passes by the
-    reference's host encoder raise NotImplementedError."""
+    port's encode equal the reference host encoder's stream, which
+    decodes to the host decoder's pixels on the host route as well."""
     (got,) = _assert_decodes_like_host([_corpus(name)])
     img = Image(xsiz=got.xsiz, ysiz=got.ysiz, components=[Component(
         data=c.data, prec=c.prec, signed=c.signed, dx=c.dx, dy=c.dy)
         for c in got.components])
-    (refined,) = _encode([img], EncoderParams(
-        numresolutions=3, cblk_style=HT, ht_refinement=True))
-    with pytest.raises(NotImplementedError, match="HT refinement"):
-        decoder.decode_batch([refined], device="cpu")
+    params = EncoderParams(numresolutions=3, cblk_style=HT,
+                           ht_refinement=True)
+    (refined,) = _encode([img], params)
+    assert encoder.encode(convert.image_from_reference(img),
+                          convert.params_from_reference(params),
+                          device="cpu") == refined
+    _assert_decodes_like_host([refined])
 
 
 def _tile_part_override(cs: bytes) -> bytes:
@@ -556,10 +562,10 @@ def test_out_of_gate_streams_raise():
     styles (VSC, RESET, SEGMARK: the same packets, another context model)
     decode to the host decoder's pixels now (streams whose COC changes a
     component's transform or resolution count, coded that way, are in
-    tests/test_torch_host_routes.py); HT refinement passes, ROI on HT
-    code-blocks and a batch whose streams differ in their COC, POC or
-    packed headers raise NotImplementedError; none falls back to a host
-    decode."""
+    tests/test_torch_host_routes.py), and so do HT refinement passes (on
+    the host decoders); ROI on HT code-blocks and a batch whose streams
+    differ in their COC, POC or packed headers raise
+    NotImplementedError; none falls back to a host decode."""
     img = natural_image(32, 32, ncomp=3, seed=61)
     params = EncoderParams(numresolutions=3, cblk_style=HT)
     (cs,) = _encode([img], params)
@@ -576,12 +582,11 @@ def test_out_of_gate_streams_raise():
     _assert_decodes_like_host([_splice_main(mq, ref_markers.write_coc(
         1, dataclasses.replace(ref_decoder.read_header(mq).cod,
                                cblk_style=0x2A), 3))])
-    bad = _encode([img], EncoderParams(numresolutions=3, cblk_style=HT,
-                                       ht_refinement=True))
-    bad.append(_splice_main(cs, ref_markers.write_rgn(0, 3, 3)))
-    for stream in bad:
-        with pytest.raises(NotImplementedError):
-            decoder.decode_batch([stream], device="cpu")
+    _assert_decodes_like_host(_encode([img], EncoderParams(
+        numresolutions=3, cblk_style=HT, ht_refinement=True)))
+    with pytest.raises(NotImplementedError):
+        decoder.decode_batch([_splice_main(cs, ref_markers.write_rgn(
+            0, 3, 3))], device="cpu")
     coc = _encode([img], EncoderParams(numresolutions=3, cblk_style=HT,
                                        comp_cblk_exps={1: (4, 4)}))
     poc = _encode([img], EncoderParams(numresolutions=3, cblk_style=HT,

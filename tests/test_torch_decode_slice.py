@@ -213,12 +213,12 @@ def test_equals_reference_fused_decode_batch():
 
 def test_out_of_slice_raises():
     img = _frames(1, 24, 24)
-    # HT refinement passes, alone and with the bypass mode switch (the MQ
-    # styles decode: tests/test_torch_t1_styles.py)
+    # HT refinement passes, alone and with the bypass mode switch, decode
+    # on the host decoders to the host decoder's pixels (the MQ styles
+    # too: tests/test_torch_t1_styles.py)
     for params in (EncoderParams(cblk_style=HT | 0x01, ht_refinement=True),
                    EncoderParams(cblk_style=HT, ht_refinement=True)):
-        with pytest.raises(NotImplementedError, match="HT refinement"):
-            decoder.decode_batch(_encode(img, params), device="cpu")
+        _check([None], _encode(img, params))
     # ROI is inside the port now (tests/test_torch_host_routes.py holds
     # it to the reference): an MQ stream with an ROI shift decodes to the
     # host decoder's pixels

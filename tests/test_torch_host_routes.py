@@ -396,13 +396,14 @@ def _splice_main(cs: bytes, seg: bytes) -> bytes:
 
 
 def test_refusals_left():
-    """What the port still refuses, each with its reason and never on the
-    host: ROI on HT code-blocks (an RGN spliced into an HT stream), HT
-    refinement passes (a stream of them, and the request); ROI with the
-    HT coder and a custom MCT off 9/7 raise the reference's ValueError.
-    An MQ code-block style in a COC and an ROI shift whose Kmax passes
-    the CUDA MQ decoder's 30 planes decode to the host decoder's pixels
-    on the host Tier-1 route."""
+    """What the port still refuses, with its reason and never on the
+    host: ROI on HT code-blocks (an RGN spliced into an HT stream); ROI
+    with the HT coder and a custom MCT off 9/7 raise the reference's
+    ValueError. An MQ code-block style in a COC, an ROI shift whose Kmax
+    passes the CUDA MQ decoder's 30 planes and HT refinement passes (a
+    stream of them, and the request, equal to the reference host
+    encoder's) decode to the host decoder's pixels on the host Tier-1
+    route."""
     img = natural_image(32, 32, ncomp=3, seed=3)
     pimg = convert.image_from_reference(img)
     ht = ref_encoder.encode(img, EncoderParams(numresolutions=2,
@@ -412,21 +413,18 @@ def test_refusals_left():
     cod = ref_decoder.read_header(mq).cod
     big = ref_encoder.encode(img, EncoderParams(numresolutions=2, roi_comp=0,
                                                 roi_shift=25), device=False)
+    refined = ref_encoder.encode(img, EncoderParams(
+        numresolutions=2, cblk_style=HT, ht_refinement=True), device=False)
     for cs in (_splice_main(mq, ref_markers.write_coc(
-            1, dataclasses.replace(cod, cblk_style=0x08), 3)), big):
+            1, dataclasses.replace(cod, cblk_style=0x08), 3)), big,
+               refined):
         (got,) = decoder.decode_batch([cs], device="cpu")
         want = ref_decoder.decode(cs, device=False)
         for g, w in zip(got.components, want.components):
             np.testing.assert_array_equal(g.data, w.data)
-    refined = ref_encoder.encode(img, EncoderParams(
-        numresolutions=2, cblk_style=HT, ht_refinement=True), device=False)
-    cases = [
-        (_splice_main(ht, ref_markers.write_rgn(0, 3, 3)), "ROI shifts on HT"),
-        (refined, "HT refinement passes"),
-    ]
-    for cs, why in cases:
-        with pytest.raises(NotImplementedError, match=why):
-            decoder.decode_batch([cs], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROI shifts on HT"):
+        decoder.decode_batch([_splice_main(ht, ref_markers.write_rgn(
+            0, 3, 3))], device="cpu")
     for kw in (dict(cblk_style=HT, roi_comp=0, roi_shift=3),
                dict(transform=Transform.DWT_53, custom_mct=MATRIX),
                dict(transform=Transform.DWT_97, custom_mct=np.eye(2))):
@@ -436,9 +434,9 @@ def test_refusals_left():
         with pytest.raises(ValueError):
             encoder.encode(pimg, convert.params_from_reference(p),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="refinement"):
-        encoder.encode(pimg, convert.params_from_reference(EncoderParams(
-            cblk_style=HT, ht_refinement=True)), device="cpu")
+    assert encoder.encode(pimg, convert.params_from_reference(
+        EncoderParams(numresolutions=2, cblk_style=HT,
+                      ht_refinement=True)), device="cpu") == refined
 
 
 def _roi_group(dev):

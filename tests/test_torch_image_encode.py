@@ -406,28 +406,36 @@ def test_decompress_batch_of_streams_the_gate_keeps_apart():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    # the bypass mode switch on the HT coder with its refinement passes
-    (dict(cblk_style=0x41, ht_refinement=True), NotImplementedError),
-    (dict(cblk_style=0x40, ht_refinement=True), NotImplementedError),
+    # the HT coder with its refinement passes, with the bypass mode switch
+    # and without: coded on the host coders' route
+    (dict(cblk_style=0x41, ht_refinement=True), None),
+    (dict(cblk_style=0x40, ht_refinement=True), None),
     (dict(transform=ref_params.Transform.DWT_53,
           custom_mct=np.eye(3).tolist()), ValueError),
     (dict(cblk_style=0x40, roi_comp=0, roi_shift=3), ValueError)],
     ids=["mq_style", "ht_refinement", "custom_mct", "roi"])
 def test_host_t1_requests_raise(kw, exc):
-    """What the port does not code raises NotImplementedError (the
-    reference codes it on its host HT coder: HT refinement passes; the
-    MQ code-block styles are coded, tests/test_torch_t1_styles.py); a
-    custom MCT and ROI are coded on
-    the device now (tests/test_torch_host_routes.py), so their cases are
-    the reference's own refusals: a custom MCT off 9/7 and ROI with the
-    HT coder raise its ValueError, on both sides."""
+    """The requests the reference codes on its host: HT refinement passes
+    (and the MQ code-block styles, tests/test_torch_t1_styles.py) code
+    through `encode` and `Codec` to the reference host encoder's streams
+    (the refinement's own cases: tests/test_torch_ht_refine.py); a
+    custom MCT and ROI are coded on the device now
+    (tests/test_torch_host_routes.py), so their cases are the
+    reference's own refusals: a custom MCT off 9/7 and ROI with the HT
+    coder raise its ValueError, on both sides."""
     img = _frames()["rgb"]
     p = params.EncoderParams(**{k: (params.Transform(v) if k == "transform"
                                     else v) for k, v in kw.items()})
-    if exc is ValueError:
-        with pytest.raises(ValueError):
-            ref_encoder.encode(_ref_image(img), ref_params.EncoderParams(
-                **kw), device=False)
+    if exc is None:
+        want = ref_encoder.encode(_ref_image(img), ref_params.EncoderParams(
+            **kw), device=False)
+        assert encoder.encode(img, p, device="cpu") == want
+        assert codec.Codec(params=p, device="cpu").compress_image(img) \
+            == want
+        return
+    with pytest.raises(ValueError):
+        ref_encoder.encode(_ref_image(img), ref_params.EncoderParams(
+            **kw), device=False)
     with pytest.raises(exc):
         encoder.encode(img, p, device="cpu")
     with pytest.raises(exc):

@@ -153,16 +153,16 @@ def test_equals_reference_fused_mq_decode():
 
 
 def test_other_mq_styles_and_segments_raise():
-    """HT refinement streams raise, with each MQ mode switch bit beside
-    the HT one (the MQ styles themselves decode on the host Tier-1 route,
+    """HT refinement streams, with each MQ mode switch bit beside the HT
+    one, decode on the host decoders to the host decoder's pixels (the MQ
+    styles themselves decode on the host Tier-1 route,
     tests/test_torch_t1_styles.py); an MQ plan's lane group raises on a
     block of several codeword segments."""
     img = [natural_image(16, 16, seed=1)]
     for style in (0x01, 0x02, 0x04, 0x08, 0x10, 0x20):
-        with pytest.raises(NotImplementedError, match="HT refinement"):
-            decoder.decode_batch(_encode(img, EncoderParams(
-                numresolutions=2, cblk_style=0x40 | style,
-                ht_refinement=True)), device="cpu")
+        _check([None], _encode(img, EncoderParams(
+            numresolutions=2, cblk_style=0x40 | style,
+            ht_refinement=True)))
     streams = _encode(img, EncoderParams(numresolutions=2, cblk_style=0))
     hdr, trs, parsed = decoder.parse_batch(streams)
     jobs, slots, plans = parsed[0][0][0][:3]

@@ -365,15 +365,25 @@ def test_profile_allocator():
 
 
 def test_ht_with_an_allocator_raises():
-    """The reference's device route has no HT with an explicit rate
-    allocator: the port raises rather than code it some other way."""
-    img = convert.image_from_reference(_frames(1, 32, 24)[0])
+    """HT with an explicit rate allocator (a cinema profile's caps) codes
+    as the reference's host encoder codes it: each block's cleanup goes
+    to the allocator as one pass, on the HT coder's route, through
+    `encode_with_profile` and `encode_batch(layer_alloc=)`; with
+    refinement passes asked for, the allocator drops them, as the
+    reference's does."""
+    ref_img = _frames(1, 32, 24)[0]
+    img = convert.image_from_reference(ref_img)
     prof = profiles.apply_cinema(convert.params_from_reference(
         EncoderParams()), img)
-    ht = dataclasses.replace(prof, params=dataclasses.replace(
-        prof.params, cblk_style=0x40))
-    with pytest.raises(NotImplementedError):
-        profiles.encode_with_profile(img, ht, device="cpu")
-    with pytest.raises(NotImplementedError):
-        encoder.encode_batch([img], ht.params, device="cpu",
-                             layer_alloc=profiles.profile_allocator(ht))
+    ref_prof = ref_profiles.apply_cinema(EncoderParams(), ref_img)
+    for refine in (False, True):
+        ht = dataclasses.replace(prof, params=dataclasses.replace(
+            prof.params, cblk_style=0x40, ht_refinement=refine))
+        ref_ht = dataclasses.replace(ref_prof, params=dataclasses.replace(
+            ref_prof.params, cblk_style=0x40, ht_refinement=refine))
+        want = ref_profiles.encode_with_profile(ref_img, ref_ht,
+                                                device=False)
+        assert profiles.encode_with_profile(img, ht, device="cpu") == want
+        assert encoder.encode_batch(
+            [img], ht.params, device="cpu", rsiz=ht.rsiz,
+            layer_alloc=profiles.profile_allocator(ht)) == [want]

@@ -138,18 +138,21 @@ def test_plan_from_reference_equals_build_plan(size, ncomp, numres,
         assert [(qh, qw) for (qh, qw, _) in plan.groups][-1] == (32, 32)
 
 
-def test_out_of_slice_raises():
+def test_out_of_slice_raises(monkeypatch):
     imgs = _frames(2, 16, 16)
     # HT refinement passes, on 5/3 and 9/7, in every MQ code-block style
     # bit besides the HT one (the MQ styles themselves are coded:
-    # tests/test_torch_t1_styles.py)
+    # tests/test_torch_t1_styles.py), code to the host encoder's streams
+    # (its numpy DWT, which the port's equals)
+    from grokimagecompression_tpu.ops import dwt_host
+    monkeypatch.setattr(dwt_host, "_get_native", lambda: None)
     mq_styles = (0x01, 0x02, 0x04, 0x08, 0x10, 0x20)   # LAZY .. SEGSYM
     for params in tuple(EncoderParams(cblk_style=HT | s, ht_refinement=True)
                         for s in mq_styles) + (
                    EncoderParams(cblk_style=HT, ht_refinement=True,
                                  transform=Transform.DWT_97),):
-        with pytest.raises(NotImplementedError, match="HT refinement"):
-            _port_batch(imgs, params, device="cpu")
+        assert _port_batch(imgs, params, device="cpu") == \
+            _host(imgs, params)
     # a custom MCT and ROI are coded on the device now
     # (tests/test_torch_host_routes.py); what is left of them is the
     # reference's ValueError: a custom MCT off 9/7 (and of the wrong
@@ -193,7 +196,8 @@ def test_port_runs_without_jax(monkeypatch):
     encoder's and decodes over the mesh to the source. And the host
     Tier-1 route: a 9/7 stream in all six MQ code-block styles at a byte
     target (0x3F) equals the reference host encoder's and decodes to the
-    reference host decoder's pixels."""
+    reference host decoder's pixels, and so does a 9/7 HT stream with
+    refinement passes."""
     from grokimagecompression_tpu.core.params import DecoderParams
     from grokimagecompression_tpu.ops import dwt_host
     monkeypatch.setattr(dwt_host, "_get_native", lambda: None)
@@ -257,6 +261,12 @@ def test_port_runs_without_jax(monkeypatch):
     want_sty = ref_encoder.encode(rgb, EncoderParams(**sty_kw), device=False)
     want_sty_px = np.stack([c.data for c in decoder.decode(
         want_sty, device=False).components]).astype("<i4").tobytes().hex()
+    ref_kw = dict(numresolutions=2, transform=Transform.DWT_97,
+                  cblk_style=HT, ht_refinement=True, cblk_w_exp=3,
+                  cblk_h_exp=3)
+    want_ref = ref_encoder.encode(rgb, EncoderParams(**ref_kw), device=False)
+    want_ref_px = np.stack([c.data for c in decoder.decode(
+        want_ref, device=False).components]).astype("<i4").tobytes().hex()
     code = textwrap.dedent(f"""
         import sys
         sys.modules["jax"] = None
@@ -354,6 +364,14 @@ def test_port_runs_without_jax(monkeypatch):
         out = decoder.decode(cs, device="cpu")
         assert np.stack([c.data for c in out.components]).astype(
             "<i4").tobytes().hex() == "{want_sty_px}"
+        cs = encoder.encode(rgb, EncoderParams(
+            transform=Transform.DWT_97,
+            **{ {k: v for k, v in ref_kw.items() if k != "transform"}!r}),
+            device="cpu")
+        assert cs.hex() == "{want_ref.hex()}"
+        out = decoder.decode(cs, device="cpu")
+        assert np.stack([c.data for c in out.components]).astype(
+            "<i4").tobytes().hex() == "{want_ref_px}"
         from grokimagecompression_tpu_torch.parallel import (multihost,
                                                              sharding)
         cs = encoder.encode(img, EncoderParams(

@@ -14,8 +14,8 @@ origins, on the same seeded numpy inputs:
   `StreamDecoder` pixel for pixel, and its tile index equals the
   reference's;
 - the requests the reference's stream encoder refuses raise its
-  ValueError, and what the port does not code raises
-  NotImplementedError;
+  ValueError, and HT refinement passes are coded as the reference's host
+  encoder codes them (its `StreamEncoder` drops them);
 - `StreamEncoder` gives each tile the fused plan `encoder.encode`
   gives it, and the tiles of one plan share one encoder.
 
@@ -23,6 +23,7 @@ The images are small and smooth, with 16x16 code-blocks where the MQ
 coder runs (its plain version takes one torch step a coding decision).
 """
 
+import dataclasses
 import io
 
 import numpy as np
@@ -234,25 +235,47 @@ def test_stream_encoder_order_completion_and_close(tmp_path):
     (dict(transform=Transform.DWT_97,
           custom_mct=[[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.0, 0.0, 1.0]]),
      ValueError),
-    # the bypass mode switch on the HT coder with its refinement passes
-    (dict(cblk_style=HT | 0x01, ht_refinement=True), NotImplementedError),
-    (dict(cblk_style=HT, ht_refinement=True), NotImplementedError),
+    # the HT coder with its refinement passes, with the bypass mode
+    # switch and without: coded
+    (dict(cblk_style=HT | 0x01, ht_refinement=True), None),
+    (dict(cblk_style=HT, ht_refinement=True), None),
 ], ids=["rates", "psnr", "ppm", "custom_mct", "mq_lazy", "ht_refinement"])
 def test_stream_encoder_refusals(kw, exc):
     """What the reference's stream encoder refuses raises its ValueError
-    on both sides; what the port does not code raises
-    NotImplementedError (the reference codes it on its host HT coder)."""
+    on both sides. HT refinement passes are coded: the port's file equals
+    the reference host encoder's stream with TLM, refinement and all,
+    while the reference's `StreamEncoder` drops the refinement (its file
+    equals the host encoder's plain HT stream; ROADMAP Queue C)."""
+    from grokimagecompression_tpu.codestream import encoder as ref_encoder
     img = _image(32, 32, 3, seed=8)
     params = EncoderParams(tile_size=(16, 16), numresolutions=2, **kw)
     if exc is ValueError:
         with pytest.raises(ValueError):
             ref_stream.StreamEncoder(io.BytesIO(), img, params)
-    else:
-        ref_stream.StreamEncoder(io.BytesIO(), img, params)
-    with pytest.raises(exc):
-        stream.StreamEncoder(io.BytesIO(), convert.image_from_reference(img),
-                             convert.params_from_reference(params),
-                             device="cpu")
+        with pytest.raises(exc):
+            stream.StreamEncoder(io.BytesIO(),
+                                 convert.image_from_reference(img),
+                                 convert.params_from_reference(params),
+                                 device="cpu")
+        return
+    files = {}
+    for side, mod, im, p in (
+            ("ref", ref_stream, img, params),
+            ("port", stream, convert.image_from_reference(img),
+             convert.params_from_reference(params))):
+        buf = io.BytesIO()
+        se = mod.StreamEncoder(buf, im, p, **(
+            {"device": "cpu"} if side == "port" else {}))
+        for t in range(se.numtiles):
+            se.write_image_tile(t, im)
+        se.close()
+        files[side] = buf.getvalue()
+    host = {r: ref_encoder.encode(img, dataclasses.replace(
+        params, tlm_markers=True, ht_refinement=r), device=False)
+        for r in (True, False)}
+    assert host[True] != host[False]
+    assert files["port"] == host[True]
+    assert files["ref"] == host[False]
 
 
 @pytest.mark.parametrize("kw", [

@@ -17,8 +17,9 @@ frame through `decode`.
 Also: each window's jobs (`tile.decode_tile(window=)`) equal the
 reference's (its `_band_window` filter), each window and single tile
 equals the crop of the port's whole decode at the same reduction and
-layer limit, an empty window raises ValueError, a request the reference
-sends to its host decode raises NotImplementedError, and
+layer limit, an empty window raises ValueError, the streams the
+reference sends to its host decode (ROI, tile-part overrides, MQ styles,
+HT refinement passes) equal its host decoder's pixels, and
 `codec.decompress` / `decompress_batch` equal the reference's.
 
 The reference runs with its numpy DWT (`dwt_host._get_native` None and
@@ -266,8 +267,8 @@ def test_host_only_requests_raise():
     tile-part header overrides decode on every route (a window, a
     reduction, a tile) to the reference host decoder's pixels now, and so
     does a stream with an MQ code-block style other than 0 (the host
-    Tier-1 route); a stream with HT refinement passes raises
-    NotImplementedError on every route."""
+    Tier-1 route) and a stream with HT refinement passes (the host
+    decoders)."""
     img = _ref_image(chip_smoke.window_frames(1, 48, 40)[0])
     roi = ref_encoder.encode(img, EncoderParams(
         numresolutions=3, roi_comp=0, roi_shift=3, cblk_w_exp=4,
@@ -282,14 +283,12 @@ def test_host_only_requests_raise():
         numresolutions=3, cblk_style=0x40, ht_refinement=True), device=False)
     for kw in ({"window": (4, 4, 20, 20)}, {"reduce": 1},
                {"tile_index": 0}):
-        for cs in (roi, over, lazy):
+        for cs in (roi, over, lazy, refined):
             got = decoder.decode(cs, DecoderParams(**kw), device="cpu")
             want = ref_decoder.decode(cs, RefDecoderParams(**kw),
                                       device=False)
             for g, w in zip(got.components, want.components):
                 np.testing.assert_array_equal(g.data, w.data)
-        with pytest.raises(NotImplementedError, match="HT refinement"):
-            decoder.decode(refined, DecoderParams(**kw), device="cpu")
 
 
 def test_codec_decompress_equals_reference():
