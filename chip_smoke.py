@@ -93,30 +93,30 @@ Phases, each fatal on failure:
      kernel launched on every shape group and the DWT launched by that
      run, and the torch op streams (`ht_torch.op_streams`) and the host
      splice (`ht_tables.assemble_segments_host`) called by none of it;
-     MP/s (best of 3) and one chunk's time by stage;
+     MP/s (best of 2) and one chunk's time by stage;
   5. the decode slice: the 64 streams through decode_batch(device="cuda"),
      every frame equal to its source, the decode kernel and the DWT
      launched by that run and the host prepass called by none of it; MP/s
-     (best of 3) and one chunk's time by stage;
+     (best of 2) and one chunk's time by stage;
   6. the MQ encode slice: the 64 frames through encode_batch(device=
      "cuda") with cblk_style 0, every stream against
      grokimagecompression_tpu_torch/data/config1_mq_lossless.json (the
      reference host encoder's), the MQ kernel and the DWT launched by that
-     run; MP/s (best of 3) and one chunk's time by stage;
+     run; MP/s (best of 2) and one chunk's time by stage;
   7. the MQ decode slice: the 64 MQ streams of phase 6 through
      decode_batch(device="cuda"), every frame equal to its source, the MQ
-     decoder and the DWT launched by that run; MP/s (best of 3) and one
+     decoder and the DWT launched by that run; MP/s (best of 2) and one
      chunk's time by stage;
   8. the config-2 encode slice: the 4 frames through encode_batch(device=
      "cuda", chunk=2), every stream against
      grokimagecompression_tpu_torch/data/config2_pcrd_97.json (the
      reference host encoder's, run with its numpy DWT), the DWT and the MQ
-     kernel launched by that run; each layer's bytes, MP/s (best of 3),
+     kernel launched by that run; each layer's bytes, MP/s (best of 2),
      one chunk's time by stage and the peak device memory;
   9. the config-2 decode: the 4 streams through decode_batch(device=
      "cuda"), every frame's pixels against the host decoder's digests in
      grokimagecompression_tpu_torch/data/config2_decode_97.json (numpy
-     DWT), the MQ decoder and the DWT launched; MP/s (best of 3), peak
+     DWT), the MQ decoder and the DWT launched; MP/s (best of 2), peak
      device memory and the chunk's time by stage;
  10. frame 0 encoded with rates (96, 48, 24), so that every layer carries
      data, against that file's stream digest, and decoded at layers 1, 2
@@ -136,12 +136,12 @@ Phases, each fatal on failure:
  13. (b) those streams through decode_batch(device="cuda"): every frame's
      pixels against the host decoder's digests in the same file, the HT
      decoder and the DWT launched, the host prepass not called; MP/s
-     (best of 3) and the chunk's time by stage;
+     (best of 2) and the chunk's time by stage;
  14. (c) the 4 frames at rates=(24.0,) (1 bpp), HT rate control: every
      stream against the file's digests and within its target, every
      probe launching the HT encoder, none of the plain versions called;
      per frame its search calls, probe launches and confirm encodes;
-     MP/s (best of 3) and the time split into transform + gather, probes
+     MP/s (best of 2) and the time split into transform + gather, probes
      (with their device span), confirm encodes and host T2;
  15. the 4 config-2 frames of phase 12 (HT 9/7, default base step)
      encoded with 32x32 blocks in the chroma components (COC), a POC
@@ -151,14 +151,14 @@ Phases, each fatal on failure:
      fixed step codes every quantized coefficient whatever the blocks,
      order, packed headers or container), the HT decoder launched on both
      block shapes and the DWT, the plain decoders and the host prepass
-     called by none of it; MP/s (best of 3) and the stages (unwrap, T2,
+     called by none of it; MP/s (best of 2) and the stages (unwrap, T2,
      which is the Python packed-header parse here, lane packing, kernel,
      inverse DWT, fetch), beside the same for phase 13's streams;
  16. the 64 config-1 frames through decode_batch(device="cuda") as HT
      streams with a POC and PPT markers wrapped as JP2, and as MQ streams
      with 32x32 blocks by COC and PPM markers: every frame equal to its
      source, the HT decoder, the MQ decoder and the DWT launched, no plain
-     decoder or host prepass called; MP/s (best of 3) each;
+     decoder or host prepass called; MP/s (best of 2) each;
  17. every tests/corpus stream (60 of 60: a custom MCT, ROI and the MQ
      code-block styles other than 0 among them), on the card alone and as
      a batch of two copies, against the host decoder's planes in
@@ -182,7 +182,7 @@ Phases, each fatal on failure:
      plain version called; the cinema streams through decode_batch(
      device="cuda") to the host decoder's pixel digests in the same file,
      the MQ decoder and the DWT launched, no plain decoder called; MP/s
-     (best of 3) of each cinema encode and decode beside the 53.08 MP/s of
+     (best of 2) of each cinema encode and decode beside the 53.08 MP/s of
      2K at 24 fps, one 2K chunk's encode and decode stages (with the rate
      control's simulator calls, total and per-component), the peak device
      memory beside `mq_frame_bytes`, and the MQ coder (every shape group,
@@ -206,7 +206,7 @@ Phases, each fatal on failure:
      reduce 2, a window clipped by the corner, reduce 1, 3 and 5 (on S2
      also the first layer at reduce 5), an interior and the corner tile
      through decoder.decode, each with its launches (the HT or MQ
-     decoder, and the DWT where whole tiles are inverted), best of 3 ms,
+     decoder, and the DWT where whole tiles are inverted), best of 2 ms,
      output MP/s and stages, and 16 seeded 600^2 windows through
      codec.decompress: S1's whole decode equals the source, every window
      and tile the crop of the whole decode at its reduction, S1's
@@ -232,7 +232,7 @@ Phases, each fatal on failure:
      the allocator's time and simulator calls; (d) codec.compress and
      compress_batch of the config-2 frames at ratios 24 / 48 / 96 and
      compress_batch of the config-1 frames with and without ht against
-     their digest files, MP/s (best of 3) beside encode_batch's, and
+     their digest files, MP/s (best of 2) beside encode_batch's, and
      every preset's JP2 of config-2 frame 0 decoded on the card through
      Codec.decompress_image. No plain version runs in any of its encodes
      or decodes;
@@ -261,10 +261,11 @@ Phases, each fatal on failure:
      coding without the COC. Every run launches its kernels and no plain
      version;
  23. multi-device coding (`mesh_phase`), with the machine's device count
-     (on one card; `tools/mesh_check.py` runs this phase alone, on every
-     card there is): (a) S1 through parallel.sharding.encode_sharded on
-     [cuda:0] and on [cuda:0, cuda:0] beside encoder.encode, each stream
-     equal to phase 20's, and S2 at rate_alloc="global" on two shards
+     (on one card; `tools/mesh_check.py` runs this phase and phase 26
+     alone, on every card there is): (a) S1 through
+     parallel.sharding.encode_sharded on [cuda:0, cuda:0] beside
+     encoder.encode, the stream equal to phase 20's, and S2 at
+     rate_alloc="global" on two shards
      equal to phase 20's global stream, seconds (first, second run) and
      each shard's tiles, stacked calls, coder launches and seconds; (b)
      sharding.decode_sharded of S1 whole and of W1 on two shards equal to
@@ -273,14 +274,15 @@ Phases, each fatal on failure:
      on cuda:0, of config-2 frame 0 in 512^2 tiles at ratios 24 / 48 / 96
      with image-wide PCRD and of S1, every rank's stream equal to the
      one-process encode's, each rank's seconds and its seconds in
-     collectives. On n > 1 cards the meshes are [cuda:1, cuda:2] and all
-     n cards, and n processes take a card each. Every run launches its
-     kernels and no plain version;
+     collectives (the same processes then run phase 26 (d)'s encodes).
+     On n > 1 cards the meshes are [cuda:1, cuda:2] and all n cards, and
+     n processes take a card each. Every run launches its kernels and no
+     plain version;
  24. the MQ code-block styles other than the default on the host Tier-1
      route (`t1_phase`): (a) config 1's 64 frames at style 0x01 (BYPASS)
      through encode_batch against grokimagecompression_tpu_torch/data/
      config1_mq_styles.json (the reference host encoder's streams) and
-     back through decode_batch to the sources, MP/s (best of 3) beside
+     back through decode_batch to the sources, MP/s (best of 2) beside
      phases 6 and 7, one chunk's stages (the transform on the card, the
      fetch, the host T1, T2); (b) config-2 frame 0 at 0x3F (all six
      Part-1 styles) and at 0x14 (TERMALL | PTERM), ratios 24 / 48 / 96,
@@ -296,7 +298,7 @@ Phases, each fatal on failure:
      HT bands (`refine_phase`), against grokimagecompression_tpu_torch/
      data/ht_refine.json (the reference host codec's streams and pixels):
      (a) config 1's first 8 frames with refinement through encode_batch
-     and back through decode_batch to the sources, MP/s (best of 3) and
+     and back through decode_batch to the sources, MP/s (best of 2) and
      one chunk's stages (transform on the card, fetch, host T1, T2; T2,
      host T1 into band planes, upload, inverse on the card, fetch); (b)
      config-2 frame 0 (ICT + 9/7) with refinement through encode and
@@ -310,6 +312,26 @@ Phases, each fatal on failure:
      REFINE_CLI_CASES (grk_compress --ht-refinement, grk_decompress).
      The refined and deep routes call the host coder, launch the DWT and
      launch no HT encoder or decoder;
+ 26. the reference's transform-only mesh route (`mesh_t1_phase`): styled
+     MQ and refined HT requests on the meshes of phase 23 (on one card
+     two shards on cuda:0, each shard's host coder on cpu_count // 2
+     worker threads): (a) config-2 frame 0 in 512^2 tiles at MQ style
+     0x3F through encode_sharded equal to encoder.encode on cuda:0, and
+     decode_sharded of it whole and of S2's W1 window equal to the
+     one-device decodes; (b) S1 with HT refinement
+     through encode_sharded equal to encoder.encode, its decode_sharded
+     whole and of W1 equal to the one-device decodes, and the samples
+     those differ from the source by (the reference's refined HT is not
+     lossless on 5/3); (c) config-2 frame 0 in 512^2
+     tiles with refined HT at ratio 24 on the mesh equal to one device
+     (probes on the HT encoder, refined confirms on the mesh); (d) in
+     phase 23 (c)'s worker processes, encode_multihost of config-2 frame
+     0 in 512^2 tiles at 0x3F and with refined HT at ratio 24, every
+     rank's stream equal to the one-process encode's. Each run prints
+     its seconds, each shard's tiles and its host coder's worker
+     threads, the host-coder calls and the DWT and HT-encoder launches;
+     every run calls the host coder, launches the DWT and no MQ kernel
+     or HT decoder, and no plain version;
 Phase 3 also times the 9/7 forward DWT at the config-2 shape in a child
 process that loads only the shipped kernel library (the profiler's
 launch-count check holds there). The line before the last is a JSON
@@ -323,7 +345,7 @@ its launches in phase 20's encodes and decodes, phase 21's tool runs,
 phase 22's streams and requests and phase 23's sharded and
 multi-process runs (the worker processes' launches included), and for
 the DWT its launches in phase 24, and for the DWT, the HT encoder and
-the HT decoder their launches in phase 25; the last
+the HT decoder their launches in phases 25 and 26; the last
 line is {"ok": true,
 "device": {...}}.
 
@@ -348,6 +370,10 @@ import warnings
 
 FRAMES = 64
 CHUNK = 32
+# warm runs of each timed call, of which the best is reported: two, so
+# that the whole script ends within its 1200 s on the slower hosts
+TIMED_RUNS = 2
+BEST_OF = f"best of {TIMED_RUNS}"
 SIZE = 512
 DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                        "config1_ht_lossless.json")
@@ -687,6 +713,8 @@ T1_C1_STYLE = 0x01
 T1_C2_STYLES = (0x3F, 0x14)
 T1_C2_LAYERED = (0x3F, (96.0, 48.0, 24.0))
 T1_STREAM_TILE = (512, 512)
+# the MQ code-block style of phase 26's styled requests on a mesh
+MESH_T1_STYLE = 0x3F
 T1_C1_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
                              "config1_mq_styles.json")
 T1_C2_DIGESTS = os.path.join("grokimagecompression_tpu_torch", "data",
@@ -3367,10 +3395,10 @@ def c2_ht_phases(c2_imgs, frame_digests, c2_siz, c2_tr, c2_chunk, dev,
                           fused_encode.chunk_cap(ht_plan, free), C2_FRAMES))
     print(f"config-2 HT 9/7 encode (default base step): {C2_FRAMES} streams "
           f"match the host encoder's digests ({[len(cs) for cs in out]} B)")
-    best = best_of(3, lambda: encoder.encode_batch(c2_imgs, ht_params,
-                                                   device="cuda"))
+    best = best_of(lambda: encoder.encode_batch(c2_imgs, ht_params,
+                                                device="cuda"))
     print(f"encode_batch (config 2, HT 9/7): {c2_mpix / best:.2f} MP/s "
-          f"(best of 3, {best:.3f} s for {C2_FRAMES} frames, chunk "
+          f"({BEST_OF}, {best:.3f} s for {C2_FRAMES} frames, chunk "
           f"{ht_chunk}) on {card}")
     print(f"config-2 HT 9/7 encode peak device memory at chunk {ht_chunk}: "
           f"{ht_peak / 1e9:.4f} GB measured above the {base / 1e9:.4f} GB "
@@ -3428,9 +3456,9 @@ def c2_ht_phases(c2_imgs, frame_digests, c2_siz, c2_tr, c2_chunk, dev,
           + ", ".join(f"{frame_mse(d, im):.4f}"
                       for d, im in zip(dec, c2_imgs)))
     del dec
-    best = best_of(3, lambda: decoder.decode_batch(out, device="cuda"))
+    best = best_of(lambda: decoder.decode_batch(out, device="cuda"))
     print(f"decode_batch (config 2, HT 9/7): {c2_mpix / best:.2f} MP/s "
-          f"(best of 3, {best:.3f} s for {C2_FRAMES} frames) on {card}")
+          f"({BEST_OF}, {best:.3f} s for {C2_FRAMES} frames) on {card}")
     c2_decode_stages(out, dev, "HT", "ht_dec_group")
     stages = c2_decode_stages(out, dev, "HT", "ht_dec_group")
     print(f"one {C2_FRAMES}-frame config-2 HT 9/7 decode chunk by stage "
@@ -3510,10 +3538,10 @@ def c2_ht_phases(c2_imgs, frame_digests, c2_siz, c2_tr, c2_chunk, dev,
           f"(ht_frame_bytes(rate_control=True) x {ht_chunk} + the "
           f"stepsizes; {rc_peak} B against "
           f"{ht_model(ht_plan, ht_chunk, True)} B) on {card}")
-    best = best_of(3, lambda: encoder.encode_batch(c2_imgs, rc_params,
-                                                   device="cuda"))
+    best = best_of(lambda: encoder.encode_batch(c2_imgs, rc_params,
+                                                device="cuda"))
     print(f"encode_batch (config 2, HT 9/7, ratio 24): {c2_mpix / best:.2f} "
-          f"MP/s (best of 3, {best:.3f} s for {C2_FRAMES} frames) on {card}")
+          f"MP/s ({BEST_OF}, {best:.3f} s for {C2_FRAMES} frames) on {card}")
     del out
     # a probe round alone, its steps planned before: what the search costs
     # without the host's plans
@@ -3649,9 +3677,9 @@ def gate_c2_phase(c2_imgs, fixed, dev, card):
     del dec
     for name, batch in (("plain markers (phase 13)", fixed),
                         ("COC + POC + PPM, JP2", files)):
-        best = best_of(3, lambda: decoder.decode_batch(batch, device="cuda"))
+        best = best_of(lambda: decoder.decode_batch(batch, device="cuda"))
         print(f"decode_batch (config 2, HT 9/7, {name}): "
-              f"{c2_mpix / best:.2f} MP/s (best of 3, {best:.3f} s for "
+              f"{c2_mpix / best:.2f} MP/s ({BEST_OF}, {best:.3f} s for "
               f"{C2_FRAMES} frames) on {card}")
     for name, batch in (("plain markers (phase 13)", fixed),
                         ("COC + POC + PPM, JP2", files)):
@@ -3705,11 +3733,11 @@ def gate_c1_phase(imgs, dev, card):
                                   im.components[0].data):
                 raise AssertionError(f"config-1 {name}, frame {i}: the "
                                      f"decode is not lossless")
-        best = best_of(3, lambda: decoder.decode_batch(
+        best = best_of(lambda: decoder.decode_batch(
             streams, device="cuda", chunk=CHUNK))
         print(f"config-1 {name}: {FRAMES} frames "
               f"({sum(len(cs) for cs in streams)} B) decode to their sources "
-              f"exactly; decode_batch {mpix / best:.2f} MP/s (best of 3, "
+              f"exactly; decode_batch {mpix / best:.2f} MP/s ({BEST_OF}, "
               f"{best:.3f} s) on {card}")
         del dec, streams
 
@@ -4117,8 +4145,8 @@ def cinema_phase(dev, card, results):
             del enc, host
             torch.cuda.empty_cache()
         mpix = n * imgs[0].xsiz * imgs[0].ysiz / 1e6
-        best = best_of(3, run)
-        print(f"encode {name}: {mpix / best:.2f} MP/s (best of 3, "
+        best = best_of(run)
+        print(f"encode {name}: {mpix / best:.2f} MP/s ({BEST_OF}, "
               f"{best:.3f} s for {n} frames of {imgs[0].xsiz}x"
               f"{imgs[0].ysiz}; real time at 24 fps: "
               f"{CIN_REALTIME_MPS:.2f} MP/s for 2K) on {card}")
@@ -4144,11 +4172,11 @@ def cinema_phase(dev, card, results):
         mse = [frame_mse(d, im) for d, im in zip(dec, sets[case[1]])]
         del dec
         mpix = n * img0.xsiz * img0.ysiz / 1e6
-        best = best_of(3, lambda: decoder.decode_batch(out, device="cuda"))
+        best = best_of(lambda: decoder.decode_batch(out, device="cuda"))
         print(f"decode {name}: {n} frames equal the host decoder's pixels "
               f"(MSE against the sources "
               + ", ".join(f"{m:.2f}" for m in mse)
-              + f"); {mpix / best:.2f} MP/s (best of 3, {best:.3f} s) on "
+              + f"); {mpix / best:.2f} MP/s ({BEST_OF}, {best:.3f} s) on "
               f"{card}")
         if name == "cinema2k_24":
             c2_decode_stages(out, dev)
@@ -4318,15 +4346,15 @@ def request_stages(data, kw, dev):
 def full_case(case, img, params, dev, card):
     """Phase 19 (b): one FULL_CASES image encoded through encode_batch
     (its peak device memory beside the plan's model), then each of
-    `full_requests` through `decoder.decode`: launches, best of 3 warm,
-    output MP/s and stages; the tile-server windows through
-    `codec.decompress`. Checks: every window equals the crop of the whole
-    image's decode at the same reduction, every tile the tile's crop, and
-    on S1 the whole decode equals the source and each reduced decode the
-    LL of the port's forward DWT of each tile. Returns the launches of
-    the requests' first runs by LAUNCHES key, the stream, and the
-    `plane_md5` of the whole decode, of reduce 2 and of W1 (phase 21's
-    checks)."""
+    `full_requests` through `decoder.decode`: launches, the best of
+    TIMED_RUNS warm runs, output MP/s and stages; the tile-server windows
+    through `codec.decompress`. Checks: every window equals the crop of the
+    whole image's decode at the same reduction, every tile the tile's crop,
+    and on S1 the whole decode equals the source and each reduced decode the
+    LL of the port's forward DWT of each tile. Returns the launches of the
+    requests' first runs by LAUNCHES key, the stream, and the `plane_md5` of
+    the whole decode, of reduce 2 and of W1 (phase 21's checks).
+    """
     import numpy as np
     import torch
 
@@ -4390,12 +4418,12 @@ def full_case(case, img, params, dev, card):
         for k, v in counts.items():
             launches[k] += v
         out[label] = img_out
-        best = best_of(3, lambda: decoder.decode(cs, DecoderParams(**kw),
-                                                 device="cuda"))
+        best = best_of(lambda: decoder.decode(cs, DecoderParams(**kw),
+                                              device="cuda"))
         c0 = img_out.components[0].data
         stages = request_stages(cs, kw, dev)
         print(f"{name} {label}: {c0.shape[1]}x{c0.shape[0]} out, "
-              f"{1e3 * best:.1f} ms a request (best of 3), "
+              f"{1e3 * best:.1f} ms a request ({BEST_OF}), "
               f"{c0.size / 1e6 / best:.2f} MP/s out, launches {counts}; "
               f"stages " + ", ".join(f"{k} {1e3 * v:.1f} ms"
                                      for k, v in stages.items())
@@ -4470,8 +4498,8 @@ def full_case(case, img, params, dev, card):
         if not np.array_equal(a, want):
             raise AssertionError(f"{name} tile-server window {w}: differs "
                                  f"from the crop of the whole decode")
-    best = best_of(3, lambda: [codec.decompress(cs, window=w, device="cuda")
-                               for w in wins])
+    best = best_of(lambda: [codec.decompress(cs, window=w, device="cuda")
+                            for w in wins])
     print(f"{name}: {TILE_SERVER_WINDOWS} {side}x{side} windows at seeded "
           f"positions through codec.decompress equal the crops of the "
           f"whole decode; {1e3 * best / len(wins):.1f} ms a request (best "
@@ -4787,7 +4815,7 @@ def image_encode_case(name, img, params, batch_cs, dev, card, kernel):
     if counts[kernel] > most:
         raise AssertionError(f"{name}: {counts[kernel]} coder launches, "
                              f"above {most} (shape groups x chunks a plan)")
-    best = best_of(2, lambda: encoder.encode(img, params, device="cuda"))
+    best = best_of(lambda: encoder.encode(img, params, device="cuda"), 2)
     mpix = img.xsiz * img.ysiz / 1e6
     wall, stages = image_encode_stages(img, params, dev)
     print(f"{name} through encoder.encode: {len(trs)} tiles in "
@@ -4979,10 +5007,10 @@ def codec_baseline_check(c1_imgs, c2_imgs, dev, card):
                  numresolutions=6, cblk_style=0x40), device="cuda")))
     for label, imgs, api, batch in runs:
         mpix = len(imgs) * imgs[0].xsiz * imgs[0].ysiz / 1e6
-        t_api = best_of(3, api)
-        t_batch = best_of(3, batch)
+        t_api = best_of(api)
+        t_batch = best_of(batch)
         print(f"{label}: codec.compress_batch {mpix / t_api:.2f} MP/s, "
-              f"encoder.encode_batch {mpix / t_batch:.2f} MP/s (best of 3 "
+              f"encoder.encode_batch {mpix / t_batch:.2f} MP/s ({BEST_OF} "
               f"each, {len(imgs)} frames) on {card}")
     img = c2_imgs[0]
     src = codec.from_image(img)
@@ -5768,32 +5796,47 @@ MH_WORKER_S = 300
 
 
 def mh_cases():
-    """Phase 23 (c)'s images and EncoderParams by name: config-2 frame 0 in
-    512^2 tiles, MQ 9/7 at ratios 24 / 48 / 96 with image-wide PCRD, and
-    S1 (HT lossless)."""
+    """The multi-process encodes by name, each (image maker,
+    EncoderParams, the kernels it must launch, the phase that reports
+    it): phase 23 (c)'s config-2 frame 0 in 512^2 tiles, MQ 9/7 at ratios
+    24 / 48 / 96 with image-wide PCRD, and S1 (HT lossless); phase 26
+    (d)'s config-2 frame 0 in 512^2 tiles at MQ style 0x3F (each rank's
+    tiles on its host Tier-1 route) and with HT refinement at ratio 24
+    (every rank codes the whole image, as the reference's does)."""
     from grokimagecompression_tpu_torch.core.params import (EncoderParams,
                                                             Transform)
+    c2 = dict(numresolutions=6, transform=Transform.DWT_97,
+              tile_size=(S2_TILE, S2_TILE))
     return (("config-2 frame 0, global PCRD", lambda: config2_frames(1)[0],
-             EncoderParams(numresolutions=6, transform=Transform.DWT_97,
-                           numlayers=3, rates=(24.0, 48.0, 96.0),
-                           tile_size=(S2_TILE, S2_TILE),
-                           rate_alloc="global"), ("mq", "dwt")),
-            ("S1", s1_frame, full_params("S1"), ("enc", "dwt")))
+             EncoderParams(numlayers=3, rates=(24.0, 48.0, 96.0),
+                           rate_alloc="global", **c2), ("mq", "dwt"),
+             "23 (c)"),
+            ("S1", s1_frame, full_params("S1"), ("enc", "dwt"), "23 (c)"),
+            (f"config-2 frame 0 at MQ style {MESH_T1_STYLE:#x}",
+             lambda: config2_frames(1)[0],
+             EncoderParams(numlayers=3, rates=(24.0, 48.0, 96.0),
+                           cblk_style=MESH_T1_STYLE, **c2), ("dwt",),
+             "26 (d)"),
+            ("config-2 frame 0, refined HT at ratio 24",
+             lambda: config2_frames(1)[0], mesh_refined_rate_params(),
+             ("enc", "dwt"), "26 (d)"))
 
 
 def multihost_worker(argv) -> int:
-    """Phase 23 (c)'s worker process (`chip_smoke.py --multihost-worker
-    rank world host:port out.json`): joins the gloo group, then each
-    `mh_cases` image through `multihost.encode_multihost` on
-    `cuda:{rank % cards}`, the processes starting together (a barrier);
-    writes per case the stream's SHA-256 and size, the seconds, the
-    seconds and calls of its collectives (`all_gather`) and the kernels'
-    launches (no plain version may run) to out.json."""
+    """The worker process of phase 23 (c) and phase 26 (d) (`chip_smoke.py
+    --multihost-worker rank world host:port out.json`): joins the gloo
+    group, then each `mh_cases` image through `multihost.encode_multihost`
+    on `cuda:{rank % cards}`, the processes starting together (a
+    barrier); writes per case the stream's SHA-256 and size, the seconds,
+    the seconds and calls of its collectives (`all_gather`), the kernels'
+    launches (no plain version may run) and the host Tier-1 coder's calls
+    to out.json."""
     import torch
     import torch.distributed as dist
 
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
+    from grokimagecompression_tpu_torch.native import t1_native
     from grokimagecompression_tpu_torch.parallel import multihost
     rank, world, coord, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
     multihost.init_distributed(coord, world, rank,
@@ -5810,10 +5853,11 @@ def multihost_worker(argv) -> int:
             spent["n"] += 1
     dist.all_gather = timed_gather
     res = {}
-    for name, make, params, kernels in mh_cases():
+    for name, make, params, kernels, _ in mh_cases():
         img = make()
         dist.barrier()
         spent.update(s=0.0, n=0)
+        t1_native.CALLS["t1"] = 0
         with encode_counts() as plain:
             t0 = time.perf_counter()
             cs = multihost.encode_multihost(img, params)
@@ -5823,6 +5867,7 @@ def multihost_worker(argv) -> int:
         res[name] = dict(sha=hashlib.sha256(cs).hexdigest(), bytes=len(cs),
                          s=secs, collective_s=spent["s"],
                          collectives=spent["n"], launches=counts,
+                         t1=t1_native.CALLS["t1"],
                          device=f"cuda:{rank % torch.cuda.device_count()}")
         del img, cs
     dist.destroy_process_group()
@@ -5855,9 +5900,9 @@ def mesh_encode_check(s1_cs, s2_global_cs, dev, card, launches, meshes):
         rec = []
         code = sharding._code_shard
 
-        def recorded(image, siz, work, chunks):
+        def recorded(image, siz, work, chunks, threads=None):
             t0 = time.perf_counter()
-            out = code(image, siz, work, chunks)
+            out = code(image, siz, work, chunks, threads)
             torch.cuda.synchronize()
             rec.append(dict(
                 dev=str(work[0][0].device),
@@ -5883,15 +5928,15 @@ def mesh_encode_check(s1_cs, s2_global_cs, dev, card, launches, meshes):
         if cs != want:
             raise AssertionError(f"{name}: the sharded stream differs from "
                                  f"phase 20's ({len(cs)} B, {len(want)} B)")
-        again = best_of(1, lambda: sharding.encode_sharded(img, params,
-                                                           mesh=mesh))
+        again = best_of(lambda: sharding.encode_sharded(img, params,
+                                                        mesh=mesh), 1)
         print(f"{name}: stream equal to phase 20's ({len(cs)} B); first "
               f"{first:.3f} s, second {again:.3f} s; launches {counts}; "
               f"{shards_of(rec)} on {card}")
 
     s1 = s1_frame()
     p1 = full_params("S1")
-    one = best_of(2, lambda: encoder.encode(s1, p1, device=dev))
+    one = best_of(lambda: encoder.encode(s1, p1, device=dev), 2)
     print(f"S1 through encoder.encode on {dev}: best of 2 {one:.3f} s on "
           f"{card}")
     for label, mesh in meshes:
@@ -5930,43 +5975,53 @@ def mesh_decode_check(s1_cs, s1_refs, dev, card, launches, mesh, label):
         if plane_md5(img) != s1_refs["full" if not kw else "W1"]:
             raise AssertionError(f"S1 {what} through decode_sharded "
                                  f"differs from phase 19's decode")
-        again = best_of(1, lambda: sharding.decode_sharded(
-            s1_cs, DecoderParams(**kw), mesh=mesh))
+        again = best_of(lambda: sharding.decode_sharded(
+            s1_cs, DecoderParams(**kw), mesh=mesh), 1)
         print(f"S1 {what} through decode_sharded on {label}: equal to "
               f"phase 19's decode; first {first:.3f} s, second {again:.3f} "
               f"s on {card}")
 
 
-def multihost_check(s1_cs, dev, card, launches, world):
-    """Phase 23 (c): `multihost.encode_multihost` in `world` processes on
-    a gloo group at 127.0.0.1 (rank r on cuda:{r % the card count}: both
-    on cuda:0 on one card) for each `mh_cases` image,
-    every rank's stream equal to the one-process `encoder.encode`'s
-    (S1: phase 20's stream; config-2 frame 0 at global PCRD: encoded here
-    first, and timed); each rank's seconds and its seconds in
-    collectives."""
+def multihost_check(s1_cs, dev, card, launches, world, t1_launches):
+    """Phase 23 (c) and phase 26 (d): `multihost.encode_multihost` in
+    `world` processes on a gloo group at 127.0.0.1 (rank r on cuda:{r %
+    the card count}: both on cuda:0 on one card) for each `mh_cases`
+    image, every rank's stream equal to the one-process `encoder.encode`'s
+    (S1: phase 20's stream; the others encoded here first, and timed);
+    each rank's seconds, its seconds in collectives and, for phase 26
+    (d)'s cases, the host coder's calls (each rank's styled tiles on its
+    host Tier-1 route; under HT rate control no collective). The
+    launches go to `launches` (phase 23's cases) or `t1_launches` (phase
+    26's) by LAUNCHES key."""
     import socket
 
     import torch
 
     from grokimagecompression_tpu_torch.codestream import encoder
+    from grokimagecompression_tpu_torch.native import t1_native
     want = {}
-    for name, make, params, kernels in mh_cases():
+    for name, make, params, kernels, phase in mh_cases():
         if name == "S1":
             want[name] = hashlib.sha256(s1_cs).hexdigest()
             continue
         img = make()
+        t1_native.CALLS["t1"] = 0
         with encode_counts() as plain:
             t0 = time.perf_counter()
             cs = encoder.encode(img, params, device=dev)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
+        to = launches if phase == "23 (c)" else t1_launches
         for k, v in check_encode_counts(plain, f"one-process {name}",
                                         kernels).items():
-            launches[k] += v
+            to[k] += v
+        if (phase == "26 (d)") != (t1_native.CALLS["t1"] > 0):
+            raise AssertionError(f"one-process {name}: the host coder's "
+                                 f"calls are wrong ({t1_native.CALLS})")
         want[name] = hashlib.sha256(cs).hexdigest()
-        print(f"{name} through encoder.encode in one process: {len(cs)} B, "
-              f"{secs:.3f} s on {card}")
+        print(f"phase {phase}: {name} through encoder.encode in one "
+              f"process: {len(cs)} B, {secs:.3f} s, host-coder calls "
+              f"{t1_native.CALLS['t1']} on {card}")
     torch.cuda.empty_cache()
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -6005,46 +6060,64 @@ def multihost_check(s1_cs, dev, card, launches, world):
     for path in outs:
         with open(path) as f:
             res.append(json.load(f))
-    for name in want:
+    for name, _, params, _, phase in mh_cases():
         for r, got in enumerate(res):
             if got[name]["sha"] != want[name]:
-                raise AssertionError(f"{name}: rank {r}'s stream differs "
-                                     f"from the one-process encode's")
+                raise AssertionError(f"phase {phase}: {name}: rank {r}'s "
+                                     f"stream differs from the one-process "
+                                     f"encode's")
+            if (phase == "26 (d)") != (got[name]["t1"] > 0):
+                raise AssertionError(f"phase {phase}: {name}: rank {r}'s "
+                                     f"host-coder calls are wrong "
+                                     f"({got[name]['t1']})")
             for k, v in got[name]["launches"].items():
-                launches[k] += v
-        print(f"{name} through encode_multihost in {world} processes on "
+                (launches if phase == "23 (c)" else t1_launches)[k] += v
+        print(f"phase {phase}: {name} through encode_multihost in {world} "
+              f"processes on "
               + ", ".join(got[name]["device"] for got in res)
               + f" (gloo): every rank's stream equals "
               f"the one-process encode's ({res[0][name]['bytes']} B); "
               + "; ".join(f"rank {r} {got[name]['s']:.3f} s, of it "
                           f"{got[name]['collective_s']:.3f} s in "
                           f"{got[name]['collectives']} all_gathers, "
-                          f"launches {got[name]['launches']}"
+                          f"launches {got[name]['launches']}, host-coder "
+                          f"calls {got[name]['t1']}"
                           for r, got in enumerate(res))
               + f" on {card}")
-    print(f"phase 23 (c): the {world} processes took {wall:.1f} s from "
-          f"start to exit (start-up, the frames, both encodes)")
+    print(f"phase 23 (c) and 26 (d): the {world} processes took {wall:.1f} s "
+          f"from start to exit (start-up, the frames, every encode)")
+
+
+def card_meshes(dev):
+    """The meshes of phases 23 and 26, (label, devices) each: on one card
+    two shards on `dev`; on n > 1 cards [cuda:1, cuda:2] (n >= 3) and all
+    n cards."""
+    import torch
+    n = torch.cuda.device_count()
+    if n == 1:
+        return (("[cuda:0, cuda:0]", [dev, dev]),)
+    cards = [torch.device("cuda", i) for i in range(n)]
+    return ((("[cuda:1, cuda:2]", cards[1:3]),) if n >= 3 else ()) \
+        + ((f"[cuda:0 .. cuda:{n - 1}]", cards),)
 
 
 def mesh_phase(s1_cs, s1_refs, s2_global_cs, dev, card):
     """Phase 23: multi-device coding on the machine's cards: (a) the
-    sharded encode, (b) the sharded decode, (c) the multi-process encode.
-    On one card the meshes are [cuda:0] and two shards on cuda:0, and two
-    processes share cuda:0; on n > 1 cards they are [cuda:1, cuda:2]
-    (n >= 3) and all n cards, and n processes take a card each. The
-    device count is printed. Returns the launches of its runs by
-    LAUNCHES key."""
+    sharded encode, (b) the sharded decode, (c) the multi-process encode,
+    whose worker processes also run phase 26 (d)'s encodes. On one card
+    the mesh is two shards on cuda:0 (S1 on the one-shard mesh [cuda:0]
+    repeated phase 20's encode and was cut), and two processes share
+    cuda:0; on n > 1 cards the meshes are [cuda:1, cuda:2] (n >= 3) and
+    all n cards, and n processes take a card each. The device count is
+    printed. Returns the launches of its runs and of phase 26 (d)'s, each
+    by LAUNCHES key."""
     import torch
     t0 = time.perf_counter()
     n = torch.cuda.device_count()
     print(f"phase 23: {n} CUDA device(s)")
-    if n == 1:
-        meshes = (("[cuda:0]", [dev]), ("[cuda:0, cuda:0]", [dev, dev]))
-    else:
-        cards = [torch.device("cuda", i) for i in range(n)]
-        meshes = ((("[cuda:1, cuda:2]", cards[1:3]),) if n >= 3 else ()) \
-            + ((f"[cuda:0 .. cuda:{n - 1}]", cards),)
+    meshes = card_meshes(dev)
     launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
+    t1_launches = dict(launches)
     parts = []
     for label, check in (
             ("(a)", lambda: mesh_encode_check(s1_cs, s2_global_cs, dev,
@@ -6052,14 +6125,261 @@ def mesh_phase(s1_cs, s1_refs, s2_global_cs, dev, card):
             ("(b)", lambda: mesh_decode_check(s1_cs, s1_refs, dev, card,
                                               launches, *meshes[-1][::-1])),
             ("(c)", lambda: multihost_check(s1_cs, dev, card, launches,
-                                            max(2, n)))):
+                                            max(2, n), t1_launches))):
         t = time.perf_counter()
         check()
         parts.append(f"{label} {time.perf_counter() - t:.1f} s")
     print(f"phase 23 (sharded encode and decode, multi-process encode): "
-          f"{time.perf_counter() - t0:.1f} s ({', '.join(parts)}) on {card}; "
-          f"launches {launches}")
-    return launches
+          f"{time.perf_counter() - t0:.1f} s ({', '.join(parts)}; (c) with "
+          f"phase 26 (d)'s encodes) on {card}; launches {launches}")
+    return launches, t1_launches
+
+
+def mesh_refined_rate_params():
+    """Phase 26 (c)'s and (d)'s EncoderParams: config 2's 9/7 coding in
+    512^2 tiles with the HT block coder, refinement passes and one byte
+    target, ratio 24."""
+    from grokimagecompression_tpu_torch.core.params import (EncoderParams,
+                                                            Transform)
+    return EncoderParams(numresolutions=6, transform=Transform.DWT_97,
+                         tile_size=(S2_TILE, S2_TILE), cblk_style=0x40,
+                         ht_refinement=True, rates=(24.0,))
+
+
+@contextlib.contextmanager
+def mesh_t1_counts(what, want):
+    """Every kernel's launches and the host Tier-1 coder's calls set to 0
+    inside a `with` block (`cli_counts` into the dict it yields, which
+    gains "t1"); after it, fail unless the kernels of `want` were
+    launched, the host coder was called, and no MQ kernel, no HT decoder
+    and (unless `want` holds it) no HT encoder was launched: the
+    transform-only mesh route runs the DWT and the host coders, and the
+    HT encoder only for the probes of HT rate control."""
+    from grokimagecompression_tpu_torch.native import t1_native
+    launches = {"enc": 0, "mq": 0, "dwt": 0, "dec": 0, "mq_dec": 0}
+    t1_native.CALLS["t1"] = 0
+    with cli_counts(launches, what, want):
+        yield launches
+    launches["t1"] = t1_native.CALLS["t1"]
+    if launches["t1"] < 1 or launches["mq"] or launches["mq_dec"] or \
+            launches["dec"] or (launches["enc"] and "enc" not in want):
+        raise AssertionError(f"{what}: the transform-only mesh route's "
+                             f"counts are wrong ({launches})")
+
+
+@contextlib.contextmanager
+def shard_record():
+    """Inside a `with` block, each `sharding._code_shard` run recorded
+    into the list it yields: its device, tiles, seconds (to the card's
+    idle after it) and the worker threads its host Tier-1 coder calls
+    got (`t1_native.default_threads` as each batch call asked it, on the
+    shard's own thread)."""
+    import threading
+
+    import torch
+
+    from grokimagecompression_tpu_torch.native import t1_native
+    from grokimagecompression_tpu_torch.parallel import sharding
+    rec, asked = [], {}
+    code, threads_of = sharding._code_shard, t1_native.default_threads
+
+    def default_threads():
+        n = threads_of()
+        asked.setdefault(threading.get_ident(), []).append(n)
+        return n
+
+    def recorded(image, siz, work, chunks, threads=None):
+        me = threading.get_ident()
+        asked.pop(me, None)
+        t0 = time.perf_counter()
+        out = code(image, siz, work, chunks, threads)
+        torch.cuda.synchronize()
+        got = asked.pop(me, [])
+        rec.append(dict(dev=str(work[0][0].device),
+                        tiles=sum(len(part) for _, part in work),
+                        s=time.perf_counter() - t0, calls=len(got),
+                        threads=sorted(set(got))))
+        return out
+    sharding._code_shard, t1_native.default_threads = recorded, \
+        default_threads
+    try:
+        yield rec
+    finally:
+        sharding._code_shard, t1_native.default_threads = code, threads_of
+
+
+def fmt_shards(rec):
+    return "; ".join(f"{r['tiles']} tiles on {r['dev']} in {r['s']:.3f} s, "
+                     f"{r['calls']} host-coder batch calls on "
+                     f"{r['threads']} worker threads" for r in rec)
+
+
+def mesh_t1_phase(c2_img, dev, card, meshes, worker_launches):
+    """Phase 26: the reference's transform-only mesh route (styled MQ and
+    refined HT requests on a mesh; the transform on each shard's card, the
+    host coders on the fetched band planes) on each of `meshes` ((label,
+    devices)): (a) config-2 frame 0 in 512^2 tiles (16, S2's coding) at MQ
+    style 0x3F through `sharding.encode_sharded` equal to `encoder.encode`
+    on `dev`, and `decode_sharded` of it whole and of S2's W1 window equal
+    to the one-device decodes (S2 itself took the whole script past 1100
+    s); (b) S1 with HT refinement
+    through `encode_sharded` equal to the one-device encode, and its
+    sharded decodes whole and of W1 equal to the one-device decodes (the
+    samples off the source printed: refined HT is not lossless); (c)
+    config-2 frame 0 with refined HT at ratio 24 in 512^2 tiles on the
+    mesh equal to one device. Each run's seconds, each shard's tiles and
+    its host coder's worker threads, the host-coder calls, the DWT and HT
+    encoder launches. `worker_launches` are (d)'s, run in phase 23 (c)'s
+    worker processes. Returns the DWT, HT encoder and HT decoder launches
+    by LAUNCHES key."""
+    import numpy as np
+    import torch
+
+    from grokimagecompression_tpu_torch.codestream import decoder, encoder
+    from grokimagecompression_tpu_torch.core.params import DecoderParams
+    from grokimagecompression_tpu_torch.parallel import sharding
+    t_phase = time.perf_counter()
+    total = {"dwt": 0, "enc": 0, "dec": 0}
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def one_card(label, fn, want=("dwt",)):
+        with mesh_t1_counts(f"phase 26 {label}", want) as launches:
+            out, secs = timed(fn)
+        add(launches)
+        return out, secs, launches
+
+    def sharded(label, mesh_label, fn, want=("dwt",)):
+        with shard_record() as rec, mesh_t1_counts(
+                f"phase 26 {label} on {mesh_label}", want) as launches:
+            out, secs = timed(fn)
+        add(launches)
+        return out, secs, launches, rec
+
+    w1 = DecoderParams(window=FULL_CASES[0][3])
+    # S2's W1 lies inside config-2 frame 0 too
+    s2_w1 = DecoderParams(window=FULL_CASES[1][3])
+
+    # (a) config-2 frame 0 in 512^2 tiles (S2's coding) at style 0x3F
+    p = dataclasses.replace(full_params("S2"), cblk_style=MESH_T1_STYLE)
+    one, secs, launches = one_card("(a) config-2 encode",
+                                   lambda: encoder.encode(c2_img, p,
+                                                          device=dev))
+    print(f"phase 26 (a): config-2 frame 0 in {S2_TILE}^2 tiles at MQ style "
+          f"{MESH_T1_STYLE:#x} through encoder.encode on {dev}: {len(one)} B "
+          f"in {secs:.3f} s; counts {launches} on {card}")
+    want, secs, launches = one_card("(a) config-2 decodes", lambda: (
+        plane_md5(decoder.decode(one, device=dev)),
+        plane_md5(decoder.decode(one, s2_w1, device=dev))))
+    print(f"phase 26 (a): its decodes on {dev}, whole and W1: {secs:.3f} s; "
+          f"counts {launches}")
+    for label, mesh in meshes:
+        cs, secs, launches, rec = sharded(
+            "(a) config-2 encode_sharded", label,
+            lambda: sharding.encode_sharded(c2_img, p, mesh=mesh))
+        if cs != one:
+            raise AssertionError(f"phase 26 (a): config-2 frame 0 at "
+                                 f"{MESH_T1_STYLE:#x} on {label} differs from "
+                                 f"the one-device stream ({len(cs)} B, "
+                                 f"{len(one)} B)")
+        got, dsecs, dlaunches = one_card(
+            f"(a) config-2 decode_sharded on {label}", lambda: (
+                plane_md5(sharding.decode_sharded(one, mesh=mesh)),
+                plane_md5(sharding.decode_sharded(one, s2_w1, mesh=mesh))))
+        if got != want:
+            raise AssertionError(f"phase 26 (a): the sharded decodes on "
+                                 f"{label} differ from one device's")
+        print(f"phase 26 (a): config-2 frame 0 at {MESH_T1_STYLE:#x} through "
+              f"encode_sharded on {label}: equal to one device's in "
+              f"{secs:.3f} s, counts {launches}; shards: {fmt_shards(rec)}; "
+              f"decode_sharded whole and W1 equal to one device's in "
+              f"{dsecs:.3f} s, counts {dlaunches} on {card}")
+
+    # (b) S1 with HT refinement. The reference's refined HT is not
+    # lossless on 5/3 (ROADMAP Queue C 14: a sample that first becomes
+    # significant in the last plane with no significant neighbour is coded
+    # by no pass), so the sharded decodes are held to one device's and
+    # their distance from the source is printed.
+    s1 = s1_frame()
+    src = s1.components[0].data
+    x0, y0, x1, y1 = FULL_CASES[0][3]
+    p = dataclasses.replace(full_params("S1"), ht_refinement=True)
+    one, secs, launches = one_card("(b) S1 encode", lambda: encoder.encode(
+        s1, p, device=dev))
+    print(f"phase 26 (b): S1 with HT refinement through encoder.encode on "
+          f"{dev}: {len(one)} B in {secs:.3f} s; counts {launches} on "
+          f"{card}")
+
+    def off_source(img, ref):
+        d = img.components[0].data
+        diff = np.abs(d.astype(np.int64) - ref)
+        return int(np.count_nonzero(diff)), int(diff.max())
+
+    (whole, win), dsecs, dlaunches = one_card("(b) S1 decodes", lambda: (
+        decoder.decode(one, device=dev), decoder.decode(one, w1,
+                                                        device=dev)))
+    want = (plane_md5(whole), plane_md5(win))
+    print(f"phase 26 (b): its decodes on {dev}, whole and W1: {dsecs:.3f} s, "
+          f"counts {dlaunches}; (samples off the source, largest "
+          f"difference): whole {off_source(whole, src)}, W1 "
+          f"{off_source(win, src[y0:y1, x0:x1])}")
+    del whole, win
+    for label, mesh in meshes:
+        cs, secs, launches, rec = sharded(
+            "(b) S1 encode_sharded", label,
+            lambda: sharding.encode_sharded(s1, p, mesh=mesh))
+        if cs != one:
+            raise AssertionError(f"phase 26 (b): refined S1 on {label} "
+                                 f"differs from the one-device stream")
+        got, dsecs, dlaunches = one_card(
+            f"(b) S1 decode_sharded on {label}", lambda: (
+                plane_md5(sharding.decode_sharded(one, mesh=mesh)),
+                plane_md5(sharding.decode_sharded(one, w1, mesh=mesh))))
+        if got != want:
+            raise AssertionError(f"phase 26 (b): refined S1's sharded "
+                                 f"decodes on {label} differ from one "
+                                 f"device's")
+        print(f"phase 26 (b): refined S1 through encode_sharded on {label}: "
+              f"equal to one device's in {secs:.3f} s, counts {launches}; "
+              f"shards: {fmt_shards(rec)}; decode_sharded whole and W1 "
+              f"equal to one device's in {dsecs:.3f} s, counts {dlaunches} "
+              f"on {card}")
+    del s1, src
+
+    # (c) config-2 frame 0, refined HT at ratio 24
+    p = mesh_refined_rate_params()
+    one, secs, launches = one_card(
+        "(c) config-2 encode", lambda: encoder.encode(c2_img, p, device=dev),
+        ("enc", "dwt"))
+    print(f"phase 26 (c): config-2 frame 0 with refined HT at ratio 24 "
+          f"through encoder.encode on {dev}: {len(one)} B in {secs:.3f} s; "
+          f"counts {launches} on {card}")
+    for label, mesh in meshes:
+        cs, secs, launches, rec = sharded(
+            "(c) config-2 encode", label,
+            lambda: encoder.encode(c2_img, p, mesh=mesh), ("enc", "dwt"))
+        if cs != one:
+            raise AssertionError(f"phase 26 (c): the refined ratio-24 stream "
+                                 f"on {label} differs from one device's")
+        print(f"phase 26 (c): the same on {label}: equal to one device's in "
+              f"{secs:.3f} s, counts {launches}; shards (the refined "
+              f"confirms): {fmt_shards(rec)} on {card}")
+
+    add(worker_launches)
+    print(f"phase 26 (d): the multi-process encodes' launches (in phase 23 "
+          f"(c)'s worker processes): {worker_launches}")
+    print(f"phase 26 (the transform-only mesh route): "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}; launches "
+          f"{total}")
+    return total
 
 
 @contextlib.contextmanager
@@ -6221,12 +6541,12 @@ def t1_phase(c1_imgs, c2_img, bench, dev, card):
         raise AssertionError("phase 24 (a): config-1 streams at style "
                              f"{T1_C1_STYLE:#x} differ from the host "
                              "encoder's")
-    best = best_of(3, lambda: encoder.encode_batch(c1_imgs, params,
-                                                   device=dev, chunk=CHUNK))
+    best = best_of(lambda: encoder.encode_batch(c1_imgs, params,
+                                                device=dev, chunk=CHUNK))
     nb = sum(len(cs) for cs in out)
     print(f"phase 24 (a): config 1 at MQ style {T1_C1_STYLE:#x}: "
           f"{len(out)} streams equal the host encoder's ({nb} B); "
-          f"encode_batch {mpix / best:.2f} MP/s (best of 3, {best:.3f} s) "
+          f"encode_batch {mpix / best:.2f} MP/s ({BEST_OF}, {best:.3f} s) "
           f"beside {bench['config-1 MQ encode_batch']:.2f} at style 0 "
           f"(phase 6); counts {launches} on {card}")
     t1_encode_stages(c1_imgs[:CHUNK], params, dev)
@@ -6241,11 +6561,11 @@ def t1_phase(c1_imgs, c2_img, bench, dev, card):
         if not np.array_equal(d.components[0].data, im.components[0].data):
             raise AssertionError(f"phase 24 (a): frame {i} does not decode "
                                  f"to its source")
-    best = best_of(3, lambda: decoder.decode_batch(out, device=dev,
-                                                   chunk=CHUNK))
+    best = best_of(lambda: decoder.decode_batch(out, device=dev,
+                                                chunk=CHUNK))
     t1_decode_stages(out[:CHUNK], dev)
     print(f"phase 24 (a): decode_batch back to the sources exactly, "
-          f"{mpix / best:.2f} MP/s (best of 3, {best:.3f} s) beside "
+          f"{mpix / best:.2f} MP/s ({BEST_OF}, {best:.3f} s) beside "
           f"{bench['config-1 MQ decode_batch']:.2f} at style 0 (phase 7); "
           f"counts {launches}; one {CHUNK}-frame chunk by stage: "
           f"{fmt_s(t1_decode_stages(out[:CHUNK], dev))} on {card}")
@@ -6453,8 +6773,8 @@ def refine_phase(c1_imgs, c2_img, dev, card):
     if [sha(cs) for cs in out] != want["c1"]["streams"]:
         raise AssertionError("phase 25 (a): refined config-1 streams differ "
                              "from the host encoder's")
-    enc_best = best_of(3, lambda: encoder.encode_batch(imgs, p, device=dev,
-                                                       chunk=CHUNK))
+    enc_best = best_of(lambda: encoder.encode_batch(imgs, p, device=dev,
+                                                    chunk=CHUNK))
     with refine_counts("phase 25 (a) decode", True) as dec_launches:
         dec = decoder.decode_batch(out, device=dev, chunk=CHUNK)
         torch.cuda.synchronize()
@@ -6463,13 +6783,13 @@ def refine_phase(c1_imgs, c2_img, dev, card):
         if not np.array_equal(d.components[0].data, im.components[0].data):
             raise AssertionError(f"phase 25 (a): frame {i} does not decode "
                                  f"to its source")
-    dec_best = best_of(3, lambda: decoder.decode_batch(out, device=dev,
-                                                       chunk=CHUNK))
+    dec_best = best_of(lambda: decoder.decode_batch(out, device=dev,
+                                                    chunk=CHUNK))
     print(f"phase 25 (a): config 1 with HT refinement, {len(out)} frames: "
           f"streams equal the host encoder's ({sum(map(len, out))} B), "
           f"decoded back to the sources; encode_batch "
           f"{mpix / enc_best:.2f} MP/s ({enc_best:.3f} s), decode_batch "
-          f"{mpix / dec_best:.2f} MP/s ({dec_best:.3f} s), best of 3; "
+          f"{mpix / dec_best:.2f} MP/s ({dec_best:.3f} s), {BEST_OF}; "
           f"counts {launches} / {dec_launches} on {card}")
     t1_encode_stages(imgs, p, dev)
     print(f"phase 25 (a): {len(imgs)} refined config-1 frames by stage "
@@ -6598,7 +6918,7 @@ def refine_phase(c1_imgs, c2_img, dev, card):
     return total
 
 
-def best_of(n, fn):
+def best_of(fn, n=TIMED_RUNS):
     import torch
     best = float("inf")
     for _ in range(n):
@@ -6781,9 +7101,9 @@ def main() -> int:
     nb = sum(len(cs) for cs in out)
     print(f"encode slice: {FRAMES} streams match the host encoder's "
           f"digests ({nb} B, {8 * nb / (mpix * 1e6):.3f} bpp)")
-    best = best_of(3, lambda: encoder.encode_batch(
+    best = best_of(lambda: encoder.encode_batch(
         imgs, params, device="cuda", chunk=CHUNK))
-    print(f"encode_batch: {mpix / best:.2f} MP/s (best of 3, "
+    print(f"encode_batch: {mpix / best:.2f} MP/s ({BEST_OF}, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
     bench = {"config-1 HT encode_batch": mpix / best}
     encode_stages(enc, chunk)
@@ -6823,9 +7143,9 @@ def main() -> int:
         if not np.array_equal(d.components[0].data, im.components[0].data):
             raise AssertionError(f"frame {i}: decode is not lossless")
     print(f"decode slice: {FRAMES} frames decode to their sources exactly")
-    best = best_of(3, lambda: decoder.decode_batch(out, device="cuda",
-                                                   chunk=CHUNK))
-    print(f"decode_batch: {mpix / best:.2f} MP/s (best of 3, "
+    best = best_of(lambda: decoder.decode_batch(out, device="cuda",
+                                                chunk=CHUNK))
+    print(f"decode_batch: {mpix / best:.2f} MP/s ({BEST_OF}, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
     bench["config-1 HT decode_batch"] = mpix / best
     decode_stages(out[:CHUNK], dev, "lane packing (host)")
@@ -6867,9 +7187,9 @@ def main() -> int:
     nb = sum(len(cs) for cs in out)
     print(f"MQ encode slice: {FRAMES} streams match the host encoder's "
           f"digests ({nb} B, {8 * nb / (mpix * 1e6):.3f} bpp)")
-    best = best_of(3, lambda: encoder.encode_batch(
+    best = best_of(lambda: encoder.encode_batch(
         imgs, mq_params, device="cuda", chunk=CHUNK))
-    print(f"encode_batch (MQ): {mpix / best:.2f} MP/s (best of 3, "
+    print(f"encode_batch (MQ): {mpix / best:.2f} MP/s ({BEST_OF}, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
     bench["config-1 MQ encode_batch"] = mpix / best
     mq_encode_stages(mq_enc, chunk, imgs, mq_params)
@@ -6904,9 +7224,9 @@ def main() -> int:
         if not np.array_equal(d.components[0].data, im.components[0].data):
             raise AssertionError(f"frame {i}: MQ decode is not lossless")
     print(f"MQ decode slice: {FRAMES} frames decode to their sources exactly")
-    best = best_of(3, lambda: decoder.decode_batch(out, device="cuda",
-                                                   chunk=CHUNK))
-    print(f"decode_batch (MQ): {mpix / best:.2f} MP/s (best of 3, "
+    best = best_of(lambda: decoder.decode_batch(out, device="cuda",
+                                                chunk=CHUNK))
+    print(f"decode_batch (MQ): {mpix / best:.2f} MP/s ({BEST_OF}, "
           f"{best:.3f} s for {FRAMES} frames) on {card}")
     bench["config-1 MQ decode_batch"] = mpix / best
     decode_stages(out[:CHUNK], dev, "lane packing (host)")
@@ -6952,9 +7272,9 @@ def main() -> int:
                                  f"the host encoder's ({len(cs)} B)")
     print(f"config-2 encode slice: {C2_FRAMES} streams match the host "
           f"encoder's digests ({[len(cs) for cs in out]} B)")
-    best = best_of(3, lambda: encoder.encode_batch(
+    best = best_of(lambda: encoder.encode_batch(
         c2_imgs, c2_params, device="cuda", chunk=C2_CHUNK))
-    print(f"encode_batch (config 2): {c2_mpix / best:.2f} MP/s (best of 3, "
+    print(f"encode_batch (config 2): {c2_mpix / best:.2f} MP/s ({BEST_OF}, "
           f"{best:.3f} s for {C2_FRAMES} frames) on {card}")
     bench["config-2 encode_batch"] = c2_mpix / best
     chunk2 = c2_chunk(0, C2_CHUNK)
@@ -6996,8 +7316,8 @@ def main() -> int:
           f"decoder's pixels (digests); MSE against the sources "
           + ", ".join(f"{frame_mse(d, im):.4f}"
                       for d, im in zip(dec, c2_imgs)))
-    best = best_of(3, lambda: decoder.decode_batch(out, device="cuda"))
-    print(f"decode_batch (config 2): {c2_mpix / best:.2f} MP/s (best of 3, "
+    best = best_of(lambda: decoder.decode_batch(out, device="cuda"))
+    print(f"decode_batch (config 2): {c2_mpix / best:.2f} MP/s ({BEST_OF}, "
           f"{best:.3f} s for {C2_FRAMES} frames) on {card}; peak device "
           f"memory {dec_peak / 1e9:.3f} GB above the {base / 1e9:.3f} GB held "
           f"before")
@@ -7089,16 +7409,20 @@ def main() -> int:
     del mixed, full_streams
     tools = cli_phase(imgs, c2_imgs, s1_cs, s1_refs, bench, dev, card)
     routes = route_phase(dev, card)
-    meshes = mesh_phase(s1_cs, s1_refs, s2_global_cs, dev, card)
+    meshes, mesh_t1_workers = mesh_phase(s1_cs, s1_refs, s2_global_cs, dev,
+                                         card)
     del s1_cs, s2_global_cs
     styles = t1_phase(imgs, c2_imgs[0], bench, dev, card)
     refine = refine_phase(imgs, c2_imgs[0], dev, card)
+    mesh_t1 = mesh_t1_phase(c2_imgs[0], dev, card, card_meshes(dev),
+                            mesh_t1_workers)
 
     calls["mq_dense"] = launches["mq_dense"]
     for key, n in (list(cinema.items()) + list(windows.items())
                    + list(image_enc.items()) + list(tools.items())
                    + list(routes.items()) + list(meshes.items())
-                   + list(styles.items()) + list(refine.items())):
+                   + list(styles.items()) + list(refine.items())
+                   + list(mesh_t1.items())):
         calls[key] += n
     print(f"launches in the kernels line, the calls of what each kernel's ms "
           f"times on its path (a group kernel on the 64x64 group, the DWT "
@@ -7108,8 +7432,9 @@ def main() -> int:
           f"decodes ({image_enc}), of phase 21's tool runs ({tools}), "
           f"of phase 22's streams and host-route requests ({routes}), "
           f"of phase 23's sharded and multi-process runs ({meshes}), of "
-          f"phase 24's MQ code-block styles ({styles}) and of phase 25's "
-          f"HT refinement, allocator and deep-band runs ({refine}): "
+          f"phase 24's MQ code-block styles ({styles}), of phase 25's "
+          f"HT refinement, allocator and deep-band runs ({refine}) and of "
+          f"phase 26's transform-only mesh route ({mesh_t1}): "
           f"{calls}; all launches of the config-1 and config-2 runs: "
           f"{launches}")
     print(f"the whole run: {time.perf_counter() - t_main:.1f} s on {card}")

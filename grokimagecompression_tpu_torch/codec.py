@@ -22,8 +22,7 @@ code-block styles other than 0 and HT refinement passes take the host
 Tier-1 coders behind the device's transforms. What the port's encoder
 and decoder do not cover raises NotImplementedError
 (`codestream/encoder.py`, `codestream/decoder.py`): ROI on HT
-code-blocks in a stream, and the host routes on a mesh of more than one
-device.
+code-blocks in a stream.
 """
 
 from __future__ import annotations

@@ -34,10 +34,11 @@ counts before anything is launched (`_coder`, `tile_plans`); MQ blocks
 of the default style and HT blocks of the cleanup pass alone in bands
 the HT kernel holds never reach the host decoder.
 
-What is outside the port raises NotImplementedError with its reason
-instead of falling back to a host decode: ROI on HT code-blocks, and a
-request on the host route on a mesh of more than one shard (the
-reference's transform-only mesh route).
+On a mesh the host route is the reference's transform-only mesh route:
+the host decoders fill each tile's band planes and the tile's shard
+inverts them on its device. What is outside the port raises
+NotImplementedError with its reason instead of falling back to a host
+decode: ROI on HT code-blocks.
 """
 
 from __future__ import annotations
@@ -621,18 +622,6 @@ def tile_plans(hdr: CodestreamHeader, tr: Rect, tj: TileJobs,
     return plans
 
 
-def _check_mesh(plans, devs) -> None:
-    """NotImplementedError for host-T1 plans on a mesh of more than one
-    shard (the reference's transform-only mesh route)."""
-    if len(devs) > 1 and any(plan.coder == "t1" for plan in plans):
-        raise NotImplementedError(
-            f"the torch decode does not cover MQ code-block styles other "
-            f"than the default, MQ bands deeper than {MQ_MAX_PLANES} "
-            f"planes, HT refinement passes or HT bands whose Mb + 3 "
-            f"exceeds 32 on a mesh of {len(devs)} shards yet (the "
-            f"transform-only mesh route)")
-
-
 def tile_groups(hdr: CodestreamHeader, trs, parsed, reduce: int = 0
                 ) -> Dict[fused_decode.FusedDecPlan, List[int]]:
     """Group the tiles that share one decode plan: {plan: [tile, ...]},
@@ -759,7 +748,6 @@ def decode_batch(datas: List[bytes],
         return [decode_batch([d], params, chunk=chunk, mesh=devs)[0]
                 for d in datas]
     groups = tile_groups(hdr, trs, parsed, req.reduce)
-    _check_mesh(groups, devs)
 
     submits = []  # (plan, handle, [(frame, tile), ...])
     step = max(1, chunk)
@@ -845,7 +833,6 @@ def decode(data: bytes, params: Optional[DecoderParams] = None,
     todo = {t: tile_plans(hdr, trs[t], parsed[t], req.reduce,
                           window_slots=parsed[t][1])
             for t in sorted(have) if not trs[t].clip(req.window).is_empty()}
-    _check_mesh([p for plans in todo.values() for p in plans], devs)
     submits = []  # (tile, [(plan, handle)])
     for t, plans in todo.items():
         jobs, slots, tplans = parsed[t][:3]

@@ -54,9 +54,9 @@ device's segments (with their R-D pass tables under rate control), and
 packetize through the port's native T2. Every stream is byte-identical
 to the reference host encoder's.
 
-Requests outside the port raise NotImplementedError instead of falling
-back to the host: a styled MQ or a refined HT request on a mesh of more
-than one shard (the reference's transform-only mesh route). The HT
+On a mesh the styled and refined requests take the reference's
+transform-only mesh route: each shard's device transforms its tiles and
+the host coders code their band planes (`parallel/sharding.py`). The HT
 refinement flag on an MQ request changes nothing, as in the reference.
 ROI with the HT coder, and a custom MCT off 9/7 or of the wrong size,
 raise the reference's ValueError.
@@ -446,17 +446,6 @@ def block_coder(params: EncoderParams, layer_alloc=None) -> str:
     return "t1" if params.cblk_style else "mq"
 
 
-def _out_of_slice(params: EncoderParams, layer_alloc=None,
-                  shards: int = 1) -> Optional[str]:
-    """Why a request is outside the ported slices, or None."""
-    if shards > 1 and block_coder(params, layer_alloc) == "t1":
-        what = "HT refinement passes" if params.cblk_style & 0x40 else \
-            f"the MQ code-block style {params.cblk_style:#x}"
-        return (f"{what} on a mesh of {shards} shards (the transform-only "
-                f"mesh route)")
-    return None
-
-
 def free_device_bytes(dev: torch.device) -> Optional[int]:
     """Free bytes of a CUDA device (`torch.cuda.mem_get_info`); None for
     the CPU, where `encode_batch` does not cap its chunk."""
@@ -714,20 +703,14 @@ def _encode_ht_rc_chunk(images: List[Image], params: EncoderParams,
     return [done[f] for f in range(len(images))]
 
 
-def _check(params: EncoderParams, layer_alloc, what: str,
-           shards: int = 1) -> None:
+def _check(params: EncoderParams) -> None:
     """The reference's ValueErrors of an HT request with targets or with
-    ROI, then NotImplementedError for a request outside the ported
-    slices on a mesh of `shards` shards."""
+    ROI."""
     if params.cblk_style & 0x40:
         _ht_rc_check(params)
         if params.roi_comp is not None and params.roi_shift > 0:
             raise ValueError("ROI upshift is not supported with the HT "
                              "block coder")
-    why = _out_of_slice(params, layer_alloc, shards)
-    if why is not None:
-        raise NotImplementedError(
-            f"{what} on a torch device does not cover {why} yet")
 
 
 def _coding(image: Image, params: EncoderParams):
@@ -840,14 +823,12 @@ def _encode(image: Image, params: EncoderParams, layer_alloc,
             only_tiles: Optional[Sequence[int]] = None):
     """`encode` on the mesh `devs`; with `only_tiles`, the coding and T2
     of those tiles only: {tile: `tile.TileEncResult`}
-    (`write_codestream(only_tiles=)`)."""
+    (`write_codestream(only_tiles=)`). HT rate control, whose step search
+    spans the image, takes no `only_tiles` (`multihost.encode_multihost`
+    codes the whole image in every process there)."""
     from ..parallel.sharding import fused_entropy_tiles_on_mesh
-    _check(params, layer_alloc, "encode", len(devs))
+    _check(params)
     if params.cblk_style & 0x40 and params.rates:
-        if only_tiles is not None:
-            raise NotImplementedError(
-                "HT rate control searches the base step over the whole "
-                "image; it does not code a part of the tiles")
         return _encode_batch([image], params, devs, rsiz=rsiz)[0]
     _build.host_library()
     p, siz, cod, qcd, cod_comp, trs = _coding(image, params)
@@ -912,7 +893,7 @@ def _encode_batch(images: List[Image], params: EncoderParams,
     there and the mesh's shards on it."""
     if not images:
         return []
-    _check(params, layer_alloc, "encode_batch", len(devs))
+    _check(params)
     if any(_geom(im) != _geom(images[0]) for im in images):
         return [encode(im, params, layer_alloc, rsiz=rsiz, mesh=devs)
                 for im in images]

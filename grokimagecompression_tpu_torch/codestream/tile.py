@@ -19,7 +19,8 @@ through the native T2 (`native/t2_native.py`): the tile encoder, the
 tile simulator of the rate control (with its per-component totals for a
 profile's caps) and the tile parser; the Python packet coder runs only
 where the reference runs it too (packed headers, packet lengths, the
-packet index).
+packet index). The stage tracer (`utils/trace.py`) records `enc.t1`,
+`enc.t2`, `dec.setup` and `dec.t2` here, as the reference's hooks do.
 
 Not copied: the host transforms (the device runs them; a window's
 inverse DWT is `ops/dwt_window.py`).
@@ -29,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import struct
+import time
 from typing import Dict, List, Optional, Tuple
 
 from ..core.geometry import (
@@ -43,6 +45,7 @@ from ..core.params import QuantStyle, Transform
 from ..native import t2_native
 from ..ops import quant
 from ..t1 import backend as t1_backend
+from ..utils import trace
 from .markers import CodInfo, QcdInfo, SizInfo
 from .packetiter import CompIterInfo, packet_order, packet_order_poc
 from .pcrd import RateControlCtx
@@ -191,13 +194,15 @@ def encode_t1_blocks(planes, blocks, cblk_style: int, reversible: bool):
             index[(f, k)] = len(bands)
             bands.append(plane)
     step_of = {(c, key): st for (c, key, _, _, _, _, st, _) in blocks}
-    res = t1_backend.encode_cblk_batch_bands(
-        bands, [(index[(f, (b[0], b[1]))], *b[2:6])
-                for f in range(len(planes)) for b in blocks],
-        [b[1][1] for b in blocks] * len(planes), cblk_style,
-        stepsizes=None if reversible else [step_of.get(k, 1.0)
-                                           for fp in planes for k in fp],
-        kmaxs=[b[7] for b in blocks] * len(planes))
+    with trace.stage("enc.t1", 4 * len(planes) * sum(b[4] * b[5]
+                                                      for b in blocks)):
+        res = t1_backend.encode_cblk_batch_bands(
+            bands, [(index[(f, (b[0], b[1]))], *b[2:6])
+                    for f in range(len(planes)) for b in blocks],
+            [b[1][1] for b in blocks] * len(planes), cblk_style,
+            stepsizes=None if reversible else [step_of.get(k, 1.0)
+                                               for fp in planes for k in fp],
+            kmaxs=[b[7] for b in blocks] * len(planes))
     n = len(blocks)
     return [res[f * n:(f + 1) * n] for f in range(len(planes))]
 
@@ -450,22 +455,24 @@ def encode_tile(
     body = bytearray()
     plens: Optional[List[int]] = [] if want_packet_lengths else None
     pids: Optional[List[Tuple[int, int, int, int]]] = None
-    if plens is not None:
-        _reset_t2_state()
-        pids = []
-        npackets = 0
-        for (l, r, c, p) in _packet_iter():
-            orients = (0,) if r == 0 else (1, 2, 3)
-            precs = [prec_enc[c][(r, o)][p] for o in orients
-                     if (r, o) in prec_enc[c]]
-            pkt = encode_packet(l, precs, cod.cblk_style, sop=cod.sop,
-                                eph=cod.eph, packet_index=npackets)
-            plens.append(len(pkt))
-            pids.append((l, r, c, p))
-            body += pkt
-            npackets += 1
-    else:
-        _, npackets = _emit(numlayers - 1, body)
+    with trace.stage("enc.t2"):
+        if plens is not None:
+            _reset_t2_state()
+            pids = []
+            npackets = 0
+            for (l, r, c, p) in _packet_iter():
+                orients = (0,) if r == 0 else (1, 2, 3)
+                precs = [prec_enc[c][(r, o)][p] for o in orients
+                         if (r, o) in prec_enc[c]]
+                pkt = encode_packet(l, precs, cod.cblk_style, sop=cod.sop,
+                                    eph=cod.eph, packet_index=npackets)
+                plens.append(len(pkt))
+                pids.append((l, r, c, p))
+                body += pkt
+                npackets += 1
+        else:
+            _, npackets = _emit(numlayers - 1, body)
+    trace.add_bytes("enc.t2", len(body))
     return TileEncResult(body=bytes(body), num_packets=npackets,
                          packet_lengths=plens, packet_ids=pids)
 
@@ -537,6 +544,7 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
              for c in range(ncomps)]
 
     # Build decode structures.
+    setup_t0 = time.perf_counter() if trace.enabled() else None
     prec_dec: List[Dict[Tuple[int, int], List[PrecDec]]] = []
     cblk_index: List[Dict[Tuple[int, int], List[CblkDec]]] = []
     for c in range(ncomps):
@@ -563,6 +571,10 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
         piter = packet_order(cod.progression, cod.numlayers, comps_iter,
                              tile)
     pkt_list = list(piter)
+    if setup_t0 is not None:
+        trace.add_time("dec.setup", time.perf_counter() - setup_t0)
+
+    t2_t0 = time.perf_counter() if trace.enabled() else None
     if packed_headers is not None:
         numlayers = cod.numlayers if max_layers == 0 else min(
             cod.numlayers, max_layers)
@@ -599,6 +611,8 @@ def decode_tile(body: bytes, siz: SizInfo, cod: CodInfo, qcd: QcdInfo,
         if rc is None:
             raise ValueError(
                 "the native T2 parser rejected the tile's packets")
+    if t2_t0 is not None:
+        trace.add_time("dec.t2", time.perf_counter() - t2_t0, len(body))
 
     reversible = cod.transform == Transform.DWT_53
     t1_jobs = []

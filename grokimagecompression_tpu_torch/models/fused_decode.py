@@ -100,6 +100,7 @@ from ..core.geometry import Rect
 from ..ops import ht_dec, ht_tables, mq_dec
 from ..ops.quant import reconstruct, trunc_plane
 from ..t1 import backend as t1_backend
+from ..utils import trace
 from . import pipeline
 
 DUMMY_SEGMENT = b"\x00\x00"
@@ -332,8 +333,8 @@ def _prepare_t1(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
     """Host side of a T1 chunk: the host Tier-1 decoder decodes every
     job of every frame into the (F, total) band-plane buffer that
     `band_offsets` lays out (int32, or float32 dequantized on 9/7), in one
-    threaded call (`t1/backend.decode_cblk_batch_bands`); blocks without a
-    job stay zero. Returns [(buffer,)]."""
+    threaded call (`t1/backend.decode_cblk_batch_bands`, traced as
+    `dec.t1`); blocks without a job stay zero. Returns [(buffer,)]."""
     offsets = band_offsets(plan)
     origin = dict(zip(offsets, plan.boxes or ()))
     keys = list(offsets)
@@ -365,8 +366,9 @@ def _prepare_t1(plan: FusedDecPlan, frames: Sequence[Dict[tuple, tuple]]):
     steps = None
     if not plan.cfg.reversible:
         steps = list(plan.stepsizes) * len(frames)
-    t1_backend.decode_cblk_batch_bands(jobs, bands, placements, styles,
-                                       stepsizes=steps, pm_zero=zero)
+    with trace.stage("dec.t1", sum(len(job[0]) for job in jobs)):
+        t1_backend.decode_cblk_batch_bands(jobs, bands, placements, styles,
+                                           stepsizes=steps, pm_zero=zero)
     return [(flat,)]
 
 

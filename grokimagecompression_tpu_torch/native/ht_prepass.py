@@ -11,6 +11,7 @@ itself.
 
 from __future__ import annotations
 
+import threading
 from typing import List, Tuple
 
 import numpy as np
@@ -18,8 +19,10 @@ import numpy as np
 from ..ops import _build
 
 # calls of `ht_dec_prepass`: the CUDA decode route makes none (the kernel
-# reads the raw segments), the CPU route one per lane group
+# reads the raw segments), the CPU route one per lane group; counted under
+# a lock, as a mesh's shard threads may call it at once
 CALLS = {"prepass": 0}
+_calls_lock = threading.Lock()
 
 
 def ht_dec_prepass(segs: List[bytes], lcups, scups, wm_mel: int,
@@ -30,7 +33,8 @@ def ht_dec_prepass(segs: List[bytes], lcups, scups, wm_mel: int,
     device decoder. Lane i's stream bit p sits at word p // 32: MEL
     MSB-first (bit 31 - p % 32), VLC and MagSgn LSB-first (bit p % 32);
     past each stream's end MEL and MagSgn read 1-bits, VLC 0-bits."""
-    CALLS["prepass"] += 1
+    with _calls_lock:
+        CALLS["prepass"] += 1
     B = len(segs)
     data = np.frombuffer(b"".join(segs) or b"\x00", dtype=np.uint8)
     offs = np.zeros(B + 1, np.int64)

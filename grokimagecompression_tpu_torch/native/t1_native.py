@@ -21,6 +21,7 @@ Python coder behind it.
 from __future__ import annotations
 
 import os
+import threading
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -31,18 +32,36 @@ from ..ops import _build
 MAX_PASSES = 3 * 32 - 2
 
 # calls of the entry points below that code or gather blocks: none on the
-# routes of the CUDA MQ and HT kernels
+# routes of the CUDA MQ and HT kernels; counted under a lock, as a mesh's
+# shard threads call them at once
 CALLS = {"t1": 0}
+_calls_lock = threading.Lock()
+_thread_override = threading.local()
+
+
+def set_thread_override(n: Optional[int]) -> None:
+    """Cap the batch entries' worker threads in the calling thread (None
+    clears the cap), so that threads coding at once do not oversubscribe
+    the cores (`parallel.sharding._code_shard`)."""
+    _thread_override.value = n
 
 
 def default_threads() -> int:
-    """Worker threads of a batch call: `os.cpu_count()`, as the
-    reference's default."""
+    """Worker threads of a batch call: the calling thread's cap
+    (`set_thread_override`), else `GROK_TPU_THREADS`, else
+    `os.cpu_count()`, as the reference's."""
+    ov = getattr(_thread_override, "value", None)
+    if ov:
+        return max(1, int(ov))
+    env = os.environ.get("GROK_TPU_THREADS")
+    if env:
+        return max(1, int(env))
     return os.cpu_count() or 1
 
 
 def _lib():
-    CALLS["t1"] += 1
+    with _calls_lock:
+        CALLS["t1"] += 1
     return _build.host_library()
 
 

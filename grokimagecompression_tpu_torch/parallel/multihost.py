@@ -10,7 +10,8 @@ derives the single-process thresholds bit for bit. The finished tile
 results then cross every process (`gather_tile_bytes`) and each process
 assembles the whole codestream from them
 (`encoder.write_codestream(tile_results=)`): every process returns the
-same bytes, equal to the one-process `encoder.encode`'s.
+same bytes, equal to the one-process `encoder.encode`'s. Under HT rate
+control every process codes the whole image, as the reference's does.
 
 Every payload is host data (pickled tile results, int32 words), so the
 group is a gloo one: gloo carries them between nodes and between two
@@ -108,16 +109,20 @@ def encode_multihost(image, params: Optional[EncoderParams] = None,
     card count}`, and runs their T2 (under `rate_alloc="global"` with the
     process-reduce allocator); the tile results cross the group
     (`gather_tile_bytes`) and every process writes the codestream from
-    them. With one process this is `encoder.encode`. HT rate control
-    (HT with `rates`), whose step search spans the whole image, raises
-    NotImplementedError with more than one process."""
+    them. With one process this is `encoder.encode`.
+
+    HT rate control (HT with `rates`), whose step search spans the whole
+    image, is the reference's behaviour: every process runs
+    `encoder.encode` of the whole image on its own device, with no tile
+    split and no collective, and returns the one-process stream (the
+    reference's `_only_tiles` never reaches its HT step search)."""
     params = params or EncoderParams()
     rank, world = _rank_world()
     if device is None:
         device = "cuda" if not torch.cuda.is_available() else \
             torch.device("cuda", rank % torch.cuda.device_count())
     dev = resolve_device(device)
-    if world == 1:
+    if world == 1 or (params.cblk_style & 0x40 and params.rates):
         return encoder.encode(image, params, device=dev, rsiz=rsiz)
     numtiles = encoder.tile_count(image, params)
     owned = owned_tiles(numtiles)

@@ -19,21 +19,25 @@ included) all run through the one encoder code path
 encode's. The decode mirror is `codestream.decoder.decode(mesh=)`, which
 sends each plan group's tiles round-robin over the mesh.
 
-Unlike the reference, a tile the fused plan cannot code raises
-NotImplementedError (the reference codes such a tile on its host), and
-so does a request in an MQ code-block style other than the default or
-with HT refinement passes on more than one shard
-(`encoder._out_of_slice`, `decoder._check_mesh`):
-the reference's transform-only mesh route (`transform_tiles_on_mesh`,
-`inverse_tiles_on_mesh`, `pcrd_global_stats`), which feeds its host
-coder, is not ported; on one device such a request takes the port's
-host Tier-1 route.
+A request in an MQ code-block style other than the default, or with HT
+refinement passes, takes the reference's transform-only mesh route
+(`transform_tiles_on_mesh`, `inverse_tiles_on_mesh`) through the same
+split: each shard's device runs the transform of its tiles
+(`fused_encode.FusedT1Encoder`, a "t1" plan) and the host library's
+Tier-1 coders code the fetched band planes on the shard's thread; the
+decode's host decoders fill the band planes that each shard's device
+inverts (`fused_decode.FusedT1Decoder`). CUDA shards coding at once
+split the cores among their host coders (`shard_threads`), as the
+reference's tile workers do. Unlike the reference, a tile the fused plan
+cannot code raises NotImplementedError (the reference codes such a tile
+on its host).
 """
 
 from __future__ import annotations
 
 import collections
 import concurrent.futures
+import os
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,6 +48,7 @@ from ..core.geometry import tile_grid_size, tile_rect
 from ..core.image import Image
 from ..core.params import DecoderParams, EncoderParams
 from ..models import fused_encode
+from ..native import t1_native
 from ..utils.device import DeviceLike, resolve_mesh
 
 Mesh = Sequence[DeviceLike]
@@ -85,26 +90,42 @@ def plan_shards(tiles: Sequence[int], plans: Sequence, ndev: int
             for di, part in enumerate(shard_blocks(group, ndev)) if part]
 
 
-def _code_shard(image: Image, siz, work, chunks) -> Dict[int, List]:
+def shard_threads(shards: int) -> int:
+    """The worker threads of each host Tier-1 coder when `shards` shards
+    code at once: the cores split evenly among them, at least 1."""
+    return max(1, (os.cpu_count() or 1) // shards)
+
+
+def _code_shard(image: Image, siz, work, chunks,
+                threads: Optional[int] = None) -> Dict[int, List]:
     """One shard's fused encode: its (encoder, tiles) runs, each stacked
     and coded `chunks[i]` tiles a call, a chunk collected once the next
-    is submitted (at most two chunks' outputs on the device). Returns
-    {tile: segments}."""
+    is submitted (at most two chunks' outputs on the device; a "t1"
+    plan's host Tier-1 coding runs at the collect). With `threads`, the
+    host coders' worker threads are capped to it on this thread for the
+    shard's run. Returns {tile: segments}."""
     segs: Dict[int, List] = {}
     prev = None
-    for (enc, tiles), n in zip(work, chunks):
-        for lo in range(0, len(tiles), n):
-            part = tiles[lo:lo + n]
-            stacks = zip(*(encoder.extract_tile_comps(image, siz, t)
-                           for t in part))
-            handle = fused_encode.encode_tile_submit(
-                [np.stack(c) for c in stacks], enc)
-            if prev is not None:
-                segs.update(zip(prev[0], fused_encode.encode_tile_collect(
-                    prev[1])))
-            prev = (part, handle)
-    if prev is not None:
-        segs.update(zip(prev[0], fused_encode.encode_tile_collect(prev[1])))
+    if threads is not None:
+        t1_native.set_thread_override(threads)
+    try:
+        for (enc, tiles), n in zip(work, chunks):
+            for lo in range(0, len(tiles), n):
+                part = tiles[lo:lo + n]
+                stacks = zip(*(encoder.extract_tile_comps(image, siz, t)
+                               for t in part))
+                handle = fused_encode.encode_tile_submit(
+                    [np.stack(c) for c in stacks], enc)
+                if prev is not None:
+                    segs.update(zip(prev[0], fused_encode.
+                                    encode_tile_collect(prev[1])))
+                prev = (part, handle)
+        if prev is not None:
+            segs.update(zip(prev[0],
+                            fused_encode.encode_tile_collect(prev[1])))
+    finally:
+        if threads is not None:
+            t1_native.set_thread_override(None)
     return segs
 
 
@@ -122,13 +143,15 @@ def fused_entropy_tiles_on_mesh(image: Image, siz, cod, qcd, mesh: Mesh,
     The tiles are grouped by their fused plan (`encoder.tile_plans`, with
     the COC overrides `cod_comp` and a custom MCT's coding matrix
     `custom_mct`), each group split over the mesh (`shard_blocks`) and
-    each shard coded on its device's encoder for the plan. A shard's
-    chunk is capped to its device's free memory shared among the mesh's
-    shards on that device (`encoder._capped_chunk`). With more than one
-    CUDA shard, each CUDA shard runs on a host thread of its own; the
-    others run one after another on the calling thread. An error in any
-    shard is raised here. Raises NotImplementedError for a tile the
-    fused plan cannot code."""
+    each shard coded on its device's encoder for the plan (for a "t1"
+    coder, the transform there and the host Tier-1 coders on the fetched
+    band planes). A shard's chunk is capped to its device's free memory
+    shared among the mesh's shards on that device
+    (`encoder._capped_chunk`). With more than one CUDA shard, each CUDA
+    shard runs on a host thread of its own, its host coders on
+    `shard_threads` worker threads; the others run one after another on
+    the calling thread. An error in any shard is raised here. Raises
+    NotImplementedError for a tile the fused plan cannot code."""
     devs = resolve_mesh(mesh)
     ntx, nty = tile_grid_size(siz.xsiz, siz.ysiz, siz.xosiz, siz.yosiz,
                               siz.xtsiz, siz.ytsiz, siz.xtosiz, siz.ytosiz)
@@ -161,7 +184,8 @@ def fused_entropy_tiles_on_mesh(image: Image, siz, cod, qcd, mesh: Mesh,
     out: Dict[int, List] = {}
     with concurrent.futures.ThreadPoolExecutor(
             max_workers=max(1, len(pooled))) as ex:
-        futures = [ex.submit(_code_shard, image, siz, work[di], chunks[di])
+        futures = [ex.submit(_code_shard, image, siz, work[di], chunks[di],
+                             shard_threads(len(pooled)))
                    for di in pooled]
         for di in live:
             if di not in pooled:

@@ -31,6 +31,9 @@ on the host's cleanup decoder. Held here:
 - the Mb-30 stream (a 28-bit 5/3 frame: its HH bands' Mb is 30) through
   the port's encode and decode; Mb 29 stays on the HT decoder's route;
 - refined codestreams cut short decode as the reference's do;
+- a refined request and a deep HT stream on a mesh of two shards (the
+  reference's transform-only mesh route; tests/test_torch_mesh_t1.py
+  holds it in full);
 - the reference's device `encode_batch` drops the refinement for a batch
   of two frames (ROADMAP Queue C), which the port does not copy;
 - `data/ht_refine.json`: its small case and tool cases are current (the
@@ -341,6 +344,28 @@ def test_deep_bands_take_the_host_decoder():
         assert (t1_native.CALLS["t1"] > 0) == (coder == "t1")
 
 
+def test_refinement_drops_isolated_last_plane_samples_as_reference():
+    """HT refinement is not lossless (ROADMAP Queue C 14): the cleanup
+    codes one plane up and the SigProp pass codes only the samples beside
+    a significant one, so a sample of magnitude 1 with no significant
+    neighbour decodes to 0, in the reference's native coder and in the
+    port's copy alike (the same bytes); beside a significant sample it
+    decodes to 1."""
+    from grokimagecompression_tpu.native import t1_native as ref_native
+    for isolated in (True, False):
+        mag = np.zeros((16, 16), np.uint32)
+        neg = np.zeros((16, 16), np.uint8)
+        mag[2, 2] = 200
+        mag[(8, 8) if isolated else (2, 3)] = 1
+        got = t1_native.ht_encode_cblk_refined(mag, neg, 8)
+        assert got == ref_native.ht_encode_cblk_refined(mag, neg, 8)
+        q, _ = t1_native.ht_decode_cblk_refined(*got, 3, 16, 16, 8)
+        want = mag.copy()
+        if isolated:
+            want[8, 8] = 0
+        np.testing.assert_array_equal(q >> 1, want)
+
+
 def test_truncated_refined_streams_decode_like_reference():
     """A refined codestream cut at 95 % down to 40 % of its length decodes
     to the reference host decoder's pixels (its decoders clamp the
@@ -535,22 +560,22 @@ def test_digest_file_small_cases_are_current(tmp_path):
 
 
 def test_refined_request_on_a_mesh_raises():
-    """A refined request on a mesh of two shards raises the transform-only
-    mesh route's NotImplementedError, encode and decode; a deep HT stream
-    too."""
+    """A refined request on a mesh of two shards (the reference's
+    transform-only mesh route: no refusal since the route was ported)
+    codes the reference host encoder's stream, and that stream and a
+    deep HT stream decode on the mesh to the host decoder's pixels."""
     img = natural_image(32, 24, ncomp=1, seed=8)
     params = EncoderParams(numresolutions=2, cblk_style=HT,
                            ht_refinement=True, tile_size=(16, 12))
     mesh = ["cpu", "cpu"]
-    with pytest.raises(NotImplementedError, match="HT refinement passes "
-                       "on a mesh of 2 shards"):
-        encoder.encode(convert.image_from_reference(img),
-                       convert.params_from_reference(params), mesh=mesh)
-    for cs in (_ref_encode(img, params),
-               _ref_encode(_deep_image(28), EncoderParams(
-                   numresolutions=2, cblk_style=HT))):
-        with pytest.raises(NotImplementedError, match="mesh of 2 shards"):
-            decoder.decode_batch([cs], mesh=mesh)
+    want = _ref_encode(img, params)
+    assert encoder.encode(convert.image_from_reference(img),
+                          convert.params_from_reference(params),
+                          mesh=mesh) == want
+    for cs in (want, _ref_encode(_deep_image(28), EncoderParams(
+            numresolutions=2, cblk_style=HT))):
+        _same_pixels(decoder.decode_batch([cs], mesh=mesh)[0],
+                     _ref_decode(cs))
 
 
 # ---- on the card

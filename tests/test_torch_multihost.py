@@ -10,7 +10,12 @@ tests/multihost_cases.py inputs: "lossless" (HT, TLM) and "global-pcrd"
 `GlobalPCRDAllocator`), and on a one-tile image, where rank 1 owns no
 tile. Three processes on a two-tile image under the image-wide allocator
 leave rank 2 without a tile: it joins the allocator's collectives
-through `participate_empty`. A rank that dies makes the other fail
+through `participate_empty`. The host Tier-1 routes split their tiles
+the same way: "styled" (MQ 0x3F on 9/7 at two rates, in tiles) and
+"refined" (HT with refinement passes, in tiles), each rank on its
+one-device T1 route. "ht-rate" (HT 9/7 at `rates=(24.0,)`, two tiles)
+is the reference's behaviour for HT rate control: every rank codes the
+whole image and returns the one-process stream. A rank that dies makes the other fail
 within the group's timeout instead of waiting. Each worker has a hard
 timeout.
 
@@ -65,8 +70,13 @@ def make_case(mode, image_mod, params_mod):
     """tests/multihost_cases.py's `make_case`, with the `Image` /
     `Component` of `image_mod` and the `EncoderParams` / `Transform` of
     `params_mod`; and "one-tile" (40 x 32 MQ 9/7 at rates (24, 8), one
-    tile) and "two-tile-global" (48 x 24 in two 24 x 24 tiles, MQ 9/7 at
-    rates (16, 4) with `rate_alloc="global"`)."""
+    tile), "two-tile-global" (48 x 24 in two 24 x 24 tiles, MQ 9/7 at
+    rates (16, 4) with `rate_alloc="global"`), "styled" (64 x 48 RGB in
+    24^2 tiles, MQ 0x3F on 9/7 at rates (24, 8)), "refined" (64 x 48 in
+    24^2 tiles, HT 5/3 with refinement passes) and "ht-rate" (a smooth
+    128 x 64 frame in two 64^2 tiles, 16^2 blocks, HT 9/7 at ratio 24:
+    smaller frames or blocks make the reference's QCD fail on the steps
+    its search reaches, ROADMAP Queue C 6)."""
     import numpy as np
     Image, Component = image_mod.Image, image_mod.Component
     EncoderParams, Transform = params_mod.EncoderParams, params_mod.Transform
@@ -108,6 +118,34 @@ def make_case(mode, image_mod, params_mod):
                                   cblk_w_exp=4, cblk_h_exp=4,
                                   transform=Transform.DWT_97, numlayers=2,
                                   rates=(16.0, 4.0), rate_alloc="global")
+    if mode in ("styled", "refined"):
+        w, h, nc = 64, 48, 3 if mode == "styled" else 1
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = Image(xsiz=w, ysiz=h, components=[Component(
+            data=(((xx * (c + 2) + yy * 3) // 4) % 200
+                  + rng.integers(0, 32, (h, w))).astype(np.int32),
+            prec=8, signed=False, dx=1, dy=1) for c in range(nc)])
+        if mode == "styled":
+            return img, EncoderParams(numresolutions=3, tile_size=(24, 24),
+                                      cblk_w_exp=4, cblk_h_exp=4,
+                                      cblk_style=0x3F,
+                                      transform=Transform.DWT_97,
+                                      numlayers=2, rates=(24.0, 8.0))
+        return img, EncoderParams(numresolutions=3, tile_size=(24, 24),
+                                  cblk_w_exp=4, cblk_h_exp=4,
+                                  cblk_style=0x40, ht_refinement=True)
+    if mode == "ht-rate":
+        w, h = 128, 64
+        yy, xx = np.mgrid[0:h, 0:w]
+        d = (128 + 64 * np.sin(yy / 13.0) * np.cos(xx / 11.0)
+             + rng.normal(0, 4.0, (h, w))).clip(0, 255).astype(np.int32)
+        img = Image(xsiz=w, ysiz=h, components=[
+            Component(data=d, prec=8, signed=False, dx=1, dy=1)])
+        return img, EncoderParams(numresolutions=3, tile_size=(64, 64),
+                                  cblk_w_exp=4, cblk_h_exp=4,
+                                  cblk_style=0x40,
+                                  transform=Transform.DWT_97,
+                                  rates=(24.0,))
     raise ValueError(f"unknown multihost case {mode!r}")
 
 
@@ -124,6 +162,16 @@ from grokimagecompression_tpu_torch.parallel import multihost
 rank, world = int(sys.argv[1]), int(sys.argv[2])
 multihost.init_distributed(sys.argv[3], world, rank,
                            timeout_s={timeout})
+gathers = [0]
+all_gather = torch.distributed.all_gather
+
+
+def counted(*args, **kwargs):
+    gathers[0] += 1
+    return all_gather(*args, **kwargs)
+
+
+torch.distributed.all_gather = counted
 if sys.argv[4] == "die" and rank == 1:
     os._exit(3)
 mode = "lossless" if sys.argv[4] == "die" else sys.argv[4]
@@ -132,7 +180,7 @@ cs = multihost.encode_multihost(img, params, device="cpu")
 open(sys.argv[5] + "." + str(rank), "wb").write(cs)
 assert not any(m.split(".")[0] in ("jax", "grokimagecompression_tpu")
                for m in sys.modules if sys.modules[m] is not None)
-print("OK", rank, len(cs))
+print("OK", rank, len(cs), "gathers", gathers[0])
 """
 
 
@@ -173,7 +221,9 @@ def _finish(procs):
 
 @pytest.mark.parametrize("mode,world", [("lossless", 2), ("global-pcrd", 2),
                                         ("one-tile", 2),
-                                        ("two-tile-global", 3)])
+                                        ("two-tile-global", 3),
+                                        ("styled", 2), ("refined", 2),
+                                        ("ht-rate", 2)])
 def test_ranks_equal_one_process_and_reference(tmp_path, mode, world):
     procs, out = _start(tmp_path, mode, world)
     # the one-process streams, made while the workers run
@@ -183,14 +233,19 @@ def test_ranks_equal_one_process_and_reference(tmp_path, mode, world):
                              device=False)
     for rc, text in _finish(procs):
         assert rc == 0, text[-3000:]
+        # HT rate control codes the whole image in every process: no
+        # collective
+        assert (" gathers 0" in text) == (mode == "ht-rate"), text[-3000:]
     streams = [open(f"{out}.{r}", "rb").read() for r in range(world)]
     assert all(cs == streams[0] for cs in streams)
     assert streams[0] == one == ref
     if mode in ("one-tile", "two-tile-global"):
         assert encoder.tile_count(img, params) == world - 1
-    if mode == "global-pcrd":
+    if mode in ("global-pcrd", "ht-rate"):
         # the rate target bound the stream
         assert len(one) < img.xsiz * img.ysiz // 6
+    if mode in ("styled", "refined", "ht-rate"):
+        assert encoder.tile_count(img, params) > 1
 
 
 def test_a_dead_rank_fails_the_others(tmp_path):

@@ -18,7 +18,9 @@ that coder into band planes and inverts them on the device. Held here:
   pixel-equal to the reference host decoder, with COC styles, ROI and
   bands deeper than the CUDA MQ decoder's word;
 - the routing: the default MQ style and the HT style never reach the
-  host coder (`t1_native.CALLS`), and what is left raises;
+  host coder (`t1_native.CALLS`), ROI on HT blocks raises, and a styled
+  or refined request on a mesh of two shards codes and decodes as on one
+  device;
 - the digest files of `chip_smoke.py` phase 24
   (`data/config1_mq_styles.json`, `data/config2_mq_styles.json`).
 
@@ -404,12 +406,14 @@ def test_default_style_and_ht_never_reach_the_host_coder():
 
 
 def test_refusals_left():
-    """ROI on HT code-blocks raises NotImplementedError, and so do a
-    styled request and a refined HT request on a mesh of two shards (the
-    reference's transform-only mesh route), encode and decode. (HT
-    refinement passes, HT bands with Mb + 3 > 32 and an explicit
-    allocator with the HT coder are coded now:
-    tests/test_torch_ht_refine.py.)"""
+    """ROI on HT code-blocks raises NotImplementedError. A styled request
+    and a refined HT request on a mesh of two shards (the reference's
+    transform-only mesh route) code the reference host encoder's stream,
+    and it decodes on the mesh, whole, windowed and through
+    `decode_batch`, to the host decoder's pixels. (HT refinement passes,
+    HT bands with Mb + 3 > 32 and an explicit allocator with the HT coder
+    are coded too: tests/test_torch_ht_refine.py; the mesh route in full:
+    tests/test_torch_mesh_t1.py.)"""
     img = natural_image(32, 24, ncomp=1, seed=8)
     pimg = convert.image_from_reference(img)
     ht = _ref_encode(img, EncoderParams(numresolutions=2, cblk_style=HT))
@@ -417,20 +421,19 @@ def test_refusals_left():
         decoder.decode_batch([_splice_main(ht, ref_markers.write_rgn(
             0, 3, 1))], device="cpu")
     mesh = ["cpu", "cpu"]
+    win = (2, 2, 20, 20)
     for styled in (EncoderParams(numresolutions=2, cblk_style=0x01,
                                  tile_size=(16, 12)),
                    EncoderParams(numresolutions=2, cblk_style=HT,
                                  ht_refinement=True, tile_size=(16, 12))):
-        with pytest.raises(NotImplementedError, match="mesh of 2 shards"):
-            encoder.encode(pimg, convert.params_from_reference(styled),
-                           mesh=mesh)
         cs = _ref_encode(img, styled)
-        for fn in (decoder.decode, lambda c, mesh: decoder.decode(
-                c, DecoderParams(window=(2, 2, 20, 20)), mesh=mesh),
-                   lambda c, mesh: decoder.decode_batch([c], mesh=mesh)):
-            with pytest.raises(NotImplementedError,
-                               match="mesh of 2 shards"):
-                fn(cs, mesh=mesh)
+        assert encoder.encode(pimg, convert.params_from_reference(styled),
+                              mesh=mesh) == cs
+        _same_pixels(decoder.decode(cs, mesh=mesh), _ref_decode(cs))
+        _same_pixels(decoder.decode(cs, DecoderParams(window=win),
+                                    mesh=mesh), _ref_decode(cs, window=win))
+        _same_pixels(decoder.decode_batch([cs], mesh=mesh)[0],
+                     _ref_decode(cs))
 
 
 # ---- the digest files of chip_smoke.py phase 24

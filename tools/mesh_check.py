@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Phase 23 of chip_smoke.py alone: multi-device coding on every card.
+"""Phases 23 and 26 of chip_smoke.py alone: multi-device coding on every
+card.
 
-Builds the kernels and the host library, makes on cuda:0 the inputs the
-phase takes from phases 19 and 20 (S1's `encode_batch([img])` stream and
-the digests of its whole and W1 decodes, S2's stream at
-`rate_alloc="global"`), then runs `chip_smoke.mesh_phase`: on one card
-the meshes [cuda:0] and [cuda:0, cuda:0] and two processes on cuda:0; on
-n > 1 cards [cuda:1, cuda:2] and all n cards and n processes, a card
-each. Every stream and decode must equal the one-card one. Exits
-non-zero on any failure or without CUDA.
+Builds the kernels and the host library, makes on cuda:0 the inputs
+phase 23 takes from phases 19 and 20 (S1's `encode_batch([img])` stream
+and the digests of its whole and W1 decodes, S2's stream at
+`rate_alloc="global"`), then runs `chip_smoke.mesh_phase` (with phase
+26 (d)'s multi-process encodes in its worker processes) and
+`chip_smoke.mesh_t1_phase` (styled MQ and refined HT requests on the
+transform-only mesh route): on one card the mesh [cuda:0, cuda:0] and
+two processes on cuda:0; on n > 1 cards [cuda:1, cuda:2] and all n
+cards and n processes, a card each. Every stream and decode must equal
+the one-card one. Exits non-zero on any failure or without CUDA.
 
 Run from the repository root: python3 tools/mesh_check.py
 """
@@ -59,7 +62,10 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"one-card inputs in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    cs.mesh_phase(s1_cs, refs, s2_global, dev, card)
+    _, t1_workers = cs.mesh_phase(s1_cs, refs, s2_global, dev, card)
+    del s1_cs, s2_global
+    cs.mesh_t1_phase(cs.config2_frames(1)[0], dev, card,
+                     cs.card_meshes(dev), t1_workers)
     print(f"mesh_check: every check passed in "
           f"{time.perf_counter() - t_all:.1f} s on {card}")
     return 0
